@@ -1,0 +1,475 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one CUDA card.  It builds
+the port's CUDA kernels from ``spark_ensemble_tpu_torch/csrc`` with nvcc,
+holds every kernel against its plain PyTorch version at the main path's
+shapes (timing both), drives the GBM main path through the public
+estimators on three histogram tiers, and checks the results.  Each phase
+prints one JSON line; any failed check raises and the script exits non-zero.
+The last two lines are the card's name and power limit as nvidia-smi
+reports them, and ``{"ok": true, "device": {...}}``.
+
+It exits non-zero without a result when CUDA is unavailable or when the
+port's package is not beside it.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_ROWS, N_FEATURES, N_CLASSES = 15000, 16, 26  # letter-shaped main path
+DEPTH, MAX_BINS = 5, 64
+PARITY_ROUNDS, TIMED_ROUNDS = 20, 100
+KERNEL_REPS = 50
+FP32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def letter_data(seed=0):
+    """Synthetic letter-shaped data, as bench.py builds it when the
+    reference datasets are absent."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(N_ROWS, N_FEATURES).astype(np.float32)
+    centers = rng.randn(N_CLASSES, N_FEATURES).astype(np.float32)
+    y = np.argmax(X @ centers.T + 0.5 * rng.randn(N_ROWS, N_CLASSES), axis=1)
+    return X, y.astype(np.float32)
+
+
+def regression_data(n=8192, d=12, seed=0):
+    """cpusmall-shaped synthetic regression data (the test fixture's recipe)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    y = 2.0 * X[:, 0] + np.sin(3.0 * X[:, 1]) + X[:, 2] * X[:, 3] + 0.1 * rng.randn(n)
+    return X, y.astype(np.float32)
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def hbm_bytes_per_s(name):
+    """Device-memory rate of the card (NVIDIA data sheets)."""
+    if "PCIe" in name:
+        return 2.0e12
+    if "NVL" in name:
+        return 3.9e12
+    return 3.35e12
+
+
+def largest_prime_at_most(n):
+    def prime(k):
+        return k > 1 and all(k % p for p in range(2, int(math.isqrt(k)) + 1))
+
+    while not prime(n):
+        n -= 1
+    return n
+
+
+class KernelRecord:
+    """The per-kernel numbers of the final ``{"kernels": [...]}`` line."""
+
+    def __init__(self, name, replaces):
+        self.name, self.replaces = name, replaces
+        self.max_abs_err = 0.0
+        self.timing = None  # (ms, plain_ms, bound_ms, bound_by, library_ms)
+        self.launches = 0
+
+    def json(self):
+        ms, plain_ms, bound_ms, bound_by, library_ms = self.timing
+        return {
+            "name": self.name, "route": "cuda",
+            "source": "spark_ensemble_tpu_torch/csrc/hist.cu",
+            "replaces": self.replaces, "launches": self.launches,
+            "max_abs_err": self.max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        }
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    try:
+        import spark_ensemble_tpu_torch as st
+        from spark_ensemble_tpu_torch.ops import binning, hist_kernels as hk
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing: {e}", file=sys.stderr)
+        return 2
+
+    dev = torch.device("cuda")
+    # phase 1: the device
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    bw = hbm_bytes_per_s(smi)
+    emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "hbm_bytes_per_s": bw})
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # phase 2: build the kernels from the checkout's sources
+    t0 = time.perf_counter()
+    so = hk.build_kernels()
+    emit({"phase": "build", "library": so.name, "seconds": time.perf_counter() - t0})
+
+    # phase 3: every kernel against its plain version at the main path's
+    # shapes (synchronised, so a fault shows where it happened)
+    def timed_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    def compare(rec, got, ref, what, exact=False):
+        torch.cuda.synchronize()
+        if exact:
+            ok = torch.equal(got, ref)
+            err = float((got.long() - ref.long()).abs().max()) if got.numel() else 0.0
+        else:
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            ok = bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * scale))
+        rec.max_abs_err = max(rec.max_abs_err, err)
+        if not ok:
+            raise AssertionError(f"{rec.name} disagrees with its plain version ({what}): max abs err {err}")
+        return err
+
+    def repeat_identical(rec, fn, what):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        pair = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+        if not all(torch.equal(x, y) for x, y in pair):
+            raise AssertionError(f"{rec.name}: two launches differ ({what})")
+
+    def bound(nbytes, nops):
+        t_bytes, t_ops = nbytes / bw * 1e3, nops / FP32_OPS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    rng = np.random.RandomState(1)
+    X_np, _ = letter_data()
+    X = torch.as_tensor(X_np, device=dev)
+    M, C = N_CLASSES, 2
+    recs = {
+        "hist_i32": KernelRecord("hist_i32", "spark_ensemble_tpu/ops/pallas_hist.py:100 (_hist_kernel)"),
+        "route_packed": KernelRecord("route_packed", "spark_ensemble_tpu/ops/pallas_hist.py:258 (_fused_kernel, routing)"),
+        "hist_packed": KernelRecord("hist_packed", "spark_ensemble_tpu/ops/pallas_hist.py:258 (_fused_kernel, histogram)"),
+        "leaf_sums": KernelRecord("leaf_sums", "spark_ensemble_tpu/ops/pallas_hist.py:258 (_fused_kernel, leaf mode)"),
+    }
+
+    def stats(n, zero_frac=0.0):
+        vals = np.stack([rng.rand(n, M), rng.randn(n, M)], axis=2).astype(np.float32)
+        vals[: int(n * zero_frac)] = 0.0
+        return torch.as_tensor(vals, device=dev)
+
+    def nodes(n, n_nodes):
+        return torch.as_tensor(rng.randint(0, n_nodes, size=(n, M)).astype(np.int32), device=dev)
+
+    def hist_index(ids, node, n_nodes, B):
+        """Flat cell ids and values for the index_add_ yardstick."""
+        n, d = ids.shape
+        base = torch.arange(M, device=dev)[None, :] * n_nodes + node.long()
+        return ((base[:, :, None, None] * C + torch.arange(C, device=dev)[None, None, :, None]) * d
+                + torch.arange(d, device=dev)[None, None, None, :]) * B + ids.long()[:, None, None, :]
+
+    checks = []
+    bins64 = binning.compute_bins(X, MAX_BINS)
+    Xb64 = binning.bin_features(X, bins64)
+    bins16 = binning.compute_bins(X, 16)
+    Xb16 = binning.bin_features(X, bins16)
+    p = largest_prime_at_most(N_ROWS)
+
+    # pallas tier: level histograms at n_nodes 1..16, plus prime n with 25%
+    # zero-weight rows
+    rec = recs["hist_i32"]
+    for n, n_nodes, zf in [(N_ROWS, 2**lv, 0.0) for lv in range(DEPTH)] + [(p, 16, 0.25)]:
+        Xb, node, vals = Xb64[:n].contiguous(), nodes(n, n_nodes), stats(n, zf)
+        run = lambda: hk.hist_level_pallas(Xb, node, vals, n_nodes=n_nodes, max_bins=MAX_BINS)
+        err = compare(rec, run(), hk.hist_plain(Xb, node, vals, n_nodes, MAX_BINS, 2), f"n={n} nodes={n_nodes}")
+        repeat_identical(rec, run, f"n={n} nodes={n_nodes}")
+        row = {"kernel": rec.name, "n": n, "n_nodes": n_nodes, "zero_frac": zf, "max_abs_err": err}
+        if n == N_ROWS and n_nodes == 2 ** (DEPTH - 1):
+            idx, src = hist_index(Xb, node, n_nodes, MAX_BINS), hk.split_terms(vals, 2)
+            src = src[:, :, :, None].expand(n, M, C, N_FEATURES).reshape(-1)
+            idx = idx.reshape(-1)
+            acc = torch.zeros(M * n_nodes * C * N_FEATURES * MAX_BINS, device=dev)
+            nbytes = 4 * (Xb.numel() + node.numel() + vals.numel() + acc.numel())
+            b_ms, b_by = bound(nbytes, n * M * C * N_FEATURES)
+            rec.timing = (
+                timed_ms(run, KERNEL_REPS),
+                timed_ms(lambda: hk.hist_plain(Xb, node, vals, n_nodes, MAX_BINS, 2), 10),
+                b_ms, b_by,
+                timed_ms(lambda: acc.index_add_(0, idx, src), 10),
+            )
+            row.update(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), rec.timing))
+        checks.append(row)
+
+    # fused tier at bits 8 (B=64) and bits 4 (B=16), all three modes
+    for B, Xb_full in ((MAX_BINS, Xb64), (16, Xb16)):
+        bits = binning.pack_width(B)
+        for n, zf in ((N_ROWS, 0.0), (p, 0.25)):
+            cb = binning.pack_bins(Xb_full[:n].contiguous(), B, bits)
+            Xb, packed, vals = Xb_full[:n].contiguous(), cb.packed, stats(n, zf)
+            kw = dict(bits=bits, num_features=N_FEATURES)
+            node0 = torch.zeros((n, M), dtype=torch.int32, device=dev)
+            # level 0, unrouted
+            rec = recs["hist_packed"]
+            run0 = lambda: hk.fused_round_level(packed, node0, vals, n_nodes=1, max_bins=B, **kw)
+            H0, _ = run0()
+            compare(rec, H0, hk.hist_plain(Xb, node0, vals, 1, B, 3), f"B={B} n={n} level 0")
+            repeat_identical(rec, run0, f"B={B} level 0")
+            for half, leaf in ((8, False), (16, True)):
+                n_nodes = 2 * half
+                parent = nodes(n, half)
+                bf = torch.as_tensor(rng.randint(0, N_FEATURES, size=(M, half)).astype(np.int32), device=dev)
+                bt = torch.as_tensor(rng.randint(0, B, size=(M, half)).astype(np.int32), device=dev)
+                run = lambda: hk.fused_round_level(packed, parent, vals, bf, bt, n_nodes=n_nodes,
+                                                   max_bins=B, leaf=leaf, **kw)
+                H, node_out = run()
+                ref_node = hk.route_plain(Xb, parent, bf, bt)
+                compare(recs["route_packed"], node_out, ref_node, f"B={B} n={n} half={half}", exact=True)
+                ref = (hk.leaf_plain(ref_node, vals, n_nodes) if leaf
+                       else hk.hist_plain(Xb, ref_node, vals, n_nodes, B, 3))
+                lrec = recs["leaf_sums" if leaf else "hist_packed"]
+                err = compare(lrec, H, ref, f"B={B} n={n} nodes={n_nodes}")
+                repeat_identical(lrec, run, f"B={B} nodes={n_nodes}")
+                checks.append({"kernel": "fused_round_level", "B": B, "bits": bits, "n": n,
+                               "n_nodes": n_nodes, "leaf": leaf, "zero_frac": zf, "max_abs_err": err})
+                if B != MAX_BINS or n != N_ROWS:
+                    continue
+                # time each launch of the main path's deepest level alone
+                W = packed.shape[1]
+                r_rec = recs["route_packed"]
+                if not leaf:
+                    r_bytes = 4 * (packed.numel() + 2 * parent.numel() + 2 * bf.numel())
+                    r_ms, r_by = bound(r_bytes, n * M)
+                    r_rec.timing = (
+                        timed_ms(lambda: hk.route_packed(packed, parent, bf, bt, **kw), KERNEL_REPS),
+                        timed_ms(lambda: hk.route_plain(binning.unpack_bins(cb), parent, bf, bt), 10),
+                        r_ms, r_by, None,
+                    )
+                    hb = 4 * (n * W + node_out.numel() + vals.numel() + H.numel())
+                    h_ms, h_by = bound(hb, n * M * C * N_FEATURES)
+                    idx = hist_index(Xb, node_out, n_nodes, B).reshape(-1)
+                    src = hk.split_terms(vals, 3)[:, :, :, None].expand(n, M, C, N_FEATURES).reshape(-1)
+                    acc = torch.zeros(H.numel(), device=dev)
+                    lrec.timing = (
+                        timed_ms(lambda: hk.hist_level_packed(packed, node_out, vals, n_nodes=n_nodes,
+                                                              max_bins=B, **kw), KERNEL_REPS),
+                        timed_ms(lambda: hk.hist_plain(binning.unpack_bins(cb), node_out, vals, n_nodes, B, 3), 10),
+                        h_ms, h_by, timed_ms(lambda: acc.index_add_(0, idx, src), 10),
+                    )
+                else:
+                    lb = 4 * (node_out.numel() + vals.numel() + H.numel())
+                    l_ms, l_by = bound(lb, n * M * C)
+                    lidx = (torch.arange(M, device=dev)[None, :] * n_nodes + node_out.long()).reshape(-1)
+                    lsrc = vals.reshape(-1, C)
+                    lacc = torch.zeros(M * n_nodes, C, device=dev)
+                    lrec.timing = (
+                        timed_ms(lambda: hk.leaf_sums(node_out, vals, n_nodes=n_nodes), KERNEL_REPS),
+                        timed_ms(lambda: hk.leaf_plain(node_out, vals, n_nodes), 10),
+                        l_ms, l_by, timed_ms(lambda: lacc.index_add_(0, lidx, lsrc), 10),
+                    )
+    for row in checks:
+        emit({"phase": "kernel_check", **row})
+
+    # phase 4: the main path through the public estimators
+    def gbm(hist, hist_precision, rounds):
+        return st.GBMClassifier(
+            num_base_learners=rounds, loss="logloss", updates="newton",
+            learning_rate=0.3, optimized_weights=True,
+            base_learner=st.DecisionTreeRegressor(
+                max_depth=DEPTH, max_bins=MAX_BINS, hist=hist,
+                hist_precision=hist_precision,
+            ),
+        )
+
+    def fit_counted(est, X_, y_):
+        hk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(X_, y_, device="cuda")
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0, dict(hk.LAUNCHES)
+
+    def proba_gap(pa, pb):
+        gap = (pa - pb).abs()
+        return float(gap.max()), float((gap.max(dim=1).values > 1e-3).float().mean())
+
+    tiers = (("matmul", "matmul", "highest"), ("pallas", "matmul", "pallas"),
+             ("fused", "fused", "highest"))
+
+    # 4a: the JAX package's pins on the card, with their data and config:
+    # fused vs matmul probabilities within 1e-3 and accuracy within 0.02
+    # (tests/test_pallas_hist.py::test_fused_gbm_letter_leg_parity); the
+    # pallas tier's 2-term bf16 statistics can flip near-tie splits, so the
+    # JAX package pins it on accuracy alone (test_gbm_with_pallas_tier_
+    # metric_parity), and so does this check
+    rng_pin = np.random.RandomState(15)
+    Xp = rng_pin.randn(800, 8).astype(np.float32)
+    yp = np.argmax(Xp @ rng_pin.randn(4, 8).astype(np.float32).T, axis=1).astype(np.float32)
+    pin = {}
+    for tier, hist, hp in tiers:
+        m = st.GBMClassifier(
+            num_base_learners=3, learning_rate=0.5, seed=0,
+            base_learner=st.DecisionTreeRegressor(hist=hist, hist_precision=hp, max_bins=16),
+        ).fit(Xp, yp, device="cuda")
+        pin[tier] = (m.predict_proba(Xp), float((m.predict(Xp).cpu().numpy() == yp).mean()))
+    for tier in ("pallas", "fused"):
+        diff, _ = proba_gap(pin[tier][0], pin["matmul"][0])
+        acc_diff = pin[tier][1] - pin["matmul"][1]
+        emit({"phase": "parity_pin", "tier": tier, "vs": "matmul", "proba_max_abs_diff": diff,
+              "accuracy_diff": acc_diff})
+        if (tier == "fused" and diff > 1e-3) or abs(acc_diff) > 0.02:
+            raise AssertionError(f"{tier} vs matmul on the pin: proba {diff}, accuracy {acc_diff}")
+
+    # 4b: the main path at letter's full width, one round: a near-tie
+    # split may flip between tiers, so the fused tier is held on the share
+    # of rows whose probabilities move by more than 1e-3 (the pallas tier's
+    # share is reported; its pin is accuracy, as above)
+    X_np, y_np = letter_data()
+    one = {tier: fit_counted(gbm(hist, hp, 1), X_np, y_np)[0].predict_proba(X_np)
+           for tier, hist, hp in tiers}
+    for tier in ("pallas", "fused"):
+        diff, share = proba_gap(one[tier], one["matmul"])
+        emit({"phase": "parity_one_round", "tier": tier, "vs": "matmul",
+              "proba_max_abs_diff": diff, "rows_beyond_1e-3": share})
+        if tier == "fused" and share > 0.01:
+            raise AssertionError(f"{tier} vs matmul after one round: {share} of rows beyond 1e-3")
+
+    # 4c: the main path, 20 rounds per tier, launches counted from 0 for
+    # each run.  Boosting amplifies any split flip round after round, so
+    # the tiers are held to the JAX package's accuracy pin; the scatter
+    # tier (exact f32, another summation order) shows how far two exact
+    # tiers drift apart on the same data
+    runs = {}
+    for tier, hist, hp in tiers + (("scatter", "scatter", "highest"),):
+        model, secs, launches = fit_counted(gbm(hist, hp, PARITY_ROUNDS), X_np, y_np)
+        proba = model.predict_proba(X_np)
+        acc = float((model.predict(X_np).cpu().numpy() == y_np).mean())
+        if not bool(torch.isfinite(proba).all()) or proba.shape != (N_ROWS, N_CLASSES):
+            raise AssertionError(f"{tier}: predict_proba not finite of shape {(N_ROWS, N_CLASSES)}")
+        runs[tier] = (proba, acc, launches)
+        emit({"phase": "main_path", "tier": tier, "rounds": PARITY_ROUNDS, "fit_s": secs,
+              "iters_per_s": PARITY_ROUNDS / secs, "train_accuracy": acc, "launches": launches})
+    R = PARITY_ROUNDS
+    expected = {
+        "matmul": {k: 0 for k in hk.LAUNCHES},
+        "pallas": {"hist_i32": DEPTH * R, "route_packed": 0, "hist_packed": 0, "leaf_sums": 0},
+        "fused": {"hist_i32": 0, "route_packed": DEPTH * R, "hist_packed": DEPTH * R, "leaf_sums": R},
+    }
+    for tier, want in expected.items():
+        if runs[tier][2] != want:
+            raise AssertionError(f"{tier} launches {runs[tier][2]} != expected {want}")
+    recs["hist_i32"].launches = runs["pallas"][2]["hist_i32"]
+    for k in ("route_packed", "hist_packed", "leaf_sums"):
+        recs[k].launches = runs["fused"][2][k]
+    p_ref, a_ref, _ = runs["matmul"]
+    for tier in ("pallas", "fused", "scatter"):
+        diff, share = proba_gap(runs[tier][0], p_ref)
+        acc_diff = runs[tier][1] - a_ref
+        emit({"phase": "parity", "tier": tier, "vs": "matmul", "rounds": R,
+              "proba_max_abs_diff": diff, "rows_beyond_1e-3": share, "accuracy_diff": acc_diff})
+        if abs(acc_diff) > 0.02:
+            raise AssertionError(f"{tier} vs matmul: accuracy {runs[tier][1]} vs {a_ref}")
+
+    # timed fused fit and predict
+    model, secs, launches = fit_counted(gbm("fused", "highest", TIMED_ROUNDS), X_np, y_np)
+    Xd = torch.as_tensor(X_np, device=dev)
+    model.predict(Xd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        pred = model.predict(Xd)
+    torch.cuda.synchronize()
+    pred_s = (time.perf_counter() - t0) / reps
+    acc = float((pred.cpu().numpy() == y_np).mean())
+    if launches["hist_packed"] != DEPTH * TIMED_ROUNDS:
+        raise AssertionError(f"timed fused fit launches {launches}")
+    per_round_kernel_ms = sum(
+        recs[k].timing[0] * per for k, per in (("route_packed", DEPTH), ("hist_packed", DEPTH), ("leaf_sums", 1))
+    )
+    emit({"phase": "timed_fit", "tier": "fused", "rounds": TIMED_ROUNDS, "fit_s": secs,
+          "iters_per_s": TIMED_ROUNDS / secs, "round_ms": secs / TIMED_ROUNDS * 1e3,
+          "kernel_ms_per_round_est": per_round_kernel_ms,
+          "predict_rows_per_s": N_ROWS / pred_s, "predict_s": pred_s, "train_accuracy": acc})
+
+    # where a fused fit's time goes: device time by kernel over a 3-round
+    # fit (setup included), counting device-side events only (the CPU ops
+    # that launched them carry the same time again)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    est = gbm("fused", "highest", 3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall, _ = fit_counted(est, X_np, y_np)
+    dev_us, host_calls = {}, {}
+    for e in prof.key_averages():
+        # host-side scalar reads (each one waits for the device) and launches
+        if e.key in ("aten::_local_scalar_dense", "cudaLaunchKernel",
+                     "cudaLaunchKernelExC", "cudaMemcpyAsync", "cudaStreamSynchronize"):
+            host_calls[e.key] = e.count
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        if t > 0:
+            dev_us[e.key] = t
+    ours = sum(t for k, t in dev_us.items()
+               if any(s in k for s in ("hist_accumulate", "route_packed", "reduce_chunks")))
+    busy = sum(dev_us.values())
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "profile", "tier": "fused", "rounds": 3, "wall_ms": wall * 1e3,
+          "device_busy_ms": busy / 1e3 if busy else None,
+          "port_kernels_ms": ours / 1e3 if busy else None,
+          "idle_share": 1 - busy / 1e3 / (wall * 1e3) if busy else None,
+          "host_calls": host_calls,
+          "top_device_us": [[k[:60], t] for k, t in top]})
+
+    # GBMRegressor (squared loss) on the fused tier vs the matmul tier
+    Xr, yr = regression_data()
+    rmses = {}
+    for hist in ("fused", "matmul"):
+        reg = st.GBMRegressor(num_base_learners=PARITY_ROUNDS, learning_rate=0.3,
+                              base_learner=st.DecisionTreeRegressor(max_depth=DEPTH, hist=hist))
+        model, secs, launches = fit_counted(reg, Xr, yr)
+        rmse = float(torch.sqrt(torch.mean((model.predict(Xr) - torch.as_tensor(yr, device=dev)) ** 2)))
+        rmses[hist] = rmse
+        emit({"phase": "regressor", "tier": hist, "rounds": PARITY_ROUNDS, "fit_s": secs,
+              "rmse": rmse, "launches": launches})
+        if hist == "fused" and launches["hist_packed"] != DEPTH * PARITY_ROUNDS:
+            raise AssertionError(f"regressor fused launches {launches}")
+        if not math.isfinite(rmse) or rmse > float(np.std(yr)):
+            raise AssertionError(f"regressor {hist}: rmse {rmse}")
+    if abs(rmses["fused"] - rmses["matmul"]) > 0.02 * rmses["matmul"]:
+        raise AssertionError(f"regressor fused vs matmul rmse: {rmses}")
+
+    emit({"kernels": [r.json() for r in recs.values()]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
