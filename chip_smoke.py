@@ -27,7 +27,7 @@ import numpy as np
 N_ROWS, N_FEATURES, N_CLASSES = 15000, 16, 26  # letter-shaped main path
 DEPTH, MAX_BINS = 5, 64
 PARITY_ROUNDS, TIMED_ROUNDS = 20, 100
-KERNEL_REPS = 50
+KERNEL_RUNS, KERNEL_REPS = 5, 50  # each time: median, min and max of 5 runs of 50 launches
 FP32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
 
@@ -80,23 +80,32 @@ def largest_prime_at_most(n):
 
 
 class KernelRecord:
-    """The per-kernel numbers of the final ``{"kernels": [...]}`` line."""
+    """The per-kernel numbers of the final ``{"kernels": [...]}`` line.
+    ``timing`` holds the main path's deepest shapes; ``spread`` the
+    (median, min, max) of its kernel time; ``per_level`` one entry per level
+    of the main path for the level histograms."""
 
     def __init__(self, name, replaces):
         self.name, self.replaces = name, replaces
         self.max_abs_err = 0.0
         self.timing = None  # (ms, plain_ms, bound_ms, bound_by, library_ms)
+        self.spread = None
+        self.per_level = None
         self.launches = 0
 
     def json(self):
         ms, plain_ms, bound_ms, bound_by, library_ms = self.timing
-        return {
+        out = {
             "name": self.name, "route": "cuda",
             "source": "spark_ensemble_tpu_torch/csrc/hist.cu",
             "replaces": self.replaces, "launches": self.launches,
             "max_abs_err": self.max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "spread": self.spread,
         }
+        if self.per_level is not None:
+            out["per_level"] = self.per_level
+        return out
 
 
 def main():
@@ -129,16 +138,22 @@ def main():
 
     # phase 3: every kernel against its plain version at the main path's
     # shapes (synchronised, so a fault shows where it happened)
-    def timed_ms(fn, reps):
+    def spread_ms(fn, reps=KERNEL_REPS, runs=KERNEL_RUNS):
+        """(median, min, max) ms per call over `runs` runs of `reps` calls,
+        each run timed with CUDA events, after one warm call."""
         fn()
         torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / reps
+        times = []
+        for _ in range(runs):
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(reps):
+                fn()
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1) / reps)
+        times.sort()
+        return times[len(times) // 2], times[0], times[-1]
 
     def compare(rec, got, ref, what, exact=False):
         torch.cuda.synchronize()
@@ -198,29 +213,44 @@ def main():
     Xb16 = binning.bin_features(X, bins16)
     p = largest_prime_at_most(N_ROWS)
 
-    # pallas tier: level histograms at n_nodes 1..16, plus prime n with 25%
-    # zero-weight rows
+    def level_timing(name, run, plain, ids, node, vals, words, n_nodes, B, nterms):
+        """One level histogram at the main path's shapes: its time with
+        spread, its bound, its plain version's and one index_add_'s time."""
+        n, d = ids.shape
+        idx = hist_index(ids, node, n_nodes, B).reshape(-1)
+        src = hk.split_terms(vals, nterms)[:, :, :, None].expand(n, M, C, d).reshape(-1)
+        acc = torch.zeros(M * n_nodes * C * d * B, device=dev)
+        nbytes = 4 * (words.numel() + node.numel() + vals.numel() + acc.numel())
+        b_ms, b_by = bound(nbytes, n * M * C * d)
+        ms = spread_ms(run)
+        lib = spread_ms(lambda: acc.index_add_(0, idx, src))
+        plan = hk.level_plan(n, d, M, C, B, n_nodes, 32 if words is ids else binning.pack_width(B))
+        row = {"kernel": name, "n_nodes": n_nodes, "ms": ms[0], "spread": ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": lib[0], "library_spread": lib,
+               "plan": {k: getattr(plan, k) for k in ("g", "nf", "np", "cs", "rows", "grid", "threads", "smem")}}
+        return row, (ms, spread_ms(plain, reps=10)[0], b_ms, b_by, lib[0])
+
+    def check_level(rec, run, ref, what):
+        err = compare(rec, run(), ref, what)
+        repeat_identical(rec, run, what)
+        return err
+
+    # pallas tier: level histograms at n_nodes 1..16 (each timed), plus
+    # prime n with 25% zero-weight rows
     rec = recs["hist_i32"]
+    rec.per_level = []
     for n, n_nodes, zf in [(N_ROWS, 2**lv, 0.0) for lv in range(DEPTH)] + [(p, 16, 0.25)]:
         Xb, node, vals = Xb64[:n].contiguous(), nodes(n, n_nodes), stats(n, zf)
         run = lambda: hk.hist_level_pallas(Xb, node, vals, n_nodes=n_nodes, max_bins=MAX_BINS)
-        err = compare(rec, run(), hk.hist_plain(Xb, node, vals, n_nodes, MAX_BINS, 2), f"n={n} nodes={n_nodes}")
-        repeat_identical(rec, run, f"n={n} nodes={n_nodes}")
+        plain = lambda: hk.hist_plain(Xb, node, vals, n_nodes, MAX_BINS, 2)
+        err = check_level(rec, run, plain(), f"n={n} nodes={n_nodes}")
         row = {"kernel": rec.name, "n": n, "n_nodes": n_nodes, "zero_frac": zf, "max_abs_err": err}
-        if n == N_ROWS and n_nodes == 2 ** (DEPTH - 1):
-            idx, src = hist_index(Xb, node, n_nodes, MAX_BINS), hk.split_terms(vals, 2)
-            src = src[:, :, :, None].expand(n, M, C, N_FEATURES).reshape(-1)
-            idx = idx.reshape(-1)
-            acc = torch.zeros(M * n_nodes * C * N_FEATURES * MAX_BINS, device=dev)
-            nbytes = 4 * (Xb.numel() + node.numel() + vals.numel() + acc.numel())
-            b_ms, b_by = bound(nbytes, n * M * C * N_FEATURES)
-            rec.timing = (
-                timed_ms(run, KERNEL_REPS),
-                timed_ms(lambda: hk.hist_plain(Xb, node, vals, n_nodes, MAX_BINS, 2), 10),
-                b_ms, b_by,
-                timed_ms(lambda: acc.index_add_(0, idx, src), 10),
-            )
-            row.update(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), rec.timing))
+        if n == N_ROWS:
+            lvl, timing = level_timing(rec.name, run, plain, Xb, node, vals, Xb, n_nodes, MAX_BINS, 2)
+            rec.per_level.append(lvl)
+            if n_nodes == 2 ** (DEPTH - 1):
+                rec.timing = (timing[0][0],) + timing[1:]
+                rec.spread = timing[0]
         checks.append(row)
 
     # fused tier at bits 8 (B=64) and bits 4 (B=16), all three modes
@@ -237,6 +267,18 @@ def main():
             H0, _ = run0()
             compare(rec, H0, hk.hist_plain(Xb, node0, vals, 1, B, 3), f"B={B} n={n} level 0")
             repeat_identical(rec, run0, f"B={B} level 0")
+            if B == MAX_BINS and n == N_ROWS:
+                # every level of the main path, timed: routed node ids as the
+                # main path would give them stand in for a level's ids
+                rec.per_level = []
+                for lv in range(DEPTH):
+                    n_nodes = 2**lv
+                    node = nodes(n, n_nodes)
+                    run = lambda: hk.hist_level_packed(packed, node, vals, n_nodes=n_nodes, max_bins=B, **kw)
+                    plain = lambda: hk.hist_plain(binning.unpack_bins(cb), node, vals, n_nodes, B, 3)
+                    check_level(rec, run, hk.hist_plain(Xb, node, vals, n_nodes, B, 3), f"B={B} nodes={n_nodes}")
+                    lvl, _ = level_timing(rec.name, run, plain, Xb, node, vals, packed, n_nodes, B, 3)
+                    rec.per_level.append(lvl)
             for half, leaf in ((8, False), (16, True)):
                 n_nodes = 2 * half
                 parent = nodes(n, half)
@@ -257,38 +299,66 @@ def main():
                 if B != MAX_BINS or n != N_ROWS:
                     continue
                 # time each launch of the main path's deepest level alone
-                W = packed.shape[1]
                 r_rec = recs["route_packed"]
                 if not leaf:
                     r_bytes = 4 * (packed.numel() + 2 * parent.numel() + 2 * bf.numel())
                     r_ms, r_by = bound(r_bytes, n * M)
+                    r_spread = spread_ms(lambda: hk.route_packed(packed, parent, bf, bt, **kw))
                     r_rec.timing = (
-                        timed_ms(lambda: hk.route_packed(packed, parent, bf, bt, **kw), KERNEL_REPS),
-                        timed_ms(lambda: hk.route_plain(binning.unpack_bins(cb), parent, bf, bt), 10),
+                        r_spread[0],
+                        spread_ms(lambda: hk.route_plain(binning.unpack_bins(cb), parent, bf, bt), reps=10)[0],
                         r_ms, r_by, None,
                     )
-                    hb = 4 * (n * W + node_out.numel() + vals.numel() + H.numel())
-                    h_ms, h_by = bound(hb, n * M * C * N_FEATURES)
-                    idx = hist_index(Xb, node_out, n_nodes, B).reshape(-1)
-                    src = hk.split_terms(vals, 3)[:, :, :, None].expand(n, M, C, N_FEATURES).reshape(-1)
-                    acc = torch.zeros(H.numel(), device=dev)
-                    lrec.timing = (
-                        timed_ms(lambda: hk.hist_level_packed(packed, node_out, vals, n_nodes=n_nodes,
-                                                              max_bins=B, **kw), KERNEL_REPS),
-                        timed_ms(lambda: hk.hist_plain(binning.unpack_bins(cb), node_out, vals, n_nodes, B, 3), 10),
-                        h_ms, h_by, timed_ms(lambda: acc.index_add_(0, idx, src), 10),
-                    )
+                    r_rec.spread = r_spread
+                    run = lambda: hk.hist_level_packed(packed, node_out, vals, n_nodes=n_nodes, max_bins=B, **kw)
+                    plain = lambda: hk.hist_plain(binning.unpack_bins(cb), node_out, vals, n_nodes, B, 3)
+                    _, timing = level_timing(lrec.name, run, plain, Xb, node_out, vals, packed, n_nodes, B, 3)
+                    lrec.timing = (timing[0][0],) + timing[1:]
+                    lrec.spread = timing[0]
                 else:
                     lb = 4 * (node_out.numel() + vals.numel() + H.numel())
                     l_ms, l_by = bound(lb, n * M * C)
                     lidx = (torch.arange(M, device=dev)[None, :] * n_nodes + node_out.long()).reshape(-1)
                     lsrc = vals.reshape(-1, C)
                     lacc = torch.zeros(M * n_nodes, C, device=dev)
+                    l_spread = spread_ms(lambda: hk.leaf_sums(node_out, vals, n_nodes=n_nodes))
                     lrec.timing = (
-                        timed_ms(lambda: hk.leaf_sums(node_out, vals, n_nodes=n_nodes), KERNEL_REPS),
-                        timed_ms(lambda: hk.leaf_plain(node_out, vals, n_nodes), 10),
-                        l_ms, l_by, timed_ms(lambda: lacc.index_add_(0, lidx, lsrc), 10),
+                        l_spread[0],
+                        spread_ms(lambda: hk.leaf_plain(node_out, vals, n_nodes), reps=10)[0],
+                        l_ms, l_by, spread_ms(lambda: lacc.index_add_(0, lidx, lsrc))[0],
                     )
+                    lrec.spread = l_spread
+    # the level histograms on shapes the main path does not reach: a
+    # group of lanes on one cell in every step (every member's rows in one
+    # node, one feature constant), 256 bins in 8-bit lanes, node tiling (32
+    # and 64 nodes), one feature, and 33 features (a ragged feature tile)
+    bins256 = binning.compute_bins(X, 256)
+    Xb256 = binning.bin_features(X, bins256)
+    one_cell = Xb64.clone()
+    one_cell[:, 3] = 7
+    X33 = torch.cat([Xb64, Xb64, Xb64[:, :1]], dim=1).contiguous()
+    n = N_ROWS
+    edge = [
+        ("one_cell", one_cell, torch.full((n, M), 5, dtype=torch.int32, device=dev), 16, MAX_BINS),
+        ("bins_256", Xb256, nodes(n, 16), 16, 256),
+        ("nodes_32", Xb64, nodes(n, 32), 32, MAX_BINS),
+        ("nodes_64", Xb64, nodes(n, 64), 64, MAX_BINS),
+        ("d_1", Xb64[:, :1].contiguous(), nodes(n, 16), 16, MAX_BINS),
+        ("d_33", X33, nodes(n, 16), 16, MAX_BINS),
+    ]
+    vals = stats(n)
+    for what, ids, node, n_nodes, B in edge:
+        d = ids.shape[1]
+        bits = binning.pack_width(B)
+        packed = binning.pack_bins(ids, B, bits).packed
+        for rec, run, nterms in (
+            (recs["hist_i32"], lambda: hk.hist_level_pallas(ids, node, vals, n_nodes=n_nodes, max_bins=B), 2),
+            (recs["hist_packed"], lambda: hk.hist_level_packed(packed, node, vals, n_nodes=n_nodes, max_bins=B,
+                                                               bits=bits, num_features=d), 3),
+        ):
+            err = check_level(rec, run, hk.hist_plain(ids, node, vals, n_nodes, B, nterms), what)
+            checks.append({"kernel": rec.name, "shape": what, "n": n, "d": d, "B": B, "bits": bits,
+                           "n_nodes": n_nodes, "max_abs_err": err})
     for row in checks:
         emit({"phase": "kernel_check", **row})
 
@@ -392,8 +462,13 @@ def main():
         if abs(acc_diff) > 0.02:
             raise AssertionError(f"{tier} vs matmul: accuracy {runs[tier][1]} vs {a_ref}")
 
-    # timed fused fit and predict
-    model, secs, launches = fit_counted(gbm("fused", "highest", TIMED_ROUNDS), X_np, y_np)
+    # timed fused fit and predict: the fit rate follows the host, which
+    # other work may share, so three fits are timed and the median reported
+    timed = [fit_counted(gbm("fused", "highest", TIMED_ROUNDS), X_np, y_np) for _ in range(3)]
+    rates = sorted(TIMED_ROUNDS / t[1] for t in timed)
+    model = timed[-1][0]
+    if any(t[2]["hist_packed"] != DEPTH * TIMED_ROUNDS for t in timed):
+        raise AssertionError(f"timed fused fit launches {[t[2] for t in timed]}")
     Xd = torch.as_tensor(X_np, device=dev)
     model.predict(Xd)
     torch.cuda.synchronize()
@@ -404,14 +479,14 @@ def main():
     torch.cuda.synchronize()
     pred_s = (time.perf_counter() - t0) / reps
     acc = float((pred.cpu().numpy() == y_np).mean())
-    if launches["hist_packed"] != DEPTH * TIMED_ROUNDS:
-        raise AssertionError(f"timed fused fit launches {launches}")
-    per_round_kernel_ms = sum(
-        recs[k].timing[0] * per for k, per in (("route_packed", DEPTH), ("hist_packed", DEPTH), ("leaf_sums", 1))
-    )
-    emit({"phase": "timed_fit", "tier": "fused", "rounds": TIMED_ROUNDS, "fit_s": secs,
-          "iters_per_s": TIMED_ROUNDS / secs, "round_ms": secs / TIMED_ROUNDS * 1e3,
-          "kernel_ms_per_round_est": per_round_kernel_ms,
+    # the fused tier's kernels per round: the histogram at each level as
+    # timed there, the route (once per level, its time hardly depends on
+    # the level) and the leaf sums
+    per_round_ms = (sum(lvl["ms"] for lvl in recs["hist_packed"].per_level)
+                    + DEPTH * recs["route_packed"].timing[0] + recs["leaf_sums"].timing[0])
+    emit({"phase": "timed_fit", "tier": "fused", "rounds": TIMED_ROUNDS, "fits": len(timed),
+          "iters_per_s": rates[1], "iters_per_s_runs": rates, "round_ms": 1e3 / rates[1],
+          "per_round_ms": per_round_ms,
           "predict_rows_per_s": N_ROWS / pred_s, "predict_s": pred_s, "train_accuracy": acc})
 
     # where a fused fit's time goes: device time by kernel over a 3-round
@@ -436,7 +511,7 @@ def main():
         if t > 0:
             dev_us[e.key] = t
     ours = sum(t for k, t in dev_us.items()
-               if any(s in k for s in ("hist_accumulate", "route_packed", "reduce_chunks")))
+               if any(s in k for s in ("level_hist", "hist_accumulate", "route_packed", "reduce_chunks")))
     busy = sum(dev_us.values())
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "profile", "tier": "fused", "rounds": 3, "wall_ms": wall * 1e3,

@@ -13,6 +13,10 @@ Two TPU kernels are replaced, both by ``csrc/hist.cu`` (CUDA C++ for
   a 3-term bf16 split (:func:`hist_level_packed`) or, in leaf mode, exact
   f32 leaf sums (:func:`leaf_sums`).
 
+Both level histograms launch one kernel, ``level_hist`` (i32 bins are
+32-bit words), tiled by :func:`level_plan`; the leaf sums keep their own
+kernel and :func:`hist_plan`.
+
 Every wrapper checks device, dtype, shape and contiguity, and raises on
 anything the kernel does not take.  On CPU tensors it runs the plain
 version; on CUDA tensors it launches the kernel on the current stream or
@@ -28,6 +32,7 @@ the sum differs.  Leaf sums are plain f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -59,7 +64,23 @@ _TILE_ROWS = 128
 _HIST_SMEM_BUDGET = 32 * 1024
 _MAX_SMEM = 227 * 1024
 _TARGET_CTAS = 528
-_SRC_I32, _SRC_PACKED, _SRC_NONE = 0, 1, 2
+_SRC_NONE = 2
+
+# the level histogram's plan (csrc/hist.cu, level_hist): rows per staged
+# tile and tiles in flight, the cells one warp owns and the cells one CTA
+# holds, warps and cluster size per CTA, and the card it fills (H100 SXM:
+# 132 SMs, 228 KB of shared memory per SM, and 1024 resident threads at the
+# kernel's 64 registers a thread).  Clusters do not pack SMs fully, since a
+# cluster lives within one GPC: about 0.9 of the CTA slots take part.
+_LEVEL_ROWS = 256  # 128 when a staged row holds more than _LEVEL_WIDE words
+_LEVEL_WIDE = 8
+_LEVEL_STAGES = 3
+_WARP_HIST_BYTES = 16 * 1024
+_CTA_HIST_BYTES = 128 * 1024
+_MAX_WARPS = 16
+_MAX_CLUSTER = 8
+_SMS, _SM_SMEM, _SM_THREADS = 132, 228 * 1024, 1024
+_CLUSTER_PACKING = 0.9
 
 
 def reset_launch_counts() -> None:
@@ -116,6 +137,10 @@ def _library():
         lib.se_route_packed.restype = I
         lib.se_hist_smem_bytes.argtypes = [I] * 4
         lib.se_hist_smem_bytes.restype = ctypes.c_longlong
+        lib.se_level_hist.argtypes = [I, P, P, P, P] + [I] * 14 + [P]
+        lib.se_level_hist.restype = I
+        lib.se_level_smem_bytes.argtypes = [I] * 8
+        lib.se_level_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -158,15 +183,16 @@ class HistPlan(NamedTuple):
     smem: int  # dynamic shared-memory bytes per CTA
 
 
-def hist_plan(n, d, M, C, B, n_nodes, leaf=False) -> HistPlan:
-    """CTA tiling of one level histogram; a function of the shapes only."""
+def hist_plan(n, d, M, C, B, n_nodes) -> HistPlan:
+    """CTA tiling of the leaf sums (``d = B = 1``); a function of the shapes
+    only."""
     cell = C * B * 4  # bytes of one (node, feature) histogram row
     if n_nodes * cell <= _HIST_SMEM_BUDGET:
         np_ = n_nodes
         nf = max(1, min(d, _HIST_SMEM_BUDGET // (np_ * cell)))
     else:
         nf, np_ = 1, max(1, _HIST_SMEM_BUDGET // cell)
-    K = min(128, 1 << (np_ - 1).bit_length()) if leaf else 16
+    K = min(128, 1 << (np_ - 1).bit_length())
     nf = min(nf, 1024 // K)
     smem = 4 * (np_ * C * nf * B + _TILE_ROWS * (1 + C + nf))
     if smem > _MAX_SMEM:
@@ -180,8 +206,94 @@ def hist_plan(n, d, M, C, B, n_nodes, leaf=False) -> HistPlan:
     return HistPlan(nf, np_, K, math.ceil(n / rows), rows, smem)
 
 
+class LevelPlan(NamedTuple):
+    g: int  # members per CTA
+    nf: int  # features per CTA; one warp per (member, feature)
+    np: int  # nodes per CTA
+    cs: int  # row chunks: the CTAs of one cluster, summed in rank order
+    rows_per_chunk: int
+    rows: int  # rows staged per step
+    grid: int  # CTAs: member groups x feature tiles x node tiles x cs
+    threads: int  # per CTA
+    smem: int  # dynamic shared-memory bytes per CTA
+
+
+def _level_rows_smem(g, nf, np_, C, B, W, bits):
+    """Rows per stage, and the bytes of the histogram tile, the row stages
+    and one conflict-tag byte per (warp, node, bin): the layout of
+    ``csrc/hist.cu::level_hist``.  A stage holds one word per feature (i32
+    bins, or packed rows wider than the tile), or else every word of a
+    row."""
+    words = (nf if bits >= 32 or W > nf else W) + g + g * C  # per staged row
+    rows = _LEVEL_ROWS if words <= _LEVEL_WIDE else _LEVEL_ROWS // 2
+    tags = g * nf * (-(-(np_ * B) // 4) * 4)
+    return rows, 4 * (g * nf * np_ * C * B + _LEVEL_STAGES * rows * words) + tags
+
+
+@functools.lru_cache(maxsize=1024)
+def level_plan(n, d, M, C, B, n_nodes, bits=32) -> LevelPlan:
+    """CTA tiling of one level histogram (``level_hist``) over bins of
+    ``bits`` bits (32: i32 bins); a function of the shapes only, so the
+    summation order is too.  A warp owns one (member, feature)'s cells of a
+    node tile: every node unless that passes ``_WARP_HIST_BYTES``.  A CTA
+    then takes as many features, and for narrow ``d`` members, as fit
+    ``_CTA_HIST_BYTES``.  Each tile's row chunks form one cluster, as large
+    as lets every tile's cluster run in one wave, and at most 8.  Raises when
+    one warp's cells and the staged rows do not fit one CTA's shared
+    memory."""
+    W = d if bits >= 32 else -(-d // (32 // bits))  # words per row
+    cell = 4 * C * B  # bytes of one (member, node, feature) histogram row
+    np_ = n_nodes if n_nodes * cell <= _WARP_HIST_BYTES else max(1, _WARP_HIST_BYTES // cell)
+    warp = np_ * cell
+    nf = max(1, min(d, _MAX_WARPS, _CTA_HIST_BYTES // warp))
+    g = max(1, min(M, _MAX_WARPS // nf, _CTA_HIST_BYTES // (nf * warp)))
+    while g > 1 and _level_rows_smem(g, nf, np_, C, B, W, bits)[1] > _MAX_SMEM:
+        g -= 1
+    rows, smem = _level_rows_smem(g, nf, np_, C, B, W, bits)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"histogram tile needs {smem} bytes of shared memory "
+            f"(C={C}, B={B}); the card has {_MAX_SMEM}"
+        )
+    threads = 32 * g * nf
+    tiles = math.ceil(M / g) * math.ceil(d / nf) * math.ceil(n_nodes / np_)
+    per_sm = max(1, min(_SM_SMEM // (smem + 1024), _SM_THREADS // threads))
+    slots = int(_CLUSTER_PACKING * _SMS * per_sm)
+    cs = next((c for c in range(min(_MAX_CLUSTER, math.ceil(n / rows)), 1, -1)
+               if slots // c >= tiles), 1)
+    return LevelPlan(g, nf, np_, cs, math.ceil(n / cs), rows, tiles * cs, threads, smem)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=1024)
+def _checked_level_plan(n, d, M, C, B, n_nodes, W, bits) -> LevelPlan:
+    """``level_plan``, held once per shape against the kernel's own
+    shared-memory layout."""
+    plan = level_plan(n, d, M, C, B, n_nodes, bits)
+    if _library().se_level_smem_bytes(plan.g, plan.nf, plan.np, C, B, plan.rows, W, bits) != plan.smem:
+        raise RuntimeError("level_plan and csrc/hist.cu disagree on the shared-memory layout")
+    return plan
+
+
+def _launch_level(nterms, words, node, vals, out, *, d, B, n_nodes, W, bits):
+    n, M, C = vals.shape
+    if n == 0:
+        return out.zero_()
+    plan = _checked_level_plan(n, d, M, C, B, n_nodes, W, bits)
+    lib = _library()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = lib.se_level_hist(
+            nterms, _ptr(words), _ptr(node), _ptr(vals), _ptr(out), n, d, M,
+            C, B, n_nodes, W, bits, plan.g, plan.nf, plan.np, plan.cs,
+            plan.rows, plan.rows_per_chunk, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"hist kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def _launch_hist(src, nterms, bins, node, vals, out, *, d, B, n_nodes, W=0,
@@ -189,7 +301,7 @@ def _launch_hist(src, nterms, bins, node, vals, out, *, d, B, n_nodes, W=0,
     n, M, C = vals.shape
     if n == 0:
         return out.zero_()
-    plan = hist_plan(n, d, M, C, B, n_nodes, leaf=src == _SRC_NONE)
+    plan = hist_plan(n, d, M, C, B, n_nodes)
     lib = _library()
     if lib.se_hist_smem_bytes(C, B, plan.nf, plan.np) != plan.smem:
         raise RuntimeError("hist_plan and csrc/hist.cu disagree on the shared-memory layout")
@@ -293,8 +405,8 @@ def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int):
     n, d = Xb.shape
     _, M, C = vals.shape
     out = torch.empty((M, n_nodes, C, d, max_bins), dtype=torch.float32, device=dev)
-    _launch_hist(_SRC_I32, 2, Xb, node, vals, out, d=d, B=max_bins,
-                 n_nodes=n_nodes)
+    _launch_level(2, Xb, node, vals, out, d=d, B=max_bins, n_nodes=n_nodes,
+                  W=d, bits=32)
     LAUNCHES["hist_i32"] += 1
     return out
 
@@ -360,8 +472,8 @@ def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
     _, M, C = vals.shape
     out = torch.empty((M, n_nodes, C, num_features, max_bins),
                       dtype=torch.float32, device=dev)
-    _launch_hist(_SRC_PACKED, 3, packed, node, vals, out, d=num_features,
-                 B=max_bins, n_nodes=n_nodes, W=packed.shape[1], bits=bits)
+    _launch_level(3, packed, node, vals, out, d=num_features, B=max_bins,
+                  n_nodes=n_nodes, W=packed.shape[1], bits=bits)
     LAUNCHES["hist_packed"] += 1
     return out
 

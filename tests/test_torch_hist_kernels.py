@@ -169,18 +169,31 @@ def test_plain_versions_never_count_launches():
 def test_hist_plan_at_the_main_path_shapes(n_nodes, leaf):
     """The CTA tiling is a function of the shapes alone (so is the
     summation order), fits the card's shared memory, and covers every
-    row, node and feature."""
+    row, node and feature: the leaf sums' plan (``hist_plan``) and the level
+    histograms' (``level_plan``, tests/test_torch_hist_plan.py has more)."""
     n, d, M, C, B = 15000, 16, 26, 2, 64
-    dB = (1, 1) if leaf else (d, B)
-    plan = hk.hist_plan(n, dB[0], M, C, dB[1], n_nodes, leaf=leaf)
-    assert plan == hk.hist_plan(n, dB[0], M, C, dB[1], n_nodes, leaf=leaf)
+    if leaf:
+        plan = hk.hist_plan(n, 1, M, C, 1, n_nodes)
+        assert plan == hk.hist_plan(n, 1, M, C, 1, n_nodes)
+        assert plan.smem <= 227 * 1024
+        assert plan.chunks * plan.rows_per_chunk >= n
+        assert (plan.chunks - 1) * plan.rows_per_chunk < n
+        assert plan.K & (plan.K - 1) == 0 and plan.nf * plan.K <= 1024
+        assert plan.np >= 1 and plan.nf >= 1
+        return
+    plan = hk.level_plan(n, d, M, C, B, n_nodes)
+    assert plan == hk.level_plan(n, d, M, C, B, n_nodes)
     assert plan.smem <= 227 * 1024
-    assert plan.chunks * plan.rows_per_chunk >= n
-    assert (plan.chunks - 1) * plan.rows_per_chunk < n
-    assert plan.K & (plan.K - 1) == 0 and plan.nf * plan.K <= 1024
-    assert plan.np >= 1 and plan.nf >= 1
+    assert plan.cs * plan.rows_per_chunk >= n
+    assert (plan.cs - 1) * plan.rows_per_chunk < n
+    assert 1 <= plan.cs <= 8 and plan.threads == 32 * plan.g * plan.nf <= 512
+    tiles = -(-M // plan.g) * -(-d // plan.nf) * -(-n_nodes // plan.np)
+    assert plan.grid == tiles * plan.cs
+    assert plan.np >= 1 and plan.nf >= 1 and plan.g >= 1
 
 
 def test_hist_plan_rejects_tiles_over_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         hk.hist_plan(100, 4, 2, 64, 4096, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        hk.level_plan(100, 4, 2, 64, 4096, 1)
