@@ -6,7 +6,9 @@
 Run from the root of a checkout on a machine with one CUDA card.  It builds
 the port's CUDA kernels from ``spark_ensemble_tpu_torch/csrc`` with nvcc,
 holds every kernel against its plain PyTorch version at the main path's
-shapes (timing both), drives the GBM main path through the public
+shapes and beside them, times each kernel (``ms``: one call through its
+wrapper, host issue time included; ``device_ms``: the kernels' own time on
+the card from torch.profiler), drives the GBM main path through the public
 estimators on three histogram tiers, and checks the results.  Each phase
 prints one JSON line; any failed check raises and the script exits non-zero.
 The last two lines are the card's name and power limit as nvidia-smi
@@ -18,6 +20,7 @@ port's package is not beside it.
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -90,6 +93,8 @@ class KernelRecord:
         self.max_abs_err = 0.0
         self.timing = None  # (ms, plain_ms, bound_ms, bound_by, library_ms)
         self.spread = None
+        self.device_ms = None  # (median, min, max) of the kernels' own time per call
+        self.library_device_ms = None
         self.per_level = None
         self.launches = 0
 
@@ -101,7 +106,8 @@ class KernelRecord:
             "replaces": self.replaces, "launches": self.launches,
             "max_abs_err": self.max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "spread": self.spread,
+            "spread": self.spread, "device_ms": self.device_ms,
+            "library_device_ms": self.library_device_ms,
         }
         if self.per_level is not None:
             out["per_level"] = self.per_level
@@ -153,6 +159,40 @@ def main():
             torch.cuda.synchronize()
             times.append(t0.elapsed_time(t1) / reps)
         times.sort()
+        return times[len(times) // 2], times[0], times[-1]
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, reps=KERNEL_REPS, runs=KERNEL_RUNS):
+        """(median, min, max) ms of device time per call over `runs` runs
+        of `reps` calls, from the kernel durations torch.profiler traces on
+        the card, one trace per run; the host's issue time does not enter.
+        A trace can drop kernel events (seen on the card), so a run's time
+        is, for each kernel a call launches, its median traced duration
+        times the launches per call (the most any run traced, over
+        `reps`), summed over the kernels."""
+        fn()
+        torch.cuda.synchronize()
+        traces = []
+        for _ in range(runs):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            us = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    us.setdefault(e.name, []).append(e.time_range.elapsed_us())
+            if not us:
+                raise AssertionError("the profiler traced no kernel on the card")
+            traces.append(us)
+        per_call = {}
+        for us in traces:
+            for k, v in us.items():
+                per_call[k] = max(per_call.get(k, 0.0), len(v) / reps)
+        times = sorted(sum(statistics.median(v) * per_call[k] for k, v in us.items()) / 1e3
+                       for us in traces)
         return times[len(times) // 2], times[0], times[-1]
 
     def compare(rec, got, ref, what, exact=False):
@@ -224,11 +264,14 @@ def main():
         b_ms, b_by = bound(nbytes, n * M * C * d)
         ms = spread_ms(run)
         lib = spread_ms(lambda: acc.index_add_(0, idx, src))
+        dev_ms = device_ms(run)
+        lib_dev = device_ms(lambda: acc.index_add_(0, idx, src))
         plan = hk.level_plan(n, d, M, C, B, n_nodes, 32 if words is ids else binning.pack_width(B))
-        row = {"kernel": name, "n_nodes": n_nodes, "ms": ms[0], "spread": ms, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": lib[0], "library_spread": lib,
+        row = {"kernel": name, "n_nodes": n_nodes, "ms": ms[0], "spread": ms, "device_ms": dev_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib[0], "library_spread": lib,
+               "library_device_ms": lib_dev,
                "plan": {k: getattr(plan, k) for k in ("g", "nf", "np", "cs", "rows", "grid", "threads", "smem")}}
-        return row, (ms, spread_ms(plain, reps=10)[0], b_ms, b_by, lib[0])
+        return row, (ms, spread_ms(plain, reps=10)[0], b_ms, b_by, lib[0]), (dev_ms, lib_dev)
 
     def check_level(rec, run, ref, what):
         err = compare(rec, run(), ref, what)
@@ -246,11 +289,12 @@ def main():
         err = check_level(rec, run, plain(), f"n={n} nodes={n_nodes}")
         row = {"kernel": rec.name, "n": n, "n_nodes": n_nodes, "zero_frac": zf, "max_abs_err": err}
         if n == N_ROWS:
-            lvl, timing = level_timing(rec.name, run, plain, Xb, node, vals, Xb, n_nodes, MAX_BINS, 2)
+            lvl, timing, dev_t = level_timing(rec.name, run, plain, Xb, node, vals, Xb, n_nodes, MAX_BINS, 2)
             rec.per_level.append(lvl)
             if n_nodes == 2 ** (DEPTH - 1):
                 rec.timing = (timing[0][0],) + timing[1:]
                 rec.spread = timing[0]
+                rec.device_ms, rec.library_device_ms = dev_t
         checks.append(row)
 
     # fused tier at bits 8 (B=64) and bits 4 (B=16), all three modes
@@ -277,7 +321,7 @@ def main():
                     run = lambda: hk.hist_level_packed(packed, node, vals, n_nodes=n_nodes, max_bins=B, **kw)
                     plain = lambda: hk.hist_plain(binning.unpack_bins(cb), node, vals, n_nodes, B, 3)
                     check_level(rec, run, hk.hist_plain(Xb, node, vals, n_nodes, B, 3), f"B={B} nodes={n_nodes}")
-                    lvl, _ = level_timing(rec.name, run, plain, Xb, node, vals, packed, n_nodes, B, 3)
+                    lvl, _, _ = level_timing(rec.name, run, plain, Xb, node, vals, packed, n_nodes, B, 3)
                     rec.per_level.append(lvl)
             for half, leaf in ((8, False), (16, True)):
                 n_nodes = 2 * half
@@ -304,6 +348,7 @@ def main():
                     r_bytes = 4 * (packed.numel() + 2 * parent.numel() + 2 * bf.numel())
                     r_ms, r_by = bound(r_bytes, n * M)
                     r_spread = spread_ms(lambda: hk.route_packed(packed, parent, bf, bt, **kw))
+                    r_rec.device_ms = device_ms(lambda: hk.route_packed(packed, parent, bf, bt, **kw))
                     r_rec.timing = (
                         r_spread[0],
                         spread_ms(lambda: hk.route_plain(binning.unpack_bins(cb), parent, bf, bt), reps=10)[0],
@@ -312,22 +357,31 @@ def main():
                     r_rec.spread = r_spread
                     run = lambda: hk.hist_level_packed(packed, node_out, vals, n_nodes=n_nodes, max_bins=B, **kw)
                     plain = lambda: hk.hist_plain(binning.unpack_bins(cb), node_out, vals, n_nodes, B, 3)
-                    _, timing = level_timing(lrec.name, run, plain, Xb, node_out, vals, packed, n_nodes, B, 3)
+                    _, timing, dev_t = level_timing(lrec.name, run, plain, Xb, node_out, vals, packed, n_nodes, B, 3)
                     lrec.timing = (timing[0][0],) + timing[1:]
                     lrec.spread = timing[0]
+                    lrec.device_ms, lrec.library_device_ms = dev_t
                 else:
-                    lb = 4 * (node_out.numel() + vals.numel() + H.numel())
+                    # the leaf pass as the main path makes it: one launch
+                    # routes the parent ids and sums the leaves; its bound
+                    # reads the packed words, parent ids, statistics and
+                    # tables and writes the leaf ids and sums.  index_add_
+                    # gets the routed cell ids for free
+                    lb = 4 * (packed.numel() + parent.numel() + node_out.numel() + vals.numel()
+                              + bf.numel() + bt.numel() + H.numel())
                     l_ms, l_by = bound(lb, n * M * C)
                     lidx = (torch.arange(M, device=dev)[None, :] * n_nodes + node_out.long()).reshape(-1)
                     lsrc = vals.reshape(-1, C)
                     lacc = torch.zeros(M * n_nodes, C, device=dev)
-                    l_spread = spread_ms(lambda: hk.leaf_sums(node_out, vals, n_nodes=n_nodes))
-                    lrec.timing = (
-                        l_spread[0],
-                        spread_ms(lambda: hk.leaf_plain(node_out, vals, n_nodes), reps=10)[0],
-                        l_ms, l_by, spread_ms(lambda: lacc.index_add_(0, lidx, lsrc))[0],
-                    )
+                    lib_add = lambda: lacc.index_add_(0, lidx, lsrc)
+                    plain = lambda: hk.leaf_plain(hk.route_plain(binning.unpack_bins(cb), parent, bf, bt),
+                                                  vals, n_nodes)
+                    l_spread = spread_ms(run)
+                    lrec.timing = (l_spread[0], spread_ms(plain, reps=10)[0], l_ms, l_by,
+                                   spread_ms(lib_add)[0])
                     lrec.spread = l_spread
+                    lrec.device_ms = device_ms(run)
+                    lrec.library_device_ms = device_ms(lib_add)
     # the level histograms on shapes the main path does not reach: a
     # group of lanes on one cell in every step (every member's rows in one
     # node, one feature constant), 256 bins in 8-bit lanes, node tiling (32
@@ -359,6 +413,57 @@ def main():
             err = check_level(rec, run, hk.hist_plain(ids, node, vals, n_nodes, B, nterms), what)
             checks.append({"kernel": rec.name, "shape": what, "n": n, "d": d, "B": B, "bits": bits,
                            "n_nodes": n_nodes, "max_abs_err": err})
+    # the route and the leaf pass on shapes beside the main path's: one
+    # member (the regressor), three channels, 256 bins, 64 and 256 leaves
+    # (leaf tiles), more members than lanes and than one member tile holds,
+    # a prime n with 25% zero-weight rows in 4-bit lanes, and no tables
+    # (max_depth = 0, and leaf_sums alone on given ids)
+    Xb_by_bins = {16: Xb16, MAX_BINS: Xb64, 256: Xb256}
+    lr_edge = [
+        ("M_1", N_ROWS, 1, 2, MAX_BINS, 16, 0.0),
+        ("C_3", N_ROWS, M, 3, MAX_BINS, 16, 0.0),
+        ("B_256", N_ROWS, M, 2, 256, 16, 0.0),
+        ("leaves_64", N_ROWS, M, 2, MAX_BINS, 32, 0.0),
+        ("leaves_256", N_ROWS, M, 2, MAX_BINS, 128, 0.0),
+        ("M_40", N_ROWS, 40, 2, MAX_BINS, 16, 0.0),
+        ("M_300", min(N_ROWS, 2000), 300, 2, MAX_BINS, 16, 0.0),
+        ("prime_n_M_1_B_16", p, 1, 2, 16, 16, 0.25),
+        ("max_depth_0", N_ROWS, M, 2, MAX_BINS, 0, 0.0),
+        ("ids_given_32", N_ROWS, M, 2, MAX_BINS, 0, 0.0),
+    ]
+    for what, n, Mc, Cc, B, half, zf in lr_edge:
+        ids = Xb_by_bins[B][:n].contiguous()
+        bits = binning.pack_width(B)
+        packed = binning.pack_bins(ids, B, bits).packed
+        kw = dict(max_bins=B, bits=bits, num_features=N_FEATURES)
+        v = rng.randn(n, Mc, Cc).astype(np.float32)
+        v[: int(n * zf)] = 0.0
+        vals = torch.as_tensor(v, device=dev)
+        row = {"shape": what, "n": n, "M": Mc, "C": Cc, "B": B, "bits": bits}
+        if half:
+            parent = torch.as_tensor(rng.randint(0, half, size=(n, Mc)).astype(np.int32), device=dev)
+            bf = torch.as_tensor(rng.randint(0, N_FEATURES, size=(Mc, half)).astype(np.int32), device=dev)
+            bt = torch.as_tensor(rng.randint(0, B, size=(Mc, half)).astype(np.int32), device=dev)
+            ref_node = hk.route_plain(ids, parent, bf, bt)
+            run_r = lambda: hk.route_packed(packed, parent, bf, bt, bits=bits, num_features=N_FEATURES)
+            compare(recs["route_packed"], run_r(), ref_node, what, exact=True)
+            repeat_identical(recs["route_packed"], run_r, what)
+            n_nodes = 2 * half
+            run_l = lambda: hk.fused_round_level(packed, parent, vals, bf, bt, n_nodes=n_nodes, leaf=True, **kw)
+        elif what == "max_depth_0":
+            ref_node, n_nodes = torch.zeros((n, Mc), dtype=torch.int32, device=dev), 1
+            run_l = lambda: hk.fused_round_level(packed, ref_node, vals, n_nodes=n_nodes, leaf=True, **kw)
+        else:
+            n_nodes = 32
+            ref_node = torch.as_tensor(rng.randint(0, n_nodes, size=(n, Mc)).astype(np.int32), device=dev)
+            run_l = lambda: (hk.leaf_sums(ref_node, vals, n_nodes=n_nodes), ref_node)
+        L, leaf_ids = run_l()
+        compare(recs["leaf_sums"], leaf_ids, ref_node, what, exact=True)
+        err = compare(recs["leaf_sums"], L, hk.leaf_plain(ref_node, vals, n_nodes), what)
+        repeat_identical(recs["leaf_sums"], run_l, what)
+        plan = hk.leaf_plan(n, Mc, Cc, n_nodes, half, packed.shape[1] if half else 0)
+        checks.append({"kernel": "leaf_sums", **row, "n_nodes": n_nodes, "routed": bool(half),
+                       "max_abs_err": err, "plan": plan._asdict()})
     for row in checks:
         emit({"phase": "kernel_check", **row})
 
@@ -445,7 +550,7 @@ def main():
     expected = {
         "matmul": {k: 0 for k in hk.LAUNCHES},
         "pallas": {"hist_i32": DEPTH * R, "route_packed": 0, "hist_packed": 0, "leaf_sums": 0},
-        "fused": {"hist_i32": 0, "route_packed": DEPTH * R, "hist_packed": DEPTH * R, "leaf_sums": R},
+        "fused": {"hist_i32": 0, "route_packed": (DEPTH - 1) * R, "hist_packed": DEPTH * R, "leaf_sums": R},
     }
     for tier, want in expected.items():
         if runs[tier][2] != want:
@@ -480,21 +585,22 @@ def main():
     pred_s = (time.perf_counter() - t0) / reps
     acc = float((pred.cpu().numpy() == y_np).mean())
     # the fused tier's kernels per round: the histogram at each level as
-    # timed there, the route (once per level, its time hardly depends on
-    # the level) and the leaf sums
-    per_round_ms = (sum(lvl["ms"] for lvl in recs["hist_packed"].per_level)
-                    + DEPTH * recs["route_packed"].timing[0] + recs["leaf_sums"].timing[0])
+    # timed there, the routes and the leaf pass (their time hardly depends
+    # on the level), each times its launches per round; on the card's own
+    # time (device_ms) and through the wrappers (ms)
+    per_round = {k: runs["fused"][2][k] / R for k in ("route_packed", "leaf_sums")}
+    per_round_ms = (sum(lvl["device_ms"][0] for lvl in recs["hist_packed"].per_level)
+                    + sum(n * recs[k].device_ms[0] for k, n in per_round.items()))
+    per_round_wrapper_ms = (sum(lvl["ms"] for lvl in recs["hist_packed"].per_level)
+                            + sum(n * recs[k].timing[0] for k, n in per_round.items()))
     emit({"phase": "timed_fit", "tier": "fused", "rounds": TIMED_ROUNDS, "fits": len(timed),
           "iters_per_s": rates[1], "iters_per_s_runs": rates, "round_ms": 1e3 / rates[1],
-          "per_round_ms": per_round_ms,
+          "per_round_ms": per_round_ms, "per_round_wrapper_ms": per_round_wrapper_ms,
           "predict_rows_per_s": N_ROWS / pred_s, "predict_s": pred_s, "train_accuracy": acc})
 
     # where a fused fit's time goes: device time by kernel over a 3-round
     # fit (setup included), counting device-side events only (the CPU ops
     # that launched them carry the same time again)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     est = gbm("fused", "highest", 3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall, _ = fit_counted(est, X_np, y_np)
@@ -511,7 +617,7 @@ def main():
         if t > 0:
             dev_us[e.key] = t
     ours = sum(t for k, t in dev_us.items()
-               if any(s in k for s in ("level_hist", "hist_accumulate", "route_packed", "reduce_chunks")))
+               if any(s in k for s in ("level_hist", "leaf_sums", "route_packed")))
     busy = sum(dev_us.values())
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "profile", "tier": "fused", "rounds": 3, "wall_ms": wall * 1e3,
@@ -532,7 +638,7 @@ def main():
         rmses[hist] = rmse
         emit({"phase": "regressor", "tier": hist, "rounds": PARITY_ROUNDS, "fit_s": secs,
               "rmse": rmse, "launches": launches})
-        if hist == "fused" and launches["hist_packed"] != DEPTH * PARITY_ROUNDS:
+        if hist == "fused" and launches != expected["fused"]:
             raise AssertionError(f"regressor fused launches {launches}")
         if not math.isfinite(rmse) or rmse > float(np.std(yr)):
             raise AssertionError(f"regressor {hist}: rmse {rmse}")

@@ -1,4 +1,4 @@
-// Level-histogram and routing kernels for Hopper (sm_90a).
+// Level-histogram, routing and leaf-sum kernels for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of spark_ensemble_tpu/ops/pallas_hist.py:
 //   _hist_kernel  (hist_precision="pallas"): level histogram over i32 bins,
@@ -7,6 +7,9 @@
 //                 route rows through the previous level's split tables, then
 //                 the level histogram with a 3-term bf16 split, or exact f32
 //                 leaf sums in leaf mode.
+// Three kernels: level_hist (both level histograms), route_packed (the
+// fused tier's route before a level histogram) and leaf_sums (the leaf
+// mode: the route and the sums in one launch).
 //
 // What they compute.  H[m, p, c, f, b] = sum over rows r with node[r, m] == p
 // and bin[r, f] == b of term(vals[r, m, c]), where term() is the TPU kernel's
@@ -61,15 +64,50 @@
 // has no shared-memory scatter short of float atomics, which would break the
 // fixed summation order.
 //
-// Leaf sums (hist_accumulate<kSrcNone, 1>): one CTA per (member, node tile,
-// row chunk); thread L is the only writer of the nodes congruent to L mod K
-// and adds its rows in ascending row order; row chunks go to scratch and a
-// second grid sums them in chunk order.
+// The leaf pass (leaf_sums<ROUTE>), the TPU kernel's leaf mode in one
+// launch.  L[m, leaf, c] = sum in f32 of vals[r, m, c] over the rows whose
+// leaf is `leaf`.  With split tables (ROUTE) each (row, member) is first
+// routed from its parent id, as route_packed does, and its leaf id written
+// out (the GBM round reads it); without them the ids are given.
+// What bounds it.  At the main path's shapes (15000 rows, 26 members, 32
+// leaves, C = 2) it moves ~6.5 MB (packed words, parent and leaf ids,
+// statistics, tables, L): ~2 us at 3.35 TB/s, and its n * M * C adds are
+// nothing beside that.  So it is bound by bytes and, with a few rows per
+// lane, by latency: the row loads, and the combine's barriers and global
+// round trips after them, each take their turn.  The design:
+// - Lanes map to members (groups of 32 when M > 32); when M is small a warp
+//   takes several rows, lane = (row slot, member).  A warp's loads of
+//   node[r, :] and vals[r, :, :] are then contiguous.  Each lane loads
+//   kLeafSteps rows before it adds any of them, and the plan gives a CTA
+//   whole chunks of rows (one at the main path), whose loads are in flight
+//   while the CTA stages its tables and zeroes its columns.
+// - Each lane owns a private column of sums in shared memory, laid out
+//   [leaf][C][32 lanes]: every access hits the lane's own bank whatever the
+//   leaf, and no lane waits on another.  The plan tiles leaves when a
+//   warp's columns pass 16 KB, and members when they pass a CTA.
+// - The CTA stages its members' split tables once per tile as
+//   (word << 5 | lane shift, best_t), and each chunk of its rows' packed
+//   words with cp.async, one chunk ahead: a row's words are read once for
+//   all of its members, and a route costs two shared-memory loads.
+// - The combine is in a fixed order: a member's columns in warp order (four
+//   lanes a thread, as float4), then row-slot order into the CTA's
+//   partial, with no division and no bank conflict; the CTAs of a thread-block
+//   cluster in rank order through distributed shared memory.  With more
+//   than one cluster each writes its partial to a workspace (a few KB per
+//   cluster, kept per stream by the caller), and the last cluster to finish,
+//   found by an integer ticket that it resets, sums them in cluster order.
+//   No float atomics and no second launch: two launches give the same bits.
 //
-// Routing (fused tier) is a separate, one-thread-per-(row, member) launch:
-// node_out = 2 * node + 1 - (bin[r, best_f[m, node]] <= best_t[m, node]),
-// unpacking only the word that holds best_f.  It runs once per row, not once
-// per output tile, and is integer-exact.
+// Routing (route_packed), before each level histogram of the fused tier but
+// the first: node_out = 2 * node + 1 - [bin(r, best_f[m, node]) <=
+// best_t[m, node]], integer-exact.  At the main path's deepest level (8
+// parents) it moves ~3.4 MB, ~1 us, with a few integer operations per
+// element: bound by bytes and load latency.  The grid is one wave; a CTA
+// stages its tables once, and each tile's packed words (R x W contiguous)
+// with cp.async while its threads' node loads are in flight.  A thread
+// takes 4 consecutive (row, member) elements, member-fastest, as one
+// 16-byte load and store, and walks (row, member) with no division per
+// element.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -80,161 +118,27 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTileRows = 128;  // rows staged in shared memory per step
-constexpr int kMaskRows = 32;   // rows per ownership mask
+constexpr int kMaxCluster = 8;
+constexpr int kMaxLevelThreads = 512;
+constexpr int kLevelStages = 3;  // row tiles in flight: one split, two landing
+constexpr long long kMaxSmem = 232448;  // 227 KB, the most one CTA may use
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRouteThreads = 256;
+constexpr int kMaxLeafThreads = 512;
+constexpr int kLeafSteps = 8;  // rows a lane loads before it adds them
+constexpr int kLeafPre = 2;    // channels of a row loaded ahead; more are loaded as added
+constexpr int kLeafBatch = 16;  // cluster partials a thread of the last cluster loads at once
 
-enum BinSource { kSrcI32 = 0, kSrcPacked = 1, kSrcNone = 2 };
-
-// The TPU kernels' per-row statistic split, summed in f32.  NTERMS == 1 is
-// the plain f32 value (leaf sums).
+// The TPU kernels' per-row statistic split into NTERMS bf16 terms, summed
+// in f32.
 template <int NTERMS>
 __device__ __forceinline__ float split_terms(float v) {
-  if (NTERMS == 1) return v;
   const float h = __bfloat162float(__float2bfloat16_rn(v));
   const float l = __bfloat162float(__float2bfloat16_rn(v - h));
   if (NTERMS == 2) return h + l;
   const float l2 = __bfloat162float(__float2bfloat16_rn(v - h - l));
   return h + l + l2;
 }
-
-// Bin of feature f from lane-major packed words: word f % W, lane f / W.
-__device__ __forceinline__ int unpack_bin(const int32_t* __restrict__ packed,
-                                          long long r, int W, int bits,
-                                          int f) {
-  const uint32_t word = static_cast<uint32_t>(packed[r * W + (f % W)]);
-  if (bits >= 32) return static_cast<int>(word);
-  return static_cast<int>((word >> ((f / W) * bits)) & ((1u << bits) - 1u));
-}
-
-template <int SRC, int NTERMS>
-__global__ void hist_accumulate(const int32_t* __restrict__ bins,
-                                const int32_t* __restrict__ node,
-                                const float* __restrict__ vals,
-                                float* __restrict__ dst, int n, int d, int M,
-                                int C, int B, int n_nodes, int W, int bits,
-                                int nf, int np, int K, int rows_per_chunk) {
-  extern __shared__ float smem[];
-  const int n_ft = (d + nf - 1) / nf;
-  const int n_pt = (n_nodes + np - 1) / np;
-  int bx = blockIdx.x;
-  const int pt = bx % n_pt;
-  bx /= n_pt;
-  const int ft = bx % n_ft;
-  const int m = bx / n_ft;
-  const int chunk = blockIdx.y;
-  const int p0 = pt * np, f0 = ft * nf;
-  const int np_t = min(np, n_nodes - p0), nf_t = min(nf, d - f0);
-  const int r_begin = chunk * rows_per_chunk;
-  const int r_end = min(n, r_begin + rows_per_chunk);
-
-  // shared layout: hist [np][C][nf][B] | node [R] | term [R][C] | bin [R][nf]
-  float* hist = smem;
-  int* node_s = reinterpret_cast<int*>(smem + np * C * nf * B);
-  float* term_s = reinterpret_cast<float*>(node_s + kTileRows);
-  int* bin_s = reinterpret_cast<int*>(term_s + kTileRows * C);
-
-  const int tid = threadIdx.x;
-  const int hist_cells = np_t * C * nf_t * B;
-  for (int i = tid; i < hist_cells; i += blockDim.x) hist[i] = 0.f;
-
-  const int fl = tid / K, L = tid % K;
-  const bool active = fl < nf_t;
-  const int cstride = nf_t * B;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kTileRows) {
-    const int rows = min(kTileRows, r_end - r0);
-    __syncthreads();  // the previous tile is consumed; hist is zeroed
-    for (int i = tid; i < rows; i += blockDim.x) {
-      const long long rm = static_cast<long long>(r0 + i) * M + m;
-      node_s[i] = node[rm];
-      for (int c = 0; c < C; ++c) {
-        term_s[i * C + c] = split_terms<NTERMS>(vals[rm * C + c]);
-      }
-    }
-    if (SRC != kSrcNone) {
-      for (int i = tid; i < rows * nf_t; i += blockDim.x) {
-        const long long r = r0 + i / nf_t;
-        const int f = f0 + i % nf_t;
-        bin_s[i] = SRC == kSrcI32 ? bins[r * d + f]
-                                  : unpack_bin(bins, r, W, bits, f);
-      }
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j0 = 0; j0 < rows; j0 += kMaskRows) {
-      const int jn = min(kMaskRows, rows - j0);
-      unsigned mask = 0u;
-      for (int j = 0; j < jn; ++j) {
-        const int p = node_s[j0 + j] - p0;
-        const int b = SRC == kSrcNone ? 0 : bin_s[(j0 + j) * nf_t + fl];
-        const bool mine = static_cast<unsigned>(p) <
-                              static_cast<unsigned>(np_t) &&
-                          ((p * B + b) & (K - 1)) == L;
-        mask |= static_cast<unsigned>(mine) << j;
-      }
-      while (mask) {  // this thread's rows, ascending
-        const int jj = j0 + __ffs(mask) - 1;
-        mask &= mask - 1u;
-        const int p = node_s[jj] - p0;
-        const int b = SRC == kSrcNone ? 0 : bin_s[jj * nf_t + fl];
-        float* cell = hist + (p * C * nf_t + fl) * B + b;
-        for (int c = 0; c < C; ++c) cell[c * cstride] += term_s[jj * C + c];
-      }
-    }
-  }
-  __syncthreads();
-  float* out = dst + static_cast<size_t>(chunk) * M * n_nodes * C * d * B;
-  for (int i = tid; i < hist_cells; i += blockDim.x) {
-    const int b = i % B;
-    int t = i / B;
-    const int f = t % nf_t;
-    t /= nf_t;
-    const int c = t % C;
-    const int p = t / C;
-    out[((((static_cast<size_t>(m) * n_nodes + p0 + p) * C + c) * d + f0 + f) *
-         B) +
-        b] = hist[i];
-  }
-}
-
-// Fixed-order split-K reduce: out[i] = chunk 0 + chunk 1 + ... (in order).
-__global__ void reduce_chunks(const float* __restrict__ scratch,
-                              float* __restrict__ out, long long total,
-                              int chunks) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float s = scratch[i];
-    for (int k = 1; k < chunks; ++k) s += scratch[k * total + i];
-    out[i] = s;
-  }
-}
-
-__global__ void route_packed(const int32_t* __restrict__ packed,
-                             const int32_t* __restrict__ node_in,
-                             const int32_t* __restrict__ best_f,
-                             const int32_t* __restrict__ best_t,
-                             int32_t* __restrict__ node_out, int n, int M,
-                             int half, int W, int bits) {
-  const long long total = static_cast<long long>(n) * M;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long r = i / M;
-    const int m = static_cast<int>(i % M);
-    const int p = node_in[i];
-    const int f = best_f[m * half + p];
-    const int t = best_t[m * half + p];
-    const int b = unpack_bin(packed, r, W, bits, f);
-    node_out[i] = 2 * p + 1 - (b <= t ? 1 : 0);
-  }
-}
-
-constexpr int kMaxCluster = 8;
-constexpr int kMaxLevelThreads = 512;
-constexpr int kLevelStages = 3;  // row tiles in flight: one split, two landing
-constexpr long long kMaxSmem = 232448;  // 227 KB, the most one CTA may use
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async4(void* smem_dst, const void* src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
@@ -253,8 +157,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// A thread's walk over the elements e = q * R + r of a [Q][R] staging array
-// in steps of blockDim.x, without a division inside the loop.
+// A thread's walk over the elements e = q * R + r of a [Q][R] array in a
+// fixed step (dq * R + dr), without a division inside the loop.
 struct Walk {
   int q, r, dq, dr;
 };
@@ -266,6 +170,365 @@ __device__ __forceinline__ void walk_next(Walk& w, int R) {
     w.r -= R;
     ++w.q;
   }
+}
+
+// A split-table entry as staged in shared memory: x = the word of a packed
+// row that holds feature best_f (word f % W, lane f / W of the lane-major
+// layout) << 5 | the lane's bit offset, y = best_t; x = -1 for a feature
+// outside [0, d).
+__device__ __forceinline__ int2 split_entry(int f, int t, int W, int bits,
+                                            int d) {
+  return static_cast<unsigned>(f) < static_cast<unsigned>(d)
+             ? make_int2(((f % W) << 5) | ((f / W) * bits), t)
+             : make_int2(-1, t);
+}
+
+// Stages `count` split-table entries.  The first kTabPre per thread are
+// loaded by load() into registers, so that a caller can issue further loads
+// before store() waits on them.
+constexpr int kTabPre = 4;
+
+struct SplitStage {
+  int f[kTabPre], t[kTabPre];
+
+  __device__ __forceinline__ void load(const int32_t* __restrict__ best_f,
+                                       const int32_t* __restrict__ best_t,
+                                       int count) {
+#pragma unroll
+    for (int j = 0; j < kTabPre; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      f[j] = i < count ? __ldg(best_f + i) : 0;
+      t[j] = i < count ? __ldg(best_t + i) : 0;
+    }
+  }
+
+  __device__ __forceinline__ void store(int2* tab,
+                                        const int32_t* __restrict__ best_f,
+                                        const int32_t* __restrict__ best_t,
+                                        int count, int W, int bits, int d) {
+#pragma unroll
+    for (int j = 0; j < kTabPre; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      if (i < count) tab[i] = split_entry(f[j], t[j], W, bits, d);
+    }
+    for (int i = threadIdx.x + kTabPre * blockDim.x; i < count; i += blockDim.x) {
+      tab[i] = split_entry(__ldg(best_f + i), __ldg(best_t + i), W, bits, d);
+    }
+  }
+};
+
+// The child of parent p of one (row, member), from the member's staged
+// table row and the row's staged words; -1 for a parent outside [0, half)
+// or a feature outside [0, d).
+__device__ __forceinline__ int route_one(int p, const int2* tab_m, int half,
+                                         const int* words_r, unsigned mask) {
+  if (static_cast<unsigned>(p) >= static_cast<unsigned>(half)) return -1;
+  const int2 e = tab_m[p];
+  if (e.x < 0) return -1;
+  const int b = static_cast<int>(
+      (static_cast<unsigned>(words_r[e.x >> 5]) >> (e.x & 31)) & mask);
+  return 2 * p + 1 - (b <= e.y ? 1 : 0);
+}
+
+__device__ __forceinline__ int4 load4(const int32_t* __restrict__ p, int e,
+                                     int count, bool vec) {
+  if (vec && e + 3 < count) return __ldg(reinterpret_cast<const int4*>(p + e));
+  int4 q = make_int4(0, 0, 0, 0);
+  if (e < count) q.x = __ldg(p + e);
+  if (e + 1 < count) q.y = __ldg(p + e + 1);
+  if (e + 2 < count) q.z = __ldg(p + e + 2);
+  if (e + 3 < count) q.w = __ldg(p + e + 3);
+  return q;
+}
+
+__device__ __forceinline__ void store4(int32_t* __restrict__ p, int e,
+                                       int count, bool vec, int4 q) {
+  if (vec && e + 3 < count) {
+    *reinterpret_cast<int4*>(p + e) = q;
+    return;
+  }
+  if (e < count) p[e] = q.x;
+  if (e + 1 < count) p[e + 1] = q.y;
+  if (e + 2 < count) p[e + 2] = q.z;
+  if (e + 3 < count) p[e + 3] = q.w;
+}
+
+// Route every (row, member) one level down.  Tiles of R rows (R % 4 == 0)
+// over a one-wave grid.  Shared layout: tables int2 [M][half] | words
+// [R][W].
+__global__ void __launch_bounds__(kRouteThreads)
+    route_packed(const int32_t* __restrict__ packed,
+                 const int32_t* __restrict__ node_in,
+                 const int32_t* __restrict__ best_f,
+                 const int32_t* __restrict__ best_t,
+                 int32_t* __restrict__ node_out, int n, int M, int half,
+                 int W, int bits, int d, int R) {
+  extern __shared__ __align__(16) int rsmem[];
+  int2* tab = reinterpret_cast<int2*>(rsmem);
+  int* words = rsmem + 2 * M * half;
+  const int tid = threadIdx.x;
+  const unsigned mask = bits >= 32 ? kFull : (1u << bits) - 1u;
+  // a tile starts at element r0 * M, a multiple of 4 when R * M is
+  const bool vec = ((reinterpret_cast<uintptr_t>(node_in) |
+                     reinterpret_cast<uintptr_t>(node_out)) & 15) == 0 &&
+                   (R * M) % 4 == 0;
+  SplitStage st;
+  st.load(best_f, best_t, M * half);
+  st.store(tab, best_f, best_t, M * half, W, bits, d);
+  const int step = 4 * kRouteThreads;
+  const Walk w0 = {4 * tid / M, 4 * tid % M, step / M, step % M};
+  for (int tile = blockIdx.x; static_cast<long long>(tile) * R < n;
+       tile += gridDim.x) {
+    const int r0 = tile * R;
+    const int rows = min(R, n - r0);
+    const int count = rows * M;
+    const int32_t* in = node_in + static_cast<long long>(r0) * M;
+    int32_t* out = node_out + static_cast<long long>(r0) * M;
+    int4 q = load4(in, 4 * tid, count, vec);  // in flight during the staging
+    if (tile != static_cast<int>(blockIdx.x)) __syncthreads();  // last tile's words are consumed
+    const int32_t* src = packed + static_cast<long long>(r0) * W;
+    for (int i = tid; i < rows * W; i += kRouteThreads) cp_async4(words + i, src + i);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // the tables and this tile's words are in place
+    Walk w = w0;  // (row, member) of this thread's first element
+    for (int e = 4 * tid; e < count; e += step, walk_next(w, M)) {
+      if (e != 4 * tid) q = load4(in, e, count, vec);
+      int v[4] = {q.x, q.y, q.z, q.w};
+      int row = w.q, m = w.r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (e + j < count) {
+          v[j] = route_one(v[j], tab + m * half, half, words + row * W, mask);
+        }
+        if (++m == M) {
+          m = 0;
+          ++row;
+        }
+      }
+      store4(out, e, count, vec, make_int4(v[0], v[1], v[2], v[3]));
+    }
+  }
+}
+
+// The leaf pass.  Grid: clusters of cs CTAs; CTA b takes rows [b, b + 1) *
+// rows_per_cta.  A CTA has n_mg x n_rw warps: warp w serves member group
+// w % n_mg (g members, S = 32 / g row slots) of the member tile and row warp
+// w / n_mg.  Shared layout: columns [warps][LT][C][32] | partial
+// [n_mg][LT][C][32] | tables int2 [MT][half] | words [2][RC][W] | flag, for MT =
+// n_mg * g members per tile and RC = kLeafSteps * n_rw * S rows per chunk.
+template <bool ROUTE>
+__global__ void __launch_bounds__(kMaxLeafThreads)
+    leaf_sums(const int32_t* __restrict__ packed,
+              const int32_t* __restrict__ node,
+              const float* __restrict__ vals,
+              const int32_t* __restrict__ best_f,
+              const int32_t* __restrict__ best_t,
+              int32_t* __restrict__ node_out, float* __restrict__ out,
+              float* __restrict__ partials, unsigned* __restrict__ ticket,
+              int n, int M, int C, int leaves, int half, int W, int bits,
+              int d, int g, int n_mg, int n_rw, int LT, int rows_per_cta) {
+  extern __shared__ __align__(16) float fsmem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_cl = static_cast<int>(gridDim.x) / cs;
+  const int cl = static_cast<int>(blockIdx.x) / cs;
+  const int S = 32 / g, MT = n_mg * g, nw = n_mg * n_rw;
+  const int RC = kLeafSteps * n_rw * S;
+  const int col_words = LT * C * 32;  // one warp's columns
+  float* cols = fsmem;
+  float* part = cols + nw * col_words;
+  int2* tab = reinterpret_cast<int2*>(part + n_mg * col_words);
+  int* words = reinterpret_cast<int*>(tab + MT * half);
+  int* flag = words + 2 * RC * W;
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int mg = warp % n_mg, rw = warp / n_mg;
+  const int slot = lane / g, mi = lane - slot * g;
+  const int r_begin = static_cast<int>(
+      min(static_cast<long long>(n),
+          static_cast<long long>(blockIdx.x) * rows_per_cta));
+  const int r_end = min(n, r_begin + rows_per_cta);
+  const int n_chunks = (r_end - r_begin + RC - 1) / RC;
+  const unsigned mask = bits >= 32 ? kFull : (1u << bits) - 1u;
+  float* colw = cols + warp * col_words;
+  const long long LC = static_cast<long long>(leaves) * C;
+
+  for (int m0 = 0; m0 < M; m0 += MT) {
+    const int mt = min(MT, M - m0);
+    const int mm = mg * g + mi;  // this lane's member within the tile
+    const bool lane_on = slot < S && mm < mt;
+    const long long m = m0 + mm;
+    for (int l0 = 0; l0 < leaves; l0 += LT) {
+      const int lt = min(LT, leaves - l0);
+      // chunk k's packed words into buffer k % 2, as one copy group (empty
+      // past the last chunk, so that every thread counts the same groups)
+      auto issue = [&](int k) {
+        const int r0 = r_begin + k * RC;
+        const int rows = k < n_chunks ? min(RC, r_end - r0) : 0;
+        int* buf = words + (k & 1) * RC * W;
+        const int32_t* src = packed + static_cast<long long>(r0) * W;
+        for (int i = tid; i < rows * W; i += nthreads) cp_async4(buf + i, src + i);
+        cp_async_commit();
+      };
+      // this lane's rows of chunk k, row (u * n_rw + rw) * S + slot at step
+      // u: their ids and statistics, in registers
+      int id[kLeafSteps];
+      long long rm[kLeafSteps];
+      float v[kLeafSteps][kLeafPre];
+      auto load_rows = [&](int k) {
+        const int rc0 = r_begin + k * RC;
+#pragma unroll
+        for (int u = 0; u < kLeafSteps; ++u) {
+          const int r = rc0 + (u * n_rw + rw) * S + slot;
+          const bool on = lane_on && k < n_chunks && r < r_end;
+          rm[u] = on ? static_cast<long long>(r) * M + m : -1;
+          id[u] = on ? __ldg(node + rm[u]) : -1;
+#pragma unroll
+          for (int c = 0; c < kLeafPre; ++c) {
+            v[u][c] = on && c < C ? __ldg(vals + rm[u] * C + c) : 0.f;
+          }
+        }
+      };
+      // the tables' loads go out first, then the first chunk's words and
+      // rows; the columns are zeroed while they land
+      SplitStage st;
+      if (ROUTE) st.load(best_f + m0 * half, best_t + m0 * half, mt * half);
+      if (ROUTE) issue(0);
+      load_rows(0);
+      if (ROUTE) {
+        st.store(tab, best_f + m0 * half, best_t + m0 * half, mt * half, W,
+                 bits, d);
+      }
+      for (int k = lane; k < LT * C * 8; k += 32) {
+        reinterpret_cast<float4*>(colw)[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncwarp();  // a lane adds into cells its neighbours zeroed
+      for (int k = 0; k < n_chunks; ++k) {
+        if (ROUTE) {
+          issue(k + 1);
+          cp_async_wait<1>();
+          __syncthreads();  // chunk k's words and the tables are in place
+        }
+        if (k > 0) load_rows(k);
+        const int* wk = words + (k & 1) * RC * W;
+#pragma unroll
+        for (int u = 0; u < kLeafSteps; ++u) {
+          if (rm[u] < 0) continue;
+          if (ROUTE) {
+            const int i = (u * n_rw + rw) * S + slot;  // the row within the chunk
+            id[u] = route_one(id[u], tab + mm * half, half, wk + i * W, mask);
+            if (l0 == 0) node_out[rm[u]] = id[u];
+          }
+          const int l = id[u] - l0;
+          if (static_cast<unsigned>(l) < static_cast<unsigned>(lt)) {
+            float* cell = colw + l * C * 32 + lane;
+#pragma unroll
+            for (int c = 0; c < kLeafPre; ++c) {
+              if (c < C) cell[c * 32] += v[u][c];
+            }
+            for (int c = kLeafPre; c < C; ++c) {
+              cell[c * 32] += __ldg(vals + rm[u] * C + c);
+            }
+          }
+        }
+        if (ROUTE) __syncthreads();  // buffer k % 2 is free for chunk k + 2
+      }
+      if (ROUTE) cp_async_wait<0>();
+      __syncthreads();  // every warp's columns are complete
+      // The CTA's partial P [n_mg][LT * C][32 lanes]: each lane's columns
+      // summed over its member group's warps in warp order, four lanes a
+      // thread (float4); then, when a warp holds several row slots, the
+      // slots of each member in slot order into lane `member`.
+      const int ltc = lt * C;
+      for (int e4 = tid; e4 < n_mg * ltc * 8; e4 += nthreads) {
+        int t = e4 >> 3, gi = 0;
+        if (n_mg > 1) {
+          gi = t / ltc;
+          t -= gi * ltc;
+        }
+        const float4* cw = reinterpret_cast<const float4*>(cols + gi * col_words) + t * 8 + (e4 & 7);
+        float4 s4 = cw[0];
+        for (int r2 = 1; r2 < n_rw; ++r2) {
+          const float4 x = cw[r2 * n_mg * col_words / 4];
+          s4.x += x.x;
+          s4.y += x.y;
+          s4.z += x.z;
+          s4.w += x.w;
+        }
+        reinterpret_cast<float4*>(part + gi * LT * C * 32)[t * 8 + (e4 & 7)] = s4;
+      }
+      if (S > 1) {
+        __syncthreads();
+        // lane mi of row t is read and written only by its own thread
+        for (int e = tid; e < n_mg * ltc * g; e += nthreads) {
+          const int mi2 = e % g, t = e / g;  // t runs over n_mg x ltc rows
+          float* row = part + (t / ltc * LT * C + t % ltc) * 32;
+          float s = row[mi2];
+          for (int sl = 1; sl < S; ++sl) s += row[sl * g + mi2];
+          row[mi2] = s;
+        }
+      }
+      // The cluster's sum: rank k adds its slice of the partial over the
+      // ranks in order, into L (one cluster) or this cluster's workspace.
+      cluster.sync();
+      const int E = mt * ltc;
+      const int lo = static_cast<int>(static_cast<long long>(E) * rank / cs);
+      const int hi = static_cast<int>(static_cast<long long>(E) * (rank + 1) / cs);
+      float* dst = n_cl == 1 ? out : partials + cl * M * LC;
+      for (int e = lo + tid; e < hi; e += nthreads) {
+        const int mm2 = e % mt, t = e / mt;
+        const int gi = mm2 / g;
+        float* cell = part + (gi * LT * C + t) * 32 + mm2 - gi * g;
+        float pv[kMaxCluster];
+#pragma unroll
+        for (int j = 0; j < kMaxCluster; ++j) {
+          if (j < cs) pv[j] = *cluster.map_shared_rank(cell, j);
+        }
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxCluster; ++j) {
+          if (j < cs) s += pv[j];
+        }
+        const int c = t % C, l = t / C;
+        dst[(m0 + mm2) * LC + static_cast<long long>(l0 + l) * C + c] = s;
+      }
+      // with more than one cluster, this thread's writes to the workspace
+      // are visible device-wide before rank 0 takes the cluster's ticket
+      if (n_cl > 1) __threadfence();
+      cluster.sync();  // no peer still reads this CTA's partial
+    }
+  }
+  if (n_cl == 1) return;
+  // The last cluster to take a ticket sums the clusters' partials in
+  // cluster order.
+  if (rank == 0 && tid == 0) {
+    const int last = atomicAdd(ticket, 1u) == static_cast<unsigned>(n_cl - 1);
+    for (int j = 0; j < cs; ++j) *cluster.map_shared_rank(flag, j) = last;
+  }
+  cluster.sync();
+  if (!*flag) return;
+  __threadfence();
+  const long long E = M * LC;
+  const long long lo = E * rank / cs, hi = E * (rank + 1) / cs;
+  for (long long e = lo + tid; e < hi; e += nthreads) {
+    float s = 0.f;
+    for (int k0 = 0; k0 < n_cl; k0 += kLeafBatch) {  // kLeafBatch loads in flight
+      float pv[kLeafBatch];
+#pragma unroll
+      for (int j = 0; j < kLeafBatch; ++j) {
+        pv[j] = k0 + j < n_cl ? __ldcg(partials + (k0 + j) * E + e) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kLeafBatch; ++j) {
+        if (k0 + j < n_cl) s += pv[j];
+      }
+    }
+    out[e] = s;
+  }
+  if (rank == 0 && tid == 0) *ticket = 0u;  // every cluster has taken its ticket
 }
 
 // Level histogram over words [n, W] (packed bins, or i32 bins as W = d words
@@ -507,16 +770,6 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
   }
   cluster.sync();  // no CTA leaves while a peer still reads its tile
 }
-
-using HistKernel = void (*)(const int32_t*, const int32_t*, const float*,
-                            float*, int, int, int, int, int, int, int, int,
-                            int, int, int, int);
-
-int grid_for(long long total, int threads) {
-  const long long blocks = (total + threads - 1) / threads;
-  return static_cast<int>(blocks < 65535 ? (blocks > 0 ? blocks : 1) : 65535);
-}
-
 template <int NTERMS>
 cudaError_t launch_level(const int32_t* words, const int32_t* node,
                          const float* vals, float* out, int n, int d, int M,
@@ -556,52 +809,42 @@ cudaError_t launch_level(const int32_t* words, const int32_t* node,
                             n_nodes, W, bits, g, nf, np, R, rows_per_chunk);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Bytes of dynamic shared memory one CTA of se_hist_level uses.
-long long se_hist_smem_bytes(int C, int B, int nf, int np) {
-  return 4LL * (static_cast<long long>(np) * C * nf * B + kTileRows +
-                kTileRows * C + static_cast<long long>(kTileRows) * nf);
-}
-
-// Leaf sums (src 2 = none, d = B = 1, nterms 1).  When chunks > 1, scratch
-// holds chunks * |out| floats.  Returns cudaGetLastError() after the launches.
-int se_hist_level(int src, int nterms, const int32_t* bins,
-                  const int32_t* node, const float* vals, float* out,
-                  float* scratch, int n, int d, int M, int C, int B,
-                  int n_nodes, int W, int bits, int nf, int np, int K,
-                  int chunks, int rows_per_chunk, void* stream) {
-  HistKernel kern = nullptr;
-  if (src == kSrcNone && nterms == 1) {
-    kern = hist_accumulate<kSrcNone, 1>;
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long smem = se_hist_smem_bytes(C, B, nf, np);
-  if (smem > 48 * 1024) {
+template <bool ROUTE>
+cudaError_t launch_leaf(const int32_t* packed, const int32_t* node,
+                        const float* vals, const int32_t* best_f,
+                        const int32_t* best_t, int32_t* node_out, float* out,
+                        float* partials, unsigned* ticket, int n, int M, int C,
+                        int leaves, int half, int W, int bits, int d, int g,
+                        int n_mg, int n_rw, int LT, int cs, int grid,
+                        int rows_per_cta, long long smem, cudaStream_t stream) {
+  auto kern = leaf_sums<ROUTE>;
+  static long long smem_set = 48 * 1024;  // the largest allowed so far
+  if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
   }
-  const int n_ft = (d + nf - 1) / nf;
-  const int n_pt = (n_nodes + np - 1) / np;
-  const dim3 grid(M * n_ft * n_pt, chunks);
-  const int threads = ((nf * K + 31) / 32) * 32;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dst = chunks > 1 ? scratch : out;
-  kern<<<grid, threads, static_cast<size_t>(smem), s>>>(
-      bins, node, vals, dst, n, d, M, C, B, n_nodes, W, bits, nf, np, K,
-      rows_per_chunk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || chunks <= 1) return static_cast<int>(e);
-  const long long total = static_cast<long long>(M) * n_nodes * C * d * B;
-  reduce_chunks<<<grid_for(total, 256), 256, 0, s>>>(scratch, out, total,
-                                                     chunks);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cs);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(32 * n_mg * n_rw);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, packed, node, vals, best_f, best_t,
+                            node_out, out, partials, ticket, n, M, C, leaves,
+                            half, W, bits, d, g, n_mg, n_rw, LT, rows_per_cta);
 }
+}  // namespace
+
+extern "C" {
 
 // Bytes of dynamic shared memory one CTA of se_level_hist uses.
 long long se_level_smem_bytes(int g, int nf, int np, int C, int B, int R,
@@ -645,15 +888,81 @@ int se_level_hist(int nterms, const int32_t* words, const int32_t* node,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Route every (row, member) one level down through split tables [M, half].
+// Bytes of dynamic shared memory one CTA of se_leaf_sums uses (half = W = 0
+// without split tables).
+long long se_leaf_smem_bytes(int C, int g, int n_mg, int n_rw, int LT,
+                             int half, int W) {
+  const long long MT = static_cast<long long>(n_mg) * g;
+  const long long RC = static_cast<long long>(kLeafSteps) * n_rw * (32 / g);
+  return 4LL * (static_cast<long long>(n_mg) * (n_rw + 1) * LT * C * 32 +
+                2 * MT * half + 2 * RC * W + 1);
+}
+
+// Leaf sums L [M, leaves, C] of vals [n, M, C] by the ids in node [n, M];
+// with split tables best_f / best_t [M, half] (non-null), node holds parent
+// ids, which are routed through them into node_out first.  More than one
+// cluster (grid > cs) needs the workspace: a ticket (0 between launches) and
+// grid / cs * M * leaves * C floats of partials.
+int se_leaf_sums(const int32_t* packed, const int32_t* node, const float* vals,
+                 const int32_t* best_f, const int32_t* best_t,
+                 int32_t* node_out, float* out, float* partials,
+                 unsigned* ticket, int n, int M, int C, int leaves, int half,
+                 int W, int bits, int d, int g, int n_mg, int n_rw, int LT,
+                 int cs, int grid, int rows_per_cta, void* stream) {
+  const bool route = best_f != nullptr;
+  const long long smem =
+      se_leaf_smem_bytes(C, g, n_mg, n_rw, LT, route ? half : 0, route ? W : 0);
+  const bool ok =
+      n >= 1 && M >= 1 && C >= 1 && leaves >= 1 && g >= 1 && g <= 32 &&
+      n_mg >= 1 && n_rw >= 1 && 32 * n_mg * n_rw <= kMaxLeafThreads &&
+      LT >= 1 && cs >= 1 && cs <= kMaxCluster && grid % cs == 0 &&
+      static_cast<long long>(rows_per_cta) * grid >= n && smem <= kMaxSmem &&
+      (grid == cs || (partials != nullptr && ticket != nullptr)) &&
+      (!route || (best_t != nullptr && packed != nullptr &&
+                  node_out != nullptr && half >= 1 && W >= 1 && d >= 1 &&
+                  (bits == 4 || bits == 8 || bits == 32)));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      route ? launch_leaf<true>(packed, node, vals, best_f, best_t, node_out,
+                                out, partials, ticket, n, M, C, leaves, half,
+                                W, bits, d, g, n_mg, n_rw, LT, cs, grid,
+                                rows_per_cta, smem, s)
+            : launch_leaf<false>(packed, node, vals, best_f, best_t, node_out,
+                                 out, partials, ticket, n, M, C, leaves, 0, 0,
+                                 bits, d, g, n_mg, n_rw, LT, cs, grid,
+                                 rows_per_cta, smem, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of dynamic shared memory one CTA of se_route_packed uses.
+long long se_route_smem_bytes(int M, int half, int W, int R) {
+  return 8LL * M * half + 4LL * R * W;
+}
+
+// Route every (row, member) one level down through split tables [M, half]:
+// tiles of R rows (R % 4 == 0) over `grid` CTAs.
 int se_route_packed(const int32_t* packed, const int32_t* node_in,
                     const int32_t* best_f, const int32_t* best_t,
                     int32_t* node_out, int n, int M, int half, int W,
-                    int bits, void* stream) {
-  const long long total = static_cast<long long>(n) * M;
-  route_packed<<<grid_for(total, 256), 256, 0,
+                    int bits, int d, int R, int grid, void* stream) {
+  const long long smem = se_route_smem_bytes(M, half, W, R);
+  const bool ok = n >= 1 && M >= 1 && half >= 1 && W >= 1 && d >= 1 &&
+                  R >= 4 && R % 4 == 0 && grid >= 1 && smem <= kMaxSmem &&
+                  (bits == 4 || bits == 8 || bits == 32);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  static long long smem_set = 48 * 1024;  // the largest allowed so far
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        route_packed, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = smem;
+  }
+  route_packed<<<grid, kRouteThreads, static_cast<size_t>(smem),
                  static_cast<cudaStream_t>(stream)>>>(
-      packed, node_in, best_f, best_t, node_out, n, M, half, W, bits);
+      packed, node_in, best_f, best_t, node_out, n, M, half, W, bits, d, R);
   return static_cast<int>(cudaGetLastError());
 }
 

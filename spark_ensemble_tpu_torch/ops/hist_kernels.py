@@ -8,14 +8,15 @@ Two TPU kernels are replaced, both by ``csrc/hist.cu`` (CUDA C++ for
   :func:`hist_level_pallas`: the level histogram over ``i32`` bins with the
   statistics split into bf16 hi + lo.
 - ``_fused_kernel`` (``ops/pallas_hist.py:258``, the fused tier) ->
-  :func:`fused_round_level`, split into a route launch
-  (:func:`route_packed`), then the level histogram over packed words with
-  a 3-term bf16 split (:func:`hist_level_packed`) or, in leaf mode, exact
-  f32 leaf sums (:func:`leaf_sums`).
+  :func:`fused_round_level`: a route launch (:func:`route_packed`, tiled by
+  :func:`route_plan`), then the level histogram over packed words with a
+  3-term bf16 split (:func:`hist_level_packed`); in leaf mode one launch
+  that routes and takes the exact f32 leaf sums, as the TPU kernel's leaf
+  mode does (kernel ``leaf_sums``, tiled by :func:`leaf_plan`; without split
+  tables it only sums, :func:`leaf_sums`).
 
 Both level histograms launch one kernel, ``level_hist`` (i32 bins are
-32-bit words), tiled by :func:`level_plan`; the leaf sums keep their own
-kernel and :func:`hist_plan`.
+32-bit words), tiled by :func:`level_plan`.
 
 Every wrapper checks device, dtype, shape and contiguity, and raises on
 anything the kernel does not take.  On CPU tensors it runs the plain
@@ -31,6 +32,7 @@ the sum differs.  Leaf sums are plain f32.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -56,15 +58,9 @@ _NVCC_FLAGS = (
 # launches on the card, by kernel; the CPU plain versions never count
 LAUNCHES = {"hist_i32": 0, "route_packed": 0, "hist_packed": 0, "leaf_sums": 0}
 
-# rows staged per step and the per-CTA shared-memory budget of the
-# histogram tile (csrc/hist.cu); the tile plan depends on shapes only, so
-# the summation order, and with it every bit of the result, is fixed by the
-# shapes
-_TILE_ROWS = 128
-_HIST_SMEM_BUDGET = 32 * 1024
+# every plan depends on the shapes only, so the summation order, and with
+# it every bit of a result, is fixed by the shapes
 _MAX_SMEM = 227 * 1024
-_TARGET_CTAS = 528
-_SRC_NONE = 2
 
 # the level histogram's plan (csrc/hist.cu, level_hist): rows per staged
 # tile and tiles in flight, the cells one warp owns and the cells one CTA
@@ -81,6 +77,21 @@ _MAX_WARPS = 16
 _MAX_CLUSTER = 8
 _SMS, _SM_SMEM, _SM_THREADS = 132, 228 * 1024, 1024
 _CLUSTER_PACKING = 0.9
+
+# the route's plan (csrc/hist.cu, route_packed): threads per CTA, each
+# taking 4 elements a pass, the bytes of packed words a tile stages, and the
+# card's resident threads for a kernel this light on registers
+_ROUTE_THREADS = 256
+_ROUTE_WORD_BYTES = 32 * 1024
+_SM_LIGHT_THREADS = 2048
+
+# the leaf pass's plan (csrc/hist.cu, leaf_sums): rows a lane loads before
+# it adds them (kLeafSteps), warps per CTA, the bytes of one warp's private
+# columns, and CTAs per SM
+_LEAF_STEPS = 8
+_LEAF_WARPS = 8
+_LEAF_WARP_BYTES = 16 * 1024
+_LEAF_CTAS_PER_SM = 2
 
 
 def reset_launch_counts() -> None:
@@ -131,12 +142,14 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build_kernels()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.se_hist_level.argtypes = [I, I, P, P, P, P, P] + [I] * 13 + [P]
-        lib.se_hist_level.restype = I
-        lib.se_route_packed.argtypes = [P] * 5 + [I] * 5 + [P]
+        lib.se_leaf_sums.argtypes = [P] * 9 + [I] * 15 + [P]
+        lib.se_leaf_sums.restype = I
+        lib.se_leaf_smem_bytes.argtypes = [I] * 7
+        lib.se_leaf_smem_bytes.restype = ctypes.c_longlong
+        lib.se_route_packed.argtypes = [P] * 5 + [I] * 8 + [P]
         lib.se_route_packed.restype = I
-        lib.se_hist_smem_bytes.argtypes = [I] * 4
-        lib.se_hist_smem_bytes.restype = ctypes.c_longlong
+        lib.se_route_smem_bytes.argtypes = [I] * 4
+        lib.se_route_smem_bytes.restype = ctypes.c_longlong
         lib.se_level_hist.argtypes = [I, P, P, P, P] + [I] * 14 + [P]
         lib.se_level_hist.restype = I
         lib.se_level_smem_bytes.argtypes = [I] * 8
@@ -172,38 +185,6 @@ def _device(*tensors) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel or plain version for device {dev}")
     return dev
-
-
-class HistPlan(NamedTuple):
-    nf: int  # features per CTA tile
-    np: int  # nodes per CTA tile
-    K: int  # threads per feature (each owns the keys == L mod K)
-    chunks: int  # row chunks, summed in order by the reduce grid
-    rows_per_chunk: int
-    smem: int  # dynamic shared-memory bytes per CTA
-
-
-def hist_plan(n, d, M, C, B, n_nodes) -> HistPlan:
-    """CTA tiling of the leaf sums (``d = B = 1``); a function of the shapes
-    only."""
-    cell = C * B * 4  # bytes of one (node, feature) histogram row
-    if n_nodes * cell <= _HIST_SMEM_BUDGET:
-        np_ = n_nodes
-        nf = max(1, min(d, _HIST_SMEM_BUDGET // (np_ * cell)))
-    else:
-        nf, np_ = 1, max(1, _HIST_SMEM_BUDGET // cell)
-    K = min(128, 1 << (np_ - 1).bit_length())
-    nf = min(nf, 1024 // K)
-    smem = 4 * (np_ * C * nf * B + _TILE_ROWS * (1 + C + nf))
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"histogram tile needs {smem} bytes of shared memory "
-            f"(C={C}, B={B}); the card has {_MAX_SMEM}"
-        )
-    base = M * math.ceil(d / nf) * math.ceil(n_nodes / np_)
-    chunks = max(1, min(math.ceil(_TARGET_CTAS / base), math.ceil(n / _TILE_ROWS)))
-    rows = math.ceil(n / chunks)
-    return HistPlan(nf, np_, K, math.ceil(n / rows), rows, smem)
 
 
 class LevelPlan(NamedTuple):
@@ -264,6 +245,94 @@ def level_plan(n, d, M, C, B, n_nodes, bits=32) -> LevelPlan:
     return LevelPlan(g, nf, np_, cs, math.ceil(n / cs), rows, tiles * cs, threads, smem)
 
 
+class RoutePlan(NamedTuple):
+    rows: int  # rows per tile, a multiple of 4
+    grid: int  # CTAs, one wave; each loops over tiles
+    smem: int  # dynamic shared-memory bytes per CTA
+
+
+@functools.lru_cache(maxsize=1024)
+def route_plan(n, M, half, W) -> RoutePlan:
+    """CTA tiling of one route (``route_packed``); a function of the shapes
+    only.  A tile holds as many rows as give each thread one 4-element
+    quad of (row, member) pairs, at most ``_ROUTE_WORD_BYTES`` of packed
+    words and at least 4 rows; the grid is one wave of CTAs that loop over
+    the tiles.  Raises when the split tables do not fit one CTA's shared
+    memory."""
+    rows = max(4, min(4 * _ROUTE_THREADS // M, _ROUTE_WORD_BYTES // (4 * W)) // 4 * 4)
+    smem = 8 * M * half + 4 * rows * W
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"route tile needs {smem} bytes of shared memory (M={M}, "
+            f"half={half}, W={W}); the card has {_MAX_SMEM}"
+        )
+    per_sm = max(1, min(_SM_LIGHT_THREADS // _ROUTE_THREADS, _SM_SMEM // (smem + 1024)))
+    return RoutePlan(rows, max(1, min(math.ceil(n / rows), _SMS * per_sm)), smem)
+
+
+class LeafPlan(NamedTuple):
+    g: int  # members a row slot spans: lane = slot * g + member, 32 // g slots
+    n_mg: int  # member groups per member tile
+    n_rw: int  # warps per member group; they share the CTA's rows
+    LT: int  # leaves per tile: a lane's private column holds LT x C sums
+    cs: int  # CTAs per cluster, summed in rank order
+    grid: int  # CTAs: clusters x cs; clusters are summed in order
+    rows_per_cta: int
+    threads: int  # per CTA
+    smem: int  # dynamic shared-memory bytes per CTA
+
+
+def _leaf_smem(C, g, n_mg, n_rw, LT, half, W):
+    """Bytes of the warps' columns, the CTA's partial (one more set of
+    columns per member group), the split tables, two chunks of packed
+    words and a flag: the layout of ``csrc/hist.cu::leaf_sums``."""
+    MT = n_mg * g
+    RC = _LEAF_STEPS * n_rw * (32 // g)
+    return 4 * (n_mg * (n_rw + 1) * LT * C * 32 + 2 * MT * half + 2 * RC * W + 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def leaf_plan(n, M, C, leaves, half=0, W=0) -> LeafPlan:
+    """CTA tiling of the leaf pass (``leaf_sums``) over ``leaves`` leaves,
+    routed through split tables ``[M, half]`` over packed rows of ``W``
+    words (``half = W = 0``: the ids are given); a function of the shapes
+    only, so the summation order is too.  Lanes map to members (groups of
+    32), and a warp takes ``32 // g`` rows at once when M is small.  A
+    lane's column holds every leaf unless a warp's columns pass
+    ``_LEAF_WARP_BYTES`` (then leaves are tiled); a CTA has ``_LEAF_WARPS``
+    warps; members are tiled past 8 groups.  Warps, member groups and then
+    leaves per tile halve until a CTA fits its shared memory; raises when
+    one warp with one leaf does not fit.  A CTA takes whole chunks of rows
+    (``_LEAF_STEPS`` rows a lane), as few as let the grid fill
+    ``_LEAF_CTAS_PER_SM`` CTAs per SM in one wave, in clusters of up to 8."""
+    g = min(M, 32)
+    S = 32 // g
+    n_mg = min(-(-M // g), _LEAF_WARPS)
+    n_rw = max(1, _LEAF_WARPS // n_mg)
+    LT = min(leaves, max(1, _LEAF_WARP_BYTES // (128 * C)))
+    while (smem := _leaf_smem(C, g, n_mg, n_rw, LT, half, W)) > _MAX_SMEM:
+        if n_rw > 1:
+            n_rw //= 2
+        elif n_mg > 1:
+            n_mg //= 2
+        elif LT > 1:
+            LT = -(-LT // 2)
+        else:
+            raise ValueError(
+                f"leaf pass needs {smem} bytes of shared memory (M={M}, "
+                f"C={C}, leaves={leaves}, half={half}, W={W}); the card has "
+                f"{_MAX_SMEM}"
+            )
+    threads = 32 * n_mg * n_rw
+    per_sm = max(1, min(_SM_SMEM // (smem + 1024), _SM_LIGHT_THREADS // threads, _LEAF_CTAS_PER_SM))
+    RC = _LEAF_STEPS * n_rw * S  # rows per chunk
+    chunks = max(1, math.ceil(n / RC))
+    cs = min(_MAX_CLUSTER, chunks)
+    per_cta = math.ceil(chunks / (_SMS * per_sm // cs * cs))
+    grid = cs * math.ceil(math.ceil(chunks / per_cta) / cs)
+    return LeafPlan(g, n_mg, n_rw, LT, cs, grid, per_cta * RC, threads, smem)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -296,30 +365,71 @@ def _launch_level(nterms, words, node, vals, out, *, d, B, n_nodes, W, bits):
     return out
 
 
-def _launch_hist(src, nterms, bins, node, vals, out, *, d, B, n_nodes, W=0,
-                 bits=0):
+@functools.lru_cache(maxsize=1024)
+def _checked_route_plan(n, M, half, W) -> RoutePlan:
+    """``route_plan``, held once per shape against the kernel's own
+    shared-memory layout."""
+    plan = route_plan(n, M, half, W)
+    if _library().se_route_smem_bytes(M, half, W, plan.rows) != plan.smem:
+        raise RuntimeError("route_plan and csrc/hist.cu disagree on the shared-memory layout")
+    return plan
+
+
+@functools.lru_cache(maxsize=1024)
+def _checked_leaf_plan(n, M, C, leaves, half, W) -> LeafPlan:
+    """``leaf_plan``, held once per shape against the kernel's own
+    shared-memory layout."""
+    plan = leaf_plan(n, M, C, leaves, half, W)
+    if _library().se_leaf_smem_bytes(C, plan.g, plan.n_mg, plan.n_rw, plan.LT, half, W) != plan.smem:
+        raise RuntimeError("leaf_plan and csrc/hist.cu disagree on the shared-memory layout")
+    return plan
+
+
+def _on(dev: torch.device):
+    """The CUDA device context for a launch on ``dev``, entered only when
+    ``dev`` is not the current device already."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+# the leaf pass's workspace per (device, stream): an integer ticket (4
+# floats' room) and the clusters' partials.  It is made once and grows when
+# a shape needs more; the kernel's last cluster resets the ticket, and a
+# stream's launches run in order, so it is safe across streams.
+_WORKSPACES: dict = {}
+
+
+def _leaf_workspace(dev: torch.device, stream: int, floats: int) -> torch.Tensor:
+    ws = _WORKSPACES.get((dev.index, stream))
+    if ws is None or ws.numel() < 4 + floats:
+        ws = torch.zeros(4 + floats, dtype=torch.float32, device=dev)
+        _WORKSPACES[(dev.index, stream)] = ws
+    return ws
+
+
+def _launch_leaf(packed, node, vals, best_f, best_t, node_out, out, *,
+                 leaves, bits, d):
+    """One leaf-pass launch: routed when the split tables are given."""
     n, M, C = vals.shape
-    if n == 0:
-        return out.zero_()
-    plan = hist_plan(n, d, M, C, B, n_nodes)
-    lib = _library()
-    if lib.se_hist_smem_bytes(C, B, plan.nf, plan.np) != plan.smem:
-        raise RuntimeError("hist_plan and csrc/hist.cu disagree on the shared-memory layout")
-    scratch = (
-        torch.empty(plan.chunks * out.numel(), dtype=torch.float32,
-                    device=out.device)
-        if plan.chunks > 1 else None
-    )
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = lib.se_hist_level(
-            src, nterms, _ptr(bins), _ptr(node), _ptr(vals), _ptr(out),
-            _ptr(scratch), n, d, M, C, B, n_nodes, W, bits, plan.nf,
-            plan.np, plan.K, plan.chunks, plan.rows_per_chunk, stream,
+    route = best_f is not None
+    half, W = (best_f.shape[1], packed.shape[1]) if route else (0, 0)
+    plan = _checked_leaf_plan(n, M, C, leaves, half, W)
+    dev = out.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ticket = partials = None
+    if plan.grid > plan.cs:
+        ticket = _leaf_workspace(dev, stream, plan.grid // plan.cs * M * leaves * C).data_ptr()
+        partials = ticket + 16
+    with _on(dev):
+        rc = _library().se_leaf_sums(
+            _ptr(packed), _ptr(node), _ptr(vals), _ptr(best_f), _ptr(best_t),
+            _ptr(node_out), _ptr(out), partials, ticket, n, M, C, leaves,
+            half, W, bits, d, plan.g, plan.n_mg, plan.n_rw, plan.LT, plan.cs,
+            plan.grid, plan.rows_per_cta, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"hist kernel launch failed: CUDA error {rc}")
-    return out
+        raise RuntimeError(f"leaf kernel launch failed: CUDA error {rc}")
 
 
 # ---------------------------------------------------------------------------
@@ -422,18 +532,29 @@ def _check_packed(packed, bits, num_features):
         )
 
 
+def _check_tables(best_f, best_t, node):
+    _check("best_f", best_f, torch.int32, 2)
+    _check("best_t", best_t, torch.int32, 2)
+    if best_f.shape != best_t.shape or best_f.shape[0] != node.shape[1]:
+        raise ValueError(
+            f"split tables must be [M, half] for node {tuple(node.shape)}; got "
+            f"{tuple(best_f.shape)} and {tuple(best_t.shape)}"
+        )
+
+
 def route_packed(packed, node, best_f, best_t, *, bits: int,
                  num_features: int):
     """Route every (row, member) one level down: ``2 * node + 1 -
     [bin(row, best_f[m, node]) <= best_t[m, node]]`` (the routing half of
     ``ops/pallas_hist.py::_fused_kernel``).  ``node`` holds the parent
-    level's ids in ``[0, half)``; split tables are ``i32[M, half]``."""
+    level's ids in ``[0, half)``; split tables are ``i32[M, half]``.  On the
+    card, a parent outside ``[0, half)`` or a feature outside
+    ``[0, num_features)`` routes to -1."""
     _check_packed(packed, bits, num_features)
     _check("node", node, torch.int32, 2)
-    _check("best_f", best_f, torch.int32, 2)
-    _check("best_t", best_t, torch.int32, 2)
-    if best_f.shape != best_t.shape or best_f.shape[0] != node.shape[1]:
-        raise ValueError("split tables must be [M, half] for node [n, M]")
+    _check_tables(best_f, best_t, node)
+    if packed.shape[0] != node.shape[0]:
+        raise ValueError("packed and node disagree on rows")
     dev = _device(packed, node, best_f, best_t)
     if dev.type == "cpu":
         from spark_ensemble_tpu_torch.ops.binning import CompressedBins
@@ -442,12 +563,16 @@ def route_packed(packed, node, best_f, best_t, *, bits: int,
         return route_plain(ids, node, best_f, best_t)
     n, M = node.shape
     out = torch.empty_like(node)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.se_route_packed(
+    if out.numel() == 0:
+        return out
+    W = packed.shape[1]
+    plan = _checked_route_plan(n, M, best_f.shape[1], W)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
+        rc = _library().se_route_packed(
             _ptr(packed), _ptr(node), _ptr(best_f), _ptr(best_t), _ptr(out),
-            n, M, best_f.shape[1], packed.shape[1], bits, stream,
+            n, M, best_f.shape[1], W, bits, num_features, plan.rows,
+            plan.grid, stream,
         )
     if rc != 0:
         raise RuntimeError(f"route kernel launch failed: CUDA error {rc}")
@@ -479,18 +604,56 @@ def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
 
 
 def leaf_sums(node, vals, *, n_nodes: int):
-    """Exact f32 leaf statistics ``L[M, n_nodes, C]`` (the leaf mode of
-    ``ops/pallas_hist.py::_fused_kernel``)."""
+    """Exact f32 leaf statistics ``L[M, n_nodes, C]`` of this level's ids
+    (the leaf mode of ``ops/pallas_hist.py::_fused_kernel`` without
+    routing).  On the card, an id outside ``[0, n_nodes)`` adds to no
+    leaf."""
     _check_stats(node, vals)
     dev = _device(node, vals)
     if dev.type == "cpu":
         return leaf_plain(node, vals, n_nodes)
     _, M, C = vals.shape
     out = torch.empty((M, n_nodes, C), dtype=torch.float32, device=dev)
-    _launch_hist(_SRC_NONE, 1, None, node, vals, out, d=1, B=1,
-                 n_nodes=n_nodes)
+    if node.shape[0] == 0 or out.numel() == 0:
+        return out.zero_()
+    _launch_leaf(None, node, vals, None, None, None, out, leaves=n_nodes,
+                 bits=0, d=0)
     LAUNCHES["leaf_sums"] += 1
     return out
+
+
+def _leaf_routed(packed, node, vals, best_f, best_t, *, n_nodes: int,
+                 bits: int, num_features: int):
+    """The leaf mode of ``ops/pallas_hist.py::_fused_kernel`` in one launch:
+    route the PARENT ids ``node`` through ``best_f/best_t i32[M, half]``
+    (``n_nodes == 2 * half``), then take the exact f32 leaf sums ->
+    ``(L[M, n_nodes, C], leaf ids i32[n, M])``."""
+    _check_packed(packed, bits, num_features)
+    _check_stats(node, vals)
+    _check_tables(best_f, best_t, node)
+    if packed.shape[0] != node.shape[0]:
+        raise ValueError("packed and node disagree on rows")
+    if n_nodes != 2 * best_f.shape[1]:
+        raise ValueError(
+            f"split tables of {best_f.shape[1]} parents route into "
+            f"{2 * best_f.shape[1]} leaves, not n_nodes={n_nodes}"
+        )
+    dev = _device(packed, node, vals, best_f, best_t)
+    if dev.type == "cpu":
+        from spark_ensemble_tpu_torch.ops.binning import CompressedBins
+
+        ids = unpack_bins(CompressedBins(packed, bits, num_features))
+        leaf = route_plain(ids, node, best_f, best_t)
+        return leaf_plain(leaf, vals, n_nodes), leaf
+    _, M, C = vals.shape
+    out = torch.empty((M, n_nodes, C), dtype=torch.float32, device=dev)
+    node_out = torch.empty_like(node)
+    if node.shape[0] == 0 or out.numel() == 0:
+        return out.zero_(), node_out
+    _launch_leaf(packed, node, vals, best_f, best_t, node_out, out,
+                 leaves=n_nodes, bits=bits, d=num_features)
+    LAUNCHES["leaf_sums"] += 1
+    return out, node_out
 
 
 def fused_round_level(packed, node, vals, best_f=None, best_t=None, *,
@@ -499,14 +662,20 @@ def fused_round_level(packed, node, vals, best_f=None, best_t=None, *,
     """One fused level -> ``(H, node_out)``, the counterpart of
     ``ops/pallas_hist.py::fused_round_level``: with split tables
     ``best_f/best_t i32[M, half]`` the PARENT-level ``node`` ids are routed
-    first (one route launch); then the level histogram
-    ``H f32[M, n_nodes, C, d, B]``, or the leaf sums ``[M, n_nodes, C]``
-    when ``leaf``."""
+    first; then the level histogram ``H f32[M, n_nodes, C, d, B]`` (a route
+    launch, then a histogram launch), or, when ``leaf``, the leaf sums
+    ``[M, n_nodes, C]`` (one launch routes and sums)."""
+    if (best_f is None) != (best_t is None):
+        raise ValueError("best_f and best_t come together")
+    if leaf:
+        if best_f is None:
+            return leaf_sums(node, vals, n_nodes=n_nodes), node
+        return _leaf_routed(packed, node, vals, best_f, best_t,
+                            n_nodes=n_nodes, bits=bits,
+                            num_features=num_features)
     if best_f is not None:
         node = route_packed(packed, node, best_f, best_t, bits=bits,
                             num_features=num_features)
-    if leaf:
-        return leaf_sums(node, vals, n_nodes=n_nodes), node
     H = hist_level_packed(packed, node, vals, n_nodes=n_nodes,
                           max_bins=max_bins, bits=bits,
                           num_features=num_features)

@@ -11,7 +11,8 @@ that cancel to near zero).  Routing is integer-exact: node ids are
 array-equal.  Leaf sums are plain f32 (rtol 1e-6).
 
 The CUDA kernels themselves run only on the card; chip_smoke.py holds each
-against these plain versions there."""
+against these plain versions there; tests/test_torch_leaf_route.py holds
+the routed leaf mode and the leaf and route plans."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -169,17 +170,22 @@ def test_plain_versions_never_count_launches():
 def test_hist_plan_at_the_main_path_shapes(n_nodes, leaf):
     """The CTA tiling is a function of the shapes alone (so is the
     summation order), fits the card's shared memory, and covers every
-    row, node and feature: the leaf sums' plan (``hist_plan``) and the level
-    histograms' (``level_plan``, tests/test_torch_hist_plan.py has more)."""
+    row, node and feature: the leaf pass's plan (``leaf_plan``, routed
+    through 16 parents' tables over 4 packed words a row;
+    tests/test_torch_leaf_route.py has more) and the level histograms'
+    (``level_plan``, tests/test_torch_hist_plan.py has more)."""
     n, d, M, C, B = 15000, 16, 26, 2, 64
     if leaf:
-        plan = hk.hist_plan(n, 1, M, C, 1, n_nodes)
-        assert plan == hk.hist_plan(n, 1, M, C, 1, n_nodes)
+        plan = hk.leaf_plan(n, M, C, n_nodes, n_nodes // 2, 4)
+        hk.leaf_plan.cache_clear()
+        assert plan == hk.leaf_plan(n, M, C, n_nodes, n_nodes // 2, 4)
         assert plan.smem <= 227 * 1024
-        assert plan.chunks * plan.rows_per_chunk >= n
-        assert (plan.chunks - 1) * plan.rows_per_chunk < n
-        assert plan.K & (plan.K - 1) == 0 and plan.nf * plan.K <= 1024
-        assert plan.np >= 1 and plan.nf >= 1
+        assert plan.grid * plan.rows_per_cta >= n
+        assert (plan.grid - plan.cs) * plan.rows_per_cta < n  # no cluster without rows
+        assert 1 <= plan.cs <= 8 and plan.grid % plan.cs == 0
+        assert plan.threads == 32 * plan.n_mg * plan.n_rw <= 512
+        assert plan.g == M and plan.n_mg == 1  # one lane per member
+        assert plan.LT == n_nodes  # every leaf in one tile
         return
     plan = hk.level_plan(n, d, M, C, B, n_nodes)
     assert plan == hk.level_plan(n, d, M, C, B, n_nodes)
@@ -194,6 +200,6 @@ def test_hist_plan_at_the_main_path_shapes(n_nodes, leaf):
 
 def test_hist_plan_rejects_tiles_over_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
-        hk.hist_plan(100, 4, 2, 64, 4096, 1)
+        hk.leaf_plan(100, 2, 2048, 1)  # one leaf's columns of one warp: 256 KB
     with pytest.raises(ValueError, match="shared memory"):
         hk.level_plan(100, 4, 2, 64, 4096, 1)
