@@ -11,9 +11,12 @@ A base learner exposes the same functional triple as in the JAX package:
   - ``predict_fn(params, X)`` (+ ``predict_raw_fn``/``predict_proba_fn``).
 
 PyTorch runs eagerly, so the JAX package's program caches
-(``cached_program``, ``shared_fit_context``) have no counterpart here, and
-the PRNG ``key``/mesh ``axis_name`` arguments are absent until the port
-grows random draws and distribution (ROADMAP queue 1, items 11 and 18).
+(``cached_program``, ``shared_fit_context``) have no counterpart here.
+The member protocol takes no PRNG ``key``: the port's base learners (the
+histogram trees) draw nothing, and the ensembles draw their bag weights
+and feature masks themselves (``utils/random.py``) and pass them in as
+``w`` and ``feature_mask``.  The mesh ``axis_name`` argument is absent
+until the port grows distribution (ROADMAP queue 1, item 18).
 
 Devices: every ``fit`` takes ``device`` (default ``"cuda"``); the fitted
 model keeps its tensors there and moves predict inputs to it.  Asking for
@@ -134,9 +137,67 @@ class Model(Params):
     def predict(self, X) -> torch.Tensor:
         raise NotImplementedError
 
+    @property
+    def feature_importances_(self) -> np.ndarray:
+        """Gain-based feature importances, normalized to sum 1 (Spark
+        ``TreeEnsembleModel.featureImportances``): each member tree's gains
+        are normalized to sum 1 first, members average with equal weight,
+        and the average is renormalized.  Members with no realized split
+        are skipped; an all-leaf model returns zeros."""
+        gains = np.asarray(self._feature_gains_raw(), np.float64)
+        gains = gains.reshape(-1, gains.shape[-1])
+        sums = gains.sum(axis=1, keepdims=True)
+        active = sums[:, 0] > 0
+        if not active.any():
+            return np.zeros(gains.shape[-1])
+        imp = (gains[active] / sums[active]).mean(axis=0)
+        return imp / imp.sum()
+
+    def _feature_gains_raw(self):
+        """Raw gains: ensemble models reach through their stacked members
+        with the base learner's ``feature_gains_fn``; a standalone learner
+        model is its own learner."""
+        if isinstance(self.params, dict) and "members" in self.params:
+            members = self.params["members"]
+            if members is None:  # zero kept rounds or members
+                return np.zeros((self.num_features,))
+            gains = self._base().feature_gains_fn(members, self.num_features)
+            return gains.detach().cpu().numpy()
+        gains_fn = getattr(self, "feature_gains_fn", None)
+        if gains_fn is None:
+            raise AttributeError(
+                f"{type(self).__name__} has no feature gains (gain-based "
+                "importances exist for tree base learners only)"
+            )
+        return gains_fn(self.params, self.num_features).detach().cpu().numpy()
+
+    def member(self, i: int) -> "Model":
+        """Member ``i`` as a standalone fitted model, sliced out of the
+        stacked members (a subspace-trained member predicts correctly
+        without its mask: its splits never use masked features)."""
+        if not (isinstance(self.params, dict) and "members" in self.params):
+            raise AttributeError(f"{type(self).__name__} has no stacked members")
+        members = self.params["members"]
+        if members is None:
+            raise IndexError("model kept zero members")
+        n_members = members[0].shape[0]
+        if not 0 <= i < n_members:
+            raise IndexError(f"member index {i} out of range [0, {n_members})")
+        base = self._base()
+        return base.model_from_params(
+            type(members)(*(a[i] for a in members)),
+            self.num_features,
+            getattr(self, "num_classes", None) if base.is_classifier else None,
+            self.device,
+        )
+
 
 class RegressionModel(Model):
-    pass
+    def score(self, X, y, sample_weight=None) -> float:
+        """R^2 on (X, y): ``RegressionEvaluator(metric="r2")``."""
+        from spark_ensemble_tpu_torch.evaluation import RegressionEvaluator
+
+        return RegressionEvaluator(metric="r2").evaluate(self, X, y, sample_weight)
 
 
 class ClassificationModel(Model):
@@ -154,6 +215,17 @@ class ClassificationModel(Model):
 
     def predict(self, X) -> torch.Tensor:
         return torch.argmax(self.predict_proba(X), dim=-1).to(torch.float32)
+
+    def score(self, X, y, sample_weight=None) -> float:
+        """Accuracy on (X, y):
+        ``MulticlassClassificationEvaluator(metric="accuracy")``."""
+        from spark_ensemble_tpu_torch.evaluation import (
+            MulticlassClassificationEvaluator,
+        )
+
+        return MulticlassClassificationEvaluator(metric="accuracy").evaluate(
+            self, X, y, sample_weight
+        )
 
 
 class Estimator(Params):

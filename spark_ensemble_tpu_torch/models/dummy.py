@@ -1,8 +1,9 @@
 """Dummy baseline learners (PyTorch port of ``models/dummy.py``), used
 standalone as baselines and as GBM's init model.
 
-- DummyRegressor: mean | constant(c); median and quantile need the
-  weighted quantile kernel, not ported yet (ROADMAP queue 1, item 4).
+- DummyRegressor: mean | constant(c); median and quantile, over the
+  ported weighted quantile (``utils/quantile.py``), are not ported yet
+  (ROADMAP queue 1, item 7).
 - DummyClassifier: uniform | prior | constant(c); raw = log(probability).
 """
 
@@ -43,7 +44,7 @@ class DummyRegressor(BaseLearner):
         elif strategy == "constant":
             value = torch.tensor(float(self.constant), device=y.device)
         else:
-            not_supported("strategy", strategy, "queue 1, item 4")
+            not_supported("strategy", strategy, "queue 1, item 7")
         return {"value": value.to(torch.float32)}
 
     def predict_fn(self, params, X):

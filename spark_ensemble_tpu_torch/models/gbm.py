@@ -15,12 +15,17 @@ Each round runs, as in the JAX package:
 
 The JAX package compiles chunks of rounds into one XLA program; here the
 round loop is a host loop equal to its ``_drive_rounds`` at pipeline depth
-0, with validation early stop (``_patience_step``).  At the default
-``subsample_ratio=1.0`` / ``subspace_ratio=1.0`` every bag weight is 1 and
-every feature mask is all-True — exactly what the JAX package's
-``bootstrap_weights``/``subspace_mask`` return there — so the port draws
-nothing and needs no RNG yet.  Params that would draw, and the planes not
-ported yet (checkpoints, telemetry, meshes), raise ``NotImplementedError``.
+0, with validation early stop (``_patience_step``).
+
+Uniform sampling (``subsample_ratio``, ``replacement``, ``subspace_ratio``)
+draws the JAX package's plan bit for bit (``utils/random.py``): member
+``i``'s key is ``fold_in(PRNGKey(seed), i)``, its bag weights come from
+``fold_in(key, 2)`` and its feature mask from ``fold_in(key, 1)``.  At the
+defaults (``subsample_ratio=1.0`` without replacement, ``subspace_ratio=1.0``)
+those draws are all ones and all True, so the port skips them.  Gradient
+sampling (``sampling`` goss/mvs, ``sample_method="goss"``), linear leaves
+and the planes not ported yet (checkpoints, telemetry, meshes) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,6 +53,12 @@ from spark_ensemble_tpu_torch.ops import losses as losses_mod
 from spark_ensemble_tpu_torch.ops.linesearch import projected_newton_box
 from spark_ensemble_tpu_torch.ops.tree import Tree
 from spark_ensemble_tpu_torch.params import Param, Params, gt, gt_eq, in_array, in_range
+from spark_ensemble_tpu_torch.utils.random import (
+    PRNGKey,
+    bootstrap_weights,
+    fold_in,
+    subspace_mask,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -84,8 +95,8 @@ class _GBMParams(Params):
     )
     subsample_ratio = Param(
         1.0, in_range(0.0, 1.0, lower_inclusive=False),
-        doc="per-round row subsample; values < 1 need the RNG port "
-        "(ROADMAP queue 1, item 11)",
+        doc="per-round row subsample (Bernoulli 0/1 weights, or Poisson "
+        "counts with replacement)",
     )
     sample_method = Param(
         "uniform", in_array(["uniform", "goss"]),
@@ -109,7 +120,7 @@ class _GBMParams(Params):
     replacement = Param(False, doc="subsample with replacement (Poisson weights)")
     subspace_ratio = Param(
         1.0, in_range(0.0, 1.0, lower_inclusive=False),
-        doc="per-round feature-subspace ratio; values < 1 need the RNG port",
+        doc="per-round feature-subspace ratio (a Bernoulli feature mask)",
     )
     max_iter = Param(100, gt_eq(1), doc="line-search iteration cap per round")
     tol = Param(1e-6, gt_eq(0.0), doc="line-search convergence tolerance")
@@ -123,7 +134,7 @@ class _GBMParams(Params):
         doc="minimum relative validation-loss improvement that resets the "
         "early-stop patience counter",
     )
-    seed = Param(0, doc="PRNG seed for sampling plans (no draw at ratio 1.0)")
+    seed = Param(0, doc="PRNG seed for the sampling plans")
     aggregation_depth = Param(2, gt_eq(1), doc="API parity")
     scan_chunk = Param(
         16, gt_eq(1),
@@ -149,17 +160,32 @@ class _GBMParams(Params):
             not_supported("mesh", mesh, "queue 1, item 18")
         if self.checkpoint_dir is not None:
             not_supported("checkpoint_dir", self.checkpoint_dir, "queue 1, item 16")
-        for name in ("subsample_ratio", "subspace_ratio"):
-            if float(getattr(self, name)) < 1.0:
-                not_supported(name, getattr(self, name), "queue 1, item 11")
-        if bool(self.replacement):
-            not_supported("replacement", True, "queue 1, item 11")
         if str(self.sample_method).lower() != "uniform":
             not_supported("sample_method", self.sample_method, "queue 1, item 12")
         if str(self.sampling).lower() != "none":
             not_supported("sampling", self.sampling, "queue 1, item 12")
         if str(self.leaf_model).lower() != "constant":
             not_supported("leaf_model", self.leaf_model, "queue 1, item 12")
+
+    def _sampling_plan(self, n: int, d: int, device):
+        """The per-round draws -> ``sample(i) -> (bag_w f32[n], mask
+        bool[d] | None)``: the JAX package's ``_sampling_plan`` and
+        ``_make_bag_many_fn``.  Draws that are all ones (all True) at the
+        defaults are skipped."""
+        m = int(self.num_base_learners)
+        repl, ratio = bool(self.replacement), float(self.subsample_ratio)
+        sub_ratio = float(self.subspace_ratio)
+        keys = fold_in(PRNGKey(self.seed, device), torch.arange(m, device=device))
+        bag_keys = fold_in(keys, 2)
+        masks = subspace_mask(fold_in(keys, 1), d, sub_ratio) if sub_ratio < 1.0 else None
+        ones = torch.ones((n,), dtype=torch.float32, device=device)
+
+        def sample(i):
+            bag_w = (bootstrap_weights(bag_keys[i], n, repl, ratio)
+                     if repl or ratio < 1.0 else ones)
+            return bag_w, None if masks is None else masks[i]
+
+        return sample
 
     @staticmethod
     def _patience_step(best: float, err: float, v: int, validation_tol: float):
@@ -170,7 +196,7 @@ class _GBMParams(Params):
 
     def _drive_rounds(self, run_round, best: float):
         """The host round loop (the JAX package's ``_drive_rounds`` at
-        pipeline depth 0): ``run_round() -> (params, weight, err|None)``.
+        pipeline depth 0): ``run_round(i) -> (params, weight, err|None)``.
         Returns ``(members, weights, rounds_run, v, val_history)``; the
         caller keeps ``rounds_run - v`` members."""
         members, weights, val_history = [], [], []
@@ -178,7 +204,7 @@ class _GBMParams(Params):
         label = type(self).__name__
         check = str(self.on_nonfinite).lower() == "raise"
         while i < self.num_base_learners and v < self.num_rounds:
-            params, weight, err = run_round()
+            params, weight, err = run_round(i)
             if check and not bool(
                 torch.isfinite(weight).all() & torch.isfinite(params.leaf_value).all()
             ):
@@ -346,7 +372,7 @@ class GBMRegressor(_GBMParams, Estimator):
         ctx = base.make_fit_ctx(X)
         init_model = self._fit_init(X, y, w, dev)
         pred = init_model.predict(X).clone()
-        bag_w = torch.ones((n,), dtype=torch.float32, device=dev)
+        sample = self._sampling_plan(n, d, dev)
         lr = float(self.learning_rate)
         round_core = make_reg_round_core(
             base, loss_name, self.updates.lower(), bool(self.optimized_weights),
@@ -359,9 +385,10 @@ class GBMRegressor(_GBMParams, Estimator):
             y_val_enc = loss.encode_label(y_val)
             best = float(torch.mean(loss.loss(y_val_enc, pred_val[:, None])))
 
-        def run_round():
+        def run_round(i):
             nonlocal pred, pred_val
-            params, weight, pred = round_core(ctx, X, bag_w, None, pred, y, w, lr)
+            bag_w, mask = sample(i)
+            params, weight, pred = round_core(ctx, X, bag_w, mask, pred, y, w, lr)
             err = None
             if with_validation:
                 pred_val = pred_val + weight * base.predict_fn(params, X_val)
@@ -450,7 +477,7 @@ class GBMClassifier(_GBMParams, Estimator):
         init_model, init_raw = self._init_raw_scores(X, y, w, num_classes, dev)
         y_enc = loss.encode_label(y)
         pred = init_raw[None, :].expand(n, dim).clone()
-        bag_w = torch.ones((n,), dtype=torch.float32, device=dev)
+        sample = self._sampling_plan(n, d, dev)
         alpha_ws = torch.ones((dim,), dtype=torch.float32, device=dev)
         lr = float(self.learning_rate)
         round_core = make_cls_round_core(
@@ -464,10 +491,11 @@ class GBMClassifier(_GBMParams, Estimator):
             pred_val = init_raw[None, :].expand(X_val.shape[0], dim).clone()
             best = float(torch.mean(loss.loss(y_enc_val, pred_val)))
 
-        def run_round():
+        def run_round(i):
             nonlocal pred, pred_val, alpha_ws
+            bag_w, mask = sample(i)
             params, weight, pred, alpha_ws = round_core(
-                ctx, X, y_enc, w, bag_w, None, pred, alpha_ws, lr
+                ctx, X, y_enc, w, bag_w, mask, pred, alpha_ws, lr
             )
             err = None
             if with_validation:

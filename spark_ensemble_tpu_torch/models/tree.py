@@ -1,18 +1,28 @@
-"""Decision-tree base learner over the histogram trees in ``ops/tree.py``
+"""Decision-tree base learners over the histogram trees in ``ops/tree.py``
 (PyTorch port of ``models/tree.py``).
 
-The slice ports ``DecisionTreeRegressor``, the GBM base learner; the
-classifier tree waits for the other families (ROADMAP queue 1, item 13).
-Defaults mirror Spark MLlib: ``max_depth=5``, ``min_info_gain=0.0``;
-``max_bins`` defaults to 64.
+The variance (regression) and gini (classification) criteria are both the
+sum-of-squares gain of ``ops.tree.fit_forest`` over k target columns: the
+regressor fits one column, the classifier the one-hot class columns
+(C = 1 + K statistics per row).  ``DecisionTreeRegressor`` is the GBM base
+learner; ``DecisionTreeClassifier`` is Boosting's default base and
+Bagging's for classification.  Defaults mirror Spark MLlib:
+``max_depth=5``, ``min_info_gain=0.0``; ``max_bins`` defaults to 64.
 """
 
 from __future__ import annotations
 
-from spark_ensemble_tpu_torch.models.base import BaseLearner, RegressionModel
+import torch
+
+from spark_ensemble_tpu_torch.models.base import (
+    BaseLearner,
+    ClassificationModel,
+    RegressionModel,
+)
 from spark_ensemble_tpu_torch.ops.binning import bin_features, compute_bins
 from spark_ensemble_tpu_torch.ops.tree import (
     Tree,
+    feature_gains,
     fit_forest,
     fit_tree,
     leaf_values_at,
@@ -20,6 +30,14 @@ from spark_ensemble_tpu_torch.ops.tree import (
     predict_tree,
 )
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
+
+
+def _renorm_proba(p):
+    """Leaf class distribution -> probability vector: clip tiny negative
+    fallback artifacts, renormalize.  One definition, so predict_proba and
+    the leaf-id reuse of ``fit_and_proba`` stay exactly in sync."""
+    p = torch.clamp(p, min=0.0)
+    return p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
 
 
 class _TreeLearner(BaseLearner):
@@ -72,34 +90,64 @@ class _TreeLearner(BaseLearner):
             return_leaf=return_leaf,
         )
 
+    def _targets(self, ctx, y):
+        """``[n]`` labels -> ``[n, k]`` tree targets."""
+        raise NotImplementedError
 
-class DecisionTreeRegressor(_TreeLearner):
-    is_classifier = False
+    def _targets_many(self, ctx, ys):
+        """``[n, M]`` member target columns -> ``[n, M, k]`` tree targets."""
+        raise NotImplementedError
+
+    def _direction_from_leaf(self, pred):
+        """Leaf-value selection ``[..., k]`` -> the member's prediction."""
+        raise NotImplementedError
 
     def fit_from_ctx(self, ctx, y, w, feature_mask, return_leaf=False):
         return fit_tree(
-            ctx["Xb"], y[:, None], w, ctx["thresholds"], feature_mask,
-            **self._fit_kw(return_leaf),
+            ctx["Xb"], self._targets(ctx, y), w, ctx["thresholds"],
+            feature_mask, **self._fit_kw(return_leaf),
         )
 
     def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, return_leaf=False):
         """All members in ONE forest fit (``ops.tree.fit_forest``)."""
         return fit_forest(
-            ctx["Xb"], ys[:, :, None], ws, ctx["thresholds"], feature_masks,
-            **self._fit_kw(return_leaf),
+            ctx["Xb"], self._targets_many(ctx, ys), ws, ctx["thresholds"],
+            feature_masks, **self._fit_kw(return_leaf),
         )
 
-    def fit_and_direction(self, ctx, y, w, feature_mask, X):
-        """Fit + the fitted values on the same rows, read off the leaf ids
-        the fit computed instead of re-walking the tree."""
+    def _fit_and_leaf_pred(self, ctx, y, w, feature_mask):
+        """Fit + each row's selected leaf-value vector -> (tree, [n, k]),
+        read off the leaf ids the fit computed instead of re-walking the
+        tree (an exact selection, as the JAX package's one-hot contraction)."""
         tree, node = self.fit_from_ctx(ctx, y, w, feature_mask, return_leaf=True)
-        return tree, tree.leaf_value[node.long(), 0]
+        return tree, tree.leaf_value[node.long()]
+
+    def fit_and_direction(self, ctx, y, w, feature_mask, X):
+        """Fit + the fitted predictions on the same rows (leaf-id reuse)."""
+        tree, pred = self._fit_and_leaf_pred(ctx, y, w, feature_mask)
+        return tree, self._direction_from_leaf(pred)
 
     def fit_many_and_directions(self, ctx, ys, ws, feature_masks, X):
         trees, node = self.fit_many_from_ctx(
             ctx, ys, ws, feature_masks, return_leaf=True
         )
-        return trees, leaf_values_at(trees, node)[:, :, 0]
+        return trees, self._direction_from_leaf(leaf_values_at(trees, node))
+
+    def feature_gains_fn(self, params: Tree, d: int):
+        return feature_gains(params, d)
+
+
+class DecisionTreeRegressor(_TreeLearner):
+    is_classifier = False
+
+    def _targets(self, ctx, y):
+        return y[:, None]
+
+    def _targets_many(self, ctx, ys):
+        return ys[:, :, None]
+
+    def _direction_from_leaf(self, pred):
+        return pred[..., 0]
 
     def predict_fn(self, params: Tree, X):
         return predict_tree(params, X)[:, 0]
@@ -116,5 +164,69 @@ class DecisionTreeRegressor(_TreeLearner):
 
 
 class DecisionTreeRegressionModel(RegressionModel, DecisionTreeRegressor):
+    def predict(self, X):
+        return self.predict_fn(self.params, self._input(X))
+
+
+def _argmax_f32(scores):
+    # the first maximum, as jnp.argmax takes it
+    return torch.argmax(scores, dim=-1).to(torch.float32)
+
+
+class DecisionTreeClassifier(_TreeLearner):
+    """Gini tree: the leaf values are weighted one-hot class means."""
+
+    is_classifier = True
+
+    def _targets(self, ctx, y):
+        # one-hot classes, for [n] labels and [n, M] member columns alike
+        return torch.nn.functional.one_hot(
+            y.to(torch.int64), int(ctx["num_classes"])
+        ).to(torch.float32)
+
+    _targets_many = _targets
+
+    def _direction_from_leaf(self, pred):
+        # parity with predict_fn: argmax over the leaf class distribution
+        return _argmax_f32(pred)
+
+    def fit_and_proba(self, ctx, y, w, feature_mask, X):
+        """Leaf-id reuse for SAMME.R: the selected leaf distribution,
+        renormalized exactly like ``predict_proba_fn``."""
+        tree, pred = self._fit_and_leaf_pred(ctx, y, w, feature_mask)
+        return tree, _renorm_proba(pred)
+
+    def predict_raw_fn(self, params: Tree, X):
+        return predict_tree(params, X)
+
+    def predict_proba_fn(self, params: Tree, X):
+        # weighted one-hot means: a probability vector up to zero-weight
+        # fallbacks; renormalized defensively
+        return _renorm_proba(predict_tree(params, X))
+
+    def predict_fn(self, params: Tree, X):
+        return _argmax_f32(predict_tree(params, X))
+
+    def predict_many_fn(self, params: Tree, X):
+        return _argmax_f32(predict_forest(params, X))
+
+    def predict_proba_many_fn(self, params: Tree, X):
+        return _renorm_proba(predict_forest(params, X))
+
+    def model_from_params(self, params, num_features, num_classes=None,
+                          device=None):
+        return DecisionTreeClassificationModel(
+            params=params, num_features=num_features,
+            num_classes=num_classes or 2, device=device, **self.get_params(),
+        )
+
+
+class DecisionTreeClassificationModel(ClassificationModel, DecisionTreeClassifier):
+    def predict_proba(self, X):
+        return self.predict_proba_fn(self.params, self._input(X))
+
+    def predict_raw(self, X):
+        return self.predict_raw_fn(self.params, self._input(X))
+
     def predict(self, X):
         return self.predict_fn(self.params, self._input(X))

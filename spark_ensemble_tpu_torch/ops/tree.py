@@ -22,8 +22,10 @@ Histogram tiers (``hist`` x ``hist_precision``):
   launch + histogram launch; the leaf pass sums in exact f32).
 
 Routing is an integer-exact gather, the same function as the JAX
-package's one-hot contraction.  The fast tiers (``high``/``default`` with
-histogram subtraction) and the ``stream`` tier are not ported yet.
+package's one-hot contraction.  :func:`feature_gains` sums split gains per
+feature for ``feature_importances_``.  Still to port: the fast tiers
+(``high``/``default`` with histogram subtraction, ROADMAP queue 1, item 5),
+``predict_tree_binned``, ``leaf_one_hot`` and the ``stream`` tier (Slice B).
 """
 
 from __future__ import annotations
@@ -330,6 +332,15 @@ def leaf_values_at(trees: Tree, node: torch.Tensor) -> torch.Tensor:
     M = node.shape[1]
     m = torch.arange(M, device=node.device)[None, :]
     return trees.leaf_value[m, node.long()]
+
+
+def feature_gains(trees: Tree, d: int) -> torch.Tensor:
+    """Per-feature summed split gains ``f32[..., d]`` of one tree or a
+    stack of trees (any leading axes).  No-split nodes carry gain 0 at
+    feature 0, so they add nothing."""
+    sf = trees.split_feature
+    out = torch.zeros(sf.shape[:-1] + (d,), dtype=torch.float32, device=sf.device)
+    return out.scatter_add_(-1, sf.long(), trees.split_gain.to(torch.float32))
 
 
 def predict_forest(trees: Tree, X: torch.Tensor) -> torch.Tensor:

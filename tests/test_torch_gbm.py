@@ -169,8 +169,8 @@ def test_params_have_the_reference_names_and_defaults(jcls, tcls):
 
 @pytest.mark.parametrize(
     "params",
-    [dict(subsample_ratio=0.5), dict(subspace_ratio=0.5),
-     dict(replacement=True), dict(sample_method="goss"),
+    [dict(sampling="goss"), dict(on_nonfinite="halve_step"),
+     dict(profile_dir="prof"), dict(sample_method="goss"),
      dict(sampling="mvs"), dict(leaf_model="linear"),
      dict(checkpoint_dir="ckpt"), dict(telemetry_path="t.jsonl"),
      dict(on_nonfinite="skip_round"), dict(loss="bernoulli"),
