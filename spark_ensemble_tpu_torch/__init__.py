@@ -3,14 +3,19 @@
 Ported so far, fit and predict on an NVIDIA H100 (``device="cuda"``, the
 default) or on the CPU (``device="cpu"``):
 
-- GBM: ``GBMClassifier`` (logloss) and ``GBMRegressor`` (squared loss),
-  with uniform row and feature sampling;
+- GBM: ``GBMClassifier`` (logloss, exponential, bernoulli) and
+  ``GBMRegressor`` (squared, absolute, huber, quantile, logcosh,
+  scaledlogcosh), with uniform row and feature sampling;
 - Bagging (SubBag): ``BaggingClassifier`` (hard and soft votes) and
   ``BaggingRegressor``, all members in one forest fit;
 - Boosting: ``BoostingClassifier`` (SAMME, SAMME.R) and
   ``BoostingRegressor`` (Drucker R2);
-- the base learners ``DecisionTreeRegressor``, ``DecisionTreeClassifier``,
-  ``DummyRegressor`` (mean, constant) and ``DummyClassifier``;
+- Stacking: ``StackingClassifier`` (class, raw and proba meta-features)
+  and ``StackingRegressor``;
+- the base learners ``DecisionTreeRegressor``, ``DecisionTreeClassifier``
+  (all four precisions: highest, high, default, pallas),
+  ``LinearRegression``, ``LogisticRegression`` (newton, lbfgs),
+  ``GaussianNaiveBayes``, ``DummyRegressor`` and ``DummyClassifier``;
 - the evaluators behind ``score()``, and ``jax.random``'s draws, bit for
   bit (``utils/random.py``).
 
@@ -26,8 +31,13 @@ from spark_ensemble_tpu_torch.convert import (
     boosting_classifier_from_arrays,
     boosting_regressor_from_arrays,
     decision_tree_classifier_from_arrays,
+    gaussian_nb_from_arrays,
     gbm_classifier_from_arrays,
     gbm_regressor_from_arrays,
+    linear_regression_from_arrays,
+    logistic_regression_from_arrays,
+    stacking_classifier_from_models,
+    stacking_regressor_from_models,
 )
 from spark_ensemble_tpu_torch.evaluation import (
     BinaryClassificationEvaluator,
@@ -57,6 +67,22 @@ from spark_ensemble_tpu_torch.models.gbm import (
     GBMClassifier,
     GBMRegressionModel,
     GBMRegressor,
+)
+from spark_ensemble_tpu_torch.models.linear import (
+    LinearRegression,
+    LinearRegressionModel,
+    LogisticRegression,
+    LogisticRegressionModel,
+)
+from spark_ensemble_tpu_torch.models.naive_bayes import (
+    GaussianNaiveBayes,
+    GaussianNaiveBayesModel,
+)
+from spark_ensemble_tpu_torch.models.stacking import (
+    StackingClassificationModel,
+    StackingClassifier,
+    StackingRegressionModel,
+    StackingRegressor,
 )
 from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassificationModel,
@@ -91,15 +117,30 @@ __all__ = [
     "GBMClassifier",
     "GBMRegressionModel",
     "GBMRegressor",
+    "GaussianNaiveBayes",
+    "GaussianNaiveBayesModel",
+    "LinearRegression",
+    "LinearRegressionModel",
+    "LogisticRegression",
+    "LogisticRegressionModel",
     "MulticlassClassificationEvaluator",
     "RegressionEvaluator",
+    "StackingClassificationModel",
+    "StackingClassifier",
+    "StackingRegressionModel",
+    "StackingRegressor",
     "bagging_classifier_from_arrays",
     "bagging_regressor_from_arrays",
     "boosting_classifier_from_arrays",
     "boosting_regressor_from_arrays",
     "decision_tree_classifier_from_arrays",
+    "gaussian_nb_from_arrays",
     "gbm_classifier_from_arrays",
     "gbm_regressor_from_arrays",
+    "linear_regression_from_arrays",
+    "logistic_regression_from_arrays",
+    "stacking_classifier_from_models",
+    "stacking_regressor_from_models",
     "weighted_median",
     "weighted_quantile",
 ]

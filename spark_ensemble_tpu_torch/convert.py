@@ -13,9 +13,15 @@ never imports the JAX package):
   ``[rounds]``) or Boosting estimator weights ``[members]``;
 - ``masks``: Bagging's per-member feature subspaces ``bool[members, d]``;
 - ``init_raw`` (GBM classifier ``[dim]``) or ``init`` (GBM regressor: the
-  init model's constant prediction).
+  init model's constant prediction, whatever its strategy: mean, median or
+  quantile); a GBM's loss and its ``alpha`` travel in the params dict;
+- the linear models' ``coef``, ``intercept`` and ``mask``; GaussianNB's
+  ``mean``, ``var``, ``log_prior`` and ``mask``.
 
-The functions here rebuild the port's model on ``device``.
+A Stacking model's members and stacker are converted one by one with the
+functions here; ``stacking_*_from_models`` assembles them.  The functions
+rebuild the port's model on ``device``; estimator-valued params (base
+learners, stackers) become the port's estimators of the same name.
 """
 
 from __future__ import annotations
@@ -33,9 +39,31 @@ from spark_ensemble_tpu_torch.models.boosting import (
     BoostingRegressionModel,
 )
 from spark_ensemble_tpu_torch.models.dummy import DummyRegressor
+from spark_ensemble_tpu_torch.models.bagging import BaggingClassifier, BaggingRegressor
+from spark_ensemble_tpu_torch.models.base import Estimator
+from spark_ensemble_tpu_torch.models.boosting import BoostingClassifier, BoostingRegressor
+from spark_ensemble_tpu_torch.models.dummy import DummyClassifier
 from spark_ensemble_tpu_torch.models.gbm import (
     GBMClassificationModel,
+    GBMClassifier,
     GBMRegressionModel,
+    GBMRegressor,
+)
+from spark_ensemble_tpu_torch.models.linear import (
+    LinearRegression,
+    LinearRegressionModel,
+    LogisticRegression,
+    LogisticRegressionModel,
+)
+from spark_ensemble_tpu_torch.models.naive_bayes import (
+    GaussianNaiveBayes,
+    GaussianNaiveBayesModel,
+)
+from spark_ensemble_tpu_torch.models.stacking import (
+    StackingClassificationModel,
+    StackingClassifier,
+    StackingRegressionModel,
+    StackingRegressor,
 )
 from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassificationModel,
@@ -45,21 +73,52 @@ from spark_ensemble_tpu_torch.models.tree import (
 from spark_ensemble_tpu_torch.ops.tree import Tree
 
 TREE_FIELDS = Tree._fields
-_TREES = {c.__name__: c for c in (DecisionTreeClassifier, DecisionTreeRegressor)}
+# the port's estimators by the JAX package's class names
+_ESTIMATORS = {c.__name__: c for c in (
+    DecisionTreeClassifier, DecisionTreeRegressor, DummyRegressor,
+    DummyClassifier, LinearRegression, LogisticRegression, GaussianNaiveBayes,
+    GBMClassifier, GBMRegressor, BaggingClassifier, BaggingRegressor,
+    BoostingClassifier, BoostingRegressor, StackingClassifier,
+    StackingRegressor,
+)}
+_ESTIMATOR_PARAMS = ("base_learner", "base_learners", "stacker")
+
+
+def _port_estimator(est):
+    """A JAX-package estimator as the port's estimator of the same name,
+    its estimator-valued params converted too."""
+    if est is None or isinstance(est, Estimator):
+        return est
+    cls = _ESTIMATORS.get(type(est).__name__)
+    if cls is None:
+        raise NotImplementedError(
+            f"{type(est).__name__} is not ported yet (ROADMAP queue 1, "
+            "items 12-14)"
+        )
+    return cls(**_port_params(est.get_params()))
 
 
 def _port_params(params: dict, default_tree=DecisionTreeRegressor) -> dict:
-    """The JAX model's ``get_params()`` with its base learner (a JAX-package
-    tree, or its params dict) rebuilt as the port's tree learner of the
-    same name (``default_tree`` for a dict)."""
+    """A JAX model's ``get_params()`` with its estimator-valued params
+    rebuilt as the port's estimators of the same names (a params dict as a
+    base learner becomes ``default_tree``)."""
     out = dict(params)
-    base = out.get("base_learner")
-    if base is not None and not isinstance(base, tuple(_TREES.values())):
-        if isinstance(base, dict):
-            out["base_learner"] = default_tree(**base)
+    for key in _ESTIMATOR_PARAMS:
+        if key not in out:
+            continue
+        value = out[key]
+        if isinstance(value, dict):
+            out[key] = default_tree(**value)
+        elif isinstance(value, (list, tuple)):
+            out[key] = [_port_estimator(v) for v in value]
         else:
-            out["base_learner"] = _TREES[type(base).__name__](**base.get_params())
+            out[key] = _port_estimator(value)
     return out
+
+
+def _tensors(arrays: dict, keys, device) -> dict:
+    return {k: torch.as_tensor(np.array(arrays[k], np.float32), device=device)
+            for k in keys}
 
 
 def _trees(arrays: dict, device) -> Tree:
@@ -186,4 +245,61 @@ def boosting_regressor_from_arrays(params: dict, arrays: dict, *,
     return BoostingRegressionModel(
         params=model_params, num_features=num_features, num_members=m,
         device=dev, **_port_params(params),
+    )
+
+
+def linear_regression_from_arrays(params: dict, arrays: dict, *,
+                                  num_features: int, device="cuda"):
+    """Port model of a fitted JAX ``LinearRegressionModel``."""
+    dev = resolve_device(device)
+    return LinearRegressionModel(
+        params=_tensors(arrays, ("coef", "intercept", "mask"), dev),
+        num_features=num_features, device=dev, **params,
+    )
+
+
+def logistic_regression_from_arrays(params: dict, arrays: dict, *,
+                                    num_features: int, num_classes: int,
+                                    device="cuda"):
+    """Port model of a fitted JAX ``LogisticRegressionModel``."""
+    dev = resolve_device(device)
+    return LogisticRegressionModel(
+        params=_tensors(arrays, ("coef", "intercept", "mask"), dev),
+        num_features=num_features, num_classes=num_classes, device=dev,
+        **params,
+    )
+
+
+def gaussian_nb_from_arrays(params: dict, arrays: dict, *, num_features: int,
+                            num_classes: int, device="cuda"):
+    """Port model of a fitted JAX ``GaussianNaiveBayesModel``."""
+    dev = resolve_device(device)
+    return GaussianNaiveBayesModel(
+        params=_tensors(arrays, ("mean", "var", "log_prior", "mask"), dev),
+        num_features=num_features, num_classes=num_classes, device=dev,
+        **params,
+    )
+
+
+def stacking_regressor_from_models(params: dict, base_models, stack_model, *,
+                                   num_features: int, device="cuda"):
+    """Port model of a fitted JAX ``StackingRegressionModel`` from its
+    members and stacker, each already converted to the port."""
+    dev = resolve_device(device)
+    return StackingRegressionModel(
+        base_models=list(base_models), stack_model=stack_model,
+        num_features=num_features, device=dev, **_port_params(params),
+    )
+
+
+def stacking_classifier_from_models(params: dict, base_models, stack_model, *,
+                                    num_features: int, num_classes: int,
+                                    device="cuda"):
+    """Port model of a fitted JAX ``StackingClassificationModel`` from its
+    members and stacker, each already converted to the port."""
+    dev = resolve_device(device)
+    return StackingClassificationModel(
+        base_models=list(base_models), stack_model=stack_model,
+        num_features=num_features, num_classes=num_classes, device=dev,
+        **_port_params(params),
     )

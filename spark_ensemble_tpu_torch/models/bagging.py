@@ -34,6 +34,7 @@ from spark_ensemble_tpu_torch.models.base import (
 from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
+    check_tree_base,
 )
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
 from spark_ensemble_tpu_torch.utils.random import (
@@ -86,6 +87,7 @@ class _BaggingParams(Estimator):
         self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
+        check_tree_base(self._base(), type(self).__name__)
         dev = resolve_device(device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)

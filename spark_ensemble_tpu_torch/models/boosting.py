@@ -57,6 +57,7 @@ from spark_ensemble_tpu_torch.models.gbm import stack_trees
 from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
+    check_tree_base,
 )
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array
 from spark_ensemble_tpu_torch.utils.quantile import weighted_median_rows
@@ -116,6 +117,7 @@ class _BoostingParams(Estimator):
             not_supported("mesh", mesh, "queue 1, item 18")
         if self.checkpoint_dir is not None:
             not_supported("checkpoint_dir", self.checkpoint_dir, "queue 1, item 16")
+        check_tree_base(self._base(), type(self).__name__)
         dev = resolve_device(device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)

@@ -1,9 +1,8 @@
 """Dummy baseline learners (PyTorch port of ``models/dummy.py``), used
 standalone as baselines and as GBM's init model.
 
-- DummyRegressor: mean | constant(c); median and quantile, over the
-  ported weighted quantile (``utils/quantile.py``), are not ported yet
-  (ROADMAP queue 1, item 7).
+- DummyRegressor: mean | median | quantile(q) | constant(c); median and
+  quantile are the exact weighted ones of ``utils/quantile.py``.
 - DummyClassifier: uniform | prior | constant(c); raw = log(probability).
 """
 
@@ -15,9 +14,9 @@ from spark_ensemble_tpu_torch.models.base import (
     BaseLearner,
     ClassificationModel,
     RegressionModel,
-    not_supported,
 )
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
+from spark_ensemble_tpu_torch.utils.quantile import weighted_median, weighted_quantile
 
 
 class DummyRegressor(BaseLearner):
@@ -41,10 +40,12 @@ class DummyRegressor(BaseLearner):
         strategy = self.strategy.lower()
         if strategy == "mean":
             value = torch.sum(w * y) / torch.clamp(torch.sum(w), min=1e-30)
-        elif strategy == "constant":
-            value = torch.tensor(float(self.constant), device=y.device)
+        elif strategy == "median":
+            value = weighted_median(y, w)
+        elif strategy == "quantile":
+            value = weighted_quantile(y, self.quantile, w)
         else:
-            not_supported("strategy", strategy, "queue 1, item 7")
+            value = torch.tensor(float(self.constant), device=y.device)
         return {"value": value.to(torch.float32)}
 
     def predict_fn(self, params, X):

@@ -9,9 +9,14 @@ Each round runs, as in the JAX package:
 2. one fused tree fit over all class dims (``DecisionTreeRegressor.
    fit_many_and_directions`` -> ``ops.tree.fit_forest``), whose leaf ids
    give the round's directions on the training rows;
-3. the step sizes: the closed-form minimizer for squared loss, projected
-   Newton over the class dims for logloss;
+3. the step sizes: the closed-form minimizer for squared loss, Brent's
+   search over [0, 100] for the other regression losses, projected Newton
+   over the class dims for the classification losses;
 4. the prediction update.
+
+Huber's delta adapts as in the JAX package: the alpha-quantile of the
+labels for the initial validation loss, then the alpha-quantile of
+``|y - pred|`` re-taken on the device before every round.
 
 The JAX package compiles chunks of rounds into one XLA program; here the
 round loop is a host loop equal to its ``_drive_rounds`` at pipeline depth
@@ -48,11 +53,12 @@ from spark_ensemble_tpu_torch.models.base import (
     resolve_weights,
 )
 from spark_ensemble_tpu_torch.models.dummy import DummyClassifier, DummyRegressor
-from spark_ensemble_tpu_torch.models.tree import DecisionTreeRegressor
+from spark_ensemble_tpu_torch.models.tree import DecisionTreeRegressor, check_tree_base
 from spark_ensemble_tpu_torch.ops import losses as losses_mod
-from spark_ensemble_tpu_torch.ops.linesearch import projected_newton_box
+from spark_ensemble_tpu_torch.ops.linesearch import brent_minimize, projected_newton_box
 from spark_ensemble_tpu_torch.ops.tree import Tree
 from spark_ensemble_tpu_torch.params import Param, Params, gt, gt_eq, in_array, in_range
+from spark_ensemble_tpu_torch.utils.quantile import weighted_quantile
 from spark_ensemble_tpu_torch.utils.random import (
     PRNGKey,
     bootstrap_weights,
@@ -86,8 +92,8 @@ class _GBMParams(Params):
     optimized_weights = Param(
         True,
         doc="line-search the per-round step size(s): closed form for "
-        "squared loss, projected Newton over the class dims for logloss; "
-        "False uses 1.0",
+        "squared loss, Brent for the other regression losses, projected "
+        "Newton over the class dims for classification; False uses 1.0",
     )
     updates = Param(
         "gradient", in_array(["gradient", "newton"]),
@@ -158,6 +164,7 @@ class _GBMParams(Params):
         self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
+        check_tree_base(self._base(), type(self).__name__)
         if self.checkpoint_dir is not None:
             not_supported("checkpoint_dir", self.checkpoint_dir, "queue 1, item 16")
         if str(self.sample_method).lower() != "uniform":
@@ -258,12 +265,22 @@ def _pseudo_residuals_and_weights(loss, updates, y_enc, pred, bag_w, w):
     return labels, fit_w, bag_w
 
 
-def make_reg_round_core(base, loss_name, updates, optimized, tol, max_iter):
-    """One regressor round ``(ctx, X, bag_w, mask, pred, y, w, lr) ->
-    (params, weight, new_pred)`` (squared loss: the closed-form step)."""
-    loss = losses_mod.get_regression_loss(loss_name)
+def _make_reg_loss(loss_name, alpha_q, delta):
+    """The round's loss: huber at this round's ``delta``, the alpha-shaped
+    losses at ``alpha_q``."""
+    if loss_name == "huber":
+        return losses_mod.HuberLoss(delta)
+    return losses_mod.get_regression_loss(loss_name, alpha=alpha_q, quantile=alpha_q)
 
-    def round_core(ctx, X, bag_w, mask, pred, y, w, lr):
+
+def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, tol,
+                        max_iter):
+    """One regressor round ``(ctx, X, bag_w, mask, pred, delta, y, w, lr) ->
+    (params, weight, new_pred)``: the closed-form step for squared loss,
+    Brent over [0, 100] for the others."""
+
+    def round_core(ctx, X, bag_w, mask, pred, delta, y, w, lr):
+        loss = _make_reg_loss(loss_name, alpha_q, delta)
         y_enc = loss.encode_label(y)
         labels, fit_w, bag_w = _pseudo_residuals_and_weights(
             loss, updates, y_enc, pred[:, None], bag_w, w
@@ -271,7 +288,7 @@ def make_reg_round_core(base, loss_name, updates, optimized, tol, max_iter):
         params, direction = base.fit_and_direction(
             ctx, labels[:, 0].contiguous(), fit_w[:, 0].contiguous(), mask, X
         )
-        if optimized:
+        if optimized and loss_name == "squared":
             # phi(a) = sum bw*(res - a*dir)^2/2 is exactly quadratic: the
             # minimizer in closed form, clamped to Brent's [0, 100] bracket
             res = y - pred
@@ -282,6 +299,14 @@ def make_reg_round_core(base, loss_name, updates, optimized, tol, max_iter):
                 torch.clamp(num / torch.clamp(den, min=1e-30), 0.0, 100.0),
                 torch.ones((), device=den.device),
             )
+        elif optimized:
+            def phi(a):
+                return torch.sum(
+                    bag_w * loss.loss(y_enc, (pred + a * direction)[:, None])
+                )
+
+            alpha = brent_minimize(phi, 0.0, 100.0, tol=tol,
+                                   max_iter=max_iter).to(pred.device)
         else:
             alpha = torch.ones((), device=pred.device)
         weight = lr * alpha
@@ -328,17 +353,21 @@ def make_cls_round_core(base, loss, dim, updates, optimized, tol, max_iter):
 
 
 class GBMRegressor(_GBMParams, Estimator):
-    """Friedman GBM regressor; the slice ports squared loss."""
+    """Friedman GBM regressor."""
 
     loss = Param(
         "squared",
         in_array(
             ["squared", "absolute", "huber", "quantile", "logcosh", "scaledlogcosh"]
         ),
-        doc="regression loss; the port implements 'squared' (ROADMAP "
-        "queue 1, item 3)",
+        doc="regression loss: squared|absolute|huber|quantile, and the "
+        "logcosh and scaledlogcosh extensions",
     )
-    alpha = Param(0.9, in_range(0.0, 1.0), doc="huber/quantile shape parameter")
+    alpha = Param(
+        0.9, in_range(0.0, 1.0),
+        doc="huber/quantile/scaledlogcosh shape parameter (the adaptive "
+        "huber delta re-quantiles the residuals each round)",
+    )
     init_strategy = Param(
         "constant", in_array(["constant", "zero", "base"]),
         doc="round-0 prediction: weighted target constant, zero, or a "
@@ -351,9 +380,14 @@ class GBMRegressor(_GBMParams, Estimator):
         strategy = self.init_strategy.lower()
         if strategy == "base":
             return self._base().fit(X, y, sample_weight=w, device=device)
+        name = self.loss.lower()
         if strategy == "zero":
             dummy = DummyRegressor(strategy="constant", constant=0.0)
-        else:  # squared loss: the weighted mean
+        elif name in ("absolute", "huber"):
+            dummy = DummyRegressor(strategy="median")
+        elif name == "quantile":
+            dummy = DummyRegressor(strategy="quantile", quantile=self.alpha)
+        else:
             dummy = DummyRegressor(strategy="mean")
         return dummy.fit(X, y, sample_weight=w, device=device)
 
@@ -361,7 +395,8 @@ class GBMRegressor(_GBMParams, Estimator):
             mesh=None, device="cuda"):
         self._check_gbm_support(mesh)
         loss_name = self.loss.lower()
-        loss = losses_mod.get_regression_loss(loss_name)
+        alpha_q = float(self.alpha)
+        huber = loss_name == "huber"
         dev = resolve_device(device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
@@ -371,28 +406,44 @@ class GBMRegressor(_GBMParams, Estimator):
         base = self._base().copy()
         ctx = base.make_fit_ctx(X)
         init_model = self._fit_init(X, y, w, dev)
+        # initial huber delta: the alpha-quantile of the label over the
+        # full input, validation rows included
+        delta = (weighted_quantile(torch.cat([y, y_val]) if y_val is not None else y,
+                                   alpha_q)
+                 if huber else torch.zeros((), device=dev))
         pred = init_model.predict(X).clone()
         sample = self._sampling_plan(n, d, dev)
         lr = float(self.learning_rate)
         round_core = make_reg_round_core(
-            base, loss_name, self.updates.lower(), bool(self.optimized_weights),
-            float(self.tol), int(self.max_iter),
+            base, loss_name, alpha_q, self.updates.lower(),
+            bool(self.optimized_weights), float(self.tol), int(self.max_iter),
         )
         with_validation = X_val is not None
         best = 0.0
         if with_validation:
             pred_val = init_model.predict(X_val).clone()
-            y_val_enc = loss.encode_label(y_val)
-            best = float(torch.mean(loss.loss(y_val_enc, pred_val[:, None])))
+            y_val_enc = y_val[:, None]
+            best = float(torch.mean(
+                _make_reg_loss(loss_name, alpha_q, delta).loss(y_val_enc, pred_val[:, None])
+            ))
+        ones = torch.ones_like(y)
+        deltas = []
 
         def run_round(i):
-            nonlocal pred, pred_val
+            nonlocal pred, pred_val, delta
             bag_w, mask = sample(i)
-            params, weight, pred = round_core(ctx, X, bag_w, mask, pred, y, w, lr)
+            if huber:
+                delta = weighted_quantile(torch.abs(y - pred), alpha_q, weights=ones)
+                deltas.append(delta)
+            params, weight, pred = round_core(
+                ctx, X, bag_w, mask, pred, delta, y, w, lr
+            )
             err = None
             if with_validation:
                 pred_val = pred_val + weight * base.predict_fn(params, X_val)
-                err = torch.mean(loss.loss(y_val_enc, pred_val[:, None]))
+                err = torch.mean(
+                    _make_reg_loss(loss_name, alpha_q, delta).loss(y_val_enc, pred_val[:, None])
+                )
             return params, weight, err
 
         members, weights, i, v, val_history = self._drive_rounds(run_round, best)
@@ -405,6 +456,8 @@ class GBMRegressor(_GBMParams, Estimator):
                 "init": init_model.params,
                 "val_hist": (np.asarray(val_history, np.float32)
                              if with_validation else None),
+                # each round's huber delta (every round run, kept or not)
+                "huber_delta": torch.stack(deltas) if huber else None,
             },
             num_features=d,
             init_model=init_model,
@@ -437,8 +490,8 @@ class GBMClassifier(_GBMParams, Estimator):
 
     loss = Param(
         "logloss", in_array(["logloss", "exponential", "bernoulli"]),
-        doc="K-class softmax cross-entropy; the binary exponential and "
-        "bernoulli losses are not ported yet (ROADMAP queue 1, item 3)",
+        doc="K-class softmax cross-entropy, or the reference's binary "
+        "exponential / bernoulli losses on (-f, f) raw scores",
     )
     init_strategy = Param(
         "prior", in_array(["prior", "uniform"]),
@@ -450,13 +503,24 @@ class GBMClassifier(_GBMParams, Estimator):
     def _make_loss(self, num_classes):
         return losses_mod.get_classification_loss(self.loss.lower(), num_classes)
 
-    def _init_raw_scores(self, X, y, w, num_classes, device):
-        """Init model + round-0 raw scores (logloss: dim == num_classes,
-        raw = log prior)."""
+    def _init_raw_scores(self, X, y, w, num_classes, dim, device):
+        """Init model + round-0 raw scores: log prior for logloss (dim ==
+        num_classes); for the binary dim-1 losses the prior log-odds, or
+        zero under 'uniform'."""
         init_model = DummyClassifier(strategy=self.init_strategy).fit(
             X, y, sample_weight=w, num_classes=num_classes, device=device
         )
-        return init_model, init_model.params["raw"]
+        if dim == 1 and num_classes == 2 and self.init_strategy.lower() == "prior":
+            # clamp both sides: a train split can hold no positives
+            p1 = init_model.params["proba"][1]
+            init_raw = torch.log(
+                torch.clamp(p1, min=1e-30) / torch.clamp(1.0 - p1, min=1e-30)
+            )[None]
+        elif dim == 1:
+            init_raw = torch.zeros((1,), dtype=torch.float32, device=device)
+        else:
+            init_raw = init_model.params["raw"]
+        return init_model, init_raw
 
     def fit(self, X, y, sample_weight=None, validation_indicator=None,
             mesh=None, num_classes=None, device="cuda"):
@@ -474,7 +538,7 @@ class GBMClassifier(_GBMParams, Estimator):
         n, d = X.shape
         base = self._base().copy()
         ctx = base.make_fit_ctx(X)
-        init_model, init_raw = self._init_raw_scores(X, y, w, num_classes, dev)
+        init_model, init_raw = self._init_raw_scores(X, y, w, num_classes, dim, dev)
         y_enc = loss.encode_label(y)
         pred = init_raw[None, :].expand(n, dim).clone()
         sample = self._sampling_plan(n, d, dev)
@@ -525,16 +589,15 @@ class GBMClassifier(_GBMParams, Estimator):
 
 
 class GBMClassificationModel(ClassificationModel, GBMClassifier):
-    """raw = init_raw + sum_ij w_ij m_ij(x); probabilities by the loss's
-    raw -> probability mapping."""
+    """raw = init_raw + sum_ij w_ij m_ij(x), and (-f, f) for the binary
+    dim-1 losses; probabilities by the loss's raw -> probability mapping."""
 
     def __init__(self, num_members=0, dim=1, **kwargs):
         super().__init__(**kwargs)
         self.num_members = num_members
         self.dim = dim
 
-    def predict_raw(self, X):
-        X = self._input(X)
+    def _raw_state(self, X):
         out = self.params["init_raw"][None, :].expand(X.shape[0], self.dim)
         if self.num_members == 0:
             return out.clone()
@@ -545,6 +608,12 @@ class GBMClassificationModel(ClassificationModel, GBMClassifier):
         flat = Tree(*(a.reshape((r * dim,) + a.shape[2:]) for a in members))
         preds = self._base().predict_many_fn(flat, X).reshape(r, dim, -1)
         return out + torch.einsum("md,mdn->nd", weights, preds)
+
+    def predict_raw(self, X):
+        f = self._raw_state(self._input(X))
+        if self.dim == 1 and self.num_classes == 2:
+            return torch.cat([-f, f], dim=1)
+        return f
 
     def predict_proba(self, X):
         return self._make_loss(self.num_classes).raw2probability(self.predict_raw(X))

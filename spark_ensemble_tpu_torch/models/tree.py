@@ -32,6 +32,17 @@ from spark_ensemble_tpu_torch.ops.tree import (
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
 
 
+def check_tree_base(base, family: str):
+    """Raise unless ``base`` is one of the histogram trees: the ensembles'
+    fused member fits, stacked member params and forest predicts are the
+    trees' (other base learners under them: ROADMAP queue 1, item 14)."""
+    if not isinstance(base, _TreeLearner):
+        raise NotImplementedError(
+            f"{family} over {type(base).__name__} is not supported by the "
+            "PyTorch port yet (ROADMAP queue 1, item 14)"
+        )
+
+
 def _renorm_proba(p):
     """Leaf class distribution -> probability vector: clip tiny negative
     fallback artifacts, renormalize.  One definition, so predict_proba and
@@ -57,10 +68,14 @@ class _TreeLearner(BaseLearner):
         "highest",
         in_array(["highest", "high", "default", "pallas"]),
         doc="precision of the histogram statistics: 'highest' = true f32; "
-        "'pallas' = the level histograms of a forest fit come from the "
-        "CUDA kernel that replaces the JAX package's pallas kernel "
-        "(ops/hist_kernels.py, bf16 hi + lo statistics); 'high' and "
-        "'default' (histogram subtraction) are not ported yet",
+        "'high' = true f32 with histogram subtraction (right children as "
+        "parent - left) and triangular-matmul prefix sums; 'default' = "
+        "the same with the statistic operands rounded to bf16 (f32 "
+        "accumulation); 'pallas' = the level histograms of a forest fit "
+        "come from the CUDA kernel that replaces the JAX package's pallas "
+        "kernel (ops/hist_kernels.py, bf16 hi + lo statistics), and a "
+        "single tree runs at 'high'.  'high' and 'default' change only "
+        "the matmul and fused tiers (ops/tree.py)",
     )
     hist = Param(
         "auto",

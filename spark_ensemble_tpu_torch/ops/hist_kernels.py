@@ -20,9 +20,10 @@ Both level histograms launch one kernel, ``level_hist`` (i32 bins are
 
 Every wrapper checks device, dtype, shape and contiguity, and raises on
 anything the kernel does not take.  On CPU tensors it runs the plain
-version; on CUDA tensors it launches the kernel on the current stream or
-raises — it never falls back.  Each launch adds one to
-``LAUNCHES[<kernel>]``.  The kernel source notes what bounds each kernel and
+version; on CUDA tensors it launches the kernel on the stream current at
+the call (so host threads may launch side by side) or raises — it never
+falls back.  Each launch adds one to ``LAUNCHES[<kernel>]``, under a lock;
+the library loads once per process, under another.  The kernel source notes what bounds each kernel and
 what its design does about it.
 
 Precision: the kernel and its plain version split each row's statistic
@@ -41,6 +42,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -57,6 +59,13 @@ _NVCC_FLAGS = (
 
 # launches on the card, by kernel; the CPU plain versions never count
 LAUNCHES = {"hist_i32": 0, "route_packed": 0, "hist_packed": 0, "leaf_sums": 0}
+_COUNT_LOCK = threading.Lock()
+_LIB_LOCK = threading.Lock()
+
+
+def _count(kernel: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 # every plan depends on the shapes only, so the summation order, and with
 # it every bit of a result, is fixed by the shapes
@@ -95,8 +104,9 @@ _LEAF_CTAS_PER_SM = 2
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 _lib = None
@@ -139,23 +149,28 @@ def build_kernels() -> Path:
 
 def _library():
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_kernels()))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.se_leaf_sums.argtypes = [P] * 9 + [I] * 15 + [P]
-        lib.se_leaf_sums.restype = I
-        lib.se_leaf_smem_bytes.argtypes = [I] * 7
-        lib.se_leaf_smem_bytes.restype = ctypes.c_longlong
-        lib.se_route_packed.argtypes = [P] * 5 + [I] * 8 + [P]
-        lib.se_route_packed.restype = I
-        lib.se_route_smem_bytes.argtypes = [I] * 4
-        lib.se_route_smem_bytes.restype = ctypes.c_longlong
-        lib.se_level_hist.argtypes = [I, P, P, P, P] + [I] * 14 + [P]
-        lib.se_level_hist.restype = I
-        lib.se_level_smem_bytes.argtypes = [I] * 8
-        lib.se_level_smem_bytes.restype = ctypes.c_longlong
-        _lib = lib
+    with _LIB_LOCK:
+        if _lib is None:
+            _lib = _load_library()
     return _lib
+
+
+def _load_library():
+    lib = ctypes.CDLL(str(build_kernels()))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.se_leaf_sums.argtypes = [P] * 9 + [I] * 15 + [P]
+    lib.se_leaf_sums.restype = I
+    lib.se_leaf_smem_bytes.argtypes = [I] * 7
+    lib.se_leaf_smem_bytes.restype = ctypes.c_longlong
+    lib.se_route_packed.argtypes = [P] * 5 + [I] * 8 + [P]
+    lib.se_route_packed.restype = I
+    lib.se_route_smem_bytes.argtypes = [I] * 4
+    lib.se_route_smem_bytes.restype = ctypes.c_longlong
+    lib.se_level_hist.argtypes = [I, P, P, P, P] + [I] * 14 + [P]
+    lib.se_level_hist.restype = I
+    lib.se_level_smem_bytes.argtypes = [I] * 8
+    lib.se_level_smem_bytes.restype = ctypes.c_longlong
+    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -419,7 +434,10 @@ def _launch_leaf(packed, node, vals, best_f, best_t, node_out, out, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ticket = partials = None
     if plan.grid > plan.cs:
-        ticket = _leaf_workspace(dev, stream, plan.grid // plan.cs * M * leaves * C).data_ptr()
+        # held until the launch is enqueued: another thread may grow the
+        # cached workspace meanwhile, and the allocator may then reuse this one
+        ws = _leaf_workspace(dev, stream, plan.grid // plan.cs * M * leaves * C)
+        ticket = ws.data_ptr()
         partials = ticket + 16
     with _on(dev):
         rc = _library().se_leaf_sums(
@@ -517,7 +535,7 @@ def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int):
     out = torch.empty((M, n_nodes, C, d, max_bins), dtype=torch.float32, device=dev)
     _launch_level(2, Xb, node, vals, out, d=d, B=max_bins, n_nodes=n_nodes,
                   W=d, bits=32)
-    LAUNCHES["hist_i32"] += 1
+    _count("hist_i32")
     return out
 
 
@@ -576,7 +594,7 @@ def route_packed(packed, node, best_f, best_t, *, bits: int,
         )
     if rc != 0:
         raise RuntimeError(f"route kernel launch failed: CUDA error {rc}")
-    LAUNCHES["route_packed"] += 1
+    _count("route_packed")
     return out
 
 
@@ -599,7 +617,7 @@ def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
                       dtype=torch.float32, device=dev)
     _launch_level(3, packed, node, vals, out, d=num_features, B=max_bins,
                   n_nodes=n_nodes, W=packed.shape[1], bits=bits)
-    LAUNCHES["hist_packed"] += 1
+    _count("hist_packed")
     return out
 
 
@@ -618,7 +636,7 @@ def leaf_sums(node, vals, *, n_nodes: int):
         return out.zero_()
     _launch_leaf(None, node, vals, None, None, None, out, leaves=n_nodes,
                  bits=0, d=0)
-    LAUNCHES["leaf_sums"] += 1
+    _count("leaf_sums")
     return out
 
 
@@ -652,7 +670,7 @@ def _leaf_routed(packed, node, vals, best_f, best_t, *, n_nodes: int,
         return out.zero_(), node_out
     _launch_leaf(packed, node, vals, best_f, best_t, node_out, out,
                  leaves=n_nodes, bits=bits, d=num_features)
-    LAUNCHES["leaf_sums"] += 1
+    _count("leaf_sums")
     return out, node_out
 
 

@@ -21,11 +21,37 @@ Histogram tiers (``hist`` x ``hist_precision``):
 - ``fused``: one ``fused_round_level`` per level over bit-packed bins (route
   launch + histogram launch; the leaf pass sums in exact f32).
 
+The fast precisions ``high`` and ``default`` on the matmul tier compute
+only the left children's histograms at each level >= 1 and derive the
+right siblings as ``parent - left`` (histogram subtraction).  A derived
+empty child carries the subtraction's rounding noise, so its weight floor
+is the parent's floor plus ``rel * parent weight`` (rel 1e-6 at 'high',
+1e-2 at 'default'), accumulated down the chain of derived children; left
+children keep the direct 1e-12.  Their prefix sums are one matmul against
+a triangular 0/1 matrix, as on the pallas precision.  The precision map,
+on every device (the histogram product itself is ``torch.matmul``, as the
+JAX package's is an XLA dot outside any Pallas kernel):
+
+- ``high``: true f32 (TF32 off).  The JAX package's HIGH is bf16x3,
+  whose three bf16 terms hold an f32's 24-bit significand.
+- ``default``: the statistic operand (the histogram's ``A``, the
+  histogram entering the prefix sums, the leaf sums' statistics) is
+  rounded to bf16 before the product, with f32 accumulation; the one-hot
+  side is exact in bf16.  This is the JAX package's single-pass DEFAULT
+  (which JAX on the CPU ignores, computing f32 there).
+
+On the fused tier they change only the prefix sums (its kernel computes
+every level directly, so the direct floors apply); on the scatter tier
+both are the exact tier, as in the JAX package.  A
+single tree (``fit_tree``) at ``hist_precision="pallas"`` runs on this
+'high' matmul path, as the JAX package's does; a forest at "pallas"
+launches the kernel.
+
 Routing is an integer-exact gather, the same function as the JAX
 package's one-hot contraction.  :func:`feature_gains` sums split gains per
-feature for ``feature_importances_``.  Still to port: the fast tiers
-(``high``/``default`` with histogram subtraction, ROADMAP queue 1, item 5),
-``predict_tree_binned``, ``leaf_one_hot`` and the ``stream`` tier (Slice B).
+feature for ``feature_importances_``.  Still to port:
+``predict_tree_binned`` and ``leaf_one_hot`` (with linear leaves, ROADMAP
+queue 1, item 12) and the ``stream`` tier (Slice B).
 """
 
 from __future__ import annotations
@@ -71,6 +97,24 @@ def _not_ported(param, value, item):
     )
 
 
+# the relative weight floor of a subtraction-derived child, per precision
+_DERIVED_FLOOR_REL = {"high": 1e-6, "default": 1e-2}
+
+
+def _derived_hist_weight_floor(hist_precision, parent_w):
+    """Weight floor for a SUBTRACTION-derived histogram: an empty child
+    computed directly weighs exactly 0.0, but ``parent - left`` carries the
+    tier's rounding noise at the tree-parent's magnitude ``parent_w``.
+    Children below that noise level are treated as empty."""
+    return _DERIVED_FLOOR_REL[hist_precision] * parent_w
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bf16 (ties to even), kept in f32: the
+    operand rounding of a single-pass bf16 product."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def resolve_forest_tier(hist: str, hist_precision: str, device, n: int,
                         d: int, B: int) -> str:
     """The tier ``fit_forest`` runs: ``scatter``, ``matmul``, ``pallas`` or
@@ -78,8 +122,6 @@ def resolve_forest_tier(hist: str, hist_precision: str, device, n: int,
     port lacks (which raise) and minus the VMEM gates, which do not carry
     over: a CUDA kernel tiles its output across CTAs."""
     hp, h = hist_precision.lower(), hist.lower()
-    if hp in ("high", "default"):
-        _not_ported("hist_precision", hp, "queue 1, item 5")
     if h == "fused":
         if B > _ROUTING_EXACT_MAX_BINS:
             raise ValueError(
@@ -109,16 +151,28 @@ def _bin_one_hot(Xb: torch.Tensor, B: int) -> torch.Tensor:
     ).to(torch.float32).reshape(n, d * B)
 
 
-def _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B):
-    """Level histogram ``H f32[M, n_nodes, C, d, B]`` of the non-fused tiers."""
+def _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B, prev_H=None):
+    """Level histogram ``H f32[M, n_nodes, C, d, B]`` of the non-fused
+    tiers.  With ``prev_H`` (the parents' histograms, fast precisions on
+    the matmul tier) only the left children are computed and the right
+    siblings are ``parent - left``."""
     if tier == "scatter":
         return hist_plain(Xb, node, vals, n_nodes, B, 1)
     if tier == "pallas":
         return hist_level_pallas(Xb, node, vals, n_nodes=n_nodes, max_bins=B)
     n, M, C = vals.shape
-    node_oh = torch.nn.functional.one_hot(node.long(), n_nodes).to(torch.float32)
-    A = (node_oh[:, :, :, None] * vals[:, :, None, :]).reshape(n, M * n_nodes * C)
-    return (A.T @ bin_oh).reshape(M, n_nodes, C, Xb.shape[1], B)
+    d = Xb.shape[1]
+    if prev_H is None:
+        node_oh = torch.nn.functional.one_hot(node.long(), n_nodes).to(torch.float32)
+        A = (node_oh[:, :, :, None] * vals[:, :, None, :]).reshape(n, M * n_nodes * C)
+        return (A.T @ bin_oh).reshape(M, n_nodes, C, d, B)
+    half = n_nodes // 2
+    left_oh = torch.nn.functional.one_hot((node >> 1).long(), half).to(torch.float32)
+    left_oh = left_oh * (1 - (node & 1)).to(torch.float32)[:, :, None]
+    A = (left_oh[:, :, :, None] * vals[:, :, None, :]).reshape(n, M * half * C)
+    Hl = (A.T @ bin_oh).reshape(M, half, C, d, B)
+    # interleave: children 2p (left), 2p+1 (right)
+    return torch.stack([Hl, prev_H - Hl], dim=2).reshape(M, n_nodes, C, d, B)
 
 
 def _route_members(Xb, node, best_f, best_t):
@@ -131,12 +185,15 @@ def _route_members(Xb, node, best_f, best_t):
     return (2 * node + (xb_f > best_t[m, nl]).to(torch.int32)).to(torch.int32)
 
 
-def _prefix_sums(hist_w, hist_wy, triangular):
+def _prefix_sums(hist_w, hist_wy, triangular, round_bf16=False):
     """Left-prefix sums over the bins axis: ``cumsum`` on the exact tiers,
     or one matmul against a triangular 0/1 matrix on the tiers whose JAX
-    counterpart takes that form (pallas, and fused at 'pallas' precision)."""
+    counterpart takes that form (matmul, pallas and fused below
+    "highest"), with the histogram rounded to bf16 first at 'default'."""
     if not triangular:
         return torch.cumsum(hist_w, dim=3), torch.cumsum(hist_wy, dim=3)
+    if round_bf16:
+        hist_w, hist_wy = _bf16_round(hist_w), _bf16_round(hist_wy)
     B = hist_w.shape[3]
     tri = torch.triu(torch.ones((B, B), dtype=torch.float32, device=hist_w.device))
     cw = torch.einsum("...b,bc->...c", hist_w, tri)
@@ -145,14 +202,14 @@ def _prefix_sums(hist_w, hist_wy, triangular):
 
 
 def _level_split_tables(H, feature_mask, node_floor, min_info_gain,
-                        thresholds, B, triangular):
+                        thresholds, B, triangular, round_bf16=False):
     """Candidate-split scoring for one level: ``H [M, nodes, 1+k, d, B]``
     -> best-split tables + per-node statistics.  The argmax is the first
     maximum over the flat ``(d, B-1)`` axis, as in the JAX package."""
     M, n_nodes, _, d, _ = H.shape
     hist_w = H[:, :, 0]  # [M, nodes, d, B]
     hist_wy = torch.movedim(H[:, :, 1:], 2, -1)  # [M, nodes, d, B, k]
-    cw, cwy = _prefix_sums(hist_w, hist_wy, triangular)
+    cw, cwy = _prefix_sums(hist_w, hist_wy, triangular, round_bf16)
     W = cw[:, :, :1, -1:]
     S = cwy[:, :, :1, -1:, :]
     WL = cw[:, :, :, : B - 1]
@@ -208,14 +265,19 @@ def fit_forest(
     One loop serves every tier: the fused tier's branches are the JAX
     package's ``_fit_forest_fused`` (bins packed once; each level routes
     by the previous level's tables inside ``fused_round_level``), the
-    others its dense ``fit_forest`` path at exact-tier node floors."""
+    others its dense ``fit_forest`` path, with histogram subtraction and
+    its floors at the fast precisions on the matmul tier."""
     n, d = Xb.shape
     _, M, k = Y.shape
     B = max_bins
     J = 2**max_depth - 1
     dev = Xb.device
-    tier = resolve_forest_tier(hist, hist_precision, dev, n, d, B)
-    triangular = hist_precision.lower() == "pallas" and tier in ("pallas", "fused")
+    hp = hist_precision.lower()
+    tier = resolve_forest_tier(hist, hp, dev, n, d, B)
+    triangular = hp != "highest" and tier != "scatter"
+    # 'default' rounds the statistic operands of the dense products to bf16
+    round_bf16 = hp == "default" and tier != "scatter"
+    subtract = hp in ("high", "default") and tier == "matmul"
 
     if feature_mask is None:
         feature_mask = torch.ones((M, d), dtype=torch.bool, device=dev)
@@ -232,6 +294,8 @@ def fit_forest(
         [w[:, :, None], w[:, :, None] * (Y - y_mean[None, :, :])], dim=2
     ).contiguous()  # [n, M, 1+k]
 
+    stat_vals = _bf16_round(vals) if round_bf16 else vals
+
     split_feature = torch.zeros((M, J), dtype=torch.int32, device=dev)
     split_bin = torch.zeros((M, J), dtype=torch.int32, device=dev)
     split_threshold = torch.zeros((M, J), dtype=torch.float32, device=dev)
@@ -244,21 +308,34 @@ def fit_forest(
         # loop-invariant: packed once, read by every level's kernels
         packed = pack_bins(Xb, B, bits).packed
     tables = (None, None)  # previous level's (best_f, best_t), fused tier
+    # the parents' histograms, weights and floors (histogram subtraction)
+    prev_H = prev_W = prev_floor = None
 
     for level in range(max_depth):
         n_nodes = 2**level
+        derived = subtract and level >= 1
         if tier == "fused":
             H, node = fused_round_level(
                 packed, node, vals, tables[0], tables[1], n_nodes=n_nodes,
                 max_bins=B, bits=bits, num_features=d,
             )
         else:
-            H = _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B)
-        node_floor = torch.full((M, n_nodes), 1e-12, dtype=torch.float32, device=dev)
+            H = _level_hist(tier, Xb, bin_oh, node, stat_vals, n_nodes, B,
+                            prev_H if derived else None)
+        if derived:
+            # left children are direct (an empty one reads exactly 0.0);
+            # right children accumulate their parents' floors plus this
+            # level's rounding at the parent's weight: the sum, not a max
+            right_floor = prev_floor + _derived_hist_weight_floor(hp, prev_W)
+            node_floor = torch.stack(
+                [torch.full_like(right_floor, 1e-12), right_floor], dim=-1
+            ).reshape(M, n_nodes)
+        else:
+            node_floor = torch.full((M, n_nodes), 1e-12, dtype=torch.float32, device=dev)
         best_f, best_t, thr, do_split, best_gain, node_w, node_wy = (
             _level_split_tables(
                 H, feature_mask, node_floor, min_info_gain, thresholds, B,
-                triangular,
+                triangular, round_bf16,
             )
         )
         heap = slice(2**level - 1, 2**level - 1 + n_nodes)
@@ -275,6 +352,7 @@ def fit_forest(
             node_w[:, :, None] > node_floor[:, :, None], node_val, parent_value
         )
         parent_value = torch.repeat_interleave(node_val, 2, dim=1)
+        prev_H, prev_W, prev_floor = H, node_w, node_floor
 
     num_leaves = 2**max_depth
     if tier == "fused":
@@ -286,7 +364,7 @@ def fit_forest(
         L = leaf_plain(node, vals, num_leaves)
     else:
         leaf_oh = torch.nn.functional.one_hot(node.long(), num_leaves).to(torch.float32)
-        L = torch.einsum("nml,nmc->mlc", leaf_oh, vals)
+        L = torch.einsum("nml,nmc->mlc", leaf_oh, stat_vals)
     leaf_w = L[:, :, 0]  # [M, L]
     leaf_wy = L[:, :, 1:]  # [M, L, k]
     leaf_value = leaf_wy / torch.clamp(leaf_w[:, :, None], min=1e-30)
@@ -308,11 +386,11 @@ def fit_tree(Xb, Y, w, thresholds, feature_mask=None, *, max_depth=5,
              hist_precision="highest", return_leaf=False):
     """One tree (``Y f32[n, k]``, ``w f32[n]``): ``fit_forest`` with M=1.
 
-    The JAX package runs a single tree at ``hist_precision="pallas"`` on its
-    'high' matmul tier with histogram subtraction, not on the kernel; that
-    tier is not ported yet, so it raises here (except on the fused tier)."""
+    As in the JAX package, a single tree at ``hist_precision="pallas"``
+    runs on the 'high' matmul tier with histogram subtraction, not on the
+    kernel (the fused tier keeps its kernels)."""
     if hist_precision.lower() == "pallas" and hist.lower() != "fused":
-        _not_ported("hist_precision", "pallas (single tree)", "queue 1, item 5")
+        hist_precision = "high"
     mask = None if feature_mask is None else feature_mask.reshape(1, -1)
     out = fit_forest(
         Xb, Y[:, None, :], w[:, None], thresholds, mask,

@@ -9,8 +9,8 @@ classes tie.  Split tables are held array-equal per tier; leaf values,
 probabilities and importances within 1e-6 (the centred targets are not
 dyadic, so the tiers' sums differ in the last bit).  The single tree runs
 on scatter, matmul and fused; matmul at "pallas" precision runs through
-the forest path only, since a single tree at "pallas" runs on the JAX
-package's 'high' tier, which the port lacks."""
+the forest path, and a single tree at "pallas" on the 'high' matmul tier,
+as in the JAX package."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -115,9 +115,16 @@ def test_fit_and_proba_and_direction_reuse_the_fit_leaf_ids(hist):
 
 
 def test_single_tree_at_pallas_precision_raises():
+    """It no longer raises: a single tree at "pallas" runs on the 'high'
+    matmul tier with histogram subtraction, and equals the JAX package's."""
     X, y, w = _data(n=64)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        _tree(st, "matmul", "pallas").fit(X, y, device="cpu")
+    jm = _tree(se, "matmul", "pallas").fit(X, y, sample_weight=w)
+    tm = _tree(st, "matmul", "pallas").fit(X, y, sample_weight=w, device="cpu")
+    for f in SPLITS:
+        np.testing.assert_array_equal(getattr(tm.params, f).numpy(),
+                                      np.asarray(getattr(jm.params, f)), err_msg=f)
+    np.testing.assert_allclose(tm.predict_proba(X).numpy(),
+                               np.asarray(jm.predict_proba(X)), rtol=0, atol=1e-6)
 
 
 def test_carried_classifier_tree_predicts_the_same():

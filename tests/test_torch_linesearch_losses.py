@@ -55,18 +55,21 @@ def test_loss_gradient_hessian_and_linesearch_terms(name):
 
 
 @pytest.mark.parametrize(
-    "factory,name,exc",
+    "factory,name,want",
     [
-        (tlo.get_regression_loss, "huber", NotImplementedError),
-        (tlo.get_regression_loss, "absolute", NotImplementedError),
+        (tlo.get_regression_loss, "huber", tlo.HuberLoss),
+        (tlo.get_regression_loss, "absolute", tlo.AbsoluteLoss),
         (tlo.get_regression_loss, "nope", ValueError),
-        (tlo.get_classification_loss, "bernoulli", NotImplementedError),
+        (tlo.get_classification_loss, "bernoulli", tlo.BernoulliLoss),
         (tlo.get_classification_loss, "nope", ValueError),
     ],
 )
-def test_loss_factories(factory, name, exc):
-    with pytest.raises(exc):
-        factory(name)
+def test_loss_factories(factory, name, want):
+    if issubclass(want, Exception):
+        with pytest.raises(want):
+            factory(name)
+    else:
+        assert isinstance(factory(name.upper()), want)
     assert isinstance(tlo.get_regression_loss("Squared"), tlo.SquaredLoss)
     assert tlo.get_classification_loss("logloss", 7).dim == 7
 

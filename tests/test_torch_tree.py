@@ -143,8 +143,8 @@ def test_predict_forest_matches_exactly_with_non_finite_rows():
     [
         ("fused", "highest", 100, 300, ValueError),
         ("stream", "highest", 100, 16, NotImplementedError),
-        ("matmul", "high", 100, 16, NotImplementedError),
-        ("matmul", "default", 100, 16, NotImplementedError),
+        ("stream", "high", 100, 16, NotImplementedError),
+        ("stream", "default", 100, 16, NotImplementedError),
     ],
 )
 def test_unported_tiers_raise(hist, hist_precision, n, B, exc):
@@ -162,8 +162,12 @@ def test_tier_resolution_follows_the_reference():
 
 
 def test_single_tree_pallas_precision_raises():
+    """It no longer raises: a single tree at "pallas" runs on the 'high'
+    matmul tier (histogram subtraction), as the JAX package's fit_tree."""
     X, Xb, thr, Y, w = _fixture(9, 64, 3, 1, 1, 8)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        tt.fit_tree(torch.as_tensor(Xb), torch.as_tensor(Y[:, 0]),
-                    torch.as_tensor(w[:, 0]), torch.as_tensor(thr),
-                    max_depth=2, max_bins=8, hist_precision="pallas")
+    kw = dict(max_depth=2, max_bins=8, hist="matmul", hist_precision="pallas")
+    jtree = jt.fit_tree(jnp.asarray(Xb), jnp.asarray(Y[:, 0]),
+                        jnp.asarray(w[:, 0]), jnp.asarray(thr), **kw)
+    ttree = tt.fit_tree(torch.as_tensor(Xb), torch.as_tensor(Y[:, 0]),
+                        torch.as_tensor(w[:, 0]), torch.as_tensor(thr), **kw)
+    _assert_same_forest(jtree, ttree)
