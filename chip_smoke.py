@@ -16,8 +16,11 @@ tiers, then the ported families: the random draws against the CPU's,
 Bagging, Boosting and GBM with row and feature sampling, GBM's other seven
 losses, the fast precisions "high" and "default", and Stacking over the
 tree, linear and naive Bayes learners (on adult-shaped 32561x123 binary
-data too, where the kernels tile 123 features in 31 packed words), and
-checks the results.  Each phase prints one JSON line; any failed check raises and the
+data too, where the kernels tile 123 features in 31 packed words), then
+the stream tier at bench.py's XL size (2,097,152 x 64, 8 classes: the
+default tree's hist="auto" resolves to it there), GBM's GOSS/MVS row
+compaction on the main path (the fused kernels at the 8192-row bucket),
+and linear-leaf GBM, and checks the results.  Each phase prints one JSON line; any failed check raises and the
 script exits non-zero.
 The last two lines are the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``.
@@ -41,6 +44,8 @@ PARITY_ROUNDS, TIMED_ROUNDS = 20, 100
 KERNEL_RUNS, KERNEL_REPS = 5, 50  # each time: median, min and max of 5 runs of 50 launches
 FP32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 ADULT_ROWS, ADULT_FEATURES = 32561, 123  # a9a's shape
+XL_ROWS, XL_FEATURES, XL_CLASSES, XL_ROUNDS = 2_097_152, 64, 8, 10  # bench.py's XL leg
+STREAM_CHECK_ROWS = 262_144  # the stream-vs-matmul one-round check
 
 
 def emit(obj):
@@ -62,6 +67,16 @@ def regression_data(n=8192, d=12, seed=0):
     rng = np.random.RandomState(seed)
     X = rng.randn(n, d).astype(np.float32)
     y = 2.0 * X[:, 0] + np.sin(3.0 * X[:, 1]) + X[:, 2] * X[:, 3] + 0.1 * rng.randn(n)
+    return X, y.astype(np.float32)
+
+
+def xl_data(seed=0):
+    """bench.py's XL data (``_bench_xl_extras``): Gaussian features, the
+    label the argmax of a noisy projection on 8 class centres."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(XL_ROWS, XL_FEATURES).astype(np.float32)
+    centers = rng.randn(XL_CLASSES, XL_FEATURES).astype(np.float32)
+    y = np.argmax(X @ centers.T + 0.5 * rng.randn(XL_ROWS, XL_CLASSES), axis=1)
     return X, y.astype(np.float32)
 
 
@@ -983,8 +998,11 @@ def main():
     # phase 9 (losses): GBM's other seven losses, 20 rounds each.  The
     # regressors on the 8192x12 data on the fused, scatter and matmul
     # tiers: fused held to scatter's RMSE within 2% (both sum a node's
-    # statistics in row order; on the CPU their 20-round fits agree to
-    # 1e-5) and to matmul's within 10%, since a near-tie split flip
+    # statistics in an order fixed from run to run; on the CPU their
+    # 20-round fits agree to 1e-5; with index_add_'s atomics the scatter
+    # tier's huber fit took the other branch of the round-8 near tie in
+    # one run of six, 0.527 against 0.625) and to matmul's within 10%,
+    # since a near-tie split flip
     # compounds through the rounds (huber: one bin flips at round 8 with
     # gains 10.4060 against 10.4068, and the adaptive delta carries it to a
     # 9% RMSE gap, the same on the CPU); the 0.9-quantile model by its
@@ -1003,6 +1021,12 @@ def main():
             model, vals[tier] = family_run("losses", f"GBMRegressor[{loss}]", tier,
                                            reg_gbm(loss, tier), Xr, yr,
                                            lambda m, launches: PARITY_ROUNDS, metric)
+            if tier == "scatter":
+                # the scatter tier sums in a fixed order on the card, so a
+                # second fit repeats the first bit for bit
+                again = reg_gbm(loss, tier).fit(Xr, yr, device="cuda")
+                if not torch.equal(again.predict(Xr), model.predict(Xr)):
+                    raise AssertionError(f"GBMRegressor[{loss}] scatter: a second fit differs")
             if loss == "huber":
                 delta = model.params["huber_delta"]
                 emit({"phase": "losses", "family": "GBMRegressor[huber]", "tier": tier,
@@ -1116,6 +1140,163 @@ def main():
                 X_np, y_np, family="BaggingClassifier", tier="fused", members=10)
     profile_fit(st.BoostingClassifier(num_base_learners=5, base_learner=cls_tree("fused")),
                 X_np, y_np, family="BoostingClassifier[discrete]", tier="fused", rounds=5)
+
+    # phase 12 (stream): bench.py's XL leg (bench.py:499-563) through the
+    # public estimator with the default tree: at 2,097,152 x 64 x 64 bins
+    # the matmul tier's bin one-hot would take 34 GB, so hist="auto"
+    # resolves to the row-chunked stream tier (plain torch matmuls per
+    # chunk; no kernel of csrc/hist.cu runs there).  One warm round, then
+    # 10 rounds at "highest" and at "high", each with its peak device
+    # memory; then one round at 262,144 rows on the stream and matmul
+    # tiers, held on the share of rows whose probabilities move by more
+    # than 1e-3 (at most 1%) and on accuracy (within 0.02)
+    card = {"card": smi}
+    tier = tree_ops.resolve_forest_tier("auto", "highest", dev, XL_ROWS, XL_FEATURES, MAX_BINS)
+    if tier != "stream":
+        raise AssertionError(f"hist='auto' at the XL size resolved to {tier!r}, not 'stream'")
+    X_xl_np, y_xl = xl_data()
+    X_xl = torch.as_tensor(X_xl_np, device=dev)
+    del X_xl_np
+    streamed = [0]
+    real_streamed = tree_ops._fit_forest_streamed
+
+    def counted_streamed(*args, **kwargs):
+        streamed[0] += 1
+        return real_streamed(*args, **kwargs)
+
+    def xl_gbm(rounds, hist="auto", hp="highest"):
+        return st.GBMClassifier(num_base_learners=rounds, loss="logloss", updates="newton",
+                                learning_rate=0.3,
+                                base_learner=st.DecisionTreeRegressor(hist=hist, hist_precision=hp))
+
+    one_hot_bytes = XL_ROWS * XL_FEATURES * MAX_BINS * 4
+    tree_ops._fit_forest_streamed = counted_streamed
+    try:
+        fit_counted(xl_gbm(1), X_xl, y_xl)  # warm: allocator and cuBLAS plans
+        xl_acc = {}
+        for hp in ("highest", "high"):
+            streamed[0] = 0
+            torch.cuda.reset_peak_memory_stats()
+            model, secs, launches = fit_counted(xl_gbm(XL_ROUNDS, hp=hp), X_xl, y_xl)
+            peak = torch.cuda.max_memory_allocated()
+            fits = streamed[0]
+            proba = model.predict_proba(X_xl[:65536])
+            if not bool(torch.isfinite(proba).all()) or proba.shape != (65536, XL_CLASSES):
+                raise AssertionError(f"stream {hp}: probabilities not finite of shape {(65536, XL_CLASSES)}")
+            xl_acc[hp] = accuracy(model, X_xl, y_xl)
+            emit({"phase": "stream", "hist": "auto", "resolved_tier": tier, "hist_precision": hp,
+                  "n": XL_ROWS, "d": XL_FEATURES, "classes": XL_CLASSES, "rounds": XL_ROUNDS,
+                  "chunk_rows": tree_ops._STREAM_CHUNK_ROWS, "fit_s": secs,
+                  "iters_per_s": XL_ROUNDS / secs, "rows_per_s": XL_ROWS * XL_ROUNDS / secs,
+                  "train_accuracy": xl_acc[hp], "peak_memory_bytes": peak,
+                  "matmul_one_hot_bytes": one_hot_bytes, "stream_forest_fits": fits,
+                  "launches": launches, **card})
+            if fits != XL_ROUNDS:
+                raise AssertionError(f"stream {hp}: {fits} stream forest fits for {XL_ROUNDS} rounds")
+            if launches != {k: 0 for k in hk.LAUNCHES}:
+                raise AssertionError(f"stream {hp}: kernels launched {launches}")
+            if peak >= one_hot_bytes:
+                raise AssertionError(f"stream {hp}: peak memory {peak} >= the one-hot's {one_hot_bytes}")
+            if xl_acc[hp] < 2.0 / XL_CLASSES:
+                raise AssertionError(f"stream {hp}: accuracy {xl_acc[hp]}")
+        if abs(xl_acc["high"] - xl_acc["highest"]) > 0.02:
+            raise AssertionError(f"stream high vs highest accuracy: {xl_acc}")
+        # where a stream round goes: one traced round
+        profile_fit(xl_gbm(1), X_xl, y_xl, tier="stream", n=XL_ROWS, rounds=1, **card)
+        Xs, ys = X_xl[:STREAM_CHECK_ROWS], y_xl[:STREAM_CHECK_ROWS]
+        one_xl = {}
+        for hist in ("stream", "matmul"):
+            streamed[0] = 0
+            model, secs, _ = fit_counted(xl_gbm(1, hist=hist), Xs, ys)
+            if streamed[0] != (hist == "stream"):
+                raise AssertionError(f"{hist}: {streamed[0]} stream forest fits")
+            one_xl[hist] = (model.predict_proba(Xs), accuracy(model, Xs, ys), secs)
+    finally:
+        tree_ops._fit_forest_streamed = real_streamed
+    diff, share = proba_gap(one_xl["stream"][0], one_xl["matmul"][0])
+    acc_diff = one_xl["stream"][1] - one_xl["matmul"][1]
+    emit({"phase": "stream", "check": "one_round_vs_matmul", "n": STREAM_CHECK_ROWS,
+          "proba_max_abs_diff": diff, "rows_beyond_1e-3": share, "accuracy_diff": acc_diff,
+          "stream_fit_s": one_xl["stream"][2], "matmul_fit_s": one_xl["matmul"][2], **card})
+    if share > 0.01 or abs(acc_diff) > 0.02:
+        raise AssertionError(f"stream vs matmul after one round: {share} of rows moved, "
+                             f"accuracy {acc_diff}")
+    del X_xl, Xs, one_xl, model
+    torch.cuda.empty_cache()
+
+    # phase 13 (sampled): the main path on the fused tier at bench.py's
+    # sampling leg (bench.py:1586-1590): sampling="goss" (0.2/0.1) and
+    # "mvs" gather 4500 survivors a round into an 8192-row bucket, the
+    # legacy sample_method="goss" keeps all rows at GOSS weights; 20
+    # rounds each beside sampling="none", every fit's launches counted
+    # from 0 (5 histograms, 4 routes, 1 leaf pass a round).  Then the three
+    # fused kernels at round 0's bucket of gathered letter rows, held
+    # against their plain versions and timed (shapes rows "letter_sampled")
+    from spark_ensemble_tpu_torch.models import gbm as gbm_mod
+
+    samp_acc = {}
+    for label, kw in (("none", {}), ("goss", dict(sampling="goss", top_rate=0.2, other_rate=0.1)),
+                      ("mvs", dict(sampling="mvs")), ("legacy_goss", dict(sample_method="goss"))):
+        est = gbm("fused", "highest", PARITY_ROUNDS).set_params(**kw)
+        plan = est._resolved_sampling(N_ROWS)
+        model, secs, launches = fit_counted(est, X_np, y_np)
+        proba = model.predict_proba(X_np)
+        if not bool(torch.isfinite(proba).all()) or proba.shape != (N_ROWS, N_CLASSES):
+            raise AssertionError(f"sampled {label}: predict_proba not finite of shape {(N_ROWS, N_CLASSES)}")
+        samp_acc[label] = accuracy(model, X_np, y_np)
+        emit({"phase": "sampled", "method": label, "tier": "fused", "rounds": PARITY_ROUNDS,
+              "bucket": plan["bucket"] if plan else None,
+              "sampled_rows": plan["sampled_rows"] if plan else N_ROWS, "fit_s": secs,
+              "iters_per_s": PARITY_ROUNDS / secs, "train_accuracy": samp_acc[label],
+              "launches": launches, "launches_per_round": {k: v / PARITY_ROUNDS for k, v in launches.items()},
+              **card})
+        if launches != per_fit(PARITY_ROUNDS):
+            raise AssertionError(f"sampled {label}: launches {launches}")
+        if label in ("goss", "mvs") and plan["bucket"] != 8192:
+            raise AssertionError(f"sampled {label}: bucket {plan['bucket']} != 8192")
+        if samp_acc[label] < 0.5:
+            raise AssertionError(f"sampled {label}: accuracy {samp_acc[label]}")
+    for label in ("goss", "mvs"):
+        profile_fit(gbm("fused", "highest", 3).set_params(sampling=label), X_np, y_np,
+                    tier="fused", sampling=label, rounds=3, **card)
+    # round 0's GOSS survivors: the prior's gradient norms, the round key
+    est = gbm("fused", "highest", 1).set_params(sampling="goss")
+    plan = est._resolved_sampling(N_ROWS)
+    loss0 = st.GBMClassifier()._make_loss(N_CLASSES)
+    prior = torch.bincount(y_l.long(), minlength=N_CLASSES).to(torch.float32) / N_ROWS
+    score0 = loss0.sampling_scores(loss0.encode_label(y_l),
+                                   torch.log(prior)[None, :].expand(N_ROWS, N_CLASSES))
+    idx0, mult0 = gbm_mod._sample_compact(
+        "goss", score0, torch.ones(N_ROWS, dtype=torch.bool, device=dev),
+        est._sampling_keys(dev, plan)[0], plan["bucket"], plan["samp"])
+    n_checks = len(checks)
+    forest_shapes("letter_sampled", Xb64[idx0].contiguous(), onehot_l[idx0][:, :1],
+                  members=(N_CLASSES,))
+    for row in checks[n_checks:]:
+        emit({"phase": "kernel_check", **row, **card})
+
+    # phase 14 (linear_leaves): bench.py's gbmreg_cpusmall_lineartree10
+    # (bench.py:387-391) on the 8192x12 data on the fused and matmul tiers,
+    # beside the same 10 rounds with constant leaves; the tree of each
+    # round launches 5/4/1 on the fused tier, the leaf solves are torch ops
+    lin, const_rmse = {}, {}
+    for tier in ("fused", "matmul"):
+        est = st.GBMRegressor(base_learner=st.LinearTreeRegressor(max_depth=5, hist=tier),
+                              num_base_learners=10, learning_rate=0.3)
+        model, secs, launches = fit_counted(est, Xr, yr)
+        if launches != want_launches[tier](10):
+            raise AssertionError(f"linear leaves {tier}: launches {launches}")
+        lin[tier] = rmse(model, Xr, yr)
+        cmodel, csecs, _ = fit_counted(st.GBMRegressor(base_learner=reg_tree(tier),
+                                                       num_base_learners=10, learning_rate=0.3), Xr, yr)
+        const_rmse[tier] = rmse(cmodel, Xr, yr)
+        emit({"phase": "linear_leaves", "tier": tier, "rounds": 10, "fit_s": secs, "rmse": lin[tier],
+              "constant_leaf_fit_s": csecs, "constant_leaf_rmse": const_rmse[tier],
+              "launches": launches, "launches_per_round": {k: v / 10 for k, v in launches.items()},
+              **card})
+        if lin[tier] >= const_rmse[tier]:
+            raise AssertionError(f"linear leaves {tier}: rmse {lin[tier]} >= constant {const_rmse[tier]}")
+    near("GBMRegressor[linear leaves]", lin, "rmse", 0.1)
 
     emit({"phase": "profiler", "empty_traces_retried": empty_traces[0]})
     emit({"kernels": [r.json() for r in recs.values()]})

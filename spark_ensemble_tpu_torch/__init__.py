@@ -5,7 +5,9 @@ default) or on the CPU (``device="cpu"``):
 
 - GBM: ``GBMClassifier`` (logloss, exponential, bernoulli) and
   ``GBMRegressor`` (squared, absolute, huber, quantile, logcosh,
-  scaledlogcosh), with uniform row and feature sampling;
+  scaledlogcosh), with uniform row and feature sampling, gradient row
+  sampling (``sampling`` goss/mvs with row compaction, the legacy
+  ``sample_method="goss"``) and linear leaves (``leaf_model="linear"``);
 - Bagging (SubBag): ``BaggingClassifier`` (hard and soft votes) and
   ``BaggingRegressor``, all members in one forest fit;
 - Boosting: ``BoostingClassifier`` (SAMME, SAMME.R) and
@@ -13,7 +15,9 @@ default) or on the CPU (``device="cpu"``):
 - Stacking: ``StackingClassifier`` (class, raw and proba meta-features)
   and ``StackingRegressor``;
 - the base learners ``DecisionTreeRegressor``, ``DecisionTreeClassifier``
-  (all four precisions: highest, high, default, pallas),
+  (all four precisions: highest, high, default, pallas; every histogram
+  tier, the row-chunked ``stream`` tier included),
+  ``LinearTreeRegressor``,
   ``LinearRegression``, ``LogisticRegression`` (newton, lbfgs),
   ``GaussianNaiveBayes``, ``DummyRegressor`` and ``DummyClassifier``;
 - the evaluators behind ``score()``, and ``jax.random``'s draws, bit for
@@ -35,6 +39,7 @@ from spark_ensemble_tpu_torch.convert import (
     gbm_classifier_from_arrays,
     gbm_regressor_from_arrays,
     linear_regression_from_arrays,
+    linear_tree_regressor_from_arrays,
     logistic_regression_from_arrays,
     stacking_classifier_from_models,
     stacking_regressor_from_models,
@@ -73,6 +78,10 @@ from spark_ensemble_tpu_torch.models.linear import (
     LinearRegressionModel,
     LogisticRegression,
     LogisticRegressionModel,
+)
+from spark_ensemble_tpu_torch.models.linear_tree import (
+    LinearTreeRegressionModel,
+    LinearTreeRegressor,
 )
 from spark_ensemble_tpu_torch.models.naive_bayes import (
     GaussianNaiveBayes,
@@ -121,6 +130,8 @@ __all__ = [
     "GaussianNaiveBayesModel",
     "LinearRegression",
     "LinearRegressionModel",
+    "LinearTreeRegressionModel",
+    "LinearTreeRegressor",
     "LogisticRegression",
     "LogisticRegressionModel",
     "MulticlassClassificationEvaluator",
@@ -138,6 +149,7 @@ __all__ = [
     "gbm_classifier_from_arrays",
     "gbm_regressor_from_arrays",
     "linear_regression_from_arrays",
+    "linear_tree_regressor_from_arrays",
     "logistic_regression_from_arrays",
     "stacking_classifier_from_models",
     "stacking_regressor_from_models",

@@ -16,7 +16,10 @@ never imports the JAX package):
   init model's constant prediction, whatever its strategy: mean, median or
   quantile); a GBM's loss and its ``alpha`` travel in the params dict;
 - the linear models' ``coef``, ``intercept`` and ``mask``; GaussianNB's
-  ``mean``, ``var``, ``log_prior`` and ``mask``.
+  ``mean``, ``var``, ``log_prior`` and ``mask``;
+- linear-leaf trees (``LinearTreeRegressor``, and GBM at
+  ``leaf_model="linear"``): the tree fields of ``params["tree"]`` plus
+  ``beta``, ``x_mu``, ``x_sd`` and ``mask``, with the same leading axes.
 
 A Stacking model's members and stacker are converted one by one with the
 functions here; ``stacking_*_from_models`` assembles them.  The functions
@@ -49,6 +52,10 @@ from spark_ensemble_tpu_torch.models.gbm import (
     GBMRegressionModel,
     GBMRegressor,
 )
+from spark_ensemble_tpu_torch.models.linear_tree import (
+    LinearTreeRegressionModel,
+    LinearTreeRegressor,
+)
 from spark_ensemble_tpu_torch.models.linear import (
     LinearRegression,
     LinearRegressionModel,
@@ -77,6 +84,7 @@ TREE_FIELDS = Tree._fields
 _ESTIMATORS = {c.__name__: c for c in (
     DecisionTreeClassifier, DecisionTreeRegressor, DummyRegressor,
     DummyClassifier, LinearRegression, LogisticRegression, GaussianNaiveBayes,
+    LinearTreeRegressor,
     GBMClassifier, GBMRegressor, BaggingClassifier, BaggingRegressor,
     BoostingClassifier, BoostingRegressor, StackingClassifier,
     StackingRegressor,
@@ -93,7 +101,7 @@ def _port_estimator(est):
     if cls is None:
         raise NotImplementedError(
             f"{type(est).__name__} is not ported yet (ROADMAP queue 1, "
-            "items 12-14)"
+            "items 13-14)"
         )
     return cls(**_port_params(est.get_params()))
 
@@ -127,6 +135,18 @@ def _trees(arrays: dict, device) -> Tree:
     ))
 
 
+_LINEAR_LEAF_KEYS = ("beta", "x_mu", "x_sd", "mask")
+
+
+def _members(arrays: dict, device):
+    """Member trees, or linear-leaf members (the trees plus their leaf
+    models) when the arrays carry ``beta``."""
+    trees = _trees(arrays, device)
+    if "beta" not in arrays:
+        return trees
+    return {"tree": trees, **_tensors(arrays, _LINEAR_LEAF_KEYS, device)}
+
+
 def gbm_classifier_from_arrays(params: dict, arrays: dict, *, num_features: int,
                                num_classes: int, device="cuda"):
     """Port model of a fitted JAX ``GBMClassificationModel``."""
@@ -135,7 +155,7 @@ def gbm_classifier_from_arrays(params: dict, arrays: dict, *, num_features: int,
     rounds, dim = weights.shape
     return GBMClassificationModel(
         params={
-            "members": _trees(arrays, dev) if rounds > 0 else None,
+            "members": _members(arrays, dev) if rounds > 0 else None,
             "weights": weights,
             "init_raw": torch.as_tensor(
                 np.array(arrays["init_raw"], np.float32), device=dev
@@ -166,7 +186,7 @@ def gbm_regressor_from_arrays(params: dict, arrays: dict, *, num_features: int,
     rounds = weights.shape[0]
     return GBMRegressionModel(
         params={
-            "members": _trees(arrays, dev) if rounds > 0 else None,
+            "members": _members(arrays, dev) if rounds > 0 else None,
             "weights": weights,
             "init": init_params,
             "val_hist": None,
@@ -176,6 +196,16 @@ def gbm_regressor_from_arrays(params: dict, arrays: dict, *, num_features: int,
         num_members=rounds,
         device=dev,
         **_port_params(params),
+    )
+
+
+def linear_tree_regressor_from_arrays(params: dict, arrays: dict, *,
+                                      num_features: int, device="cuda"):
+    """Port model of a fitted JAX ``LinearTreeRegressionModel``."""
+    dev = resolve_device(device)
+    return LinearTreeRegressionModel(
+        params=_members(arrays, dev), num_features=num_features, device=dev,
+        **params,
     )
 
 

@@ -311,6 +311,27 @@ class BaseLearner(Estimator):
         params = self.fit_many_from_ctx(ctx, ys, ws, feature_masks)
         return params, self.predict_many_fn(params, X).T
 
+    def ctx_gather_rows(self, ctx, idx: torch.Tensor):
+        """The fit ctx's rows ``idx[m]`` in a compacted ctx (GBM's gradient
+        row sampling): downstream fits then process ``m`` rows.  The
+        default ctx is the feature matrix itself; learners whose ctx mixes
+        row-indexed and shared entries override (trees gather the bins and
+        keep the thresholds)."""
+        return ctx[idx]
+
+    def fit_gathered_and_direction(self, ctx_s, y_s, w_s, feature_mask, X):
+        """Member fit on a compacted ctx (``ctx_gather_rows``) PLUS the
+        fitted member's predictions on ALL rows ``X`` -> (params, pred[n])."""
+        params = self.fit_from_ctx(ctx_s, y_s, w_s, feature_mask)
+        return params, self.predict_fn(params, X)
+
+    def fit_gathered_many_and_directions(self, ctx_s, ys_s, ws_s,
+                                         feature_masks, X):
+        """Fused-member analogue of ``fit_gathered_and_direction`` ->
+        (stacked params, preds[n, M])."""
+        params = self.fit_many_from_ctx(ctx_s, ys_s, ws_s, feature_masks)
+        return params, self.predict_many_fn(params, X).T
+
     def predict_fn(self, params, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 

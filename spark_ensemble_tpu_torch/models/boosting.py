@@ -53,7 +53,7 @@ from spark_ensemble_tpu_torch.models.base import (
     resolve_device,
     resolve_weights,
 )
-from spark_ensemble_tpu_torch.models.gbm import stack_trees
+from spark_ensemble_tpu_torch.models.gbm import stack_members
 from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
@@ -169,7 +169,7 @@ class _BoostingParams(Estimator):
 
     def _model_params(self, members, weights, dev):
         return {
-            "members": stack_trees(members) if members else None,
+            "members": stack_members(members) if members else None,
             "weights": (torch.stack(weights) if weights
                         else torch.zeros((0,), dtype=torch.float32, device=dev)),
         }

@@ -27,10 +27,24 @@ draws the JAX package's plan bit for bit (``utils/random.py``): member
 ``i``'s key is ``fold_in(PRNGKey(seed), i)``, its bag weights come from
 ``fold_in(key, 2)`` and its feature mask from ``fold_in(key, 1)``.  At the
 defaults (``subsample_ratio=1.0`` without replacement, ``subspace_ratio=1.0``)
-those draws are all ones and all True, so the port skips them.  Gradient
-sampling (``sampling`` goss/mvs, ``sample_method="goss"``), linear leaves
-and the planes not ported yet (checkpoints, telemetry, meshes) raise
-``NotImplementedError``.
+those draws are all ones and all True, so the port skips them.
+
+Gradient-based row sampling, with the JAX package's draws: round ``i``'s
+key is its bag key ``fold_in(fold_in(PRNGKey(seed), i), 2)``.
+
+- ``sampling="goss"|"mvs"`` ranks rows by their gradient norm on the
+  device (``_sample_compact``, from ``fold_in(key, 11)``) and GATHERS the
+  survivors into a buffer of a power-of-two ``bucket`` of rows, fixed at
+  fit start (``_resolved_sampling``): the round's tree fit, hessian sum and
+  line search run over the bucket, and only the prediction update routes
+  all rows (``fit_gathered_and_direction``).
+- the legacy ``sample_method="goss"`` keeps all rows and multiplies the
+  bag weights by a GOSS mask (``_goss_multiplier``, from
+  ``fold_in(key, 7)``).  Mixing the two raises ``ValueError``.
+
+``leaf_model="linear"`` swaps a ``DecisionTreeRegressor`` base for a
+``LinearTreeRegressor`` (``_base``).  The planes not ported yet
+(checkpoints, telemetry, meshes) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from spark_ensemble_tpu_torch.models.base import (
     resolve_weights,
 )
 from spark_ensemble_tpu_torch.models.dummy import DummyClassifier, DummyRegressor
+from spark_ensemble_tpu_torch.models.linear_tree import LinearTreeRegressor
 from spark_ensemble_tpu_torch.models.tree import DecisionTreeRegressor, check_tree_base
 from spark_ensemble_tpu_torch.ops import losses as losses_mod
 from spark_ensemble_tpu_torch.ops.linesearch import brent_minimize, projected_newton_box
@@ -61,17 +76,46 @@ from spark_ensemble_tpu_torch.params import Param, Params, gt, gt_eq, in_array, 
 from spark_ensemble_tpu_torch.utils.quantile import weighted_quantile
 from spark_ensemble_tpu_torch.utils.random import (
     PRNGKey,
+    bernoulli,
     bootstrap_weights,
     fold_in,
     subspace_mask,
+    uniform,
 )
 
 logger = logging.getLogger(__name__)
 
+# smallest compaction bucket of gradient row sampling (the JAX package's
+# default ``sample_bucket_floor``; the port has no autotune)
+_SAMPLE_BUCKET_FLOOR = 256
 
-def stack_trees(trees: List[Tree]) -> Tree:
-    """Per-round trees -> one Tree with a leading round axis."""
-    return Tree(*(torch.stack(fields) for fields in zip(*trees)))
+
+def stack_members(members: List):
+    """Per-round member params (a Tree, or a linear-leaf dict around one)
+    -> the same structure with a leading round axis."""
+    first = members[0]
+    if isinstance(first, dict):
+        return {k: stack_members([m[k] for m in members]) for k in first}
+    if isinstance(first, Tree):
+        return Tree(*(torch.stack(fields) for fields in zip(*members)))
+    return torch.stack(members)
+
+
+def map_members(fn, params):
+    """``fn`` applied to every tensor of member params (a Tree or a dict)."""
+    if isinstance(params, dict):
+        return {k: map_members(fn, v) for k, v in params.items()}
+    if isinstance(params, Tree):
+        return Tree(*(fn(a) for a in params))
+    return fn(params)
+
+
+def _fitted_values(params) -> List[torch.Tensor]:
+    """The values a non-finite round poisons: leaf values, and the linear
+    leaves' coefficients (thresholds hold +inf by design)."""
+    if isinstance(params, dict):
+        return [params["tree"].leaf_value, params["beta"]]
+    return [params.leaf_value]
 
 
 class _GBMParams(Params):
@@ -106,22 +150,38 @@ class _GBMParams(Params):
     )
     sample_method = Param(
         "uniform", in_array(["uniform", "goss"]),
-        doc="'goss' weight-mask sampling is not ported yet",
+        doc="'goss' = gradient-based one-side sampling as a weight mask: "
+        "each round keeps the top_rate fraction of rows by gradient "
+        "magnitude plus an amplified other_rate sample of the rest, all "
+        "rows still in the fit (composes with subsample_ratio)",
     )
-    top_rate = Param(0.2, in_range(0.0, 1.0), doc="GOSS/MVS top fraction")
+    top_rate = Param(
+        0.2, in_range(0.0, 1.0),
+        doc="GOSS: fraction of rows kept by gradient magnitude",
+    )
     other_rate = Param(
         0.1, in_range(0.0, 1.0, lower_inclusive=False),
-        doc="GOSS/MVS sampled fraction of the rest",
+        doc="GOSS: fraction of the FULL data sampled from the rest (kept "
+        "rows amplified so the rest's gradient mass is unbiased)",
     )
     sampling = Param(
         "none", in_array(["none", "goss", "mvs"]),
-        doc="gradient-based row sampling with compaction; only 'none' is "
-        "ported (ROADMAP queue 1, item 12)",
+        doc="gradient-based row sampling with row compaction: per round "
+        "the rows are ranked on the device by gradient magnitude ('goss') "
+        "or by minimal-variance keep probability ('mvs'), and the "
+        "survivors are gathered into a power-of-two bucket of rows that "
+        "the tree fit and line search run over.  'goss' keeps "
+        "ceil(top_rate*n) rows by |grad| plus ceil(other_rate*n) uniform "
+        "draws of the rest at weight (1-top_rate)/other_rate; 'mvs' keeps "
+        "an expected (top_rate+other_rate)*n rows with probability "
+        "min(1, sqrt(g^2+mvs_lambda)/mu).  Not with sample_method='goss'",
     )
     mvs_lambda = Param(0.1, gt_eq(0.0), doc="MVS regularizer")
     leaf_model = Param(
         "constant", in_array(["constant", "linear"]),
-        doc="'linear' ridge leaves are not ported yet",
+        doc="'linear' fits a ridge regression in every leaf: a "
+        "DecisionTreeRegressor base becomes a LinearTreeRegressor with its "
+        "params (models/linear_tree.py); another base raises ValueError",
     )
     replacement = Param(False, doc="subsample with replacement (Poisson weights)")
     subspace_ratio = Param(
@@ -157,32 +217,92 @@ class _GBMParams(Params):
     )
 
     def _base(self) -> BaseLearner:
-        return self.base_learner or DecisionTreeRegressor()
+        base = self.base_learner or DecisionTreeRegressor()
+        if str(self.leaf_model).lower() == "linear":
+            # here, not in fit: the fitted model's predict paths rebuild the
+            # base from its params and must read the ridge-leaf params
+            if type(base) is DecisionTreeRegressor:
+                base = LinearTreeRegressor(**base.get_params())
+            elif not isinstance(base, LinearTreeRegressor):
+                raise ValueError(
+                    "leaf_model='linear' needs a DecisionTreeRegressor "
+                    f"base learner (got {type(base).__name__}); pass a "
+                    "LinearTreeRegressor base directly to customize its "
+                    "leaf params"
+                )
+        return base
 
     def _check_gbm_support(self, mesh):
         """Raise for every Param value this slice does not implement."""
         self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
-        check_tree_base(self._base(), type(self).__name__)
+        check_tree_base(self._base(), type(self).__name__, linear_leaves=True)
         if self.checkpoint_dir is not None:
             not_supported("checkpoint_dir", self.checkpoint_dir, "queue 1, item 16")
-        if str(self.sample_method).lower() != "uniform":
-            not_supported("sample_method", self.sample_method, "queue 1, item 12")
-        if str(self.sampling).lower() != "none":
-            not_supported("sampling", self.sampling, "queue 1, item 12")
-        if str(self.leaf_model).lower() != "constant":
-            not_supported("leaf_model", self.leaf_model, "queue 1, item 12")
+
+    def _resolved_sampling(self, n: int):
+        """The gradient row-sampling plan, fixed on the host at fit start,
+        or None when ``sampling='none'``: the method, the counts ``k_top``
+        and ``k_rand``, GOSS's amplifier, MVS's lambda and the pow2
+        ``bucket`` of gathered rows.  The port has no autotune, so the
+        rates are the Params."""
+        method = str(self.sampling).lower()
+        if method == "none":
+            return None
+        top, other = float(self.top_rate), float(self.other_rate)
+        if method == "goss":
+            k_top = int(np.ceil(top * n))
+            k_rand = int(np.ceil(other * n))
+            amp = max(1.0 - top, 0.0) / max(other, 1e-9)  # (1-a)/b
+            lam = 0.0
+        else:  # mvs: expected sample size (top_rate + other_rate) * n
+            k_top = 0
+            k_rand = int(np.ceil(min(top + other, 1.0) * n))
+            amp = 0.0
+            lam = float(self.mvs_lambda)
+        return {
+            "method": method,
+            "bucket": _sample_pow2_bucket(n, k_top + k_rand, _SAMPLE_BUCKET_FLOOR),
+            "samp": (k_top, k_rand, amp, lam),
+            "sampled_rows": min(k_top + k_rand, n),
+        }
+
+    def _check_sampling_supported(self, plan) -> None:
+        if plan is not None and str(self.sample_method).lower() == "goss":
+            raise ValueError(
+                "sampling != 'none' supersedes the legacy weight-mask "
+                "sample_method='goss'; configure one of the two"
+            )
+
+    def _goss(self):
+        """The legacy weight-mask GOSS rates, or None."""
+        if str(self.sample_method).lower() != "goss":
+            return None
+        return float(self.top_rate), float(self.other_rate)
+
+    def _member_keys(self, device):
+        """Round ``i``'s key ``fold_in(PRNGKey(seed), i)``, for every round."""
+        m = int(self.num_base_learners)
+        return fold_in(PRNGKey(self.seed, device), torch.arange(m, device=device))
+
+    def _sampling_keys(self, device, plan):
+        """Every round's gradient-sampling key, hashed at fit start (no
+        per-round copy to the device), folded from the round's bag key
+        ``fold_in(member key, 2)``: ``fold_in(bag key, 11)`` for the
+        compacted selection, ``fold_in(bag key, 7)`` for the legacy GOSS
+        mask, as in the JAX package."""
+        bag_keys = fold_in(self._member_keys(device), 2)
+        return fold_in(bag_keys, 11 if plan is not None else 7)
 
     def _sampling_plan(self, n: int, d: int, device):
         """The per-round draws -> ``sample(i) -> (bag_w f32[n], mask
         bool[d] | None)``: the JAX package's ``_sampling_plan`` and
         ``_make_bag_many_fn``.  Draws that are all ones (all True) at the
         defaults are skipped."""
-        m = int(self.num_base_learners)
         repl, ratio = bool(self.replacement), float(self.subsample_ratio)
         sub_ratio = float(self.subspace_ratio)
-        keys = fold_in(PRNGKey(self.seed, device), torch.arange(m, device=device))
+        keys = self._member_keys(device)
         bag_keys = fold_in(keys, 2)
         masks = subspace_mask(fold_in(keys, 1), d, sub_ratio) if sub_ratio < 1.0 else None
         ones = torch.ones((n,), dtype=torch.float32, device=device)
@@ -212,9 +332,9 @@ class _GBMParams(Params):
         check = str(self.on_nonfinite).lower() == "raise"
         while i < self.num_base_learners and v < self.num_rounds:
             params, weight, err = run_round(i)
-            if check and not bool(
-                torch.isfinite(weight).all() & torch.isfinite(params.leaf_value).all()
-            ):
+            if check and not bool(torch.stack(
+                [torch.isfinite(t).all() for t in [weight, *_fitted_values(params)]]
+            ).all()):
                 raise FloatingPointError(
                     f"{label} round {i} produced non-finite member params or "
                     "step sizes (on_nonfinite='raise')"
@@ -250,10 +370,98 @@ def _split_validation(X, y, w_all, validation_indicator):
     return X[~vi], y[~vi], w_all[~vi], X[vi], y[vi]
 
 
-def _pseudo_residuals_and_weights(loss, updates, y_enc, pred, bag_w, w):
+def _goss_multiplier(neg_grad, w, bag_w, key, top_rate, other_rate):
+    """The legacy GOSS weight mask ``f32[n]``: 1 on the rows whose gradient
+    norm is in the top ``top_rate`` (the exact weighted quantile), and a
+    Bernoulli keep of the rest at rate ``other_rate / (1 - top_rate)``
+    weighted by its reciprocal, so the rest's gradient mass is unbiased."""
+    score = torch.sqrt(torch.sum(neg_grad * neg_grad, dim=-1))
+    thr = weighted_quantile(score, 1.0 - top_rate, w * bag_w)
+    # the JAX package's f32 arithmetic on the rates
+    f32 = np.float32
+    p = np.minimum(f32(1.0), f32(other_rate) / np.maximum(f32(1.0 - top_rate), f32(1e-9)))
+    keep = bernoulli(key, p, score.shape)
+    return torch.where(score >= thr, 1.0, torch.where(keep, f32(1.0) / p, f32(0.0)))
+
+
+def _sample_pow2_bucket(n: int, k_target: int, floor: int) -> int:
+    """The compaction bucket: the next power of two at or above the
+    expected survivor count (at least ``floor``), at most n."""
+    target = max(1, min(int(k_target), int(n)), int(floor))
+    m = 1
+    while m < target:
+        m *= 2
+    return min(int(n), m)
+
+
+def _sample_compact(method, score, alive, key, m, samp):
+    """Survivor selection on the device -> ``(idx i64[m], mult f32[m])``:
+    the rows gathered into the compacted buffer and their weights.
+    ``samp = (k_top, k_rand, amp, lam)`` are host numbers fixed at fit
+    start; ``key`` is the round's selection key; nothing here reads a
+    value back to the host or copies one to the device.  Dead rows
+    (``alive`` False) sort behind every candidate and can only land in the
+    buffer at weight 0.
+
+    GOSS: the ``k_top`` largest-score alive rows keep weight 1 (rank by a
+    stable argsort, so tied scores go by row index), and ``k_rand`` uniform
+    draws of the rest weigh ``amp``.  MVS: scores ``s = sqrt(score^2 +
+    lam)``; ``mu`` solves ``sum(min(1, s/mu)) = k_rand`` by 30 bisection
+    steps, rows with ``s >= mu`` are kept, the rest with probability
+    ``s/mu`` at weight ``mu/s``; past ``m`` keeps the lowest-priority
+    random ones drop."""
+    k_top, k_rand, amp, lam = samp
+    n = score.shape[0]
+    dev = score.device
+    u = uniform(key, (n,))
+    if method == "goss":
+        s = torch.where(alive, score, -torch.inf)
+        order_s = torch.argsort(-s, stable=True)
+        rank = torch.empty_like(order_s)
+        rank[order_s] = torch.arange(n, device=dev)
+        is_top = (rank < k_top) & alive
+        # top rows first (by their uniform), then the rest by their
+        # uniform, dead rows last
+        pri = torch.where(is_top, 2.0 + u, torch.where(alive, u, -1.0))
+        idx = torch.argsort(-pri, stable=True)[:m]
+        n_top = torch.sum(is_top)
+        pos = torch.arange(m, device=dev)
+        mult = torch.where(
+            pos < n_top, 1.0,
+            torch.where((pos < n_top + k_rand) & alive[idx], np.float32(amp), 0.0),
+        )
+        return idx, mult.to(torch.float32)
+    s = torch.where(alive, torch.sqrt(score * score + np.float32(lam)), 0.0)
+    hi = torch.clamp(torch.max(s), min=1e-30)
+    lo = hi * 1e-9
+    for _ in range(30):
+        mid = 0.5 * (lo + hi)
+        # the expected count falls as mu rises: too many keeps -> raise lo
+        # (k_rand compares as f32, with no copy to the device)
+        over = torch.sum(torch.clamp(s / mid, max=1.0)) >= float(k_rand)
+        lo, hi = torch.where(over, mid, lo), torch.where(over, hi, mid)
+    mu = torch.clamp(0.5 * (lo + hi), min=1e-30)
+    keep_det = alive & (s >= mu)
+    keep_rand = alive & ~keep_det & (u * mu < s)
+    pri = torch.where(keep_det, 2.0 + u, torch.where(keep_rand, u, -1.0))
+    idx = torch.argsort(-pri, stable=True)[:m]
+    pri_g = pri[idx]
+    mult = torch.where(
+        pri_g >= 2.0, 1.0,
+        torch.where(pri_g >= 0.0, mu / torch.clamp(s[idx], min=1e-30), 0.0),
+    )
+    return idx, mult
+
+
+def _pseudo_residuals_and_weights(loss, updates, y_enc, pred, bag_w, w,
+                                  goss=None, goss_key=None):
     """Targets/weights for the round's base fit -> (labels[n, dim],
-    fit_w[n, dim], bag_w)."""
+    fit_w[n, dim], bag_w); ``bag_w`` comes back multiplied by the legacy
+    GOSS mask when ``goss=(top_rate, other_rate)``, so the line search
+    sees the rows the trees fit."""
     neg_grad = loss.negative_gradient(y_enc, pred)
+    if goss is not None:
+        bag_w = bag_w * _goss_multiplier(neg_grad, w, bag_w, goss_key, *goss)
     if updates == "newton" and loss.has_hessian:
         h = torch.clamp(loss.hessian(y_enc, pred), min=1e-2)
         sum_h = torch.sum(bag_w[:, None] * h, dim=0, keepdim=True)
@@ -273,77 +481,124 @@ def _make_reg_loss(loss_name, alpha_q, delta):
     return losses_mod.get_regression_loss(loss_name, alpha=alpha_q, quantile=alpha_q)
 
 
-def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, tol,
-                        max_iter):
-    """One regressor round ``(ctx, X, bag_w, mask, pred, delta, y, w, lr) ->
-    (params, weight, new_pred)``: the closed-form step for squared loss,
-    Brent over [0, 100] for the others."""
+def _squared_step(bag_w, direction, res):
+    """The closed-form step of squared loss: ``phi(a) = sum bw*(res -
+    a*dir)^2/2`` is exactly quadratic; its minimizer, clamped to Brent's
+    [0, 100] bracket (1.0 for a zero direction)."""
+    num = torch.sum(bag_w * direction * res)
+    den = torch.sum(bag_w * direction * direction)
+    return torch.where(
+        den > 1e-30,
+        torch.clamp(num / torch.clamp(den, min=1e-30), 0.0, 100.0),
+        torch.ones((), device=den.device),
+    )
 
-    def round_core(ctx, X, bag_w, mask, pred, delta, y, w, lr):
-        loss = _make_reg_loss(loss_name, alpha_q, delta)
-        y_enc = loss.encode_label(y)
-        labels, fit_w, bag_w = _pseudo_residuals_and_weights(
-            loss, updates, y_enc, pred[:, None], bag_w, w
-        )
-        params, direction = base.fit_and_direction(
-            ctx, labels[:, 0].contiguous(), fit_w[:, 0].contiguous(), mask, X
-        )
+
+def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
+                        tol, max_iter, sampling=None):
+    """One regressor round ``(ctx, X, bag_w, key, mask, pred, delta, y, w,
+    lr) -> (params, weight, new_pred)``: the closed-form step for squared
+    loss, Brent over [0, 100] for the others.  ``key`` is the round's
+    sampling key (``_GBMParams._sampling_keys``), unused without sampling.  With a ``sampling`` plan
+    (``_resolved_sampling``) the tree fit, the hessian sum and the step
+    search run over the gathered survivors, and only the prediction update
+    routes every row."""
+
+    def step(loss, y_s, pred_s, bag_s, dir_s):
         if optimized and loss_name == "squared":
-            # phi(a) = sum bw*(res - a*dir)^2/2 is exactly quadratic: the
-            # minimizer in closed form, clamped to Brent's [0, 100] bracket
-            res = y - pred
-            num = torch.sum(bag_w * direction * res)
-            den = torch.sum(bag_w * direction * direction)
-            alpha = torch.where(
-                den > 1e-30,
-                torch.clamp(num / torch.clamp(den, min=1e-30), 0.0, 100.0),
-                torch.ones((), device=den.device),
-            )
-        elif optimized:
+            return _squared_step(bag_s, dir_s, y_s - pred_s)
+        if optimized:
+            y_enc_s = loss.encode_label(y_s)
+
             def phi(a):
                 return torch.sum(
-                    bag_w * loss.loss(y_enc, (pred + a * direction)[:, None])
+                    bag_s * loss.loss(y_enc_s, (pred_s + a * dir_s)[:, None])
                 )
 
-            alpha = brent_minimize(phi, 0.0, 100.0, tol=tol,
-                                   max_iter=max_iter).to(pred.device)
+            return brent_minimize(phi, 0.0, 100.0, tol=tol,
+                                  max_iter=max_iter).to(pred_s.device)
+        return torch.ones((), device=pred_s.device)
+
+    def round_core(ctx, X, bag_w, key, mask, pred, delta, y, w, lr):
+        loss = _make_reg_loss(loss_name, alpha_q, delta)
+        y_enc = loss.encode_label(y)
+        if sampling is None:
+            labels, fit_w, bag_w = _pseudo_residuals_and_weights(
+                loss, updates, y_enc, pred[:, None], bag_w, w, goss, key,
+            )
+            params, direction = base.fit_and_direction(
+                ctx, labels[:, 0].contiguous(), fit_w[:, 0].contiguous(), mask, X
+            )
+            alpha = step(loss, y, pred, bag_w, direction)
         else:
-            alpha = torch.ones((), device=pred.device)
+            idx, mult = _sample_compact(
+                sampling["method"], loss.sampling_scores(y_enc, pred[:, None]),
+                (w * bag_w) > 0, key, sampling["bucket"], sampling["samp"],
+            )
+            # the survivors, their (1-a)/b amplification folded into the
+            # bag weights so split gains and the newton sum stay unbiased
+            y_s, w_s, pred_s = y[idx], w[idx], pred[idx]
+            labels, fit_w, bag_s = _pseudo_residuals_and_weights(
+                loss, updates, loss.encode_label(y_s), pred_s[:, None],
+                bag_w[idx] * mult, w_s,
+            )
+            params, direction = base.fit_gathered_and_direction(
+                base.ctx_gather_rows(ctx, idx), labels[:, 0].contiguous(),
+                fit_w[:, 0].contiguous(), mask, X,
+            )
+            alpha = step(loss, y_s, pred_s, bag_s, direction[idx])
         weight = lr * alpha
         return params, weight, pred + weight * direction
 
     return round_core
 
 
-def make_cls_round_core(base, loss, dim, updates, optimized, tol, max_iter):
-    """One classifier round ``(ctx, X, y_enc, w, bag_w, mask, pred,
-    alpha_ws, lr) -> (params, weight[dim], new_pred, alpha_carry)``."""
+def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
+                        max_iter, sampling=None):
+    """One classifier round ``(ctx, X, y_enc, w, bag_w, key, mask, pred,
+    alpha_ws, lr) -> (params, weight[dim], new_pred, alpha_carry)``.  With
+    a ``sampling`` plan, rows rank by their gradient norm over the class
+    dims, and every dim's tree fits on the same gathered buffer."""
 
-    def round_core(ctx, X, y_enc, w, bag_w, mask, pred, alpha_ws, lr):
-        labels, fit_w, bag_w = _pseudo_residuals_and_weights(
-            loss, updates, y_enc, pred, bag_w, w
-        )
-        params, directions = base.fit_many_and_directions(
-            ctx, labels.contiguous(), fit_w.contiguous(), mask, X
-        )
-        if optimized:
-            def phi(a):
-                return torch.sum(
-                    bag_w * loss.loss(y_enc, pred + a[None, :] * directions)
-                )
+    def step(y_enc_s, pred_s, bag_s, dirs_s, alpha_ws):
+        if not optimized:
+            return torch.ones((dim,), dtype=torch.float32, device=pred_s.device)
 
-            def gh(a):
-                return loss.linesearch_grad_hess(
-                    y_enc, pred + a[None, :] * directions, directions, bag_w
-                )
+        def phi(a):
+            return torch.sum(bag_s * loss.loss(y_enc_s, pred_s + a[None, :] * dirs_s))
 
-            # warm start from the previous round's step sizes
-            alpha = projected_newton_box(
-                phi, alpha_ws, max_iter=min(max_iter, 25), tol=tol,
-                grad_hess=gh,
+        def gh(a):
+            return loss.linesearch_grad_hess(
+                y_enc_s, pred_s + a[None, :] * dirs_s, dirs_s, bag_s
             )
+
+        # warm start from the previous round's step sizes
+        return projected_newton_box(phi, alpha_ws, max_iter=min(max_iter, 25),
+                                    tol=tol, grad_hess=gh)
+
+    def round_core(ctx, X, y_enc, w, bag_w, key, mask, pred, alpha_ws, lr):
+        if sampling is None:
+            labels, fit_w, bag_w = _pseudo_residuals_and_weights(
+                loss, updates, y_enc, pred, bag_w, w, goss, key,
+            )
+            params, directions = base.fit_many_and_directions(
+                ctx, labels.contiguous(), fit_w.contiguous(), mask, X
+            )
+            alpha = step(y_enc, pred, bag_w, directions, alpha_ws)
         else:
-            alpha = torch.ones((dim,), dtype=torch.float32, device=pred.device)
+            idx, mult = _sample_compact(
+                sampling["method"], loss.sampling_scores(y_enc, pred),
+                (w * bag_w) > 0, key, sampling["bucket"], sampling["samp"],
+            )
+            y_enc_s, pred_s = y_enc[idx], pred[idx]
+            labels, fit_w, bag_s = _pseudo_residuals_and_weights(
+                loss, updates, y_enc_s, pred_s, bag_w[idx] * mult, w[idx]
+            )
+            params, directions = base.fit_gathered_many_and_directions(
+                base.ctx_gather_rows(ctx, idx), labels.contiguous(),
+                fit_w.contiguous(), mask, X,
+            )
+            alpha = step(y_enc_s, pred_s, bag_s, directions[idx], alpha_ws)
         weight = lr * alpha
         new_pred = pred + weight[None, :] * directions
         alpha_carry = torch.where(torch.isfinite(alpha), alpha, torch.ones_like(alpha))
@@ -414,9 +669,13 @@ class GBMRegressor(_GBMParams, Estimator):
         pred = init_model.predict(X).clone()
         sample = self._sampling_plan(n, d, dev)
         lr = float(self.learning_rate)
+        plan = self._resolved_sampling(n)
+        self._check_sampling_supported(plan)
+        keys = self._sampling_keys(dev, plan)
         round_core = make_reg_round_core(
             base, loss_name, alpha_q, self.updates.lower(),
-            bool(self.optimized_weights), float(self.tol), int(self.max_iter),
+            bool(self.optimized_weights), self._goss(), float(self.tol),
+            int(self.max_iter), plan,
         )
         with_validation = X_val is not None
         best = 0.0
@@ -436,7 +695,7 @@ class GBMRegressor(_GBMParams, Estimator):
                 delta = weighted_quantile(torch.abs(y - pred), alpha_q, weights=ones)
                 deltas.append(delta)
             params, weight, pred = round_core(
-                ctx, X, bag_w, mask, pred, delta, y, w, lr
+                ctx, X, bag_w, keys[i], mask, pred, delta, y, w, lr
             )
             err = None
             if with_validation:
@@ -450,7 +709,7 @@ class GBMRegressor(_GBMParams, Estimator):
         keep = i - v
         return GBMRegressionModel(
             params={
-                "members": stack_trees(members[:keep]) if keep > 0 else None,
+                "members": stack_members(members[:keep]) if keep > 0 else None,
                 "weights": (torch.stack(weights[:keep]) if keep > 0
                             else torch.zeros((0,), device=dev)),
                 "init": init_model.params,
@@ -544,9 +803,12 @@ class GBMClassifier(_GBMParams, Estimator):
         sample = self._sampling_plan(n, d, dev)
         alpha_ws = torch.ones((dim,), dtype=torch.float32, device=dev)
         lr = float(self.learning_rate)
+        plan = self._resolved_sampling(n)
+        self._check_sampling_supported(plan)
+        keys = self._sampling_keys(dev, plan)
         round_core = make_cls_round_core(
             base, loss, dim, self.updates.lower(), bool(self.optimized_weights),
-            float(self.tol), int(self.max_iter),
+            self._goss(), float(self.tol), int(self.max_iter), plan,
         )
         with_validation = X_val is not None
         best = 0.0
@@ -559,7 +821,7 @@ class GBMClassifier(_GBMParams, Estimator):
             nonlocal pred, pred_val, alpha_ws
             bag_w, mask = sample(i)
             params, weight, pred, alpha_ws = round_core(
-                ctx, X, y_enc, w, bag_w, mask, pred, alpha_ws, lr
+                ctx, X, y_enc, w, bag_w, keys[i], mask, pred, alpha_ws, lr
             )
             err = None
             if with_validation:
@@ -572,7 +834,7 @@ class GBMClassifier(_GBMParams, Estimator):
         keep = i - v
         return GBMClassificationModel(
             params={
-                "members": stack_trees(members[:keep]) if keep > 0 else None,
+                "members": stack_members(members[:keep]) if keep > 0 else None,
                 "weights": (torch.stack(weights[:keep]) if keep > 0
                             else torch.zeros((0, dim), device=dev)),
                 "init_raw": init_raw,
@@ -605,7 +867,7 @@ class GBMClassificationModel(ClassificationModel, GBMClassifier):
         r, dim = weights.shape
         # the [round, class-dim] grid flattened: one forest predict covers
         # every tree
-        flat = Tree(*(a.reshape((r * dim,) + a.shape[2:]) for a in members))
+        flat = map_members(lambda a: a.reshape((r * dim,) + a.shape[2:]), members)
         preds = self._base().predict_many_fn(flat, X).reshape(r, dim, -1)
         return out + torch.einsum("md,mdn->nd", weights, preds)
 

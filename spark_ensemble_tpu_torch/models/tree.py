@@ -32,11 +32,14 @@ from spark_ensemble_tpu_torch.ops.tree import (
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
 
 
-def check_tree_base(base, family: str):
+def check_tree_base(base, family: str, linear_leaves: bool = False):
     """Raise unless ``base`` is one of the histogram trees: the ensembles'
     fused member fits, stacked member params and forest predicts are the
-    trees' (other base learners under them: ROADMAP queue 1, item 14)."""
-    if not isinstance(base, _TreeLearner):
+    trees' (other base learners under them: ROADMAP queue 1, item 14).
+    Linear-leaf trees pass only where ``linear_leaves`` (GBM)."""
+    if not isinstance(base, _TreeLearner) or (
+        base.leaf_params and not linear_leaves
+    ):
         raise NotImplementedError(
             f"{family} over {type(base).__name__} is not supported by the "
             "PyTorch port yet (ROADMAP queue 1, item 14)"
@@ -52,6 +55,9 @@ def _renorm_proba(p):
 
 
 class _TreeLearner(BaseLearner):
+    # params are a bare Tree (False) or a dict around one (linear leaves)
+    leaf_params = False
+
     max_depth = Param(
         5, in_range(1, 20),
         doc="tree depth; the dense heap layout always allocates "
@@ -74,16 +80,20 @@ class _TreeLearner(BaseLearner):
         "accumulation); 'pallas' = the level histograms of a forest fit "
         "come from the CUDA kernel that replaces the JAX package's pallas "
         "kernel (ops/hist_kernels.py, bf16 hi + lo statistics), and a "
-        "single tree runs at 'high'.  'high' and 'default' change only "
-        "the matmul and fused tiers (ops/tree.py)",
+        "single tree runs at 'high'; past the one-hot budget of "
+        "hist='auto' the stream tier wins, at 'high'.  'high' and "
+        "'default' change only the matmul, stream and fused tiers, and "
+        "only the matmul tier subtracts histograms (ops/tree.py)",
     )
     hist = Param(
         "auto",
         in_array(["auto", "scatter", "matmul", "stream", "fused"]),
         doc="histogram tier (ops/tree.py): 'auto' = scatter on the CPU, "
-        "matmul on CUDA; 'fused' = per level a route kernel and a "
-        "histogram kernel over bit-packed 4/8-bit bins (max_bins <= 256); "
-        "'stream' is not ported yet",
+        "matmul on CUDA up to 2^28 one-hot cells (n * d * max_bins) and "
+        "'stream' past them; 'stream' = the matmul tier over row chunks "
+        "(no [n, d*max_bins] one-hot); 'fused' = per level a route kernel "
+        "and a histogram kernel over bit-packed 4/8-bit bins "
+        "(max_bins <= 256)",
     )
     seed = Param(0, doc="unused by the deterministic kernels; API parity")
 
@@ -116,6 +126,11 @@ class _TreeLearner(BaseLearner):
     def _direction_from_leaf(self, pred):
         """Leaf-value selection ``[..., k]`` -> the member's prediction."""
         raise NotImplementedError
+
+    def ctx_gather_rows(self, ctx, idx):
+        """Compact the binned matrix only; thresholds and num_classes are
+        shared (GBM's gradient row sampling, models/gbm.py)."""
+        return {**ctx, "Xb": ctx["Xb"][idx]}
 
     def fit_from_ctx(self, ctx, y, w, feature_mask, return_leaf=False):
         return fit_tree(

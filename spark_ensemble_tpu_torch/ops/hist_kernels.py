@@ -468,8 +468,19 @@ def split_terms(v: torch.Tensor, nterms: int) -> torch.Tensor:
     return hi + lo + lo2
 
 
-def hist_plain(ids, node, vals, n_nodes, B, nterms) -> torch.Tensor:
-    """``H[M, n_nodes, C, d, B]`` by ``index_add_`` over the split terms."""
+def _add_at(flat, idx, src, ordered):
+    """``flat[idx] += src``.  ``index_add_`` sums in row order on the CPU
+    but adds by atomics on CUDA, in an order that changes from run to run;
+    with ``ordered`` a CUDA tensor takes the sort-based ``index_put_``
+    accumulation instead, whose order is fixed."""
+    if ordered and flat.is_cuda:
+        return flat.index_put_((idx,), src, accumulate=True)
+    return flat.index_add_(0, idx, src)
+
+
+def hist_plain(ids, node, vals, n_nodes, B, nterms, ordered=False) -> torch.Tensor:
+    """``H[M, n_nodes, C, d, B]`` by ``index_add_`` over the split terms
+    (``ordered``: see ``_add_at``)."""
     n, d = ids.shape
     _, M, C = vals.shape
     dev = vals.device
@@ -480,7 +491,7 @@ def hist_plain(ids, node, vals, n_nodes, B, nterms) -> torch.Tensor:
         * d + torch.arange(d, device=dev)[None, None, None, :]
     ) * B + ids.long()[:, None, None, :]
     H = torch.zeros(M * n_nodes * C * d * B, dtype=torch.float32, device=dev)
-    H.index_add_(0, idx.reshape(-1), t[:, :, :, None].expand(n, M, C, d).reshape(-1))
+    _add_at(H, idx.reshape(-1), t[:, :, :, None].expand(n, M, C, d).reshape(-1), ordered)
     return H.reshape(M, n_nodes, C, d, B)
 
 
@@ -493,12 +504,13 @@ def route_plain(ids, node, best_f, best_t) -> torch.Tensor:
     return (2 * node + 1 - (b <= best_t[m, nl]).to(torch.int32)).to(torch.int32)
 
 
-def leaf_plain(node, vals, n_nodes) -> torch.Tensor:
-    """``L[M, n_nodes, C]`` f32 sums by ``index_add_``."""
+def leaf_plain(node, vals, n_nodes, ordered=False) -> torch.Tensor:
+    """``L[M, n_nodes, C]`` f32 sums by ``index_add_`` (``ordered``: see
+    ``_add_at``)."""
     n, M, C = vals.shape
     idx = torch.arange(M, device=vals.device)[None, :] * n_nodes + node.long()
     L = torch.zeros(M * n_nodes, C, dtype=torch.float32, device=vals.device)
-    L.index_add_(0, idx.reshape(-1), vals.reshape(-1, C))
+    _add_at(L, idx.reshape(-1), vals.reshape(-1, C), ordered)
     return L.reshape(M, n_nodes, C)
 
 

@@ -34,6 +34,33 @@ def chol_solve_psd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(b[:, None], L)[:, 0]
 
 
+def chol_solve_psd_lanes(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``A[i] x[i] = b[i]`` for a batch of small SPD matrices ``A
+    [..., k, k]`` by the JAX package's ``chol_solve_psd`` arithmetic: a
+    Cholesky-Crout factorization and two triangular solves, each step a
+    masked vector op over every lane at once.  A lane whose matrix is not
+    positive definite comes out NaN instead of raising (a square root of a
+    negative pivot), so the caller can replace it (the linear leaves fall
+    back to the constant leaf there)."""
+    k = A.shape[-1]
+    idx = torch.arange(k, device=A.device)
+    L = torch.zeros_like(A)
+    for j in range(k):
+        prior = (idx < j).to(A.dtype)
+        s = A[..., :, j] - torch.sum(L * (L[..., j, :] * prior)[..., None, :], dim=-1)
+        dj = torch.sqrt(s[..., j])[..., None]
+        L[..., :, j] = torch.where(idx == j, dj, torch.where(idx > j, s / dj, 0.0))
+    y = torch.zeros_like(b)
+    for i in range(k):  # L y = b
+        prior = (idx < i).to(A.dtype)
+        y[..., i] = (b[..., i] - torch.sum(L[..., i, :] * y * prior, dim=-1)) / L[..., i, i]
+    x = torch.zeros_like(b)
+    for i in range(k - 1, -1, -1):  # L^T x = y
+        later = (idx > i).to(A.dtype)
+        x[..., i] = (y[..., i] - torch.sum(L[..., :, i] * x * later, dim=-1)) / L[..., i, i]
+    return x
+
+
 def brent_minimize(
     f: Callable[[torch.Tensor], torch.Tensor],
     lo: float,

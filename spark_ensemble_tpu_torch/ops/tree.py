@@ -10,6 +10,9 @@ split score ``sum_k (S_L^2/W_L + S_R^2/W_R)`` over per-level histograms of
 Histogram tiers (``hist`` x ``hist_precision``):
 
 - ``scatter``: ``index_add_`` in f32 — the JAX package's CPU ``auto`` tier.
+  On CUDA, where ``index_add_`` adds by atomics in an order that changes
+  from run to run, it is the sort-based ``index_put_`` accumulation, so a
+  fit repeats bit for bit there too.
 - ``matmul``: the one-hot matmul ``A^T @ bin_onehot`` in true f32 (TF32 is
   off on CUDA, ``models/base.resolve_device``) — the JAX package's GPU
   ``auto`` tier.
@@ -47,11 +50,24 @@ single tree (``fit_tree``) at ``hist_precision="pallas"`` runs on this
 'high' matmul path, as the JAX package's does; a forest at "pallas"
 launches the kernel.
 
+- ``stream``: the HBM-scale tier, which ``hist="auto"`` takes on CUDA
+  past ``_MATMUL_HIST_MAX_CELLS`` one-hot cells (the JAX package's
+  ``_fit_forest_streamed``).  Each level is one pass over row chunks of
+  ``_STREAM_CHUNK_ROWS``: the chunk is routed through the previous level's
+  tables, and its histogram is one ``torch.matmul`` over the chunk's
+  one-hots, accumulated in chunk order.  No ``[n, d*B]`` tensor exists;
+  bins are kept as uint8 when ``max_bins <= 256``.  Its floors are the
+  direct 1e-12 (no histogram subtraction), and its prefix sums follow the
+  precision as on the matmul tier.  At ``hist_precision="pallas"`` the
+  stream tier wins, at the 'high' statistic precision, as in the JAX
+  package: no kernel launches there.
+
 Routing is an integer-exact gather, the same function as the JAX
-package's one-hot contraction.  :func:`feature_gains` sums split gains per
-feature for ``feature_importances_``.  Still to port:
-``predict_tree_binned`` and ``leaf_one_hot`` (with linear leaves, ROADMAP
-queue 1, item 12) and the ``stream`` tier (Slice B).
+package's one-hot contraction.  :func:`leaf_one_hot` and
+:func:`leaf_one_hot_forest` are the one-hots of the routed leaf ids, equal
+to the JAX package's path-score one-hots (the linear-leaf learner's
+routing); :func:`feature_gains` sums split gains per feature for
+``feature_importances_``.
 """
 
 from __future__ import annotations
@@ -79,22 +95,21 @@ class Tree(NamedTuple):
     split_gain: torch.Tensor  # f32[..., 2^depth - 1]; 0 at no-split nodes
 
 
-# bin-one-hot budget of the matmul tier under hist="auto": past it the JAX
-# package takes the row-chunked stream tier, which the port lacks yet
+# bin-one-hot budget of the matmul tier under hist="auto": past it the
+# row-chunked stream tier runs (the JAX package's rule)
 _MATMUL_HIST_MAX_CELLS = 2**28
+# rows per chunk of the stream tier: bounds the chunk's one-hots (bin_oh
+# [chunk, d*B], A [chunk, M*nodes*(1+k)])
+_STREAM_CHUNK_ROWS = 32768
+# the leaf one-hots (linear leaves) serve trees up to this depth, as the
+# JAX package's path-scoring matmuls do
+_MATMUL_PREDICT_MAX_DEPTH = 10
 _ROUTING_EXACT_MAX_BINS = 256
 # clamp for non-finite features at predict: NaN/+inf go right at every
 # real split, -inf goes left (the JAX package's rule)
 _F32_MAX = 3.0e38
 # rows x trees per predict chunk (bounds the [rows, trees] id tensors)
 _PREDICT_MAX_CELLS = 2**22
-
-
-def _not_ported(param, value, item):
-    raise NotImplementedError(
-        f"{param}={value!r} is not supported by the PyTorch port yet "
-        f"(ROADMAP {item})"
-    )
 
 
 # the relative weight floor of a subtraction-derived child, per precision
@@ -117,10 +132,11 @@ def _bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 def resolve_forest_tier(hist: str, hist_precision: str, device, n: int,
                         d: int, B: int) -> str:
-    """The tier ``fit_forest`` runs: ``scatter``, ``matmul``, ``pallas`` or
-    ``fused``.  Mirrors the JAX package's resolution, minus the tiers the
-    port lacks (which raise) and minus the VMEM gates, which do not carry
-    over: a CUDA kernel tiles its output across CTAs."""
+    """The tier ``fit_forest`` runs: ``scatter``, ``matmul``, ``stream``,
+    ``pallas`` or ``fused``.  Mirrors the JAX package's resolution, minus
+    the VMEM gates, which do not carry over: a CUDA kernel tiles its output
+    across CTAs.  ``auto`` past the one-hot budget is ``stream``, at
+    ``hist_precision="pallas"`` too (the stream tier wins)."""
     hp, h = hist_precision.lower(), hist.lower()
     if h == "fused":
         if B > _ROUTING_EXACT_MAX_BINS:
@@ -136,8 +152,6 @@ def resolve_forest_tier(hist: str, hist_precision: str, device, n: int,
             h = "matmul"
         else:
             h = "stream"
-    if h == "stream":
-        _not_ported("hist", h, "Slice B")
     if hp == "pallas" and h == "matmul":
         return "pallas"
     return h
@@ -157,7 +171,7 @@ def _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B, prev_H=None):
     the matmul tier) only the left children are computed and the right
     siblings are ``parent - left``."""
     if tier == "scatter":
-        return hist_plain(Xb, node, vals, n_nodes, B, 1)
+        return hist_plain(Xb, node, vals, n_nodes, B, 1, ordered=True)
     if tier == "pallas":
         return hist_level_pallas(Xb, node, vals, n_nodes=n_nodes, max_bins=B)
     n, M, C = vals.shape
@@ -245,6 +259,155 @@ def _level_split_tables(H, feature_mask, node_floor, min_info_gain,
     return best_f, best_t, thr, do_split, best_gain, node_w, node_wy
 
 
+def stream_vals_prep(Y: torch.Tensor, w: torch.Tensor):
+    """Per-row statistics of a forest fit -> ``(w_tot [M], y_mean [M, k],
+    vals [n, M, 1+k])``: the weight channel and the weighted targets
+    centred at each member's root mean.  Every tier takes them from here."""
+    w = w.to(torch.float32)
+    w_tot = torch.sum(w, dim=0)
+    y_mean = torch.sum(w[:, :, None] * Y, dim=0) / torch.clamp(
+        w_tot[:, None], min=1e-30
+    )
+    vals = torch.cat(
+        [w[:, :, None], w[:, :, None] * (Y - y_mean[None, :, :])], dim=2
+    ).contiguous()
+    return w_tot, y_mean, vals
+
+
+def _leaf_onehot_sums(node, vals, num_leaves):
+    """Leaf sums ``[M, leaves, C]`` as the one-hot contraction of the
+    matmul and stream tiers."""
+    leaf_oh = torch.nn.functional.one_hot(node.long(), num_leaves).to(torch.float32)
+    return torch.einsum("nml,nmc->mlc", leaf_oh, vals)
+
+
+def stream_level_step(acc, xb, nd, vl, *, n_nodes, tables, max_bins):
+    """One row chunk's share of one level's histogram: route the chunk
+    (``xb`` i32 bins, ``nd`` node ids) through the PREVIOUS level's tables,
+    then add ``A^T @ bin_oh`` of the chunk into ``acc [M, n_nodes, C, d,
+    B]`` -> ``(acc, nd)``."""
+    if tables is not None:
+        nd = _route_members(xb, nd, tables[0], tables[1])
+    acc.add_(_level_hist("matmul", xb, _bin_one_hot(xb, max_bins), nd, vl,
+                         n_nodes, max_bins))
+    return acc, nd
+
+
+def stream_leaf_step(acc, xb, nd, vl, *, num_leaves, tables):
+    """One row chunk's share of the leaf sums: route through the LAST
+    level's tables and add into ``acc [M, leaves, C]`` -> ``(acc, nd)``."""
+    nd = _route_members(xb, nd, tables[0], tables[1])
+    acc.add_(_leaf_onehot_sums(nd, vl, num_leaves))
+    return acc, nd
+
+
+def _write_level(H, node_floor, feature_mask, min_info_gain, thresholds, B,
+                 triangular, round_bf16, level, parent_value, out):
+    """Score one level and write its heap rows into ``out`` (the split
+    tensors, in place) -> ``(best_f, best_t, node_w, parent_value)``, the
+    last being the children's fallback values."""
+    M, n_nodes = H.shape[0], H.shape[1]
+    best_f, best_t, thr, do_split, best_gain, node_w, node_wy = (
+        _level_split_tables(H, feature_mask, node_floor, min_info_gain,
+                            thresholds, B, triangular, round_bf16)
+    )
+    heap = slice(2**level - 1, 2**level - 1 + n_nodes)
+    split_feature, split_bin, split_threshold, split_gain = out
+    split_feature[:, heap] = best_f
+    split_bin[:, heap] = best_t
+    split_threshold[:, heap] = thr
+    split_gain[:, heap] = torch.where(do_split, best_gain, 0.0)
+    node_val = node_wy / torch.clamp(node_w[:, :, None], min=1e-30)
+    node_val = torch.where(
+        node_w[:, :, None] > node_floor[:, :, None], node_val, parent_value
+    )
+    return best_f, best_t, node_w, torch.repeat_interleave(node_val, 2, dim=1)
+
+
+def stream_level_update(H, feature_mask, min_info_gain, thresholds, B,
+                        triangular, round_bf16, level, parent_value, out):
+    """Score one level's accumulated histograms with the direct 1e-12
+    floors (no histogram subtraction on this tier) and write its heap rows
+    into ``out`` -> ``(tables, parent_value)``; ``tables = (best_f,
+    best_t)`` route the next level's chunks."""
+    M, n_nodes = H.shape[0], H.shape[1]
+    floor = torch.full((M, n_nodes), 1e-12, dtype=torch.float32, device=H.device)
+    best_f, best_t, _, parent_value = _write_level(
+        H, floor, feature_mask, min_info_gain, thresholds, B, triangular,
+        round_bf16, level, parent_value, out,
+    )
+    return (best_f, best_t), parent_value
+
+
+def stream_leaf_values(leaf_w, leaf_wy, parent_value, y_mean):
+    """Leaf sums -> leaf values (an empty leaf takes its parent's value),
+    re-centred at the root mean."""
+    leaf_value = leaf_wy / torch.clamp(leaf_w[:, :, None], min=1e-30)
+    leaf_value = torch.where(leaf_w[:, :, None] > 1e-12, leaf_value, parent_value)
+    return leaf_value + y_mean[:, None, :]
+
+
+def _empty_splits(M, J, dev):
+    return (
+        torch.zeros((M, J), dtype=torch.int32, device=dev),
+        torch.zeros((M, J), dtype=torch.int32, device=dev),
+        torch.zeros((M, J), dtype=torch.float32, device=dev),
+        torch.zeros((M, J), dtype=torch.float32, device=dev),
+    )
+
+
+def _fit_forest_streamed(Xb, vals, y_mean, thresholds, feature_mask, *,
+                         max_depth, max_bins, min_info_gain, triangular,
+                         round_bf16, return_leaf):
+    """The stream tier: each level is one pass over row chunks of
+    ``_STREAM_CHUNK_ROWS``.  A chunk is routed through the previous level's
+    tables, then its histogram is one matmul over its one-hots, added to
+    the level's accumulator in chunk order; the leaf pass routes the last
+    level and sums the leaves the same way.  Only a chunk's one-hots ever
+    exist (``[chunk, d*B]``), never the matmul tier's ``[n, d*B]``, and
+    nothing in the chunk loop reads a value back to the host.  The ragged
+    last chunk is a shorter slice: the JAX package pads it with zero-weight
+    rows, which add exactly 0."""
+    n, d = Xb.shape
+    M, C = vals.shape[1], vals.shape[2]
+    B = max_bins
+    dev = Xb.device
+    # the chunk loop reads the bins once a level: kept as uint8 when ids
+    # 0..B-1 fit, and upcast per chunk (a uint8 index would be a mask)
+    if B <= 256:
+        Xb = Xb.to(torch.uint8)
+    chunk = _STREAM_CHUNK_ROWS
+    spans = [(r0, min(r0 + chunk, n)) for r0 in range(0, n, chunk)]
+    out = _empty_splits(M, 2**max_depth - 1, dev)
+    node = torch.zeros((n, M), dtype=torch.int32, device=dev)
+    parent_value = y_mean[:, None, :]
+    tables = None
+    for level in range(max_depth):
+        n_nodes = 2**level
+        H = torch.zeros((M, n_nodes, C, d, B), dtype=torch.float32, device=dev)
+        for r0, r1 in spans:
+            H, node[r0:r1] = stream_level_step(
+                H, Xb[r0:r1].to(torch.int32), node[r0:r1], vals[r0:r1],
+                n_nodes=n_nodes, tables=tables, max_bins=B,
+            )
+        tables, parent_value = stream_level_update(
+            H, feature_mask, min_info_gain, thresholds, B, triangular,
+            round_bf16, level, parent_value, out,
+        )
+    L = torch.zeros((M, 2**max_depth, C), dtype=torch.float32, device=dev)
+    for r0, r1 in spans:
+        L, node[r0:r1] = stream_leaf_step(
+            L, Xb[r0:r1].to(torch.int32), node[r0:r1], vals[r0:r1],
+            num_leaves=2**max_depth, tables=tables,
+        )
+    tree = Tree(
+        *out[:3],
+        leaf_value=stream_leaf_values(L[:, :, 0], L[:, :, 1:], parent_value, y_mean),
+        split_gain=out[3],
+    )
+    return (tree, node) if return_leaf else tree
+
+
 def fit_forest(
     Xb: torch.Tensor,  # i32[n, d] binned features, shared by all members
     Y: torch.Tensor,  # f32[n, M, k] per-member targets
@@ -262,15 +425,15 @@ def fit_forest(
     """Fit M trees at once on shared binned features -> stacked ``Tree``
     (leading member axis), optionally with each row's leaf id per member.
 
-    One loop serves every tier: the fused tier's branches are the JAX
+    One loop serves the dense tiers: the fused tier's branches are the JAX
     package's ``_fit_forest_fused`` (bins packed once; each level routes
     by the previous level's tables inside ``fused_round_level``), the
     others its dense ``fit_forest`` path, with histogram subtraction and
-    its floors at the fast precisions on the matmul tier."""
+    its floors at the fast precisions on the matmul tier.  The stream tier
+    is :func:`_fit_forest_streamed`."""
     n, d = Xb.shape
     _, M, k = Y.shape
     B = max_bins
-    J = 2**max_depth - 1
     dev = Xb.device
     hp = hist_precision.lower()
     tier = resolve_forest_tier(hist, hp, dev, n, d, B)
@@ -285,21 +448,17 @@ def fit_forest(
         feature_mask = feature_mask[None, :].expand(M, d)
     feature_mask = feature_mask.to(torch.bool)
 
-    w = w.to(torch.float32)
-    w_tot = torch.sum(w, dim=0)  # [M]
-    y_mean = torch.sum(w[:, :, None] * Y, dim=0) / torch.clamp(
-        w_tot[:, None], min=1e-30
-    )  # [M, k]
-    vals = torch.cat(
-        [w[:, :, None], w[:, :, None] * (Y - y_mean[None, :, :])], dim=2
-    ).contiguous()  # [n, M, 1+k]
-
+    _, y_mean, vals = stream_vals_prep(Y, w)
     stat_vals = _bf16_round(vals) if round_bf16 else vals
+    if tier == "stream":
+        return _fit_forest_streamed(
+            Xb, stat_vals, y_mean, thresholds, feature_mask,
+            max_depth=max_depth, max_bins=B, min_info_gain=min_info_gain,
+            triangular=triangular, round_bf16=round_bf16,
+            return_leaf=return_leaf,
+        )
 
-    split_feature = torch.zeros((M, J), dtype=torch.int32, device=dev)
-    split_bin = torch.zeros((M, J), dtype=torch.int32, device=dev)
-    split_threshold = torch.zeros((M, J), dtype=torch.float32, device=dev)
-    split_gain = torch.zeros((M, J), dtype=torch.float32, device=dev)
+    out = _empty_splits(M, 2**max_depth - 1, dev)
     node = torch.zeros((n, M), dtype=torch.int32, device=dev)
     parent_value = y_mean[:, None, :]  # [M, 1, k]
     bin_oh = _bin_one_hot(Xb, B) if tier == "matmul" else None
@@ -332,26 +491,15 @@ def fit_forest(
             ).reshape(M, n_nodes)
         else:
             node_floor = torch.full((M, n_nodes), 1e-12, dtype=torch.float32, device=dev)
-        best_f, best_t, thr, do_split, best_gain, node_w, node_wy = (
-            _level_split_tables(
-                H, feature_mask, node_floor, min_info_gain, thresholds, B,
-                triangular, round_bf16,
-            )
+        best_f, best_t, node_w, next_parent = _write_level(
+            H, node_floor, feature_mask, min_info_gain, thresholds, B,
+            triangular, round_bf16, level, parent_value, out,
         )
-        heap = slice(2**level - 1, 2**level - 1 + n_nodes)
-        split_feature[:, heap] = best_f
-        split_bin[:, heap] = best_t
-        split_threshold[:, heap] = thr
-        split_gain[:, heap] = torch.where(do_split, best_gain, 0.0)
         if tier == "fused":
             tables = (best_f.contiguous(), best_t.contiguous())  # routed in-kernel
         else:
             node = _route_members(Xb, node, best_f, best_t)
-        node_val = node_wy / torch.clamp(node_w[:, :, None], min=1e-30)
-        node_val = torch.where(
-            node_w[:, :, None] > node_floor[:, :, None], node_val, parent_value
-        )
-        parent_value = torch.repeat_interleave(node_val, 2, dim=1)
+        parent_value = next_parent
         prev_H, prev_W, prev_floor = H, node_w, node_floor
 
     num_leaves = 2**max_depth
@@ -361,20 +509,13 @@ def fit_forest(
             max_bins=B, bits=bits, num_features=d, leaf=True,
         )
     elif tier == "scatter":
-        L = leaf_plain(node, vals, num_leaves)
+        L = leaf_plain(node, vals, num_leaves, ordered=True)
     else:
-        leaf_oh = torch.nn.functional.one_hot(node.long(), num_leaves).to(torch.float32)
-        L = torch.einsum("nml,nmc->mlc", leaf_oh, stat_vals)
-    leaf_w = L[:, :, 0]  # [M, L]
-    leaf_wy = L[:, :, 1:]  # [M, L, k]
-    leaf_value = leaf_wy / torch.clamp(leaf_w[:, :, None], min=1e-30)
-    leaf_value = torch.where(leaf_w[:, :, None] > 1e-12, leaf_value, parent_value)
+        L = _leaf_onehot_sums(node, stat_vals, num_leaves)
     tree = Tree(
-        split_feature=split_feature,
-        split_bin=split_bin,
-        split_threshold=split_threshold,
-        leaf_value=leaf_value + y_mean[:, None, :],
-        split_gain=split_gain,
+        *out[:3],
+        leaf_value=stream_leaf_values(L[:, :, 0], L[:, :, 1:], parent_value, y_mean),
+        split_gain=out[3],
     )
     # the final `node` is each row's leaf id: a fit-then-predict on the
     # same rows (the GBM round) reads leaf values by it instead of re-routing
@@ -384,11 +525,13 @@ def fit_forest(
 def fit_tree(Xb, Y, w, thresholds, feature_mask=None, *, max_depth=5,
              max_bins=64, min_info_gain=0.0, hist="auto",
              hist_precision="highest", return_leaf=False):
-    """One tree (``Y f32[n, k]``, ``w f32[n]``): ``fit_forest`` with M=1.
+    """One tree (``Y f32[n, k]``, ``w f32[n]``): ``fit_forest`` with M=1,
+    on every tier (the stream and fused tiers' single tree is their M=1
+    case, as in the JAX package).
 
     As in the JAX package, a single tree at ``hist_precision="pallas"``
-    runs on the 'high' matmul tier with histogram subtraction, not on the
-    kernel (the fused tier keeps its kernels)."""
+    runs on the 'high' matmul (or stream) tier, not on the kernel (the
+    fused tier keeps its kernels)."""
     if hist_precision.lower() == "pallas" and hist.lower() != "fused":
         hist_precision = "high"
     mask = None if feature_mask is None else feature_mask.reshape(1, -1)
@@ -421,27 +564,68 @@ def feature_gains(trees: Tree, d: int) -> torch.Tensor:
     return out.scatter_add_(-1, sf.long(), trees.split_gain.to(torch.float32))
 
 
+def _clamp_features(X: torch.Tensor) -> torch.Tensor:
+    """Raw features as f32 with NaN/+inf -> +_F32_MAX and -inf ->
+    -_F32_MAX: NaN/+inf go right at every real split, -inf left."""
+    return torch.nan_to_num(
+        X.to(torch.float32), nan=_F32_MAX, posinf=_F32_MAX, neginf=-_F32_MAX
+    )
+
+
+def _walk(trees: Tree, X: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Heap walk of every member -> leaf ids ``i64[n, M]``: left iff the
+    row's value at the node's feature is ``<= keys[m, node]`` (thresholds
+    on clamped raw features, or split bins on bin ids)."""
+    M, J = trees.split_feature.shape
+    depth = (J + 1).bit_length() - 1
+    m = torch.arange(M, device=X.device)[None, :]
+    sf = trees.split_feature.long()
+    node = torch.zeros((X.shape[0], M), dtype=torch.long, device=X.device)
+    for _ in range(depth):
+        x = X.gather(1, sf[m, node])
+        node = 2 * node + torch.where(x <= keys[m, node], 1, 2)
+    return node - J
+
+
+def _leaf_ids(trees: Tree, X: torch.Tensor, binned: bool) -> torch.Tensor:
+    """Leaf ids ``i64[n, M]`` of a stacked Tree on raw features (clamped)
+    or on bin ids (``binned``: compared with the split bins)."""
+    if binned:
+        return _walk(trees, X, trees.split_bin)
+    return _walk(trees, _clamp_features(X), trees.split_threshold)
+
+
+def leaf_one_hot_forest(trees: Tree, X: torch.Tensor, binned: bool) -> torch.Tensor:
+    """Exact leaf one-hot ``f32[n, M, 2^depth]`` of every member of a
+    stacked Tree, on raw (``binned=False``) or binned features: the one-hot
+    of the routed leaf ids, equal to the JAX package's path-score one-hot.
+    Depth above ``_MATMUL_PREDICT_MAX_DEPTH`` raises, as there."""
+    depth = (trees.split_feature.shape[-1] + 1).bit_length() - 1
+    if depth > _MATMUL_PREDICT_MAX_DEPTH:
+        raise ValueError(
+            f"leaf one-hots support depth <= {_MATMUL_PREDICT_MAX_DEPTH}; got {depth}"
+        )
+    leaf = _leaf_ids(trees, X, binned)
+    return torch.nn.functional.one_hot(leaf, 2**depth).to(torch.float32)
+
+
+def leaf_one_hot(tree: Tree, X: torch.Tensor, binned: bool) -> torch.Tensor:
+    """Exact leaf one-hot ``f32[n, 2^depth]`` of one tree (see
+    :func:`leaf_one_hot_forest`): the linear-leaf learner's row-to-leaf
+    routing."""
+    return leaf_one_hot_forest(Tree(*(a[None] for a in tree)), X, binned)[:, 0]
+
+
 def predict_forest(trees: Tree, X: torch.Tensor) -> torch.Tensor:
     """Member predict for a stacked ``Tree`` on raw features ``X[n, d]`` ->
     ``f32[M, n, k]``: a heap walk by gathers, bit-identical to the JAX
     package's path-scoring matmuls (both select one leaf value exactly)."""
-    M, J = trees.split_feature.shape
-    depth = (J + 1).bit_length() - 1
-    Xc = torch.nan_to_num(
-        X.to(torch.float32), nan=_F32_MAX, posinf=_F32_MAX, neginf=-_F32_MAX
-    )
-    n = Xc.shape[0]
+    M = trees.split_feature.shape[0]
+    Xc = _clamp_features(X)
     m = torch.arange(M, device=Xc.device)[None, :]
-    sf = trees.split_feature.long()
     chunk = max(1, _PREDICT_MAX_CELLS // max(M, 1))
-    outs = []
-    for r0 in range(0, n, chunk):
-        Xr = Xc[r0:r0 + chunk]
-        node = torch.zeros((Xr.shape[0], M), dtype=torch.long, device=Xc.device)
-        for _ in range(depth):
-            x = Xr.gather(1, sf[m, node])
-            node = 2 * node + torch.where(x <= trees.split_threshold[m, node], 1, 2)
-        outs.append(trees.leaf_value[m, node - J])  # [rows, M, k]
+    outs = [trees.leaf_value[m, _walk(trees, Xc[r0:r0 + chunk], trees.split_threshold)]
+            for r0 in range(0, Xc.shape[0], chunk)]  # each [rows, M, k]
     return torch.cat(outs, dim=0).permute(1, 0, 2) if outs else (
         trees.leaf_value.new_zeros((M, 0, trees.leaf_value.shape[-1]))
     )
@@ -450,3 +634,10 @@ def predict_forest(trees: Tree, X: torch.Tensor) -> torch.Tensor:
 def predict_tree(tree: Tree, X: torch.Tensor) -> torch.Tensor:
     """``f32[n, k]`` leaf values of one tree on raw features ``X[n, d]``."""
     return predict_forest(Tree(*(a[None] for a in tree)), X)[0]
+
+
+def predict_tree_binned(tree: Tree, Xb: torch.Tensor) -> torch.Tensor:
+    """``f32[n, k]`` leaf values of one tree on binned features ``Xb[n,
+    d]`` (rows go left iff their bin is at most the split bin)."""
+    stacked = Tree(*(a[None] for a in tree))
+    return tree.leaf_value[_leaf_ids(stacked, Xb, binned=True)[:, 0]]

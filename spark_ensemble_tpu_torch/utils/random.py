@@ -32,6 +32,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -127,9 +128,9 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
 
 
 def bernoulli(key: torch.Tensor, p: float, shape=()) -> torch.Tensor:
-    """``jax.random.bernoulli`` (mode ``low``): ``uniform < p`` in float32."""
-    p32 = torch.tensor(p, dtype=torch.float32, device=key.device)
-    return uniform(key, shape) < p32
+    """``jax.random.bernoulli`` (mode ``low``): ``uniform < p`` in float32
+    (the scalar compares as float32, with no copy to the device)."""
+    return uniform(key, shape) < float(np.float32(p))
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:

@@ -142,14 +142,38 @@ def test_predict_forest_matches_exactly_with_non_finite_rows():
     "hist,hist_precision,n,B,exc",
     [
         ("fused", "highest", 100, 300, ValueError),
-        ("stream", "highest", 100, 16, NotImplementedError),
-        ("stream", "high", 100, 16, NotImplementedError),
-        ("stream", "default", 100, 16, NotImplementedError),
     ],
 )
 def test_unported_tiers_raise(hist, hist_precision, n, B, exc):
     with pytest.raises(exc):
         tt.resolve_forest_tier(hist, hist_precision, "cpu", n, 4, B)
+
+
+@pytest.mark.parametrize("hist_precision", ["highest", "high", "default"])
+def test_stream_tier_resolves_as_the_reference(hist_precision):
+    """hist='stream' is a tier of its own at every precision, as in the JAX
+    package (it raised before the stream tier was ported); a fit on it
+    gives the JAX stream tier's split tables.  The statistics are
+    bf16-exact (integer targets in mirrored pairs, weights in {1, 2}), so
+    'default' rounds nothing the JAX package on the CPU keeps."""
+    assert tt.resolve_forest_tier("stream", hist_precision, "cpu", 100, 4,
+                                  16) == "stream"
+    _, Xb, thr, _, _ = _fixture(3, 200, 4, 2, 1, 16)
+    rng = np.random.RandomState(4)
+    v = rng.randint(-3, 4, size=(100, 2, 1)).astype(np.float32)
+    wv = rng.randint(1, 3, size=(100, 2)).astype(np.float32)
+    perm = rng.permutation(200)
+    Y, w = np.concatenate([v, -v])[perm], np.concatenate([wv, wv])[perm]
+    kw = dict(max_depth=2, max_bins=16, hist="stream",
+              hist_precision=hist_precision)
+    jtree = jt.fit_forest(jnp.asarray(Xb), jnp.asarray(Y), jnp.asarray(w),
+                          jnp.asarray(thr), **kw)
+    ttree = tt.fit_forest(torch.as_tensor(Xb), torch.as_tensor(Y),
+                          torch.as_tensor(w), torch.as_tensor(thr), **kw)
+    np.testing.assert_array_equal(ttree.split_feature.numpy(),
+                                  np.asarray(jtree.split_feature))
+    np.testing.assert_array_equal(ttree.split_bin.numpy(),
+                                  np.asarray(jtree.split_bin))
 
 
 def test_tier_resolution_follows_the_reference():
