@@ -20,7 +20,11 @@ data too, where the kernels tile 123 features in 31 packed words), then
 the stream tier at bench.py's XL size (2,097,152 x 64, 8 classes: the
 default tree's hist="auto" resolves to it there), GBM's GOSS/MVS row
 compaction on the main path (the fused kernels at the 8192-row bucket),
-and linear-leaf GBM, and checks the results.  Each phase prints one JSON line; any failed check raises and the
+linear-leaf GBM, the kernels at the megabatch sweep's M = 12 x 26 = 312
+(each lane of the wide launch equal to its own launch), a CrossValidator
+over the main path at megabatch "on" and "off" (equal bit for bit) and
+the reference's CrossValidator over Bagging, the MLP and the ensembles over
+non-tree members, and pipelines, and checks the results.  Each phase prints one JSON line; any failed check raises and the
 script exits non-zero.
 The last two lines are the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``.
@@ -46,6 +50,7 @@ FP32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 ADULT_ROWS, ADULT_FEATURES = 32561, 123  # a9a's shape
 XL_ROWS, XL_FEATURES, XL_CLASSES, XL_ROUNDS = 2_097_152, 64, 8, 10  # bench.py's XL leg
 STREAM_CHECK_ROWS = 262_144  # the stream-vs-matmul one-round check
+SWEEP_LANES = 12  # the tuning phase's candidates: 2 x 2 maps x 3 folds
 
 
 def emit(obj):
@@ -1268,7 +1273,7 @@ def main():
                                    torch.log(prior)[None, :].expand(N_ROWS, N_CLASSES))
     idx0, mult0 = gbm_mod._sample_compact(
         "goss", score0, torch.ones(N_ROWS, dtype=torch.bool, device=dev),
-        est._sampling_keys(dev, plan)[0], plan["bucket"], plan["samp"])
+        est._round_keys(dev, plan)[1][0], plan["bucket"], plan["samp"])
     n_checks = len(checks)
     forest_shapes("letter_sampled", Xb64[idx0].contiguous(), onehot_l[idx0][:, :1],
                   members=(N_CLASSES,))
@@ -1297,6 +1302,249 @@ def main():
         if lin[tier] >= const_rmse[tier]:
             raise AssertionError(f"linear leaves {tier}: rmse {lin[tier]} >= constant {const_rmse[tier]}")
     near("GBMRegressor[linear leaves]", lin, "rmse", 0.1)
+
+    # phase 15 (kernel_check at the sweep's shape): the tuning phase's
+    # megabatch sweep folds 12 candidates of 26 class dims into one forest
+    # of M = 312 members on letter's 15000 rows.  Each kernel at M = 312
+    # (levels 0 and 4, the route into level 4, the leaf pass from 16
+    # parents) is held against its plain version and timed beside its bound
+    # and one index_add_ over the same cells; and lane s of the wide launch
+    # (lanes=12) must equal a launch of its own 26 members bit for bit
+    lanes, Ml = SWEEP_LANES, SWEEP_LANES * N_CLASSES
+    packed64 = binning.pack_bins(Xb64, MAX_BINS, bits8).packed
+    kw8 = dict(bits=bits8, num_features=N_FEATURES)
+    vals_w = torch.as_tensor(np.stack([rng.rand(N_ROWS, Ml), rng.randn(N_ROWS, Ml)], axis=2)
+                             .astype(np.float32), device=dev)
+    common = {"data": "letter_sweep", "n": N_ROWS, "d": N_FEATURES, "W": packed64.shape[1],
+              "M": Ml, "lanes": lanes, "C": C, **card}
+    sweep_checks = []
+
+    def lane_cols(t, s):
+        return t[:, s * N_CLASSES:(s + 1) * N_CLASSES].contiguous()
+
+    def lanes_equal(rec, wide, narrow, what):
+        """Every lane of the wide launch against its own 26-member launch."""
+        torch.cuda.synchronize()
+        for s in range(lanes):
+            got = wide(s)
+            if not torch.equal(got, narrow(s)):
+                raise AssertionError(f"{rec.name}: lane {s} of the M={Ml} launch differs from its "
+                                     f"own M={N_CLASSES} launch ({what})")
+
+    def sweep_row(rec, run, nbytes, nops, plan, library_device_ms, **row):
+        b_ms, b_by = bound(nbytes, nops)
+        rec.shapes.append({**common, **row, "device_ms": device_ms(run), "bound_ms": b_ms,
+                           "bound_by": b_by, "library_device_ms": library_device_ms,
+                           "grid": plan.grid, "plan": plan._asdict()})
+
+    for level in (0, DEPTH - 1):
+        n_nodes = 2**level
+        node = torch.as_tensor(rng.randint(0, n_nodes, size=(N_ROWS, Ml)).astype(np.int32), device=dev)
+        out_floats = Ml * n_nodes * C * N_FEATURES * MAX_BINS
+        cells = (((torch.arange(Ml, device=dev)[None, :] * n_nodes + node.long())[:, :, None, None] * C
+                  + torch.arange(C, device=dev)[None, None, :, None]) * N_FEATURES
+                 + torch.arange(N_FEATURES, device=dev)[None, None, None, :]) * MAX_BINS \
+            + Xb64.long()[:, None, None, :]
+        cells = cells.reshape(-1)
+        src = vals_w[:, :, :, None].expand(N_ROWS, Ml, C, N_FEATURES).reshape(-1)
+        acc = torch.zeros(out_floats, device=dev)
+        lib_dev = device_ms(lambda: acc.index_add_(0, cells, src))  # one yardstick for both
+        for rec, fn, words, nterms, bits in (
+            (recs["hist_packed"], lambda nd, vl, ln: hk.hist_level_packed(
+                packed64, nd, vl, n_nodes=n_nodes, max_bins=MAX_BINS, lanes=ln, **kw8), packed64, 3, bits8),
+            (recs["hist_i32"], lambda nd, vl, ln: hk.hist_level_pallas(
+                Xb64, nd, vl, n_nodes=n_nodes, max_bins=MAX_BINS, lanes=ln), Xb64, 2, 32),
+        ):
+            what = f"sweep M={Ml} level {level}"
+            run = lambda: fn(node, vals_w, lanes)
+            err = check_level(rec, run, hk.hist_plain(Xb64, node, vals_w, n_nodes, MAX_BINS, nterms), what)
+            H = run()
+            lanes_equal(rec, lambda s: H[s * N_CLASSES:(s + 1) * N_CLASSES],
+                        lambda s: fn(lane_cols(node, s), lane_cols(vals_w, s), 1), what)
+            plan = hk.lane_level_plan(N_ROWS, N_FEATURES, Ml, C, MAX_BINS, n_nodes, bits, lanes)
+            sweep_row(rec, run, 4 * (words.numel() + node.numel() + vals_w.numel() + out_floats),
+                      N_ROWS * Ml * C * N_FEATURES, plan, lib_dev, level=level, n_nodes=n_nodes)
+            sweep_checks.append({"kernel": rec.name, **common, "level": level, "n_nodes": n_nodes,
+                                 "max_abs_err": err, "lanes_equal_own_launch": True})
+        del cells, src, acc
+    half = 2 ** (DEPTH - 1)
+    parent = torch.as_tensor(rng.randint(0, half, size=(N_ROWS, Ml)).astype(np.int32), device=dev)
+    bf = torch.as_tensor(rng.randint(0, N_FEATURES, size=(Ml, half)).astype(np.int32), device=dev)
+    bt = torch.as_tensor(rng.randint(0, MAX_BINS, size=(Ml, half)).astype(np.int32), device=dev)
+    rrec, lrec = recs["route_packed"], recs["leaf_sums"]
+    run_r = lambda: hk.route_packed(packed64, parent, bf, bt, **kw8)
+    ref_node = hk.route_plain(Xb64, parent, bf, bt)
+    compare(rrec, run_r(), ref_node, f"sweep M={Ml}", exact=True)
+    repeat_identical(rrec, run_r, f"sweep M={Ml}")
+    sweep_row(rrec, run_r, 4 * (packed64.numel() + 2 * parent.numel() + 2 * bf.numel()), N_ROWS * Ml,
+              hk.route_plan(N_ROWS, Ml, half, packed64.shape[1]), None, half=half)
+    sweep_checks.append({"kernel": rrec.name, **common, "half": half, "max_abs_err": 0.0})
+    run_l = lambda: hk.fused_round_level(packed64, parent, vals_w, bf, bt, n_nodes=2 * half,
+                                         max_bins=MAX_BINS, leaf=True, lanes=lanes, **kw8)
+    L, leaf_ids = run_l()
+    compare(lrec, leaf_ids, ref_node, f"sweep M={Ml}", exact=True)
+    err = compare(lrec, L, hk.leaf_plain(ref_node, vals_w, 2 * half), f"sweep M={Ml}")
+    repeat_identical(lrec, run_l, f"sweep M={Ml}")
+    lanes_equal(lrec, lambda s: L[s * N_CLASSES:(s + 1) * N_CLASSES],
+                lambda s: hk.fused_round_level(
+                    packed64, lane_cols(parent, s), lane_cols(vals_w, s),
+                    bf[s * N_CLASSES:(s + 1) * N_CLASSES].contiguous(),
+                    bt[s * N_CLASSES:(s + 1) * N_CLASSES].contiguous(), n_nodes=2 * half,
+                    max_bins=MAX_BINS, leaf=True, **kw8)[0], "leaf pass")
+    lidx = (torch.arange(Ml, device=dev)[None, :] * (2 * half) + ref_node.long()).reshape(-1)
+    lsrc = vals_w.reshape(-1, C)
+    lacc = torch.zeros(Ml * 2 * half, C, device=dev)
+    sweep_row(lrec, run_l, 4 * (packed64.numel() + 2 * parent.numel() + vals_w.numel() + 2 * bf.numel()
+                                + L.numel()), N_ROWS * Ml * C,
+              hk.lane_leaf_plan(N_ROWS, Ml, C, 2 * half, half, packed64.shape[1], lanes),
+              device_ms(lambda: lacc.index_add_(0, lidx, lsrc)), leaves=2 * half)
+    sweep_checks.append({"kernel": lrec.name, **common, "leaves": 2 * half, "routed": True,
+                         "max_abs_err": err, "lanes_equal_own_launch": True})
+    # why the tree fit takes its prefix sums lane by lane (ops/tree.py
+    # _prefix_sums): CUDA's cumsum along the bins of a 312-member view, held
+    # against the same on each lane's 26-member slice (reported, not held)
+    H_s = torch.randn(Ml, 2 ** (DEPTH - 1), C, N_FEATURES, MAX_BINS, device=dev)
+    wide_cs = torch.cumsum(H_s[:, :, 0], dim=3)
+    emit({"phase": "kernel_check", "check": "cumsum_view_lanes", **common,
+          "lanes_equal_own_cumsum": all(
+              bool(torch.equal(wide_cs[s * N_CLASSES:(s + 1) * N_CLASSES],
+                               torch.cumsum(H_s[s * N_CLASSES:(s + 1) * N_CLASSES][:, :, 0], dim=3)))
+              for s in range(lanes))})
+    del H_s, wide_cs
+    for row in sweep_checks:
+        emit({"phase": "kernel_check", **row})
+    del vals_w, parent, L, leaf_ids, lidx, lsrc, lacc
+    torch.cuda.empty_cache()
+
+    # phase 16 (tuning): a CrossValidator over the main path (the fused
+    # tier; learning_rate in {0.1, 0.3} x subsample_ratio in {1.0, 0.8}, 3
+    # folds, 20 rounds: 12 candidates in one sweep group, M = 12 x 26 = 312)
+    # at megabatch "on" and "off": their avg_metrics and best_index must
+    # be equal bit for bit (a swept candidate fits as it would alone).
+    # Then the pair at hist="auto" (the matmul tier on the card, whose
+    # sweep runs one product per lane, cuBLAS's own choice at each shape),
+    # 5 rounds, held to an equal best_index, its largest avg_metrics gap
+    # printed.
+    # Then the reference's own example: a CrossValidator over
+    # BaggingClassifier(DecisionTreeClassifier()) with a grid over
+    # subspace_ratio
+    from spark_ensemble_tpu_torch.models import gbm_sweep
+
+    grid = (st.ParamGridBuilder().add_grid("learning_rate", [0.1, 0.3])
+            .add_grid("subsample_ratio", [1.0, 0.8]).build())
+    swept_rounds = []
+    real_swept = gbm_sweep._swept_forest
+
+    def counted_swept(*args, **kwargs):
+        swept_rounds.append(len(args[2]))  # the lanes of this round's forest
+        return real_swept(*args, **kwargs)
+
+    def tune(hist, rounds, megabatch):
+        est = st.GBMClassifier(num_base_learners=rounds, loss="logloss", updates="newton",
+                               learning_rate=0.3,
+                               base_learner=st.DecisionTreeRegressor(max_depth=DEPTH, max_bins=MAX_BINS,
+                                                                     hist=hist))
+        cv = st.CrossValidator(estimator=est, estimator_param_maps=grid,
+                               evaluator=st.MulticlassClassificationEvaluator(), num_folds=3,
+                               seed=0, megabatch=megabatch)
+        swept_rounds.clear()
+        gbm_sweep._swept_forest = counted_swept
+        try:
+            model, secs, launches = fit_counted(cv, X_np, y_np)
+        finally:
+            gbm_sweep._swept_forest = real_swept
+        emit({"phase": "tuning", "estimator": "CrossValidator[GBMClassifier]", "tier": hist,
+              "megabatch": megabatch, "candidates": len(grid) * 3, "rounds": rounds,
+              "fit_s": secs, "launches": launches, "swept_rounds": len(swept_rounds),
+              "lanes_per_swept_round": max(swept_rounds) if swept_rounds else 0,
+              "avg_metrics": model.avg_metrics, "best_index": model.best_index, **card})
+        return model, launches
+
+    tuned = {mb: tune("fused", PARITY_ROUNDS, mb) for mb in ("on", "off")}
+    (on, on_l), (off, off_l) = tuned["on"], tuned["off"]
+    if on.avg_metrics != off.avg_metrics or on.best_index != off.best_index:
+        raise AssertionError(f"tuning fused: megabatch on {on.avg_metrics} / {on.best_index} != "
+                             f"off {off.avg_metrics} / {off.best_index}")
+    # the sweep: 5/4/1 launches a round for all 12 candidates, then the
+    # best map's refit; sequentially: 12 fits and the refit
+    if on_l != per_fit(2 * PARITY_ROUNDS) or off_l != per_fit(13 * PARITY_ROUNDS):
+        raise AssertionError(f"tuning fused launches: on {on_l}, off {off_l}")
+    auto = {mb: tune("auto", 5, mb)[0] for mb in ("on", "off")}
+    gap = max(abs(a - b) for a, b in zip(auto["on"].avg_metrics, auto["off"].avg_metrics))
+    emit({"phase": "tuning", "tier": "auto", "resolved_tier": "matmul",
+          "avg_metrics_max_gap": gap, "best_index_equal": auto["on"].best_index == auto["off"].best_index,
+          **card})
+    if auto["on"].best_index != auto["off"].best_index:
+        raise AssertionError(f"tuning matmul: best_index {auto['on'].best_index} != {auto['off'].best_index}")
+    example = st.CrossValidator(
+        estimator=st.BaggingClassifier(base_learner=st.DecisionTreeClassifier()),
+        estimator_param_maps=st.ParamGridBuilder().add_grid("subspace_ratio", [0.5, 1.0]).build(),
+        evaluator=st.MulticlassClassificationEvaluator(), num_folds=3)
+    model, secs, launches = fit_counted(example, X_np, y_np)
+    acc = accuracy(model, X_np, y_np)
+    emit({"phase": "tuning", "estimator": "CrossValidator[BaggingClassifier(DecisionTreeClassifier)]",
+          "fit_s": secs, "avg_metrics": model.avg_metrics, "best_index": model.best_index,
+          "train_accuracy": acc, **card})
+    if acc < 2.0 / N_CLASSES or not all(math.isfinite(v) for v in model.avg_metrics):
+        raise AssertionError(f"reference example: accuracy {acc}, avg_metrics {model.avg_metrics}")
+
+    # phase 17 (mlp_members): the MLP alone and as an ensemble member: 200
+    # Adam steps of MLPClassifier((64,)) on letter, Bagging over it (10
+    # members trained at once), docs/stacking.md's stack, GBMRegressor over
+    # MLPRegressor and over LinearRegression on the 8192x12 data, and SAMME
+    # over GaussianNaiveBayes
+    def member_run(family, est, X_, y_, metric, floor=None):
+        model, secs, launches = fit_counted(est, X_, y_)
+        value = metric(model, X_, y_)
+        emit({"phase": "mlp_members", "family": family, "fit_s": secs, metric.__name__: value,
+              "launches": launches, **card})
+        if floor is not None and value < floor:
+            raise AssertionError(f"{family}: {metric.__name__} {value} < {floor}")
+        return model
+
+    mlp = lambda: st.MLPClassifier(hidden_layer_sizes=(64,), max_iter=200)
+    member_run("MLPClassifier", mlp(), X_np, y_np, accuracy, floor=0.5)
+    member_run("BaggingClassifier[MLPClassifier]",
+               st.BaggingClassifier(num_base_learners=10, base_learner=mlp()), X_np, y_np, accuracy,
+               floor=0.5)
+    member_run("StackingClassifier[docs/stacking.md]", st.StackingClassifier(
+        base_learners=[st.DecisionTreeClassifier(max_depth=5), st.BoostingClassifier(num_base_learners=5),
+                       mlp(), st.LogisticRegression()],
+        stacker=st.LogisticRegression(), stack_method="raw"), X_np, y_np, accuracy, floor=0.5)
+    member_run("GBMRegressor[MLPRegressor]", st.GBMRegressor(
+        num_base_learners=10, learning_rate=0.3,
+        base_learner=st.MLPRegressor(hidden_layer_sizes=(64,), max_iter=200)), Xr, yr, rmse)
+    member_run("GBMRegressor[LinearRegression]", st.GBMRegressor(
+        num_base_learners=10, learning_rate=0.3, base_learner=st.LinearRegression()), Xr, yr, rmse)
+    member_run("BoostingClassifier[discrete, GaussianNaiveBayes]", st.BoostingClassifier(
+        num_base_learners=10, base_learner=st.GaussianNaiveBayes()), X_np, y_np, accuracy,
+        floor=1.0 / N_CLASSES)
+
+    # phase 18 (pipeline): a TrainValidationSplit over
+    # Pipeline([StandardScaler(), GBMClassifier(main path)]) at two learning
+    # rates, 20 rounds (pipelines fit sequentially), and
+    # Pipeline([MinMaxScaler(), MLPClassifier()])
+    def scaled_gbm(lr):
+        return st.Pipeline(stages=[st.StandardScaler(), gbm("fused", "highest", PARITY_ROUNDS)
+                                   .set_params(learning_rate=lr)])
+
+    tvs = st.TrainValidationSplit(estimator=scaled_gbm(0.3),
+                                  estimator_param_maps=[{"stages": scaled_gbm(lr).stages}
+                                                        for lr in (0.1, 0.3)],
+                                  evaluator=st.MulticlassClassificationEvaluator(), seed=0)
+    model, secs, launches = fit_counted(tvs, X_np, y_np)
+    acc = accuracy(model, X_np, y_np)
+    emit({"phase": "pipeline", "estimator": "TrainValidationSplit[Pipeline(StandardScaler, GBMClassifier)]",
+          "fit_s": secs, "validation_metrics": model.validation_metrics,
+          "best_index": model.best_index, "train_accuracy": acc, "launches": launches, **card})
+    if launches != per_fit(3 * PARITY_ROUNDS) or acc < 0.5:
+        raise AssertionError(f"tuned pipeline: launches {launches}, accuracy {acc}")
+    model, secs, _ = fit_counted(st.Pipeline(stages=[st.MinMaxScaler(), mlp()]), X_np, y_np)
+    acc = accuracy(model, X_np, y_np)
+    emit({"phase": "pipeline", "estimator": "Pipeline(MinMaxScaler, MLPClassifier)", "fit_s": secs,
+          "train_accuracy": acc, **card})
+    if acc < 0.5:
+        raise AssertionError(f"Pipeline(MinMaxScaler, MLPClassifier): accuracy {acc}")
 
     emit({"phase": "profiler", "empty_traces_retried": empty_traces[0]})
     emit({"kernels": [r.json() for r in recs.values()]})

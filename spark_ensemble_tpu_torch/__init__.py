@@ -19,7 +19,13 @@ default) or on the CPU (``device="cpu"``):
   tier, the row-chunked ``stream`` tier included),
   ``LinearTreeRegressor``,
   ``LinearRegression``, ``LogisticRegression`` (newton, lbfgs),
-  ``GaussianNaiveBayes``, ``DummyRegressor`` and ``DummyClassifier``;
+  ``GaussianNaiveBayes``, ``MLPClassifier``, ``MLPRegressor``,
+  ``DummyRegressor`` and ``DummyClassifier``; Bagging, Boosting and GBM
+  take any of them as members;
+- model selection: ``ParamGridBuilder``, ``CrossValidator`` and
+  ``TrainValidationSplit`` (weight-mask folds, shared binning, and the
+  megabatch GBM sweep ``fit_sweep``), ``Pipeline`` with ``StandardScaler``
+  and ``MinMaxScaler``, and ``FeatureMetadata``;
 - the evaluators behind ``score()``, and ``jax.random``'s draws, bit for
   bit (``utils/random.py``).
 
@@ -41,8 +47,13 @@ from spark_ensemble_tpu_torch.convert import (
     linear_regression_from_arrays,
     linear_tree_regressor_from_arrays,
     logistic_regression_from_arrays,
+    min_max_scaler_from_arrays,
+    mlp_classifier_from_arrays,
+    mlp_regressor_from_arrays,
+    pipeline_from_models,
     stacking_classifier_from_models,
     stacking_regressor_from_models,
+    standard_scaler_from_arrays,
 )
 from spark_ensemble_tpu_torch.evaluation import (
     BinaryClassificationEvaluator,
@@ -79,9 +90,20 @@ from spark_ensemble_tpu_torch.models.linear import (
     LogisticRegression,
     LogisticRegressionModel,
 )
+from spark_ensemble_tpu_torch.models.gbm_sweep import (
+    fit_sweep,
+    sweep_group_key,
+    sweep_unsupported_reason,
+)
 from spark_ensemble_tpu_torch.models.linear_tree import (
     LinearTreeRegressionModel,
     LinearTreeRegressor,
+)
+from spark_ensemble_tpu_torch.models.mlp import (
+    MLPClassificationModel,
+    MLPClassifier,
+    MLPRegressionModel,
+    MLPRegressor,
 )
 from spark_ensemble_tpu_torch.models.naive_bayes import (
     GaussianNaiveBayes,
@@ -99,6 +121,22 @@ from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeRegressionModel,
     DecisionTreeRegressor,
 )
+from spark_ensemble_tpu_torch.pipeline import (
+    MinMaxScaler,
+    MinMaxScalerModel,
+    Pipeline,
+    PipelineModel,
+    StandardScaler,
+    StandardScalerModel,
+)
+from spark_ensemble_tpu_torch.tuning import (
+    CrossValidator,
+    CrossValidatorModel,
+    ParamGridBuilder,
+    TrainValidationSplit,
+    TrainValidationSplitModel,
+)
+from spark_ensemble_tpu_torch.utils.features import FeatureMetadata
 from spark_ensemble_tpu_torch.utils.quantile import (
     weighted_median,
     weighted_quantile,
@@ -114,6 +152,8 @@ __all__ = [
     "BoostingClassifier",
     "BoostingRegressionModel",
     "BoostingRegressor",
+    "CrossValidator",
+    "CrossValidatorModel",
     "DecisionTreeClassificationModel",
     "DecisionTreeClassifier",
     "DecisionTreeRegressionModel",
@@ -122,6 +162,7 @@ __all__ = [
     "DummyClassifier",
     "DummyRegressionModel",
     "DummyRegressor",
+    "FeatureMetadata",
     "GBMClassificationModel",
     "GBMClassifier",
     "GBMRegressionModel",
@@ -134,25 +175,46 @@ __all__ = [
     "LinearTreeRegressor",
     "LogisticRegression",
     "LogisticRegressionModel",
+    "MLPClassificationModel",
+    "MLPClassifier",
+    "MLPRegressionModel",
+    "MLPRegressor",
+    "MinMaxScaler",
+    "MinMaxScalerModel",
     "MulticlassClassificationEvaluator",
+    "ParamGridBuilder",
+    "Pipeline",
+    "PipelineModel",
     "RegressionEvaluator",
     "StackingClassificationModel",
     "StackingClassifier",
     "StackingRegressionModel",
     "StackingRegressor",
+    "StandardScaler",
+    "StandardScalerModel",
+    "TrainValidationSplit",
+    "TrainValidationSplitModel",
     "bagging_classifier_from_arrays",
     "bagging_regressor_from_arrays",
     "boosting_classifier_from_arrays",
     "boosting_regressor_from_arrays",
     "decision_tree_classifier_from_arrays",
+    "fit_sweep",
     "gaussian_nb_from_arrays",
     "gbm_classifier_from_arrays",
     "gbm_regressor_from_arrays",
     "linear_regression_from_arrays",
     "linear_tree_regressor_from_arrays",
     "logistic_regression_from_arrays",
+    "min_max_scaler_from_arrays",
+    "mlp_classifier_from_arrays",
+    "mlp_regressor_from_arrays",
+    "pipeline_from_models",
     "stacking_classifier_from_models",
     "stacking_regressor_from_models",
+    "standard_scaler_from_arrays",
+    "sweep_group_key",
+    "sweep_unsupported_reason",
     "weighted_median",
     "weighted_quantile",
 ]

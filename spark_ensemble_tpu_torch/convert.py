@@ -19,10 +19,17 @@ never imports the JAX package):
   ``mean``, ``var``, ``log_prior`` and ``mask``;
 - linear-leaf trees (``LinearTreeRegressor``, and GBM at
   ``leaf_model="linear"``): the tree fields of ``params["tree"]`` plus
-  ``beta``, ``x_mu``, ``x_sd`` and ``mask``, with the same leading axes.
+  ``beta``, ``x_mu``, ``x_sd`` and ``mask``, with the same leading axes;
+- the MLP's params as they are nested (``layers``, a list of ``{"W",
+  "b"}``, then ``x_mu``, ``x_sd``, ``mask``, and the regressor's ``y_mu``
+  and ``y_sd``); the scalers' ``mean``/``scale`` and ``lo``/``range``;
+- Bagging, Boosting and GBM over a non-tree learner: ``arrays["members"]``
+  holds the stacked member params as they are nested (leading member
+  axes as above), in place of the tree fields.
 
-A Stacking model's members and stacker are converted one by one with the
-functions here; ``stacking_*_from_models`` assembles them.  The functions
+A Stacking model's members and stacker, and a Pipeline model's stages, are
+converted one by one with the functions here; ``stacking_*_from_models``
+and ``pipeline_from_models`` assemble them.  The functions
 rebuild the port's model on ``device``; estimator-valued params (base
 learners, stackers) become the port's estimators of the same name.
 """
@@ -62,6 +69,12 @@ from spark_ensemble_tpu_torch.models.linear import (
     LogisticRegression,
     LogisticRegressionModel,
 )
+from spark_ensemble_tpu_torch.models.mlp import (
+    MLPClassificationModel,
+    MLPClassifier,
+    MLPRegressionModel,
+    MLPRegressor,
+)
 from spark_ensemble_tpu_torch.models.naive_bayes import (
     GaussianNaiveBayes,
     GaussianNaiveBayesModel,
@@ -78,18 +91,26 @@ from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeRegressor,
 )
 from spark_ensemble_tpu_torch.ops.tree import Tree
+from spark_ensemble_tpu_torch.pipeline import (
+    MinMaxScaler,
+    MinMaxScalerModel,
+    Pipeline,
+    PipelineModel,
+    StandardScaler,
+    StandardScalerModel,
+)
 
 TREE_FIELDS = Tree._fields
 # the port's estimators by the JAX package's class names
 _ESTIMATORS = {c.__name__: c for c in (
     DecisionTreeClassifier, DecisionTreeRegressor, DummyRegressor,
     DummyClassifier, LinearRegression, LogisticRegression, GaussianNaiveBayes,
-    LinearTreeRegressor,
+    LinearTreeRegressor, MLPClassifier, MLPRegressor,
     GBMClassifier, GBMRegressor, BaggingClassifier, BaggingRegressor,
     BoostingClassifier, BoostingRegressor, StackingClassifier,
-    StackingRegressor,
+    StackingRegressor, StandardScaler, MinMaxScaler, Pipeline,
 )}
-_ESTIMATOR_PARAMS = ("base_learner", "base_learners", "stacker")
+_ESTIMATOR_PARAMS = ("base_learner", "base_learners", "stacker", "stages")
 
 
 def _port_estimator(est):
@@ -100,8 +121,7 @@ def _port_estimator(est):
     cls = _ESTIMATORS.get(type(est).__name__)
     if cls is None:
         raise NotImplementedError(
-            f"{type(est).__name__} is not ported yet (ROADMAP queue 1, "
-            "items 13-14)"
+            f"{type(est).__name__} has no converter into the port"
         )
     return cls(**_port_params(est.get_params()))
 
@@ -138,9 +158,25 @@ def _trees(arrays: dict, device) -> Tree:
 _LINEAR_LEAF_KEYS = ("beta", "x_mu", "x_sd", "mask")
 
 
+def _nested(tree, device):
+    """Nested numpy params (dicts, lists, tuples) as the same structure of
+    tensors (float arrays as float32)."""
+    if isinstance(tree, dict):
+        return {k: _nested(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_nested(v, device) for v in tree)
+    a = np.array(tree)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    return torch.as_tensor(a, device=device)
+
+
 def _members(arrays: dict, device):
-    """Member trees, or linear-leaf members (the trees plus their leaf
-    models) when the arrays carry ``beta``."""
+    """Member trees, linear-leaf members (the trees plus their leaf
+    models) when the arrays carry ``beta``, or any other learner's stacked
+    params when they carry ``members``."""
+    if "members" in arrays:
+        return _nested(arrays["members"], device)
     trees = _trees(arrays, device)
     if "beta" not in arrays:
         return trees
@@ -224,11 +260,11 @@ def bagging_classifier_from_arrays(params: dict, arrays: dict, *,
                                    num_features: int, num_classes: int,
                                    device="cuda"):
     """Port model of a fitted JAX ``BaggingClassificationModel`` (member
-    trees plus ``masks``)."""
+    params plus ``masks``)."""
     dev = resolve_device(device)
     masks = torch.as_tensor(np.array(arrays["masks"], bool), device=dev)
     return BaggingClassificationModel(
-        params={"members": _trees(arrays, dev), "masks": masks},
+        params={"members": _members(arrays, dev), "masks": masks},
         num_features=num_features, num_classes=num_classes,
         num_members=masks.shape[0], device=dev,
         **_port_params(params, DecisionTreeClassifier),
@@ -241,7 +277,7 @@ def bagging_regressor_from_arrays(params: dict, arrays: dict, *,
     dev = resolve_device(device)
     masks = torch.as_tensor(np.array(arrays["masks"], bool), device=dev)
     return BaggingRegressionModel(
-        params={"members": _trees(arrays, dev), "masks": masks},
+        params={"members": _members(arrays, dev), "masks": masks},
         num_features=num_features, num_members=masks.shape[0], device=dev,
         **_port_params(params),
     )
@@ -249,7 +285,7 @@ def bagging_regressor_from_arrays(params: dict, arrays: dict, *,
 
 def _boosting_params(arrays, dev):
     weights = torch.as_tensor(np.array(arrays["weights"], np.float32), device=dev)
-    members = _trees(arrays, dev) if weights.shape[0] > 0 else None
+    members = _members(arrays, dev) if weights.shape[0] > 0 else None
     return {"members": members, "weights": weights}, weights.shape[0]
 
 
@@ -257,7 +293,7 @@ def boosting_classifier_from_arrays(params: dict, arrays: dict, *,
                                     num_features: int, num_classes: int,
                                     device="cuda"):
     """Port model of a fitted JAX ``BoostingClassificationModel`` (member
-    trees plus estimator ``weights``)."""
+    params plus estimator ``weights``)."""
     dev = resolve_device(device)
     model_params, m = _boosting_params(arrays, dev)
     return BoostingClassificationModel(
@@ -332,4 +368,57 @@ def stacking_classifier_from_models(params: dict, base_models, stack_model, *,
         base_models=list(base_models), stack_model=stack_model,
         num_features=num_features, num_classes=num_classes, device=dev,
         **_port_params(params),
+    )
+
+
+def mlp_classifier_from_arrays(params: dict, arrays: dict, *, num_features: int,
+                               num_classes: int, device="cuda"):
+    """Port model of a fitted JAX ``MLPClassificationModel`` (its params
+    as nested numpy arrays)."""
+    dev = resolve_device(device)
+    return MLPClassificationModel(
+        params=_nested(arrays, dev), num_features=num_features,
+        num_classes=num_classes, device=dev, **params,
+    )
+
+
+def mlp_regressor_from_arrays(params: dict, arrays: dict, *, num_features: int,
+                              device="cuda"):
+    """Port model of a fitted JAX ``MLPRegressionModel`` (its params as
+    nested numpy arrays, ``y_mu`` and ``y_sd`` included)."""
+    dev = resolve_device(device)
+    return MLPRegressionModel(
+        params=_nested(arrays, dev), num_features=num_features, device=dev,
+        **params,
+    )
+
+
+def standard_scaler_from_arrays(params: dict, arrays: dict, *,
+                                num_features: int, device="cuda"):
+    """Port model of a fitted JAX ``StandardScalerModel``."""
+    dev = resolve_device(device)
+    return StandardScalerModel(
+        params=_tensors(arrays, ("mean", "scale"), dev),
+        num_features=num_features, device=dev, **params,
+    )
+
+
+def min_max_scaler_from_arrays(params: dict, arrays: dict, *,
+                               num_features: int, device="cuda"):
+    """Port model of a fitted JAX ``MinMaxScalerModel``."""
+    dev = resolve_device(device)
+    return MinMaxScalerModel(
+        params=_tensors(arrays, ("lo", "range"), dev),
+        num_features=num_features, device=dev, **params,
+    )
+
+
+def pipeline_from_models(params: dict, stage_models, *, num_features: int,
+                         num_classes=None, device="cuda"):
+    """Port model of a fitted JAX ``PipelineModel`` from its stage models,
+    each already converted to the port."""
+    dev = resolve_device(device)
+    return PipelineModel(
+        stage_models=list(stage_models), num_features=num_features,
+        num_classes=num_classes, device=dev, **_port_params(params),
     )

@@ -1,13 +1,15 @@
 """Bagging meta-estimators, SubBag: bootstrap rows plus random feature
 subspaces (PyTorch port of ``models/bagging.py``).
 
-All members train in ONE forest fit (``fit_many_from_ctx``) over a shared
-binning context, each with its own bag weights and feature mask.  The
+All members train in ONE ``fit_many_from_ctx`` call over a shared fit
+context, each with its own bag weights, feature mask and key (tree members
+in one forest fit; other learners loop over the members or batch them).  The
 plan is the JAX package's, draw for draw (``utils/random.py``): member
 ``i``'s key is ``fold_in(PRNGKey(seed), i)``, its bag weights come from
 ``fold_in(key, 0)`` (Poisson counts with replacement, a Bernoulli mask
 without; Spark's ``RDD.sample``) and its feature mask from
-``fold_in(key, 1)`` (`HasSubBag.scala:69-79`).
+``fold_in(key, 1)`` (`HasSubBag.scala:69-79`); the member's fit gets
+``key`` itself.
 
 Voting (`BaggingClassifier.scala:260-287`): hard = summed one-hot votes of
 the members' classes, soft = summed member probabilities; probability =
@@ -27,14 +29,15 @@ from spark_ensemble_tpu_torch.models.base import (
     RegressionModel,
     as_f32,
     infer_num_classes,
+    make_shared_fit_ctx,
     not_supported,
     resolve_device,
     resolve_weights,
+    tree_leaves,
 )
 from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
-    check_tree_base,
 )
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
 from spark_ensemble_tpu_torch.utils.random import (
@@ -82,12 +85,12 @@ class _BaggingParams(Estimator):
         return bag * w[None, :], masks, keys
 
     def _fit_members(self, X, y, sample_weight, num_classes, mesh, device):
-        """Validate, draw the plan and fit every member in one forest fit
-        -> ``(members, masks, num_classes, d, device)``."""
+        """Validate, draw the plan and fit every member in one
+        ``fit_many_from_ctx`` -> ``(members, masks, num_classes, d,
+        device)``."""
         self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
-        check_tree_base(self._base(), type(self).__name__)
         dev = resolve_device(device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
@@ -96,17 +99,17 @@ class _BaggingParams(Estimator):
             num_classes = infer_num_classes(y, num_classes)
         n, d = X.shape
         base = self._base().copy()
-        ctx = base.make_fit_ctx(X, num_classes)
-        fit_w, masks, _ = self._member_plan(n, d, w)
+        ctx = make_shared_fit_ctx(base, X, num_classes)
+        fit_w, masks, keys = self._member_plan(n, d, w)
         m = fit_w.shape[0]
         members = base.fit_many_from_ctx(
-            ctx, y[:, None].expand(n, m), fit_w.T.contiguous(), masks
+            ctx, y[:, None].expand(n, m), fit_w.T.contiguous(), masks, keys=keys
         )
         if str(self.on_nonfinite).lower() == "raise":
             # NaN flags a member (+inf is a no-split node's threshold)
             bad = torch.stack([
                 torch.isnan(a.reshape(m, -1)).any(dim=1)
-                for a in members if a.is_floating_point()
+                for a in tree_leaves(members) if a.is_floating_point()
             ]).any(dim=0)
             if bool(bad.any()):
                 raise FloatingPointError(

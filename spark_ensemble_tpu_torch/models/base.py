@@ -5,18 +5,32 @@ A base learner exposes the same functional triple as in the JAX package:
 
   - ``make_fit_ctx(X, num_classes)``: shared preprocessing computed once per
     ensemble fit (quantile binning for trees);
-  - ``fit_from_ctx(ctx, y, w, feature_mask) -> params``: one member fit over
-    fixed-shape tensors; row sampling arrives as ``w`` and feature
-    subspaces as ``feature_mask``;
+  - ``fit_from_ctx(ctx, y, w, feature_mask, key=None) -> params``: one
+    member fit over fixed-shape tensors; row sampling arrives as ``w``,
+    feature subspaces as ``feature_mask``, and the member's PRNG key
+    (``int64[2]``, ``utils/random.py``) as ``key`` for the learners that
+    draw (the MLP's initial weights; trees, linear models and naive Bayes
+    ignore it);
   - ``predict_fn(params, X)`` (+ ``predict_raw_fn``/``predict_proba_fn``).
 
-PyTorch runs eagerly, so the JAX package's program caches
-(``cached_program``, ``shared_fit_context``) have no counterpart here.
-The member protocol takes no PRNG ``key``: the port's base learners (the
-histogram trees) draw nothing, and the ensembles draw their bag weights
-and feature masks themselves (``utils/random.py``) and pass them in as
-``w`` and ``feature_mask``.  The mesh ``axis_name`` argument is absent
-until the port grows distribution (ROADMAP queue 1, item 18).
+The ensembles hand out the JAX package's keys: Bagging member ``i`` gets
+``fold_in(PRNGKey(seed), i)``, Boosting round ``i`` the same, and a GBM
+round its bag key, ONE key for all of a classifier's class dims (the JAX
+package broadcasts a ``[2]`` key over the members of
+``fit_many_from_ctx``).  A standalone ``fit`` draws from
+``PRNGKey(seed)``.
+
+Member params are nested dicts, lists and tuples of tensors (a ``Tree``
+is a NamedTuple); :func:`tree_map` and :func:`stack_members` handle any of
+them, so an ensemble stacks its members with a leading member axis
+whatever the learner.  Learners without a fused multi-member fit inherit
+a loop over the members (``fit_many_from_ctx``, ``predict_many_fn``).
+
+:func:`shared_fit_context` scopes a memo of fit contexts, keyed by X's
+identity and the learner's ``config_key``: inside it, every fit of the
+same data and learner config (the tuners' param maps and folds) bins once.
+The mesh ``axis_name`` argument is absent until the port grows
+distribution (ROADMAP queue 1, item 18).
 
 Devices: every ``fit`` takes ``device`` (default ``"cuda"``); the fitted
 model keeps its tensors there and moves predict inputs to it.  Asking for
@@ -25,12 +39,15 @@ CUDA where there is none raises — nothing falls back to the CPU.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import contextlib
+import threading
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
 
 from spark_ensemble_tpu_torch.params import Param, Params, gt_eq, in_array
+from spark_ensemble_tpu_torch.utils.random import PRNGKey
 
 
 def resolve_device(device) -> torch.device:
@@ -66,6 +83,100 @@ def not_supported(param: str, value, roadmap: str):
         f"{param}={value!r} is not supported by the PyTorch port yet "
         f"(ROADMAP {roadmap})"
     )
+
+
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the tensors of one or more params trees of the same
+    structure (dicts, lists, tuples and NamedTuples of tensors; ``None``
+    stays ``None``)."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a params tree, in ``tree_map`` order."""
+    out: List[torch.Tensor] = []
+    tree_map(out.append, tree)
+    return out
+
+
+def stack_members(members: List):
+    """Per-member params trees -> one tree with a leading member axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *members)
+
+
+def member_params(params, i: int):
+    """Member ``i`` of params stacked along a leading member axis."""
+    return tree_map(lambda a: a[i], params)
+
+
+def num_stacked(params) -> int:
+    """The leading member-axis length of stacked params."""
+    return tree_leaves(params)[0].shape[0]
+
+
+def _member_key(keys, m: int):
+    """Member ``m``'s key: ``keys [M, 2]`` per member, or one ``[2]`` key
+    broadcast to every member (the JAX package's ``fit_many_from_ctx``)."""
+    if keys is None or keys.dim() == 1:
+        return keys
+    return keys[m]
+
+
+def _member_mask(feature_masks, m: int):
+    if feature_masks is None or feature_masks.dim() == 1:
+        return feature_masks
+    return feature_masks[m]
+
+
+# ---------------------------------------------------------------------------
+# shared fit-context scope (the tuners' binning reuse)
+# ---------------------------------------------------------------------------
+
+_FIT_CTX_SCOPE = threading.local()
+
+
+def shared_fit_context():
+    """Context manager activating a fit-ctx memo for the enclosed fits
+    (nests by stacking: the inner scope wins, the outer is restored)."""
+
+    @contextlib.contextmanager
+    def _scope():
+        prev = getattr(_FIT_CTX_SCOPE, "cache", None)
+        _FIT_CTX_SCOPE.cache = {}
+        try:
+            yield
+        finally:
+            _FIT_CTX_SCOPE.cache = prev
+
+    return _scope()
+
+
+def make_shared_fit_ctx(learner, X, num_classes: Optional[int] = None):
+    """``learner.make_fit_ctx(X, num_classes)`` memoized under the active
+    :func:`shared_fit_context` scope (one binning pass per distinct data
+    and learner config), or computed directly when no scope is active.
+    Keyed by ``id(X)`` with its shape, dtype and device and the learner's
+    ``config_key()``; the entry pins ``X``, so a recycled ``id`` cannot
+    alias another matrix within a scope."""
+    cache = getattr(_FIT_CTX_SCOPE, "cache", None)
+    if cache is None:
+        return learner.make_fit_ctx(X, num_classes)
+    key = (id(X), tuple(X.shape), str(X.dtype), str(X.device),
+           learner.config_key(), num_classes)
+    hit = cache.get(key)
+    if hit is None:
+        hit = (X, learner.make_fit_ctx(X, num_classes))
+        cache[key] = hit
+    return hit[1]
 
 
 def resolve_weights(y: torch.Tensor, sample_weight) -> torch.Tensor:
@@ -180,16 +291,43 @@ class Model(Params):
         members = self.params["members"]
         if members is None:
             raise IndexError("model kept zero members")
-        n_members = members[0].shape[0]
+        n_members = num_stacked(members)
         if not 0 <= i < n_members:
             raise IndexError(f"member index {i} out of range [0, {n_members})")
         base = self._base()
         return base.model_from_params(
-            type(members)(*(a[i] for a in members)),
+            member_params(members, i),
             self.num_features,
             getattr(self, "num_classes", None) if base.is_classifier else None,
             self.device,
         )
+
+    @property
+    def feature_metadata(self):
+        """Feature names of this model's input columns
+        (`Utils.getFeaturesMetadata`, `Utils.scala:42-61`); anonymous
+        ``f{i}`` names when the ``feature_names`` param was not set."""
+        from spark_ensemble_tpu_torch.utils.features import FeatureMetadata
+
+        return FeatureMetadata.resolve(
+            getattr(self, "feature_names", None), self.num_features
+        )
+
+    def member_feature_names(self, i: int):
+        """Feature names of member ``i``'s subspace, re-indexed through its
+        mask as the reference re-indexes column metadata after
+        ``slice()``."""
+        masks = self.params.get("masks") if isinstance(self.params, dict) else None
+        if masks is None:
+            raise AttributeError(
+                f"{type(self).__name__} has no per-member feature subspaces"
+            )
+        return self.feature_metadata.select(
+            masks[i].detach().cpu().numpy().astype(bool)
+        ).names
+
+    def save(self, path: str):
+        not_supported("save", path, "queue 1, item 16")
 
 
 class RegressionModel(Model):
@@ -289,26 +427,41 @@ class BaseLearner(Estimator):
         """Shared preprocessing (binning, feature stats)."""
         return X
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
         """One member fit -> params."""
         raise NotImplementedError
 
-    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks):
-        """Fit M members (``ys``/``ws`` [n, M]) -> stacked params with a
-        leading member axis.  Tree learners fuse the members into one
-        forest fit (``ops.tree.fit_forest``)."""
-        raise NotImplementedError
+    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None):
+        """Fit M members (``ys``/``ws`` [n, M]; ``feature_masks`` [M, d],
+        [d] or None; ``keys`` [M, 2], one [2] key for every member, or
+        None) -> stacked params with a leading member axis.  Default: one
+        ``fit_from_ctx`` per member, stacked; tree learners fuse the
+        members into one forest fit (``ops.tree.fit_forest``) and the MLP
+        batches them along a member axis."""
+        members = [
+            self.fit_from_ctx(ctx, ys[:, m].contiguous(), ws[:, m].contiguous(),
+                              _member_mask(feature_masks, m),
+                              key=_member_key(keys, m))
+            for m in range(ys.shape[1])
+        ]
+        return stack_members(members)
 
-    def fit_and_direction(self, ctx, y, w, feature_mask, X):
+    def fit_and_direction(self, ctx, y, w, feature_mask, X, key=None):
         """Member fit PLUS its predictions on the same rows -> (params,
         pred[n]).  Default: fit then predict."""
-        params = self.fit_from_ctx(ctx, y, w, feature_mask)
+        params = self.fit_from_ctx(ctx, y, w, feature_mask, key=key)
         return params, self.predict_fn(params, X)
 
-    def fit_many_and_directions(self, ctx, ys, ws, feature_masks, X):
+    def fit_and_proba(self, ctx, y, w, feature_mask, X, key=None):
+        """Classifier member fit PLUS its class probabilities on the same
+        rows (SAMME.R's input) -> (params, proba[n, k])."""
+        params = self.fit_from_ctx(ctx, y, w, feature_mask, key=key)
+        return params, self.predict_proba_fn(params, X)
+
+    def fit_many_and_directions(self, ctx, ys, ws, feature_masks, X, keys=None):
         """Fused-member analogue of ``fit_and_direction`` -> (stacked
         params, preds[n, M])."""
-        params = self.fit_many_from_ctx(ctx, ys, ws, feature_masks)
+        params = self.fit_many_from_ctx(ctx, ys, ws, feature_masks, keys=keys)
         return params, self.predict_many_fn(params, X).T
 
     def ctx_gather_rows(self, ctx, idx: torch.Tensor):
@@ -319,25 +472,34 @@ class BaseLearner(Estimator):
         keep the thresholds)."""
         return ctx[idx]
 
-    def fit_gathered_and_direction(self, ctx_s, y_s, w_s, feature_mask, X):
+    def fit_gathered_and_direction(self, ctx_s, y_s, w_s, feature_mask, X,
+                                   key=None):
         """Member fit on a compacted ctx (``ctx_gather_rows``) PLUS the
         fitted member's predictions on ALL rows ``X`` -> (params, pred[n])."""
-        params = self.fit_from_ctx(ctx_s, y_s, w_s, feature_mask)
+        params = self.fit_from_ctx(ctx_s, y_s, w_s, feature_mask, key=key)
         return params, self.predict_fn(params, X)
 
     def fit_gathered_many_and_directions(self, ctx_s, ys_s, ws_s,
-                                         feature_masks, X):
+                                         feature_masks, X, keys=None):
         """Fused-member analogue of ``fit_gathered_and_direction`` ->
         (stacked params, preds[n, M])."""
-        params = self.fit_many_from_ctx(ctx_s, ys_s, ws_s, feature_masks)
+        params = self.fit_many_from_ctx(ctx_s, ys_s, ws_s, feature_masks,
+                                        keys=keys)
         return params, self.predict_many_fn(params, X).T
 
     def predict_fn(self, params, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     def predict_many_fn(self, params, X: torch.Tensor) -> torch.Tensor:
-        """Stacked-member predict -> [M, n]."""
-        raise NotImplementedError
+        """Stacked-member predict -> [M, n].  Default: ``predict_fn`` per
+        member; tree learners route every member at once."""
+        return torch.stack([self.predict_fn(member_params(params, m), X)
+                            for m in range(num_stacked(params))])
+
+    def predict_proba_many_fn(self, params, X: torch.Tensor) -> torch.Tensor:
+        """Stacked-member probabilities -> [M, n, k]."""
+        return torch.stack([self.predict_proba_fn(member_params(params, m), X)
+                            for m in range(num_stacked(params))])
 
     def predict_raw_fn(self, params, X):
         raise NotImplementedError
@@ -345,13 +507,22 @@ class BaseLearner(Estimator):
     def predict_proba_fn(self, params, X):
         raise NotImplementedError
 
+    def feature_gains_fn(self, params, d: int):
+        """Per-feature split-gain sums; only learners with an impurity-gain
+        notion (trees) have them."""
+        raise AttributeError(
+            f"{type(self).__name__} has no feature gains (gain-based "
+            "importances exist for tree base learners only)"
+        )
+
     def model_from_params(self, params, num_features, num_classes=None,
                           device=None) -> Model:
         raise NotImplementedError
 
     def fit(self, X, y, sample_weight=None, num_classes=None,
             device="cuda") -> Model:
-        """Fit this learner standalone on ``device``."""
+        """Fit this learner standalone on ``device``, from the key
+        ``PRNGKey(seed)`` (0 for a learner without a ``seed``)."""
         self._check_port_support()
         dev = resolve_device(device)
         X = as_f32(X, dev)
@@ -361,6 +532,7 @@ class BaseLearner(Estimator):
         num_classes = (
             infer_num_classes(y, num_classes) if self.is_classifier else None
         )
-        ctx = self.make_fit_ctx(X, num_classes)
-        params = self.fit_from_ctx(ctx, y, w, None)
+        ctx = make_shared_fit_ctx(self, X, num_classes)
+        key = PRNGKey(getattr(self, "seed", 0) or 0, dev)
+        params = self.fit_from_ctx(ctx, y, w, None, key=key)
         return self.model_from_params(params, X.shape[1], num_classes, dev)

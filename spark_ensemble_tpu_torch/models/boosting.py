@@ -31,8 +31,9 @@ elsewhere; real raw = sum over members of (K-1) * (log p - mean_c log p);
 probability = softmax(raw / (K-1)); regression = the weighted median
 (default) or weighted mean of the members' predictions.
 
-Round keys ``fold_in(PRNGKey(seed), i)`` are derived as in the JAX package
-and handed to nothing yet: the tree base learners draw nothing.
+Round ``i``'s key ``fold_in(PRNGKey(seed), i)`` goes to the base learner,
+as in the JAX package; every round's key is hashed at fit start.  Any
+base learner fits (a learner without routing reuse fits, then predicts).
 """
 
 from __future__ import annotations
@@ -49,15 +50,17 @@ from spark_ensemble_tpu_torch.models.base import (
     RegressionModel,
     as_f32,
     infer_num_classes,
+    make_shared_fit_ctx,
     not_supported,
     resolve_device,
     resolve_weights,
+    stack_members,
+    tree_leaves,
+    tree_map,
 )
-from spark_ensemble_tpu_torch.models.gbm import stack_members
 from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
-    check_tree_base,
 )
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array
 from spark_ensemble_tpu_torch.utils.quantile import weighted_median_rows
@@ -75,7 +78,7 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def _slice_members(members, m):
-    return None if members is None else type(members)(*(a[:m] for a in members))
+    return None if members is None else tree_map(lambda a: a[:m], members)
 
 
 class _BoostingParams(Estimator):
@@ -117,33 +120,34 @@ class _BoostingParams(Estimator):
             not_supported("mesh", mesh, "queue 1, item 18")
         if self.checkpoint_dir is not None:
             not_supported("checkpoint_dir", self.checkpoint_dir, "queue 1, item 16")
-        check_tree_base(self._base(), type(self).__name__)
         dev = resolve_device(device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
         return dev, X, y, resolve_weights(y, sample_weight)
 
-    def _drive(self, run_round, replay, bw, root):
+    def _round_keys(self, device):
+        """Every round's key ``fold_in(PRNGKey(seed), i)``, in one hash."""
+        m = int(self.num_base_learners)
+        return fold_in(PRNGKey(self.seed, device), torch.arange(m, device=device))
+
+    def _drive(self, run_round, replay, bw, keys):
         """The host round loop: ``run_round(bw, round_key) -> (params,
         est_weight, new_bw, stats)``, stats a dict of 0-d tensors, and
         ``replay(stats) -> (keep, stop)``, the flavor's stopping rules on
-        their host floats.  ``round_key()`` derives round ``i``'s key
-        ``fold_in(root, i)`` for a base learner that draws (the trees do
-        not, so no round derives it).  Each round reads the device once:
-        its stats, step size and non-finite flags in one tensor.  Returns
-        the kept members and weights."""
+        their host floats; round ``i`` gets ``keys[i]``.  Each round reads
+        the device once: its stats, step size and non-finite flags in one
+        tensor.  Returns the kept members and weights."""
         members, weights = [], []
         check = str(self.on_nonfinite).lower() == "raise"
         label = type(self).__name__
         i = 0
         stop = float(torch.sum(bw)) <= 0
         while i < self.num_base_learners and not stop:
-            params, est_weight, new_bw, stats = run_round(
-                bw, lambda i=i: fold_in(root, i))
+            params, est_weight, new_bw, stats = run_round(bw, keys[i])
             row = [*stats.values(), est_weight]
             if check:
                 row += [torch.isnan(a).any().to(est_weight.dtype)
-                        for a in params if a.is_floating_point()]
+                        for a in tree_leaves(params) if a.is_floating_point()]
             host = torch.stack(row).tolist()
             stats = dict(zip(stats, host))
             if check and (
@@ -195,7 +199,7 @@ class BoostingClassifier(_BoostingParams):
         dev, X, y, w = self._prepare(X, y, sample_weight, mesh, device)
         k = infer_num_classes(y, num_classes)
         base = self._base().copy()
-        ctx = base.make_fit_ctx(X, k)
+        ctx = make_shared_fit_ctx(base, X, k)
         real = self.algorithm.lower() == "real"
         y_int = y.to(torch.int64)
         codes = torch.where(
@@ -206,14 +210,16 @@ class BoostingClassifier(_BoostingParams):
         def run_round(bw, round_key):
             w_norm = bw / torch.clamp(torch.sum(bw), min=1e-30)
             if real:
-                params, proba = base.fit_and_proba(ctx, y, w_norm, None, X)
+                params, proba = base.fit_and_proba(ctx, y, w_norm, None, X,
+                                                   key=round_key)
                 miss = (torch.argmax(proba, dim=-1) != y_int).to(torch.float32)
                 err = torch.sum(w_norm * miss)
                 ll = torch.sum(codes * torch.log(torch.clamp(proba, min=EPSILON)), dim=-1)
                 new_bw = w_norm * torch.exp(-((k - 1.0) / k) * ll)
                 est_weight = _f32(1.0, y)
             else:
-                params, pred = base.fit_and_direction(ctx, y, w_norm, None, X)
+                params, pred = base.fit_and_direction(ctx, y, w_norm, None, X,
+                                                      key=round_key)
                 miss = (pred != y).to(torch.float32)
                 err = torch.sum(w_norm * miss)
                 beta = err / torch.clamp((1.0 - err) * (k - 1.0), min=1e-30)
@@ -227,7 +233,7 @@ class BoostingClassifier(_BoostingParams):
                 return False, True  # abort the round, drop its model
             return True, stats["err"] <= 0
 
-        members, weights = self._drive(run_round, replay, w, PRNGKey(self.seed, dev))
+        members, weights = self._drive(run_round, replay, w, self._round_keys(dev))
         return BoostingClassificationModel(
             params=self._model_params(members, weights, dev),
             num_features=X.shape[1], num_classes=k,
@@ -303,7 +309,7 @@ class BoostingRegressor(_BoostingParams):
             device="cuda") -> "BoostingRegressionModel":
         dev, X, y, w = self._prepare(X, y, sample_weight, mesh, device)
         base = self._base().copy()
-        ctx = base.make_fit_ctx(X)
+        ctx = make_shared_fit_ctx(base, X)
         loss_name = self.loss.lower()
 
         def shape_loss(e):
@@ -315,7 +321,8 @@ class BoostingRegressor(_BoostingParams):
 
         def run_round(bw, round_key):
             w_norm = bw / torch.clamp(torch.sum(bw), min=1e-30)
-            params, pred = base.fit_and_direction(ctx, y, w_norm, None, X)
+            params, pred = base.fit_and_direction(ctx, y, w_norm, None, X,
+                                                  key=round_key)
             errors = torch.abs(y - pred)
             max_error = torch.max(errors)
             rel = torch.where(
@@ -333,7 +340,7 @@ class BoostingRegressor(_BoostingParams):
             }
 
         members, weights = self._drive(run_round, self._replay, w,
-                                       PRNGKey(self.seed, dev))
+                                       self._round_keys(dev))
         return BoostingRegressionModel(
             params=self._model_params(members, weights, dev),
             num_features=X.shape[1], num_members=len(members), device=dev,

@@ -36,7 +36,7 @@ class DummyRegressor(BaseLearner):
     def make_fit_ctx(self, X, num_classes=None):
         return None
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
         strategy = self.strategy.lower()
         if strategy == "mean":
             value = torch.sum(w * y) / torch.clamp(torch.sum(w), min=1e-30)
@@ -77,7 +77,7 @@ class DummyClassifier(BaseLearner):
     def make_fit_ctx(self, X, num_classes=None):
         return {"num_classes": num_classes}
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
         k = ctx["num_classes"]
         strategy = self.strategy.lower()
         if strategy == "uniform":

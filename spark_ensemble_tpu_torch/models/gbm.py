@@ -27,7 +27,10 @@ draws the JAX package's plan bit for bit (``utils/random.py``): member
 ``i``'s key is ``fold_in(PRNGKey(seed), i)``, its bag weights come from
 ``fold_in(key, 2)`` and its feature mask from ``fold_in(key, 1)``.  At the
 defaults (``subsample_ratio=1.0`` without replacement, ``subspace_ratio=1.0``)
-those draws are all ones and all True, so the port skips them.
+those draws are all ones and all True, so the port skips them.  The base
+learner gets the round's bag key ``fold_in(key, 2)``, one key for all of a
+classifier's class dims, as in the JAX package; any base learner fits
+(trees fuse the class dims into one forest, the others loop or batch).
 
 Gradient-based row sampling, with the JAX package's draws: round ``i``'s
 key is its bag key ``fold_in(fold_in(PRNGKey(seed), i), 2)``.
@@ -62,15 +65,19 @@ from spark_ensemble_tpu_torch.models.base import (
     RegressionModel,
     as_f32,
     infer_num_classes,
+    make_shared_fit_ctx,
     not_supported,
     resolve_device,
     resolve_weights,
+    stack_members,
+    tree_leaves,
+    tree_map,
 )
 from spark_ensemble_tpu_torch.models.dummy import DummyClassifier, DummyRegressor
 from spark_ensemble_tpu_torch.models.linear_tree import LinearTreeRegressor
-from spark_ensemble_tpu_torch.models.tree import DecisionTreeRegressor, check_tree_base
+from spark_ensemble_tpu_torch.models.tree import DecisionTreeRegressor
 from spark_ensemble_tpu_torch.ops import losses as losses_mod
-from spark_ensemble_tpu_torch.ops.linesearch import brent_minimize, projected_newton_box
+from spark_ensemble_tpu_torch.ops.linesearch import brent_minimize, projected_newton_box_lanes
 from spark_ensemble_tpu_torch.ops.tree import Tree
 from spark_ensemble_tpu_torch.params import Param, Params, gt, gt_eq, in_array, in_range
 from spark_ensemble_tpu_torch.utils.quantile import weighted_quantile
@@ -90,32 +97,15 @@ logger = logging.getLogger(__name__)
 _SAMPLE_BUCKET_FLOOR = 256
 
 
-def stack_members(members: List):
-    """Per-round member params (a Tree, or a linear-leaf dict around one)
-    -> the same structure with a leading round axis."""
-    first = members[0]
-    if isinstance(first, dict):
-        return {k: stack_members([m[k] for m in members]) for k in first}
-    if isinstance(first, Tree):
-        return Tree(*(torch.stack(fields) for fields in zip(*members)))
-    return torch.stack(members)
-
-
-def map_members(fn, params):
-    """``fn`` applied to every tensor of member params (a Tree or a dict)."""
-    if isinstance(params, dict):
-        return {k: map_members(fn, v) for k, v in params.items()}
-    if isinstance(params, Tree):
-        return Tree(*(fn(a) for a in params))
-    return fn(params)
-
-
 def _fitted_values(params) -> List[torch.Tensor]:
-    """The values a non-finite round poisons: leaf values, and the linear
-    leaves' coefficients (thresholds hold +inf by design)."""
-    if isinstance(params, dict):
+    """The values a non-finite round poisons: a tree's leaf values, a
+    linear-leaf tree's coefficients too (thresholds hold +inf by design),
+    and every float tensor of any other learner's params."""
+    if isinstance(params, Tree):
+        return [params.leaf_value]
+    if isinstance(params, dict) and isinstance(params.get("tree"), Tree):
         return [params["tree"].leaf_value, params["beta"]]
-    return [params.leaf_value]
+    return [a for a in tree_leaves(params) if a.is_floating_point()]
 
 
 class _GBMParams(Params):
@@ -237,7 +227,6 @@ class _GBMParams(Params):
         self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
-        check_tree_base(self._base(), type(self).__name__, linear_leaves=True)
         if self.checkpoint_dir is not None:
             not_supported("checkpoint_dir", self.checkpoint_dir, "queue 1, item 16")
 
@@ -286,14 +275,31 @@ class _GBMParams(Params):
         m = int(self.num_base_learners)
         return fold_in(PRNGKey(self.seed, device), torch.arange(m, device=device))
 
-    def _sampling_keys(self, device, plan):
-        """Every round's gradient-sampling key, hashed at fit start (no
-        per-round copy to the device), folded from the round's bag key
-        ``fold_in(member key, 2)``: ``fold_in(bag key, 11)`` for the
-        compacted selection, ``fold_in(bag key, 7)`` for the legacy GOSS
-        mask, as in the JAX package."""
+    def _round_keys(self, device, plan):
+        """Every round's keys, hashed at fit start (no per-round copy to
+        the device): the bag key ``fold_in(member key, 2)``, which the base
+        learner gets, and the gradient-sampling key folded from it,
+        ``fold_in(bag key, 11)`` for the compacted selection and
+        ``fold_in(bag key, 7)`` for the legacy GOSS mask, as in the JAX
+        package -> ``(bag_keys [m, 2], sampling_keys [m, 2])``."""
         bag_keys = fold_in(self._member_keys(device), 2)
-        return fold_in(bag_keys, 11 if plan is not None else 7)
+        return bag_keys, fold_in(bag_keys, 11 if plan is not None else 7)
+
+    def _subspace_masks(self, d: int, device):
+        """Every round's feature mask ``bool[m, d]`` from ``fold_in(member
+        key, 1)``, or None at ``subspace_ratio=1.0`` (all True)."""
+        ratio = float(self.subspace_ratio)
+        if ratio >= 1.0:
+            return None
+        return subspace_mask(fold_in(self._member_keys(device), 1), d, ratio)
+
+    def _model_masks(self, d: int, device):
+        """The feature masks a model keeps (``member_feature_names``)."""
+        masks = self._subspace_masks(d, device)
+        if masks is None:
+            masks = torch.ones((int(self.num_base_learners), d), dtype=torch.bool,
+                               device=device)
+        return masks
 
     def _sampling_plan(self, n: int, d: int, device):
         """The per-round draws -> ``sample(i) -> (bag_w f32[n], mask
@@ -301,10 +307,8 @@ class _GBMParams(Params):
         ``_make_bag_many_fn``.  Draws that are all ones (all True) at the
         defaults are skipped."""
         repl, ratio = bool(self.replacement), float(self.subsample_ratio)
-        sub_ratio = float(self.subspace_ratio)
-        keys = self._member_keys(device)
-        bag_keys = fold_in(keys, 2)
-        masks = subspace_mask(fold_in(keys, 1), d, sub_ratio) if sub_ratio < 1.0 else None
+        bag_keys = fold_in(self._member_keys(device), 2)
+        masks = self._subspace_masks(d, device)
         ones = torch.ones((n,), dtype=torch.float32, device=device)
 
         def sample(i):
@@ -496,13 +500,16 @@ def _squared_step(bag_w, direction, res):
 
 def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
                         tol, max_iter, sampling=None):
-    """One regressor round ``(ctx, X, bag_w, key, mask, pred, delta, y, w,
+    """One regressor round ``(ctx, X, bag_w, keys, mask, pred, delta, y, w,
     lr) -> (params, weight, new_pred)``: the closed-form step for squared
-    loss, Brent over [0, 100] for the others.  ``key`` is the round's
-    sampling key (``_GBMParams._sampling_keys``), unused without sampling.  With a ``sampling`` plan
-    (``_resolved_sampling``) the tree fit, the hessian sum and the step
-    search run over the gathered survivors, and only the prediction update
-    routes every row."""
+    loss, Brent over [0, 100] for the others.  ``keys`` is the round's
+    ``(bag key, sampling key)`` (``_GBMParams._round_keys``): the base
+    learner draws from the first, the gradient sampling from the second.
+    With a ``sampling`` plan (``_resolved_sampling``) the tree fit, the
+    hessian sum and the step search run over the gathered survivors, and
+    only the prediction update routes every row.  The round's parts
+    without sampling (``round_core.targets`` and ``round_core.step``) are
+    what a megabatch sweep runs per lane (``models/gbm_sweep.py``)."""
 
     def step(loss, y_s, pred_s, bag_s, dir_s):
         if optimized and loss_name == "squared":
@@ -519,21 +526,29 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
                                   max_iter=max_iter).to(pred_s.device)
         return torch.ones((), device=pred_s.device)
 
-    def round_core(ctx, X, bag_w, key, mask, pred, delta, y, w, lr):
+    def targets(loss, y, pred, bag_w, w, samp_key):
+        """The round's fit targets and weights -> (labels[n], fit_w[n],
+        bag_w)."""
+        labels, fit_w, bag_w = _pseudo_residuals_and_weights(
+            loss, updates, loss.encode_label(y), pred[:, None], bag_w, w,
+            goss, samp_key,
+        )
+        return labels[:, 0].contiguous(), fit_w[:, 0].contiguous(), bag_w
+
+    def round_core(ctx, X, bag_w, keys, mask, pred, delta, y, w, lr):
+        base_key, samp_key = keys
         loss = _make_reg_loss(loss_name, alpha_q, delta)
-        y_enc = loss.encode_label(y)
         if sampling is None:
-            labels, fit_w, bag_w = _pseudo_residuals_and_weights(
-                loss, updates, y_enc, pred[:, None], bag_w, w, goss, key,
-            )
+            labels, fit_w, bag_w = targets(loss, y, pred, bag_w, w, samp_key)
             params, direction = base.fit_and_direction(
-                ctx, labels[:, 0].contiguous(), fit_w[:, 0].contiguous(), mask, X
+                ctx, labels, fit_w, mask, X, key=base_key
             )
             alpha = step(loss, y, pred, bag_w, direction)
         else:
+            y_enc = loss.encode_label(y)
             idx, mult = _sample_compact(
                 sampling["method"], loss.sampling_scores(y_enc, pred[:, None]),
-                (w * bag_w) > 0, key, sampling["bucket"], sampling["samp"],
+                (w * bag_w) > 0, samp_key, sampling["bucket"], sampling["samp"],
             )
             # the survivors, their (1-a)/b amplification folded into the
             # bag weights so split gains and the newton sum stay unbiased
@@ -544,25 +559,31 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
             )
             params, direction = base.fit_gathered_and_direction(
                 base.ctx_gather_rows(ctx, idx), labels[:, 0].contiguous(),
-                fit_w[:, 0].contiguous(), mask, X,
+                fit_w[:, 0].contiguous(), mask, X, key=base_key,
             )
             alpha = step(loss, y_s, pred_s, bag_s, direction[idx])
         weight = lr * alpha
         return params, weight, pred + weight * direction
 
+    round_core.targets = targets
+    round_core.step = step
     return round_core
 
 
 def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
                         max_iter, sampling=None):
-    """One classifier round ``(ctx, X, y_enc, w, bag_w, key, mask, pred,
-    alpha_ws, lr) -> (params, weight[dim], new_pred, alpha_carry)``.  With
-    a ``sampling`` plan, rows rank by their gradient norm over the class
-    dims, and every dim's tree fits on the same gathered buffer."""
+    """One classifier round ``(ctx, X, y_enc, w, bag_w, keys, mask, pred,
+    alpha_ws, lr) -> (params, weight[dim], new_pred, alpha_carry)``, with
+    ``keys`` the round's ``(bag key, sampling key)``.  With a ``sampling``
+    plan, rows rank by their gradient norm over the class dims, and every
+    dim's tree fits on the same gathered buffer.  The step search is
+    ``projected_newton_box_lanes`` over one lane; a megabatch sweep runs it
+    over every candidate at once (``round_core.targets``,
+    ``round_core.step_problem``)."""
 
-    def step(y_enc_s, pred_s, bag_s, dirs_s, alpha_ws):
-        if not optimized:
-            return torch.ones((dim,), dtype=torch.float32, device=pred_s.device)
+    def step_problem(y_enc_s, pred_s, bag_s, dirs_s):
+        """The step search's objective and its closed-form gradient and
+        hessian."""
 
         def phi(a):
             return torch.sum(bag_s * loss.loss(y_enc_s, pred_s + a[None, :] * dirs_s))
@@ -572,23 +593,38 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
                 y_enc_s, pred_s + a[None, :] * dirs_s, dirs_s, bag_s
             )
 
-        # warm start from the previous round's step sizes
-        return projected_newton_box(phi, alpha_ws, max_iter=min(max_iter, 25),
-                                    tol=tol, grad_hess=gh)
+        return phi, gh
 
-    def round_core(ctx, X, y_enc, w, bag_w, key, mask, pred, alpha_ws, lr):
+    def step(y_enc_s, pred_s, bag_s, dirs_s, alpha_ws):
+        if not optimized:
+            return torch.ones((dim,), dtype=torch.float32, device=pred_s.device)
+        phi, gh = step_problem(y_enc_s, pred_s, bag_s, dirs_s)
+        # warm start from the previous round's step sizes
+        return projected_newton_box_lanes(
+            [phi], alpha_ws[None], max_iter=min(max_iter, 25), tol=tol,
+            grad_hess=[gh],
+        )[0]
+
+    def targets(y_enc, pred, bag_w, w, samp_key):
+        """The round's fit targets and weights -> (labels[n, dim],
+        fit_w[n, dim], bag_w)."""
+        labels, fit_w, bag_w = _pseudo_residuals_and_weights(
+            loss, updates, y_enc, pred, bag_w, w, goss, samp_key,
+        )
+        return labels.contiguous(), fit_w.contiguous(), bag_w
+
+    def round_core(ctx, X, y_enc, w, bag_w, keys, mask, pred, alpha_ws, lr):
+        base_key, samp_key = keys
         if sampling is None:
-            labels, fit_w, bag_w = _pseudo_residuals_and_weights(
-                loss, updates, y_enc, pred, bag_w, w, goss, key,
-            )
+            labels, fit_w, bag_w = targets(y_enc, pred, bag_w, w, samp_key)
             params, directions = base.fit_many_and_directions(
-                ctx, labels.contiguous(), fit_w.contiguous(), mask, X
+                ctx, labels, fit_w, mask, X, keys=base_key
             )
             alpha = step(y_enc, pred, bag_w, directions, alpha_ws)
         else:
             idx, mult = _sample_compact(
                 sampling["method"], loss.sampling_scores(y_enc, pred),
-                (w * bag_w) > 0, key, sampling["bucket"], sampling["samp"],
+                (w * bag_w) > 0, samp_key, sampling["bucket"], sampling["samp"],
             )
             y_enc_s, pred_s = y_enc[idx], pred[idx]
             labels, fit_w, bag_s = _pseudo_residuals_and_weights(
@@ -596,15 +632,22 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
             )
             params, directions = base.fit_gathered_many_and_directions(
                 base.ctx_gather_rows(ctx, idx), labels.contiguous(),
-                fit_w.contiguous(), mask, X,
+                fit_w.contiguous(), mask, X, keys=base_key,
             )
             alpha = step(y_enc_s, pred_s, bag_s, directions[idx], alpha_ws)
         weight = lr * alpha
         new_pred = pred + weight[None, :] * directions
-        alpha_carry = torch.where(torch.isfinite(alpha), alpha, torch.ones_like(alpha))
-        return params, weight, new_pred, alpha_carry
+        return params, weight, new_pred, alpha_carry(alpha)
 
+    round_core.targets = targets
+    round_core.step_problem = step_problem
     return round_core
+
+
+def alpha_carry(alpha):
+    """The next round's warm start: this round's step sizes, 1 where not
+    finite."""
+    return torch.where(torch.isfinite(alpha), alpha, torch.ones_like(alpha))
 
 
 class GBMRegressor(_GBMParams, Estimator):
@@ -659,7 +702,7 @@ class GBMRegressor(_GBMParams, Estimator):
         X, y, w, X_val, y_val = _split_validation(X, y, w_all, validation_indicator)
         n, d = X.shape
         base = self._base().copy()
-        ctx = base.make_fit_ctx(X)
+        ctx = make_shared_fit_ctx(base, X)
         init_model = self._fit_init(X, y, w, dev)
         # initial huber delta: the alpha-quantile of the label over the
         # full input, validation rows included
@@ -671,7 +714,7 @@ class GBMRegressor(_GBMParams, Estimator):
         lr = float(self.learning_rate)
         plan = self._resolved_sampling(n)
         self._check_sampling_supported(plan)
-        keys = self._sampling_keys(dev, plan)
+        bag_keys, samp_keys = self._round_keys(dev, plan)
         round_core = make_reg_round_core(
             base, loss_name, alpha_q, self.updates.lower(),
             bool(self.optimized_weights), self._goss(), float(self.tol),
@@ -695,7 +738,8 @@ class GBMRegressor(_GBMParams, Estimator):
                 delta = weighted_quantile(torch.abs(y - pred), alpha_q, weights=ones)
                 deltas.append(delta)
             params, weight, pred = round_core(
-                ctx, X, bag_w, keys[i], mask, pred, delta, y, w, lr
+                ctx, X, bag_w, (bag_keys[i], samp_keys[i]), mask, pred, delta,
+                y, w, lr,
             )
             err = None
             if with_validation:
@@ -707,16 +751,25 @@ class GBMRegressor(_GBMParams, Estimator):
 
         members, weights, i, v, val_history = self._drive_rounds(run_round, best)
         keep = i - v
+        return self._model(members, weights, keep, d, dev, val_history if with_validation else None,
+                           init_model=init_model,
+                           # each round's huber delta (every round run, kept or not)
+                           huber_delta=torch.stack(deltas) if huber else None)
+
+    def _model(self, members, weights, keep, d, dev, val_history, *, init_model,
+               huber_delta):
+        """The fitted model of the first ``keep`` rounds (``val_history``
+        None without a validation split)."""
         return GBMRegressionModel(
             params={
                 "members": stack_members(members[:keep]) if keep > 0 else None,
                 "weights": (torch.stack(weights[:keep]) if keep > 0
                             else torch.zeros((0,), device=dev)),
+                "masks": self._model_masks(d, dev)[:keep],
                 "init": init_model.params,
-                "val_hist": (np.asarray(val_history, np.float32)
-                             if with_validation else None),
-                # each round's huber delta (every round run, kept or not)
-                "huber_delta": torch.stack(deltas) if huber else None,
+                "val_hist": (None if val_history is None
+                             else np.asarray(val_history, np.float32)),
+                "huber_delta": huber_delta,
             },
             num_features=d,
             init_model=init_model,
@@ -796,7 +849,7 @@ class GBMClassifier(_GBMParams, Estimator):
         X, y, w, X_val, y_val = _split_validation(X, y, w_all, validation_indicator)
         n, d = X.shape
         base = self._base().copy()
-        ctx = base.make_fit_ctx(X)
+        ctx = make_shared_fit_ctx(base, X)
         init_model, init_raw = self._init_raw_scores(X, y, w, num_classes, dim, dev)
         y_enc = loss.encode_label(y)
         pred = init_raw[None, :].expand(n, dim).clone()
@@ -805,7 +858,7 @@ class GBMClassifier(_GBMParams, Estimator):
         lr = float(self.learning_rate)
         plan = self._resolved_sampling(n)
         self._check_sampling_supported(plan)
-        keys = self._sampling_keys(dev, plan)
+        bag_keys, samp_keys = self._round_keys(dev, plan)
         round_core = make_cls_round_core(
             base, loss, dim, self.updates.lower(), bool(self.optimized_weights),
             self._goss(), float(self.tol), int(self.max_iter), plan,
@@ -821,7 +874,8 @@ class GBMClassifier(_GBMParams, Estimator):
             nonlocal pred, pred_val, alpha_ws
             bag_w, mask = sample(i)
             params, weight, pred, alpha_ws = round_core(
-                ctx, X, y_enc, w, bag_w, keys[i], mask, pred, alpha_ws, lr
+                ctx, X, y_enc, w, bag_w, (bag_keys[i], samp_keys[i]), mask,
+                pred, alpha_ws, lr,
             )
             err = None
             if with_validation:
@@ -832,14 +886,22 @@ class GBMClassifier(_GBMParams, Estimator):
 
         members, weights, i, v, val_history = self._drive_rounds(run_round, best)
         keep = i - v
+        return self._model(members, weights, keep, d, dev, val_history if with_validation else None,
+                           init_raw=init_raw, num_classes=num_classes, dim=dim)
+
+    def _model(self, members, weights, keep, d, dev, val_history, *, init_raw,
+               num_classes, dim):
+        """The fitted model of the first ``keep`` rounds (``val_history``
+        None without a validation split)."""
         return GBMClassificationModel(
             params={
                 "members": stack_members(members[:keep]) if keep > 0 else None,
                 "weights": (torch.stack(weights[:keep]) if keep > 0
                             else torch.zeros((0, dim), device=dev)),
+                "masks": self._model_masks(d, dev)[:keep],
                 "init_raw": init_raw,
-                "val_hist": (np.asarray(val_history, np.float32)
-                             if with_validation else None),
+                "val_hist": (None if val_history is None
+                             else np.asarray(val_history, np.float32)),
             },
             num_features=d,
             num_classes=num_classes,
@@ -867,7 +929,7 @@ class GBMClassificationModel(ClassificationModel, GBMClassifier):
         r, dim = weights.shape
         # the [round, class-dim] grid flattened: one forest predict covers
         # every tree
-        flat = map_members(lambda a: a.reshape((r * dim,) + a.shape[2:]), members)
+        flat = tree_map(lambda a: a.reshape((r * dim,) + a.shape[2:]), members)
         preds = self._base().predict_many_fn(flat, X).reshape(r, dim, -1)
         return out + torch.einsum("md,mdn->nd", weights, preds)
 

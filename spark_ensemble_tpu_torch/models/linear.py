@@ -63,7 +63,7 @@ class LinearRegression(BaseLearner):
 
     is_classifier = False
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
         X = _apply_mask(ctx, feature_mask)
         n, d = X.shape
         # standardize (as Spark's LinearRegression does): f32 normal
@@ -318,7 +318,7 @@ class LogisticRegression(BaseLearner):
     def make_fit_ctx(self, X, num_classes=None):
         return {"X": X, "num_classes": num_classes}
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
         X = _apply_mask(ctx["X"], feature_mask)
         k = int(ctx["num_classes"])
         n, d = X.shape

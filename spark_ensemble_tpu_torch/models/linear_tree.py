@@ -114,7 +114,7 @@ class LinearTreeRegressor(DecisionTreeRegressor):
                 else torch.ones((d,), dtype=torch.float32, device=X.device))
         return {"tree": tree, "beta": beta, "x_mu": mu, "x_sd": sd, "mask": mask}
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
         tree = super().fit_from_ctx(ctx, y, w, feature_mask)
         return self._leaf_models(ctx, tree, y, w, feature_mask)
 
@@ -123,7 +123,7 @@ class LinearTreeRegressor(DecisionTreeRegressor):
     fit_and_direction = BaseLearner.fit_and_direction
     fit_many_and_directions = BaseLearner.fit_many_and_directions
 
-    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks):
+    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None):
         """One forest fit for every member's tree (``fit_forest``), then
         each member's leaf stage, stacked along a leading member axis."""
         trees = super().fit_many_from_ctx(ctx, ys, ws, feature_masks)

@@ -28,7 +28,7 @@ class GaussianNaiveBayes(BaseLearner):
     def make_fit_ctx(self, X, num_classes=None):
         return {"X": X, "num_classes": num_classes}
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
         X = ctx["X"]
         k = int(ctx["num_classes"])
         d = X.shape[1]

@@ -32,20 +32,6 @@ from spark_ensemble_tpu_torch.ops.tree import (
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
 
 
-def check_tree_base(base, family: str, linear_leaves: bool = False):
-    """Raise unless ``base`` is one of the histogram trees: the ensembles'
-    fused member fits, stacked member params and forest predicts are the
-    trees' (other base learners under them: ROADMAP queue 1, item 14).
-    Linear-leaf trees pass only where ``linear_leaves`` (GBM)."""
-    if not isinstance(base, _TreeLearner) or (
-        base.leaf_params and not linear_leaves
-    ):
-        raise NotImplementedError(
-            f"{family} over {type(base).__name__} is not supported by the "
-            "PyTorch port yet (ROADMAP queue 1, item 14)"
-        )
-
-
 def _renorm_proba(p):
     """Leaf class distribution -> probability vector: clip tiny negative
     fallback artifacts, renormalize.  One definition, so predict_proba and
@@ -132,17 +118,21 @@ class _TreeLearner(BaseLearner):
         shared (GBM's gradient row sampling, models/gbm.py)."""
         return {**ctx, "Xb": ctx["Xb"][idx]}
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask, return_leaf=False):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None,
+                     return_leaf=False):
         return fit_tree(
             ctx["Xb"], self._targets(ctx, y), w, ctx["thresholds"],
             feature_mask, **self._fit_kw(return_leaf),
         )
 
-    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, return_leaf=False):
-        """All members in ONE forest fit (``ops.tree.fit_forest``)."""
+    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None,
+                          return_leaf=False, lanes=1):
+        """All members in ONE forest fit (``ops.tree.fit_forest``); with
+        ``lanes`` (a megabatch sweep) every lane of M / lanes members fits
+        as it would alone."""
         return fit_forest(
             ctx["Xb"], self._targets_many(ctx, ys), ws, ctx["thresholds"],
-            feature_masks, **self._fit_kw(return_leaf),
+            feature_masks, lanes=lanes, **self._fit_kw(return_leaf),
         )
 
     def _fit_and_leaf_pred(self, ctx, y, w, feature_mask):
@@ -152,14 +142,15 @@ class _TreeLearner(BaseLearner):
         tree, node = self.fit_from_ctx(ctx, y, w, feature_mask, return_leaf=True)
         return tree, tree.leaf_value[node.long()]
 
-    def fit_and_direction(self, ctx, y, w, feature_mask, X):
+    def fit_and_direction(self, ctx, y, w, feature_mask, X, key=None):
         """Fit + the fitted predictions on the same rows (leaf-id reuse)."""
         tree, pred = self._fit_and_leaf_pred(ctx, y, w, feature_mask)
         return tree, self._direction_from_leaf(pred)
 
-    def fit_many_and_directions(self, ctx, ys, ws, feature_masks, X):
+    def fit_many_and_directions(self, ctx, ys, ws, feature_masks, X,
+                                keys=None, lanes=1):
         trees, node = self.fit_many_from_ctx(
-            ctx, ys, ws, feature_masks, return_leaf=True
+            ctx, ys, ws, feature_masks, return_leaf=True, lanes=lanes
         )
         return trees, self._direction_from_leaf(leaf_values_at(trees, node))
 
@@ -220,7 +211,7 @@ class DecisionTreeClassifier(_TreeLearner):
         # parity with predict_fn: argmax over the leaf class distribution
         return _argmax_f32(pred)
 
-    def fit_and_proba(self, ctx, y, w, feature_mask, X):
+    def fit_and_proba(self, ctx, y, w, feature_mask, X, key=None):
         """Leaf-id reuse for SAMME.R: the selected leaf distribution,
         renormalized exactly like ``predict_proba_fn``."""
         tree, pred = self._fit_and_leaf_pred(ctx, y, w, feature_mask)

@@ -29,6 +29,14 @@ what its design does about it.
 Precision: the kernel and its plain version split each row's statistic
 into exactly the same bf16 terms and sum them in f32; only the order of
 the sum differs.  Leaf sums are plain f32.
+
+Lanes: a megabatch sweep (``models/gbm_sweep.py``) folds S candidates of K
+members each into one launch of M = S * K members.  With ``lanes=S`` the
+histogram and leaf wrappers sum every member's rows in the order a launch
+of the K members alone takes (:func:`lane_level_plan`,
+:func:`lane_leaf_plan`): member ``s * K + j`` of the wide launch equals
+member ``j`` of its lane's own launch bit for bit, so a swept candidate
+fits exactly as it would alone.  The route is integer-exact at any plan.
 """
 
 from __future__ import annotations
@@ -260,6 +268,31 @@ def level_plan(n, d, M, C, B, n_nodes, bits=32) -> LevelPlan:
     return LevelPlan(g, nf, np_, cs, math.ceil(n / cs), rows, tiles * cs, threads, smem)
 
 
+def _check_lanes(M: int, lanes: int) -> int:
+    """The members of one lane; raises unless ``lanes`` divides M."""
+    if lanes < 1 or M % lanes:
+        raise ValueError(f"{M} members do not split into {lanes} lanes")
+    return M // lanes
+
+
+@functools.lru_cache(maxsize=1024)
+def lane_level_plan(n, d, M, C, B, n_nodes, bits=32, lanes=1) -> LevelPlan:
+    """``level_plan`` of M = lanes * K members that sums each member's rows
+    as a launch of K members does.  A cell's sum runs over its CTA's row
+    chunk in 32-row steps from the chunk's start, whatever the member,
+    feature and node tiling and the rows staged per step, and its chunks
+    are added in rank order: so the row chunking (``cs``,
+    ``rows_per_chunk``) alone fixes its bits.  The wide plan keeps its own
+    tiling and takes the K-member launch's chunking; its grid grows by the
+    lanes instead of its chunks shrinking."""
+    plan = level_plan(n, d, M, C, B, n_nodes, bits)
+    if lanes == 1:
+        return plan
+    lane = level_plan(n, d, _check_lanes(M, lanes), C, B, n_nodes, bits)
+    return plan._replace(cs=lane.cs, rows_per_chunk=lane.rows_per_chunk,
+                         grid=plan.grid // plan.cs * lane.cs)
+
+
 class RoutePlan(NamedTuple):
     rows: int  # rows per tile, a multiple of 4
     grid: int  # CTAs, one wave; each loops over tiles
@@ -348,25 +381,37 @@ def leaf_plan(n, M, C, leaves, half=0, W=0) -> LeafPlan:
     return LeafPlan(g, n_mg, n_rw, LT, cs, grid, per_cta * RC, threads, smem)
 
 
+def lane_leaf_plan(n, M, C, leaves, half=0, W=0, lanes=1) -> LeafPlan:
+    """``leaf_plan`` of M = lanes * K members that sums each member's rows
+    as a launch of K members does: the K-member plan itself.  A member's
+    sum depends on its lane's row slots (``g``), the row warps
+    (``n_rw``), the rows a CTA takes and the clusters, never on its place
+    in the member tile, and a CTA loops over member tiles of
+    ``n_mg * g`` members; so the wide launch runs the K-member grid with
+    each CTA taking every lane's members in turn."""
+    return leaf_plan(n, _check_lanes(M, lanes), C, leaves, half, W)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
 @functools.lru_cache(maxsize=1024)
-def _checked_level_plan(n, d, M, C, B, n_nodes, W, bits) -> LevelPlan:
-    """``level_plan``, held once per shape against the kernel's own
+def _checked_level_plan(n, d, M, C, B, n_nodes, W, bits, lanes) -> LevelPlan:
+    """``lane_level_plan``, held once per shape against the kernel's own
     shared-memory layout."""
-    plan = level_plan(n, d, M, C, B, n_nodes, bits)
+    plan = lane_level_plan(n, d, M, C, B, n_nodes, bits, lanes)
     if _library().se_level_smem_bytes(plan.g, plan.nf, plan.np, C, B, plan.rows, W, bits) != plan.smem:
         raise RuntimeError("level_plan and csrc/hist.cu disagree on the shared-memory layout")
     return plan
 
 
-def _launch_level(nterms, words, node, vals, out, *, d, B, n_nodes, W, bits):
+def _launch_level(nterms, words, node, vals, out, *, d, B, n_nodes, W, bits,
+                  lanes):
     n, M, C = vals.shape
     if n == 0:
         return out.zero_()
-    plan = _checked_level_plan(n, d, M, C, B, n_nodes, W, bits)
+    plan = _checked_level_plan(n, d, M, C, B, n_nodes, W, bits, lanes)
     lib = _library()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -391,10 +436,10 @@ def _checked_route_plan(n, M, half, W) -> RoutePlan:
 
 
 @functools.lru_cache(maxsize=1024)
-def _checked_leaf_plan(n, M, C, leaves, half, W) -> LeafPlan:
-    """``leaf_plan``, held once per shape against the kernel's own
+def _checked_leaf_plan(n, M, C, leaves, half, W, lanes) -> LeafPlan:
+    """``lane_leaf_plan``, held once per shape against the kernel's own
     shared-memory layout."""
-    plan = leaf_plan(n, M, C, leaves, half, W)
+    plan = lane_leaf_plan(n, M, C, leaves, half, W, lanes)
     if _library().se_leaf_smem_bytes(C, plan.g, plan.n_mg, plan.n_rw, plan.LT, half, W) != plan.smem:
         raise RuntimeError("leaf_plan and csrc/hist.cu disagree on the shared-memory layout")
     return plan
@@ -424,12 +469,12 @@ def _leaf_workspace(dev: torch.device, stream: int, floats: int) -> torch.Tensor
 
 
 def _launch_leaf(packed, node, vals, best_f, best_t, node_out, out, *,
-                 leaves, bits, d):
+                 leaves, bits, d, lanes):
     """One leaf-pass launch: routed when the split tables are given."""
     n, M, C = vals.shape
     route = best_f is not None
     half, W = (best_f.shape[1], packed.shape[1]) if route else (0, 0)
-    plan = _checked_leaf_plan(n, M, C, leaves, half, W)
+    plan = _checked_leaf_plan(n, M, C, leaves, half, W, lanes)
     dev = out.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     ticket = partials = None
@@ -528,15 +573,18 @@ def _check_stats(node, vals):
         )
 
 
-def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int):
+def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int,
+                      lanes: int = 1):
     """Level histogram ``H f32[M, n_nodes, C, d, B]`` for all members —
     the pallas tier (replaces ``ops/pallas_hist.py::_hist_kernel``).
 
     ``Xb i32[n, d]`` binned features; ``node i32[n, M]`` each row's node at
     this level per member; ``vals f32[n, M, C]`` statistic channels, split
-    into bf16 hi + lo.  Zero rows contribute exactly 0."""
+    into bf16 hi + lo.  Zero rows contribute exactly 0.  ``lanes``: see
+    the module docstring."""
     _check("Xb", Xb, torch.int32, 2)
     _check_stats(node, vals)
+    _check_lanes(node.shape[1], lanes)
     if Xb.shape[0] != node.shape[0]:
         raise ValueError("Xb and node disagree on rows")
     dev = _device(Xb, node, vals)
@@ -546,7 +594,7 @@ def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int):
     _, M, C = vals.shape
     out = torch.empty((M, n_nodes, C, d, max_bins), dtype=torch.float32, device=dev)
     _launch_level(2, Xb, node, vals, out, d=d, B=max_bins, n_nodes=n_nodes,
-                  W=d, bits=32)
+                  W=d, bits=32, lanes=lanes)
     _count("hist_i32")
     return out
 
@@ -611,11 +659,13 @@ def route_packed(packed, node, best_f, best_t, *, bits: int,
 
 
 def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
-                      bits: int, num_features: int):
+                      bits: int, num_features: int, lanes: int = 1):
     """Level histogram over packed bins with the fused tier's 3-term bf16
-    split (the histogram half of ``ops/pallas_hist.py::_fused_kernel``)."""
+    split (the histogram half of ``ops/pallas_hist.py::_fused_kernel``);
+    ``lanes``: see the module docstring."""
     _check_packed(packed, bits, num_features)
     _check_stats(node, vals)
+    _check_lanes(node.shape[1], lanes)
     if packed.shape[0] != node.shape[0]:
         raise ValueError("packed and node disagree on rows")
     dev = _device(packed, node, vals)
@@ -628,17 +678,18 @@ def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
     out = torch.empty((M, n_nodes, C, num_features, max_bins),
                       dtype=torch.float32, device=dev)
     _launch_level(3, packed, node, vals, out, d=num_features, B=max_bins,
-                  n_nodes=n_nodes, W=packed.shape[1], bits=bits)
+                  n_nodes=n_nodes, W=packed.shape[1], bits=bits, lanes=lanes)
     _count("hist_packed")
     return out
 
 
-def leaf_sums(node, vals, *, n_nodes: int):
+def leaf_sums(node, vals, *, n_nodes: int, lanes: int = 1):
     """Exact f32 leaf statistics ``L[M, n_nodes, C]`` of this level's ids
     (the leaf mode of ``ops/pallas_hist.py::_fused_kernel`` without
     routing).  On the card, an id outside ``[0, n_nodes)`` adds to no
-    leaf."""
+    leaf.  ``lanes``: see the module docstring."""
     _check_stats(node, vals)
+    _check_lanes(node.shape[1], lanes)
     dev = _device(node, vals)
     if dev.type == "cpu":
         return leaf_plain(node, vals, n_nodes)
@@ -647,13 +698,13 @@ def leaf_sums(node, vals, *, n_nodes: int):
     if node.shape[0] == 0 or out.numel() == 0:
         return out.zero_()
     _launch_leaf(None, node, vals, None, None, None, out, leaves=n_nodes,
-                 bits=0, d=0)
+                 bits=0, d=0, lanes=lanes)
     _count("leaf_sums")
     return out
 
 
 def _leaf_routed(packed, node, vals, best_f, best_t, *, n_nodes: int,
-                 bits: int, num_features: int):
+                 bits: int, num_features: int, lanes: int = 1):
     """The leaf mode of ``ops/pallas_hist.py::_fused_kernel`` in one launch:
     route the PARENT ids ``node`` through ``best_f/best_t i32[M, half]``
     (``n_nodes == 2 * half``), then take the exact f32 leaf sums ->
@@ -661,6 +712,7 @@ def _leaf_routed(packed, node, vals, best_f, best_t, *, n_nodes: int,
     _check_packed(packed, bits, num_features)
     _check_stats(node, vals)
     _check_tables(best_f, best_t, node)
+    _check_lanes(node.shape[1], lanes)
     if packed.shape[0] != node.shape[0]:
         raise ValueError("packed and node disagree on rows")
     if n_nodes != 2 * best_f.shape[1]:
@@ -681,32 +733,33 @@ def _leaf_routed(packed, node, vals, best_f, best_t, *, n_nodes: int,
     if node.shape[0] == 0 or out.numel() == 0:
         return out.zero_(), node_out
     _launch_leaf(packed, node, vals, best_f, best_t, node_out, out,
-                 leaves=n_nodes, bits=bits, d=num_features)
+                 leaves=n_nodes, bits=bits, d=num_features, lanes=lanes)
     _count("leaf_sums")
     return out, node_out
 
 
 def fused_round_level(packed, node, vals, best_f=None, best_t=None, *,
                       n_nodes: int, max_bins: int, bits: int,
-                      num_features: int, leaf: bool = False):
+                      num_features: int, leaf: bool = False, lanes: int = 1):
     """One fused level -> ``(H, node_out)``, the counterpart of
     ``ops/pallas_hist.py::fused_round_level``: with split tables
     ``best_f/best_t i32[M, half]`` the PARENT-level ``node`` ids are routed
     first; then the level histogram ``H f32[M, n_nodes, C, d, B]`` (a route
     launch, then a histogram launch), or, when ``leaf``, the leaf sums
-    ``[M, n_nodes, C]`` (one launch routes and sums)."""
+    ``[M, n_nodes, C]`` (one launch routes and sums).  ``lanes``: see the
+    module docstring."""
     if (best_f is None) != (best_t is None):
         raise ValueError("best_f and best_t come together")
     if leaf:
         if best_f is None:
-            return leaf_sums(node, vals, n_nodes=n_nodes), node
+            return leaf_sums(node, vals, n_nodes=n_nodes, lanes=lanes), node
         return _leaf_routed(packed, node, vals, best_f, best_t,
                             n_nodes=n_nodes, bits=bits,
-                            num_features=num_features)
+                            num_features=num_features, lanes=lanes)
     if best_f is not None:
         node = route_packed(packed, node, best_f, best_t, bits=bits,
                             num_features=num_features)
     H = hist_level_packed(packed, node, vals, n_nodes=n_nodes,
                           max_bins=max_bins, bits=bits,
-                          num_features=num_features)
+                          num_features=num_features, lanes=lanes)
     return H, node

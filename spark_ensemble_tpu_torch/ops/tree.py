@@ -62,6 +62,18 @@ launches the kernel.
   stream tier wins, at the 'high' statistic precision, as in the JAX
   package: no kernel launches there.
 
+Lanes (``fit_forest(..., lanes=S)``): a megabatch sweep fits S
+candidates' K members each as one forest of M = S * K members, and every
+member comes out bit-identical to its candidate's own K-member fit.  The
+kernels sum each lane's rows in its K-member order
+(``ops/hist_kernels.py``); the scatter tier's per-cell sums run in row
+order whatever M is; and the steps whose reduction order a wider M could
+change run once per lane on the lane's own slice: the per-member weight
+sums and means, the prefix sums (CUDA's ``cumsum`` along the bins summed
+a 312-member view in another order than its 26-member slices on an H100)
+and the matmul and stream tiers' products (a batched product over the
+lanes summed in another order than a lane's own product on the CPU).
+
 Routing is an integer-exact gather, the same function as the JAX
 package's one-hot contraction.  :func:`leaf_one_hot` and
 :func:`leaf_one_hot_forest` are the one-hots of the routed leaf ids, equal
@@ -165,15 +177,26 @@ def _bin_one_hot(Xb: torch.Tensor, B: int) -> torch.Tensor:
     ).to(torch.float32).reshape(n, d * B)
 
 
-def _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B, prev_H=None):
+def _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B, prev_H=None,
+                lanes=1):
     """Level histogram ``H f32[M, n_nodes, C, d, B]`` of the non-fused
     tiers.  With ``prev_H`` (the parents' histograms, fast precisions on
     the matmul tier) only the left children are computed and the right
-    siblings are ``parent - left``."""
+    siblings are ``parent - left``.  With lanes, the matmul tier runs each
+    lane's product on the lane's own columns (one batched product may sum
+    in another order than the lane's own)."""
     if tier == "scatter":
         return hist_plain(Xb, node, vals, n_nodes, B, 1, ordered=True)
     if tier == "pallas":
-        return hist_level_pallas(Xb, node, vals, n_nodes=n_nodes, max_bins=B)
+        return hist_level_pallas(Xb, node, vals, n_nodes=n_nodes, max_bins=B,
+                                 lanes=lanes)
+    if lanes > 1:
+        parts = zip(node.chunk(lanes, dim=1), vals.chunk(lanes, dim=1),
+                    prev_H.chunk(lanes) if prev_H is not None else [None] * lanes)
+        return torch.cat([
+            _level_hist(tier, Xb, bin_oh, nd.contiguous(), vl.contiguous(), n_nodes, B, ph)
+            for nd, vl, ph in parts
+        ])
     n, M, C = vals.shape
     d = Xb.shape[1]
     if prev_H is None:
@@ -199,31 +222,47 @@ def _route_members(Xb, node, best_f, best_t):
     return (2 * node + (xb_f > best_t[m, nl]).to(torch.int32)).to(torch.int32)
 
 
-def _prefix_sums(hist_w, hist_wy, triangular, round_bf16=False):
+def _per_lane(fn, lanes, *tensors):
+    """``fn`` on each lane's slice of the leading member axis, the outputs
+    concatenated: the lane's own shapes, so its own reduction order."""
+    if lanes == 1:
+        return fn(*tensors)
+    outs = [fn(*parts) for parts in zip(*(t.chunk(lanes) for t in tensors))]
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def _prefix_sums(hist_w, hist_wy, triangular, round_bf16=False, lanes=1):
     """Left-prefix sums over the bins axis: ``cumsum`` on the exact tiers,
     or one matmul against a triangular 0/1 matrix on the tiers whose JAX
     counterpart takes that form (matmul, pallas and fused below
-    "highest"), with the histogram rounded to bf16 first at 'default'."""
+    "highest"), with the histogram rounded to bf16 first at 'default'.
+    Both run per lane: a product's sum order may follow its rows, and so
+    does CUDA's ``cumsum`` along the last axis (an H100 summed the rows of
+    a [312, ...] view in another order than those of its [26, ...]
+    slices)."""
     if not triangular:
-        return torch.cumsum(hist_w, dim=3), torch.cumsum(hist_wy, dim=3)
+        return _per_lane(lambda hw, hwy: (torch.cumsum(hw, dim=3), torch.cumsum(hwy, dim=3)),
+                         lanes, hist_w, hist_wy)
     if round_bf16:
         hist_w, hist_wy = _bf16_round(hist_w), _bf16_round(hist_wy)
     B = hist_w.shape[3]
     tri = torch.triu(torch.ones((B, B), dtype=torch.float32, device=hist_w.device))
-    cw = torch.einsum("...b,bc->...c", hist_w, tri)
-    cwy = torch.einsum("...bk,bc->...ck", hist_wy, tri)
-    return cw, cwy
+    return _per_lane(
+        lambda hw, hwy: (torch.einsum("...b,bc->...c", hw, tri),
+                         torch.einsum("...bk,bc->...ck", hwy, tri)),
+        lanes, hist_w, hist_wy,
+    )
 
 
 def _level_split_tables(H, feature_mask, node_floor, min_info_gain,
-                        thresholds, B, triangular, round_bf16=False):
+                        thresholds, B, triangular, round_bf16=False, lanes=1):
     """Candidate-split scoring for one level: ``H [M, nodes, 1+k, d, B]``
     -> best-split tables + per-node statistics.  The argmax is the first
     maximum over the flat ``(d, B-1)`` axis, as in the JAX package."""
     M, n_nodes, _, d, _ = H.shape
     hist_w = H[:, :, 0]  # [M, nodes, d, B]
     hist_wy = torch.movedim(H[:, :, 1:], 2, -1)  # [M, nodes, d, B, k]
-    cw, cwy = _prefix_sums(hist_w, hist_wy, triangular, round_bf16)
+    cw, cwy = _prefix_sums(hist_w, hist_wy, triangular, round_bf16, lanes)
     W = cw[:, :, :1, -1:]
     S = cwy[:, :, :1, -1:, :]
     WL = cw[:, :, :, : B - 1]
@@ -259,10 +298,16 @@ def _level_split_tables(H, feature_mask, node_floor, min_info_gain,
     return best_f, best_t, thr, do_split, best_gain, node_w, node_wy
 
 
-def stream_vals_prep(Y: torch.Tensor, w: torch.Tensor):
+def stream_vals_prep(Y: torch.Tensor, w: torch.Tensor, lanes: int = 1):
     """Per-row statistics of a forest fit -> ``(w_tot [M], y_mean [M, k],
     vals [n, M, 1+k])``: the weight channel and the weighted targets
-    centred at each member's root mean.  Every tier takes them from here."""
+    centred at each member's root mean.  Every tier takes them from here;
+    with lanes, each lane's sums over the rows run on its own columns."""
+    if lanes > 1:
+        parts = [stream_vals_prep(Yl.contiguous(), wl.contiguous())
+                 for Yl, wl in zip(Y.chunk(lanes, dim=1), w.chunk(lanes, dim=1))]
+        return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
+                torch.cat([p[2] for p in parts], dim=1))
     w = w.to(torch.float32)
     w_tot = torch.sum(w, dim=0)
     y_mean = torch.sum(w[:, :, None] * Y, dim=0) / torch.clamp(
@@ -274,14 +319,21 @@ def stream_vals_prep(Y: torch.Tensor, w: torch.Tensor):
     return w_tot, y_mean, vals
 
 
-def _leaf_onehot_sums(node, vals, num_leaves):
+def _leaf_onehot_sums(node, vals, num_leaves, lanes=1):
     """Leaf sums ``[M, leaves, C]`` as the one-hot contraction of the
-    matmul and stream tiers."""
+    matmul and stream tiers (per lane: a batched product over the members
+    may sum in another order for another member count)."""
+    if lanes > 1:
+        return torch.cat([
+            _leaf_onehot_sums(nd.contiguous(), vl.contiguous(), num_leaves)
+            for nd, vl in zip(node.chunk(lanes, dim=1), vals.chunk(lanes, dim=1))
+        ])
     leaf_oh = torch.nn.functional.one_hot(node.long(), num_leaves).to(torch.float32)
     return torch.einsum("nml,nmc->mlc", leaf_oh, vals)
 
 
-def stream_level_step(acc, xb, nd, vl, *, n_nodes, tables, max_bins):
+def stream_level_step(acc, xb, nd, vl, *, n_nodes, tables, max_bins,
+                      lanes=1):
     """One row chunk's share of one level's histogram: route the chunk
     (``xb`` i32 bins, ``nd`` node ids) through the PREVIOUS level's tables,
     then add ``A^T @ bin_oh`` of the chunk into ``acc [M, n_nodes, C, d,
@@ -289,27 +341,27 @@ def stream_level_step(acc, xb, nd, vl, *, n_nodes, tables, max_bins):
     if tables is not None:
         nd = _route_members(xb, nd, tables[0], tables[1])
     acc.add_(_level_hist("matmul", xb, _bin_one_hot(xb, max_bins), nd, vl,
-                         n_nodes, max_bins))
+                         n_nodes, max_bins, lanes=lanes))
     return acc, nd
 
 
-def stream_leaf_step(acc, xb, nd, vl, *, num_leaves, tables):
+def stream_leaf_step(acc, xb, nd, vl, *, num_leaves, tables, lanes=1):
     """One row chunk's share of the leaf sums: route through the LAST
     level's tables and add into ``acc [M, leaves, C]`` -> ``(acc, nd)``."""
     nd = _route_members(xb, nd, tables[0], tables[1])
-    acc.add_(_leaf_onehot_sums(nd, vl, num_leaves))
+    acc.add_(_leaf_onehot_sums(nd, vl, num_leaves, lanes))
     return acc, nd
 
 
 def _write_level(H, node_floor, feature_mask, min_info_gain, thresholds, B,
-                 triangular, round_bf16, level, parent_value, out):
+                 triangular, round_bf16, level, parent_value, out, lanes=1):
     """Score one level and write its heap rows into ``out`` (the split
     tensors, in place) -> ``(best_f, best_t, node_w, parent_value)``, the
     last being the children's fallback values."""
     M, n_nodes = H.shape[0], H.shape[1]
     best_f, best_t, thr, do_split, best_gain, node_w, node_wy = (
         _level_split_tables(H, feature_mask, node_floor, min_info_gain,
-                            thresholds, B, triangular, round_bf16)
+                            thresholds, B, triangular, round_bf16, lanes)
     )
     heap = slice(2**level - 1, 2**level - 1 + n_nodes)
     split_feature, split_bin, split_threshold, split_gain = out
@@ -325,7 +377,8 @@ def _write_level(H, node_floor, feature_mask, min_info_gain, thresholds, B,
 
 
 def stream_level_update(H, feature_mask, min_info_gain, thresholds, B,
-                        triangular, round_bf16, level, parent_value, out):
+                        triangular, round_bf16, level, parent_value, out,
+                        lanes=1):
     """Score one level's accumulated histograms with the direct 1e-12
     floors (no histogram subtraction on this tier) and write its heap rows
     into ``out`` -> ``(tables, parent_value)``; ``tables = (best_f,
@@ -334,7 +387,7 @@ def stream_level_update(H, feature_mask, min_info_gain, thresholds, B,
     floor = torch.full((M, n_nodes), 1e-12, dtype=torch.float32, device=H.device)
     best_f, best_t, _, parent_value = _write_level(
         H, floor, feature_mask, min_info_gain, thresholds, B, triangular,
-        round_bf16, level, parent_value, out,
+        round_bf16, level, parent_value, out, lanes,
     )
     return (best_f, best_t), parent_value
 
@@ -358,7 +411,7 @@ def _empty_splits(M, J, dev):
 
 def _fit_forest_streamed(Xb, vals, y_mean, thresholds, feature_mask, *,
                          max_depth, max_bins, min_info_gain, triangular,
-                         round_bf16, return_leaf):
+                         round_bf16, return_leaf, lanes=1):
     """The stream tier: each level is one pass over row chunks of
     ``_STREAM_CHUNK_ROWS``.  A chunk is routed through the previous level's
     tables, then its histogram is one matmul over its one-hots, added to
@@ -388,17 +441,17 @@ def _fit_forest_streamed(Xb, vals, y_mean, thresholds, feature_mask, *,
         for r0, r1 in spans:
             H, node[r0:r1] = stream_level_step(
                 H, Xb[r0:r1].to(torch.int32), node[r0:r1], vals[r0:r1],
-                n_nodes=n_nodes, tables=tables, max_bins=B,
+                n_nodes=n_nodes, tables=tables, max_bins=B, lanes=lanes,
             )
         tables, parent_value = stream_level_update(
             H, feature_mask, min_info_gain, thresholds, B, triangular,
-            round_bf16, level, parent_value, out,
+            round_bf16, level, parent_value, out, lanes,
         )
     L = torch.zeros((M, 2**max_depth, C), dtype=torch.float32, device=dev)
     for r0, r1 in spans:
         L, node[r0:r1] = stream_leaf_step(
             L, Xb[r0:r1].to(torch.int32), node[r0:r1], vals[r0:r1],
-            num_leaves=2**max_depth, tables=tables,
+            num_leaves=2**max_depth, tables=tables, lanes=lanes,
         )
     tree = Tree(
         *out[:3],
@@ -421,6 +474,7 @@ def fit_forest(
     hist: str = "auto",
     hist_precision: str = "highest",
     return_leaf: bool = False,  # also return row leaf ids i32[n, M]
+    lanes: int = 1,  # M = lanes * K: each lane sums as its own K-member fit
 ):
     """Fit M trees at once on shared binned features -> stacked ``Tree``
     (leading member axis), optionally with each row's leaf id per member.
@@ -430,7 +484,9 @@ def fit_forest(
     by the previous level's tables inside ``fused_round_level``), the
     others its dense ``fit_forest`` path, with histogram subtraction and
     its floors at the fast precisions on the matmul tier.  The stream tier
-    is :func:`_fit_forest_streamed`."""
+    is :func:`_fit_forest_streamed`.  With ``lanes`` every member equals
+    the one its lane's own fit of K = M / lanes members gives, bit for bit
+    (see the module docstring)."""
     n, d = Xb.shape
     _, M, k = Y.shape
     B = max_bins
@@ -448,14 +504,16 @@ def fit_forest(
         feature_mask = feature_mask[None, :].expand(M, d)
     feature_mask = feature_mask.to(torch.bool)
 
-    _, y_mean, vals = stream_vals_prep(Y, w)
+    if M % lanes:
+        raise ValueError(f"{M} members do not split into {lanes} lanes")
+    _, y_mean, vals = stream_vals_prep(Y, w, lanes)
     stat_vals = _bf16_round(vals) if round_bf16 else vals
     if tier == "stream":
         return _fit_forest_streamed(
             Xb, stat_vals, y_mean, thresholds, feature_mask,
             max_depth=max_depth, max_bins=B, min_info_gain=min_info_gain,
             triangular=triangular, round_bf16=round_bf16,
-            return_leaf=return_leaf,
+            return_leaf=return_leaf, lanes=lanes,
         )
 
     out = _empty_splits(M, 2**max_depth - 1, dev)
@@ -476,11 +534,11 @@ def fit_forest(
         if tier == "fused":
             H, node = fused_round_level(
                 packed, node, vals, tables[0], tables[1], n_nodes=n_nodes,
-                max_bins=B, bits=bits, num_features=d,
+                max_bins=B, bits=bits, num_features=d, lanes=lanes,
             )
         else:
             H = _level_hist(tier, Xb, bin_oh, node, stat_vals, n_nodes, B,
-                            prev_H if derived else None)
+                            prev_H if derived else None, lanes)
         if derived:
             # left children are direct (an empty one reads exactly 0.0);
             # right children accumulate their parents' floors plus this
@@ -493,7 +551,7 @@ def fit_forest(
             node_floor = torch.full((M, n_nodes), 1e-12, dtype=torch.float32, device=dev)
         best_f, best_t, node_w, next_parent = _write_level(
             H, node_floor, feature_mask, min_info_gain, thresholds, B,
-            triangular, round_bf16, level, parent_value, out,
+            triangular, round_bf16, level, parent_value, out, lanes,
         )
         if tier == "fused":
             tables = (best_f.contiguous(), best_t.contiguous())  # routed in-kernel
@@ -506,12 +564,12 @@ def fit_forest(
     if tier == "fused":
         L, node = fused_round_level(
             packed, node, vals, tables[0], tables[1], n_nodes=num_leaves,
-            max_bins=B, bits=bits, num_features=d, leaf=True,
+            max_bins=B, bits=bits, num_features=d, leaf=True, lanes=lanes,
         )
     elif tier == "scatter":
         L = leaf_plain(node, vals, num_leaves, ordered=True)
     else:
-        L = _leaf_onehot_sums(node, stat_vals, num_leaves)
+        L = _leaf_onehot_sums(node, stat_vals, num_leaves, lanes)
     tree = Tree(
         *out[:3],
         leaf_value=stream_leaf_values(L[:, :, 0], L[:, :, 1:], parent_value, y_mean),

@@ -128,6 +128,25 @@ class Params:
         new.set_params(**extra)
         return new
 
+    def config_key(self) -> tuple:
+        """Hashable fingerprint of the type and every param (nested
+        estimators recursively): two instances with equal keys configure
+        the same fit.  The tuners key their shared fit contexts and their
+        sweep groups on it."""
+
+        def enc(v):
+            if isinstance(v, Params):
+                return v.config_key()
+            if isinstance(v, (list, tuple)):
+                return tuple(enc(x) for x in v)
+            if isinstance(v, dict):
+                return tuple(sorted((k, enc(x)) for k, x in v.items()))
+            return v
+
+        return (type(self).__name__,) + tuple(
+            (name, enc(getattr(self, name))) for name in self._param_names()
+        )
+
     def __repr__(self):
         parts = ", ".join(
             f"{k}={v!r}"

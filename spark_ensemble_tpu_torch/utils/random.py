@@ -187,6 +187,23 @@ def poisson(key: torch.Tensor, lam: float, shape=()) -> torch.Tensor:
     return (k - 1).to(key.device)
 
 
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` -> ``int64[n]``: jax's
+    ``_shuffle`` of ``arange(n)``, ``ceil(3 ln n / ln(2^32 - 1))`` rounds,
+    each splitting the carried key, drawing 32-bit sort keys from the
+    subkey and sorting by them stably (the words are non-negative in
+    int64, so their order is the uint32 order)."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        keys = split(key, 2)
+        key, sub = keys[0], keys[1]
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
 def member_keys(seed: int, num_members: int, device=None) -> torch.Tensor:
     """Independent keys per ensemble member (reference: ``seed + i``)."""
     return split(PRNGKey(seed, device), num_members)

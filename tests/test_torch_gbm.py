@@ -172,7 +172,7 @@ def test_params_have_the_reference_names_and_defaults(jcls, tcls):
     [dict(on_nonfinite="halve_step"),
      dict(profile_dir="prof"),
      dict(checkpoint_dir="ckpt"), dict(telemetry_path="t.jsonl"),
-     dict(on_nonfinite="skip_round"), dict(base_learner=st.LinearRegression())],
+     dict(on_nonfinite="skip_round"), dict(on_nonfinite="stop_early")],
 )
 def test_unsupported_params_raise(params):
     X, y = _cls_data(n=64)

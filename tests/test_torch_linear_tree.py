@@ -301,10 +301,17 @@ def test_params_have_the_reference_names_and_defaults():
 
 
 def test_other_ensembles_refuse_linear_leaves():
-    """Bagging and Boosting over linear-leaf trees wait for the non-tree
-    members (ROADMAP queue 1, item 14)."""
+    """Bagging and Boosting over linear-leaf trees were refused until the
+    non-tree members were ported (ROADMAP queue 1, item 14); each now fits
+    as the JAX package does: predictions within 1e-4 of the label scale."""
     X, y = _piecewise_linear(100)
-    for est in (st.BaggingRegressor(base_learner=st.LinearTreeRegressor()),
-                st.BoostingRegressor(base_learner=st.LinearTreeRegressor())):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            est.fit(X, y, device="cpu")
+    for family in ("BaggingRegressor", "BoostingRegressor"):
+        kw = dict(num_base_learners=3)
+        jm = getattr(se, family)(
+            base_learner=se.LinearTreeRegressor(max_depth=2, hist="scatter"), **kw
+        ).fit(X, y)
+        tm = getattr(st, family)(
+            base_learner=st.LinearTreeRegressor(max_depth=2, hist="scatter"), **kw
+        ).fit(X, y, device="cpu")
+        np.testing.assert_allclose(tm.predict(X).numpy(), np.asarray(jm.predict(X)),
+                                   atol=1e-4 * np.abs(y).max())
