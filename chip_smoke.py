@@ -24,8 +24,17 @@ linear-leaf GBM, the kernels at the megabatch sweep's M = 12 x 26 = 312
 (each lane of the wide launch equal to its own launch), a CrossValidator
 over the main path at megabatch "on" and "off" (equal bit for bit) and
 the reference's CrossValidator over Bagging, the MLP and the ensembles over
-non-tree members, and pipelines, and checks the results.  Each phase prints one JSON line; any failed check raises and the
-script exits non-zero.
+non-tree members, and pipelines, then persistence and the round runtime:
+the timed 100-round model saved and loaded (``persist``), fits preempted
+by the chaos harness after a checkpoint and resumed (``checkpoint``),
+shorter models continued with ``fit_resume``, a chaos NaN under each
+recovery policy, pipeline depths 0, 1 and 2 and a torn checkpoint
+(``robustness``), each held bit for bit to its uninterrupted fit, and the
+fit rate with and without checkpoints (``checkpoint_timing``).  It checks
+the results; each phase prints one JSON line; any failed check raises,
+and so does a retry that no chaos fault injected, and the script exits
+non-zero.  Checkpoints and saves go to a scratch directory under
+``build/``, removed at the end.
 The last two lines are the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``.
 
@@ -35,9 +44,12 @@ port's package is not beside it.
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -185,6 +197,11 @@ def main():
     t0 = time.perf_counter()
     so = hk.build_kernels()
     emit({"phase": "build", "library": so.name, "seconds": time.perf_counter() - t0})
+    # every retry is counted from here on; one that no chaos fault injected
+    # fails the run (a kernel fault must never be retried into silence)
+    from spark_ensemble_tpu_torch.robustness import retry as retry_mod
+
+    retry_mod.reset_retry_log()
 
     # phase 3: every kernel against its plain version at the main path's
     # shapes (synchronised, so a fault shows where it happened)
@@ -1546,6 +1563,263 @@ def main():
     if acc < 0.5:
         raise AssertionError(f"Pipeline(MinMaxScaler, MLPClassifier): accuracy {acc}")
 
+    # phases 19-22 (persist, checkpoint, fit_resume, robustness): the
+    # persistence and round-runtime slice at the main path's full width.
+    # Every fit here must equal its uninterrupted twin bit for bit
+    # (torch.equal): a resume replays the same kernels from a restored
+    # carry, and every kernel and reduction on the round path repeats bit
+    # for bit.  No retry happens unless a phase injects one.
+    from spark_ensemble_tpu_torch.models.base import tree_leaves
+    from spark_ensemble_tpu_torch.robustness import chaos as chaos_mod
+
+    os.makedirs("build", exist_ok=True)
+    scratch = tempfile.mkdtemp(dir="build", prefix="chip_smoke-")
+
+    class FaultAt(chaos_mod.ChaosController):
+        """Fires each of its faults at one named site only (the harness's
+        at-most-once and budget rules still apply)."""
+
+        def __init__(self, sites):
+            super().__init__(seed=0, rate=0.5, faults=tuple(sites))
+            self.sites = sites
+
+        def _draw(self, fault, site):
+            return 0.0 if site == self.sites[fault] else 1.0
+
+    def no_stray_retries(phase):
+        if retry_mod.retry_count():
+            raise AssertionError(f"{phase}: retries no fault injected: {retry_mod.retry_log()}")
+
+    def outputs(model, X_):
+        return model.predict_proba(X_) if hasattr(model, "num_classes") else model.predict(X_)
+
+    def preempt_and_resume(phase, family, est, X_, y_, ref, at, interval):
+        """Fit ``est`` with checkpoints every ``interval`` rounds and a chaos
+        preemption after round ``at``, refit it to resume, and hold the
+        result to the uninterrupted model ``ref`` bit for bit."""
+        label = type(est).__name__
+        ckdir = os.path.join(scratch, f"{phase}-{family}")
+        est = est.copy(checkpoint_dir=ckdir, checkpoint_interval=interval)
+        chaos_mod.install(FaultAt({"preempt": f"{label}:after_round:{at}"}))
+        try:
+            est.fit(X_, y_, device="cuda")
+            raise AssertionError(f"{family}: the preemption after round {at} did not fire")
+        except chaos_mod.ChaosPreemption:
+            pass
+        finally:
+            chaos_mod.install(None)
+        resumed, secs, launches = fit_counted(est, X_, y_)
+        equal = torch.equal(outputs(resumed, X_), outputs(ref, X_))
+        emit({"phase": phase, "family": family, "preempted_after_round": at,
+              "checkpoint_interval": interval, "resume_fit_s": secs, "resume_launches": launches,
+              "members": resumed.num_members, "bit_identical": equal, **card})
+        if not equal or resumed.num_members != ref.num_members:
+            raise AssertionError(f"{family}: the resumed fit differs from the uninterrupted one")
+        no_stray_retries(phase)
+        return launches
+
+    timed_model = timed[-1][0]
+    Xd = torch.as_tensor(X_np, device=dev)
+
+    # phase 19 (persist): the timed 100-round fused model saved, loaded on
+    # the card (equal bit for bit) and on the CPU (within 1e-5, same argmax)
+    path = os.path.join(scratch, "letter_gbm")
+    t0 = time.perf_counter()
+    timed_model.save(path)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+    t0 = time.perf_counter()
+    on_card = st.load(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = st.load(path, device="cpu")
+    load_cpu_s = time.perf_counter() - t0
+    p_ref = timed_model.predict_proba(Xd)
+    card_equal = torch.equal(on_card.predict_proba(Xd), p_ref)
+    p_cpu = on_cpu.predict_proba(X_np)
+    cpu_err = float((p_cpu - p_ref.cpu()).abs().max())
+    argmax_equal = torch.equal(p_cpu.argmax(dim=1), p_ref.argmax(dim=1).cpu())
+    emit({"phase": "persist", "family": "GBMClassifier", "rounds": TIMED_ROUNDS,
+          "bytes_on_disk": nbytes, "save_s": save_s, "load_s": load_s, "load_cpu_s": load_cpu_s,
+          "card_bit_identical": card_equal, "cpu_proba_max_abs_diff": cpu_err,
+          "cpu_argmax_equal": argmax_equal, **card})
+    if not card_equal or cpu_err > 1e-5 or not argmax_equal:
+        raise AssertionError(f"persist: card {card_equal}, cpu {cpu_err}, argmax {argmax_equal}")
+
+    # phase 20 (checkpoint): preempted after a save boundary, then resumed
+    launches = preempt_and_resume("checkpoint", "GBMClassifier[fused]",
+                                  gbm("fused", "highest", TIMED_ROUNDS), X_np, y_np,
+                                  timed_model, at=50, interval=10)
+    if launches != per_fit(TIMED_ROUNDS - 50):
+        raise AssertionError(f"checkpoint: resumed fused launches {launches}")
+    pallas_ref = fit_counted(gbm("matmul", "pallas", PARITY_ROUNDS), X_np, y_np)[0]
+    launches = preempt_and_resume("checkpoint", "GBMClassifier[pallas]",
+                                  gbm("matmul", "pallas", PARITY_ROUNDS), X_np, y_np,
+                                  pallas_ref, at=10, interval=10)
+    if launches["hist_i32"] != DEPTH * (PARITY_ROUNDS - 10):
+        raise AssertionError(f"checkpoint: resumed pallas launches {launches}")
+    samme = st.BoostingClassifier(num_base_learners=PARITY_ROUNDS, algorithm="discrete",
+                                  base_learner=cls_tree("fused"))
+    samme_ref, _, samme_launches = fit_counted(samme, X_np, y_np)
+    if samme_ref.num_members != PARITY_ROUNDS or samme_launches != per_fit(PARITY_ROUNDS):
+        raise AssertionError(f"SAMME: {samme_ref.num_members} members, launches {samme_launches}")
+    preempt_and_resume("checkpoint", "BoostingClassifier[SAMME, fused]", samme, X_np, y_np,
+                       samme_ref, at=10, interval=10)
+    huber = lambda rounds: st.GBMRegressor(num_base_learners=rounds, learning_rate=0.3,
+                                           loss="huber", base_learner=reg_tree("fused"))
+    huber_ref = fit_counted(huber(PARITY_ROUNDS), Xr, yr)[0]
+    preempt_and_resume("checkpoint", "GBMRegressor[huber, fused]", huber(PARITY_ROUNDS), Xr, yr,
+                       huber_ref, at=10, interval=10)
+
+    # phase 21 (fit_resume): a shorter model continued to the longer fit
+    for family, short, ref, X_, y_ in (
+            ("GBMClassifier[fused]", gbm("fused", "highest", 60), timed_model, X_np, y_np),
+            ("GBMRegressor[huber, fused]", huber(10), huber_ref, Xr, yr)):
+        base_model = short.fit(X_, y_, device="cuda")
+        n_new = ref.num_members - base_model.num_members
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        resumed = base_model.fit_resume(X_, y_, n_new)
+        torch.cuda.synchronize()
+        secs, launches = time.perf_counter() - t0, dict(hk.LAUNCHES)
+        equal = torch.equal(outputs(resumed, X_), outputs(ref, X_)) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(resumed.params), tree_leaves(ref.params)))
+        emit({"phase": "fit_resume", "family": family, "from_rounds": base_model.num_members,
+              "new_rounds": n_new, "fit_s": secs, "launches": launches,
+              "bit_identical": equal, **card})
+        if not equal or launches != per_fit(n_new):
+            raise AssertionError(f"fit_resume {family}: equal {equal}, launches {launches}")
+    no_stray_retries("fit_resume")
+
+    # phase 22 (robustness): a chaos NaN at one round under each recovery
+    # policy; pipeline depths 0, 1 and 2 equal, with and without a
+    # validation stop mid-fit; a torn checkpoint falling back to .ckpt-old
+    for policy in ("skip_round", "halve_step", "stop_early"):
+        ctl = FaultAt({"nan_grad": "GBMClassifier:round:16"})
+        chaos_mod.install(ctl)
+        try:
+            model, secs, launches = fit_counted(
+                gbm("fused", "highest", PARITY_ROUNDS).set_params(on_nonfinite=policy), X_np, y_np)
+        finally:
+            chaos_mod.install(None)
+        events = model.guard_events_
+        finite = bool(torch.isfinite(model.predict_proba(Xd)).all())
+        emit({"phase": "robustness", "check": "nan_grad", "policy": policy,
+              "fired": [list(f) for f in ctl.fired], "guard_events": events,
+              "members": model.num_members, "finite": finite, "fit_s": secs,
+              "launches": launches, **card})
+        if not ctl.fired or not finite or [e["action"] for e in events] != [policy] \
+                or not 16 <= events[0]["round"] < PARITY_ROUNDS:
+            raise AssertionError(f"robustness {policy}: fired {ctl.fired}, events {events}")
+    vi = np.zeros(N_ROWS, bool)
+    vi[::4] = True
+    depth_runs = {}
+    for stop in (False, True):
+        for depth in ("0", "1", "2"):
+            os.environ["SE_TPU_PIPELINE"] = depth
+            est = gbm("fused", "highest", PARITY_ROUNDS)
+            if stop:
+                # letter's validation loss improves by under 4.5% a round
+                # from about round 7 on: the stop lands mid-fit, with
+                # chunks of 4 in flight past it
+                est.set_params(scan_chunk=4, num_rounds=2, validation_tol=0.045)
+            hk.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = est.fit(X_np, y_np, validation_indicator=vi if stop else None, device="cuda")
+            torch.cuda.synchronize()
+            depth_runs[stop, depth] = (model, time.perf_counter() - t0, dict(hk.LAUNCHES))
+        os.environ.pop("SE_TPU_PIPELINE")
+        ref0 = depth_runs[stop, "0"][0]
+        for depth in ("1", "2"):
+            model, secs, launches = depth_runs[stop, depth]
+            equal = (model.num_members == ref0.num_members
+                     and torch.equal(model.predict_proba(Xd), ref0.predict_proba(Xd)))
+            emit({"phase": "robustness", "check": "pipeline_depth", "depth": int(depth), "vs_depth": 0,
+                  "validation_stop": stop, "members": model.num_members, "fit_s": secs,
+                  "launches": launches, "bit_identical": equal, **card})
+            if not equal:
+                raise AssertionError(f"pipeline depth {depth} (stop {stop}) differs from depth 0")
+        if stop and not 0 < ref0.num_members < PARITY_ROUNDS:
+            raise AssertionError(f"the validation stop kept {ref0.num_members} rounds, not mid-fit")
+    ckdir = os.path.join(scratch, "torn")
+    est = gbm("fused", "highest", PARITY_ROUNDS).set_params(checkpoint_dir=ckdir, checkpoint_interval=5)
+    chaos_mod.install(FaultAt({"ckpt_corrupt": f"ckpt:{ckdir}:14",
+                               "preempt": "GBMClassifier:after_round:15"}))
+    try:
+        est.fit(X_np, y_np, device="cuda")
+        raise AssertionError("robustness: the preemption after round 15 did not fire")
+    except chaos_mod.ChaosPreemption:
+        pass
+    finally:
+        chaos_mod.install(None)
+    probe = st.TrainingCheckpointer(ckdir, 5, fingerprint=est._checkpointer(
+        dev, N_ROWS, N_FEATURES, N_CLASSES, 0).fingerprint)
+    loaded = probe.load_latest()
+    resumed = est.fit(X_np, y_np, device="cuda")
+    equal = torch.equal(resumed.predict_proba(Xd), runs["fused"][0])
+    emit({"phase": "robustness", "check": "ckpt_corrupt", "load_detail": probe.last_load_detail,
+          "bit_identical": equal, **card})
+    if loaded is None or probe.last_load_detail != {"round": 9, "source": ".ckpt-old",
+                                                    "fallback": True} or not equal:
+        raise AssertionError(f"ckpt_corrupt: {probe.last_load_detail}, equal {equal}")
+    no_stray_retries("robustness")
+
+    # checkpoint and pipeline timings: the 100-round main path fit with and
+    # without checkpoints (every 10 rounds), at depths 0 and 1, three fits
+    # each.  The host's rate moves by tens of percent between fits, so the
+    # four configurations take turns (the order reversed every other
+    # turn), and each checkpointed fit reports the save's time on the fit's
+    # thread and the writer thread's time
+    from spark_ensemble_tpu_torch.utils import checkpoint as ckpt_mod
+
+    spent = {"save_s": 0.0, "write_s": 0.0}
+    real_save, real_write = ckpt_mod.TrainingCheckpointer.save, ckpt_mod.TrainingCheckpointer._write
+
+    def timed_save(self, round_idx, state):
+        t0 = time.perf_counter()
+        real_save(self, round_idx, state)
+        spent["save_s"] += time.perf_counter() - t0
+
+    def timed_write(self, round_idx, state):
+        t0 = time.perf_counter()
+        real_write(self, round_idx, state)
+        spent["write_s"] += time.perf_counter() - t0
+
+    ckpt_mod.TrainingCheckpointer.save, ckpt_mod.TrainingCheckpointer._write = timed_save, timed_write
+    configs = (("0", False), ("1", False), ("1", True), ("0", True))
+    timing = {c: [] for c in configs}
+    try:
+        for turn in range(3):
+            for depth, ck in (configs if turn % 2 == 0 else configs[::-1]):
+                os.environ["SE_TPU_PIPELINE"] = depth
+                est = gbm("fused", "highest", TIMED_ROUNDS)
+                if ck:
+                    est.set_params(checkpoint_dir=os.path.join(scratch, f"timing-{depth}-{turn}"),
+                                   checkpoint_interval=10)
+                spent.update(save_s=0.0, write_s=0.0)
+                rate = TIMED_ROUNDS / fit_counted(est, X_np, y_np)[1]
+                timing[depth, ck].append((rate, spent["save_s"], spent["write_s"]))
+    finally:
+        ckpt_mod.TrainingCheckpointer.save, ckpt_mod.TrainingCheckpointer._write = real_save, real_write
+        os.environ.pop("SE_TPU_PIPELINE", None)
+    median = {}
+    for (depth, ck), rows in timing.items():
+        median[depth, ck] = statistics.median(r[0] for r in rows)
+        emit({"phase": "checkpoint_timing", "pipeline_depth": int(depth), "checkpoints": ck,
+              "checkpoint_interval": 10 if ck else None, "rounds": TIMED_ROUNDS,
+              "iters_per_s": median[depth, ck], "iters_per_s_runs": [r[0] for r in rows],
+              "save_ms_per_fit": [r[1] * 1e3 for r in rows] if ck else None,
+              "writer_ms_per_fit": [r[2] * 1e3 for r in rows] if ck else None, **card})
+    emit({"phase": "checkpoint_timing",
+          "checkpoint_cost_share_depth0": 1 - median["0", True] / median["0", False],
+          "checkpoint_cost_share_depth1": 1 - median["1", True] / median["1", False],
+          "depth1_gain_share": median["1", False] / median["0", False] - 1, **card})
+    no_stray_retries("checkpoint_timing")
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    no_stray_retries("all phases")
     emit({"phase": "profiler", "empty_traces_retried": empty_traces[0]})
     emit({"kernels": [r.json() for r in recs.values()]})
     print(smi, flush=True)

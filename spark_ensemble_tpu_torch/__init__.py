@@ -27,7 +27,15 @@ default) or on the CPU (``device="cpu"``):
   megabatch GBM sweep ``fit_sweep``), ``Pipeline`` with ``StandardScaler``
   and ``MinMaxScaler``, and ``FeatureMetadata``;
 - the evaluators behind ``score()``, and ``jax.random``'s draws, bit for
-  bit (``utils/random.py``).
+  bit (``utils/random.py``);
+- persistence: ``save``/``load`` (and ``Model.save``) in the JAX package's
+  on-disk format, so a model saved by either package loads in the other;
+- the round runtime: ``RoundExecutor`` (pipelined round chunks,
+  ``SE_TPU_PIPELINE``), ``checkpoint_dir`` checkpoints with
+  ``TrainingCheckpointer``, ``fit_resume`` and ``take`` on the GBM and
+  Boosting models, the ``on_nonfinite`` recovery policies
+  (``NonFiniteError``), retry with backoff (``RetryPolicy``,
+  ``max_retries``) and the ``SE_TPU_CHAOS`` fault injector.
 
 The level histograms, routes and leaf sums of the ``pallas`` and ``fused``
 tiers run as hand-written CUDA kernels (``csrc/hist.cu``) built with
@@ -55,6 +63,7 @@ from spark_ensemble_tpu_torch.convert import (
     stacking_regressor_from_models,
     standard_scaler_from_arrays,
 )
+from spark_ensemble_tpu_torch.execution import RoundExecutor
 from spark_ensemble_tpu_torch.evaluation import (
     BinaryClassificationEvaluator,
     MulticlassClassificationEvaluator,
@@ -136,7 +145,11 @@ from spark_ensemble_tpu_torch.tuning import (
     TrainValidationSplit,
     TrainValidationSplitModel,
 )
+from spark_ensemble_tpu_torch.robustness.guards import NonFiniteError
+from spark_ensemble_tpu_torch.robustness.retry import RetryPolicy
+from spark_ensemble_tpu_torch.utils.checkpoint import TrainingCheckpointer
 from spark_ensemble_tpu_torch.utils.features import FeatureMetadata
+from spark_ensemble_tpu_torch.utils.persist import load, save
 from spark_ensemble_tpu_torch.utils.quantile import (
     weighted_median,
     weighted_quantile,
@@ -182,10 +195,13 @@ __all__ = [
     "MinMaxScaler",
     "MinMaxScalerModel",
     "MulticlassClassificationEvaluator",
+    "NonFiniteError",
     "ParamGridBuilder",
     "Pipeline",
     "PipelineModel",
     "RegressionEvaluator",
+    "RetryPolicy",
+    "RoundExecutor",
     "StackingClassificationModel",
     "StackingClassifier",
     "StackingRegressionModel",
@@ -194,6 +210,7 @@ __all__ = [
     "StandardScalerModel",
     "TrainValidationSplit",
     "TrainValidationSplitModel",
+    "TrainingCheckpointer",
     "bagging_classifier_from_arrays",
     "bagging_regressor_from_arrays",
     "boosting_classifier_from_arrays",
@@ -205,11 +222,13 @@ __all__ = [
     "gbm_regressor_from_arrays",
     "linear_regression_from_arrays",
     "linear_tree_regressor_from_arrays",
+    "load",
     "logistic_regression_from_arrays",
     "min_max_scaler_from_arrays",
     "mlp_classifier_from_arrays",
     "mlp_regressor_from_arrays",
     "pipeline_from_models",
+    "save",
     "stacking_classifier_from_models",
     "stacking_regressor_from_models",
     "standard_scaler_from_arrays",

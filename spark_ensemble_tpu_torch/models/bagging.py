@@ -16,10 +16,15 @@ the members' classes, soft = summed member probabilities; probability =
 raw / members; prediction = the first argmax of raw, as ``jnp.argmax``
 takes it (hard votes tie often).  The regressor predicts the members'
 unweighted mean (`BaggingRegressor.scala:221-228`).
+
+The one fused member fit runs under the retry layer, and the numeric
+guard (``on_nonfinite``) drops members with NaN params, so ``num_members``
+is the kept count and probabilities divide by it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_ensemble_tpu_torch.models.base import (
@@ -27,13 +32,14 @@ from spark_ensemble_tpu_torch.models.base import (
     ClassificationModel,
     Estimator,
     RegressionModel,
+    _with_guard_events,
     as_f32,
     infer_num_classes,
     make_shared_fit_ctx,
     not_supported,
     resolve_device,
     resolve_weights,
-    tree_leaves,
+    tree_map,
 )
 from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassifier,
@@ -86,8 +92,13 @@ class _BaggingParams(Estimator):
 
     def _fit_members(self, X, y, sample_weight, num_classes, mesh, device):
         """Validate, draw the plan and fit every member in one
-        ``fit_many_from_ctx`` -> ``(members, masks, num_classes, d,
-        device)``."""
+        ``fit_many_from_ctx`` under the robustness runtime (a chaos
+        transient site and the retry layer around the one fused fit, then
+        the guard's drop of non-finite members) -> ``(members, masks,
+        num_classes, d, device, guard)``."""
+        from spark_ensemble_tpu_torch.robustness.chaos import controller
+        from spark_ensemble_tpu_torch.robustness.retry import retry_call
+
         self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
@@ -102,21 +113,51 @@ class _BaggingParams(Estimator):
         ctx = make_shared_fit_ctx(base, X, num_classes)
         fit_w, masks, keys = self._member_plan(n, d, w)
         m = fit_w.shape[0]
-        members = base.fit_many_from_ctx(
-            ctx, y[:, None].expand(n, m), fit_w.T.contiguous(), masks, keys=keys
-        )
-        if str(self.on_nonfinite).lower() == "raise":
-            # NaN flags a member (+inf is a no-split node's threshold)
-            bad = torch.stack([
-                torch.isnan(a.reshape(m, -1)).any(dim=1)
-                for a in tree_leaves(members) if a.is_floating_point()
-            ]).any(dim=0)
-            if bool(bad.any()):
-                raise FloatingPointError(
-                    f"{type(self).__name__} member {int(bad.to(torch.uint8).argmax())} "
-                    "produced non-finite params (on_nonfinite='raise')"
-                )
-        return members, masks, num_classes, d, dev
+        ctl = controller()
+        site = f"{type(self).__name__}:fit_all"
+
+        def attempt():
+            ctl.transient(site)
+            return base.fit_many_from_ctx(
+                ctx, y[:, None].expand(n, m), fit_w.T.contiguous(), masks,
+                keys=keys,
+            )
+
+        members = retry_call(attempt, self._retry_policy(),
+                             op=f"{type(self).__name__}.fit_all")
+        members = ctl.poison_member_stack(site, members)
+        guard = self._numeric_guard()
+        members, masks = self._drop_bad_members(members, masks, guard)
+        return members, masks, num_classes, d, dev, guard
+
+    @staticmethod
+    def _drop_bad_members(members, masks, guard):
+        """``on_nonfinite`` over the fitted member stack: members whose
+        params picked up NaN are dropped outright (Bagging averages its
+        members with equal weight, so no weight can neutralize one).
+        ``stop_early`` keeps the members before the first bad one;
+        ``skip_round`` and ``halve_step`` (no step to halve in one fused
+        fit) keep every finite member.  Probabilities then divide by the
+        kept count (``num_members``)."""
+        if not guard.active:
+            return members, masks
+        flags = guard.member_flags(members)
+        if flags is None or not flags.any():
+            return members, masks
+        first = int(np.flatnonzero(flags)[0])
+        if guard.policy == "raise":
+            guard.raise_error(first, what="member params", unit="member")
+        if guard.policy == "stop_early":
+            keep, action = np.arange(first), "stop_early"
+        else:
+            keep, action = np.flatnonzero(~flags), "skip_round"
+        if keep.size == 0:
+            # a usable Bagging model needs at least one finite member
+            guard.raise_error(first, what="every member's params", unit="member")
+        guard.record(first, action, members_dropped=int(flags.size - keep.size),
+                     members_kept=int(keep.size))
+        idx = torch.as_tensor(keep, device=masks.device)
+        return tree_map(lambda a: a[idx], members), masks[idx]
 
 
 class BaggingRegressor(_BaggingParams):
@@ -127,14 +168,14 @@ class BaggingRegressor(_BaggingParams):
 
     def fit(self, X, y, sample_weight=None, mesh=None,
             device="cuda") -> "BaggingRegressionModel":
-        members, masks, _, d, dev = self._fit_members(
+        members, masks, _, d, dev, guard = self._fit_members(
             X, y, sample_weight, None, mesh, device
         )
-        return BaggingRegressionModel(
+        return _with_guard_events(guard, BaggingRegressionModel(
             params={"members": members, "masks": masks},
             num_features=d, num_members=masks.shape[0], device=dev,
             **self.get_params(),
-        )
+        ))
 
 
 class BaggingRegressionModel(RegressionModel, BaggingRegressor):
@@ -165,14 +206,14 @@ class BaggingClassifier(_BaggingParams):
 
     def fit(self, X, y, sample_weight=None, mesh=None, num_classes=None,
             device="cuda") -> "BaggingClassificationModel":
-        members, masks, num_classes, d, dev = self._fit_members(
+        members, masks, num_classes, d, dev, guard = self._fit_members(
             X, y, sample_weight, num_classes, mesh, device
         )
-        return BaggingClassificationModel(
+        return _with_guard_events(guard, BaggingClassificationModel(
             params={"members": members, "masks": masks},
             num_features=d, num_classes=num_classes,
             num_members=masks.shape[0], device=dev, **self.get_params(),
-        )
+        ))
 
 
 class BaggingClassificationModel(ClassificationModel, BaggingClassifier):

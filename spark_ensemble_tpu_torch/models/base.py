@@ -47,6 +47,11 @@ import numpy as np
 import torch
 
 from spark_ensemble_tpu_torch.params import Param, Params, gt_eq, in_array
+# validate_fit_inputs lives in robustness/ (the JAX package's layout);
+# this module's name for it stays importable
+from spark_ensemble_tpu_torch.robustness.validate import (  # noqa: F401
+    validate_fit_inputs,
+)
 from spark_ensemble_tpu_torch.utils.random import PRNGKey
 
 
@@ -213,25 +218,6 @@ def infer_num_classes(y, num_classes: Optional[int] = None) -> int:
     return max(k, 2)
 
 
-def validate_fit_inputs(X, y=None, allow_nan=False, family=""):
-    """Raise ``ValueError`` when X (or y) holds NaN/Inf, unless
-    ``allow_nan`` (the JAX package's ``robustness/validate.py`` rule)."""
-    if allow_nan:
-        return
-    bad = [
-        name for name, a in (("X", X), ("y", y))
-        if a is not None and a.is_floating_point()
-        and not bool(torch.isfinite(a).all())
-    ]
-    if bad:
-        prefix = f"{family}: " if family else ""
-        raise ValueError(
-            f"{prefix}{' and '.join(bad)} contains NaN or Inf values; "
-            "ensemble fits would silently produce a non-finite model. Clean "
-            "the inputs, or pass allow_nan=True to skip this check."
-        )
-
-
 class Model(Params):
     """A fitted model: estimator config + learned params on ``device``."""
 
@@ -326,8 +312,17 @@ class Model(Params):
             masks[i].detach().cpu().numpy().astype(bool)
         ).names
 
+    def _persisted_params(self):
+        """The learned params a save writes: all of them, unless a model
+        keeps a diagnostic the JAX package's format has no key for."""
+        return self.params
+
     def save(self, path: str):
-        not_supported("save", path, "queue 1, item 16")
+        """Save to the directory ``path`` (``utils/persist.py``; the JAX
+        package's format, so either package loads it)."""
+        from spark_ensemble_tpu_torch.utils import persist
+
+        persist.save(self, path)
 
 
 class RegressionModel(Model):
@@ -366,6 +361,95 @@ class ClassificationModel(Model):
         )
 
 
+def _with_guard_events(guard, model):
+    """``model`` carrying its fit's guard record as ``guard_events_`` (the
+    round index and action of every detection; the port has no telemetry
+    stream to put them on)."""
+    model.guard_events_ = guard.events
+    return model
+
+
+class CheckpointableParams(Params):
+    """Checkpoint and resume plumbing shared by the iterative estimators
+    (GBM, Boosting): one copy of the resume-identity exclusions, the
+    members layout marker, the checkpointer factory and the warm-resume
+    hooks ``fit_resume`` installs."""
+
+    # params that do not change the round math: left out of the resume
+    # fingerprint, so budget, cadence and policy changes keep checkpoints
+    # resumable
+    _RESUME_EXCLUDED = (
+        "num_base_learners",
+        "checkpoint_interval",
+        "checkpoint_dir",
+        "profile_dir",
+        "telemetry_path",
+        "feature_names",
+        "scan_chunk",
+        "on_nonfinite",
+        "max_retries",
+        "allow_nan",
+    )
+
+    # written into every checkpoint state, so the members layout is explicit
+    MEMBERS_LAYOUT = "stacked"
+
+    def _resume_identity(self):
+        from spark_ensemble_tpu_torch.utils.persist import params_to_json_dict
+
+        p = params_to_json_dict(self)
+        for k in self._RESUME_EXCLUDED:
+            p.pop(k, None)
+        return p
+
+    @staticmethod
+    def _resume_chunks(st, weights_key: str = "weights"):
+        """Checkpointed members and weights -> round-stacked chunk lists
+        (one chunk holding every committed round)."""
+        layout = st.get("members_layout")
+        if layout != CheckpointableParams.MEMBERS_LAYOUT:
+            raise ValueError(
+                f"unrecognized checkpoint members_layout {layout!r}; "
+                f"expected {CheckpointableParams.MEMBERS_LAYOUT!r}"
+            )
+        return [st["members"]], [st[weights_key].to(torch.float32)]
+
+    def _checkpointer(self, device, *shape_parts):
+        """The fit's checkpointer.  The fingerprint's shape parts are the
+        port's own (tagged ``"torch"``), so a checkpoint the JAX package
+        wrote starts a fresh fit (logged) instead of a half-way resume."""
+        from spark_ensemble_tpu_torch.utils.checkpoint import (
+            TrainingCheckpointer,
+            run_fingerprint,
+        )
+
+        return TrainingCheckpointer(
+            self.checkpoint_dir,
+            self.checkpoint_interval,
+            fingerprint=run_fingerprint(
+                type(self).__name__, self._resume_identity(), "torch",
+                *[int(s) for s in shape_parts],
+            ),
+            retry_policy=self._retry_policy(),
+            device=device,
+        )
+
+    # -- warm-start resume (fit_resume) -----------------------------------
+    #
+    # The first k rounds of a stagewise fit are the state a checkpoint at
+    # round k-1 would hold.  fit_resume synthesizes that state and installs
+    # it here; the next fit() consumes it exactly like a loaded checkpoint.
+    # A real on-disk checkpoint always wins.
+
+    def _set_warm_resume(self, last_round, st):
+        self._warm_resume_state = (int(last_round), dict(st))
+
+    def _take_warm_resume(self):
+        state = getattr(self, "_warm_resume_state", None)
+        self._warm_resume_state = None
+        return state
+
+
 class Estimator(Params):
     """Base estimator: ``fit(X, y, sample_weight, device=...) -> Model``."""
 
@@ -386,16 +470,22 @@ class Estimator(Params):
     on_nonfinite = Param(
         "raise",
         in_array(["off", "raise", "skip_round", "halve_step", "stop_early"]),
-        doc="numeric-guard policy when a round produces non-finite outputs; "
-        "the port implements 'raise' and 'off' (the recovery policies wait "
-        "for robustness/, ROADMAP Slice F)",
+        doc="numeric-guard policy when a round produces non-finite outputs "
+        "(NaN member params, non-finite losses or step sizes): 'raise' "
+        "fails fast with NonFiniteError, 'skip_round' drops the poisoned "
+        "round's contribution and keeps training, 'halve_step' re-runs the "
+        "round at a halved step until finite (families without a scalable "
+        "step degrade to skip), 'stop_early' truncates the ensemble to the "
+        "last good round, 'off' disables the check.  Detection is one fused "
+        "reduction per round chunk, read with the chunk's validation losses",
     )
     max_retries = Param(
         2,
         gt_eq(0),
-        doc="retries of a transiently failing round dispatch in the JAX "
-        "package; the port has no retry layer yet (ROADMAP Slice F), so a "
-        "device error surfaces on the first attempt",
+        doc="retries (exponential backoff with deterministic jitter) of a "
+        "round chunk, member fit or checkpoint write that fails with a "
+        "RuntimeError/OSError; a retry re-launches the same kernels from the "
+        "same carry.  0 disables retry",
     )
     allow_nan = Param(
         False,
@@ -405,14 +495,31 @@ class Estimator(Params):
     def fit(self, X, y, sample_weight=None, device="cuda") -> Model:
         raise NotImplementedError
 
+    def save(self, path: str):
+        """Save this estimator's config to the directory ``path``."""
+        from spark_ensemble_tpu_torch.utils import persist
+
+        persist.save(self, path)
+
     def _check_port_support(self):
         """Raise for Param values the port does not implement yet."""
         if self.profile_dir is not None:
             not_supported("profile_dir", self.profile_dir, "Slice F")
         if self.telemetry_path is not None:
             not_supported("telemetry_path", self.telemetry_path, "Slice F")
-        if str(self.on_nonfinite).lower() not in ("raise", "off"):
-            not_supported("on_nonfinite", self.on_nonfinite, "Slice F")
+
+    def _retry_policy(self):
+        """The retry policy of this estimator's ``max_retries``."""
+        from spark_ensemble_tpu_torch.robustness.retry import RetryPolicy
+
+        return RetryPolicy(max_retries=int(self.max_retries))
+
+    def _numeric_guard(self):
+        """A per-fit :class:`NumericGuard` of this ``on_nonfinite`` policy."""
+        from spark_ensemble_tpu_torch.robustness.guards import NumericGuard
+
+        return NumericGuard(str(self.on_nonfinite).lower(),
+                            family=type(self).__name__)
 
     def _validate_fit_inputs(self, X, y=None):
         validate_fit_inputs(

@@ -18,9 +18,16 @@ Huber's delta adapts as in the JAX package: the alpha-quantile of the
 labels for the initial validation loss, then the alpha-quantile of
 ``|y - pred|`` re-taken on the device before every round.
 
-The JAX package compiles chunks of rounds into one XLA program; here the
-round loop is a host loop equal to its ``_drive_rounds`` at pipeline depth
-0, with validation early stop (``_patience_step``).
+The round loop is the JAX package's ``_drive_rounds`` on the port's
+``RoundExecutor`` (``execution.py``): chunks of ``scan_chunk`` rounds
+(clamped to checkpoint boundaries) run one round after another, and the
+host commits a chunk at once, reading its finite flags and validation
+losses in one transfer, stepping the patience recurrence
+(``_patience_step``) and saving a checkpoint on save rounds.  At pipeline
+depth 1 (the default, ``SE_TPU_PIPELINE``) the next chunk's launches are
+enqueued before that read.  ``checkpoint_dir`` resumes a fit after a
+preemption, ``fit_resume`` continues a fitted model, and ``on_nonfinite``
+recovers from a poisoned round (skip, halve the step, or stop early).
 
 Uniform sampling (``subsample_ratio``, ``replacement``, ``subspace_ratio``)
 draws the JAX package's plan bit for bit (``utils/random.py``): member
@@ -47,7 +54,7 @@ key is its bag key ``fold_in(fold_in(PRNGKey(seed), i), 2)``.
 
 ``leaf_model="linear"`` swaps a ``DecisionTreeRegressor`` base for a
 ``LinearTreeRegressor`` (``_base``).  The planes not ported yet
-(checkpoints, telemetry, meshes) raise ``NotImplementedError``.
+(telemetry, meshes) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,11 +65,14 @@ from typing import List
 import numpy as np
 import torch
 
+from spark_ensemble_tpu_torch import execution as _execution
 from spark_ensemble_tpu_torch.models.base import (
     BaseLearner,
+    CheckpointableParams,
     ClassificationModel,
     Estimator,
     RegressionModel,
+    _with_guard_events,
     as_f32,
     infer_num_classes,
     make_shared_fit_ctx,
@@ -79,7 +89,7 @@ from spark_ensemble_tpu_torch.models.tree import DecisionTreeRegressor
 from spark_ensemble_tpu_torch.ops import losses as losses_mod
 from spark_ensemble_tpu_torch.ops.linesearch import brent_minimize, projected_newton_box_lanes
 from spark_ensemble_tpu_torch.ops.tree import Tree
-from spark_ensemble_tpu_torch.params import Param, Params, gt, gt_eq, in_array, in_range
+from spark_ensemble_tpu_torch.params import Param, gt, gt_eq, in_array, in_range
 from spark_ensemble_tpu_torch.utils.quantile import weighted_quantile
 from spark_ensemble_tpu_torch.utils.random import (
     PRNGKey,
@@ -108,7 +118,7 @@ def _fitted_values(params) -> List[torch.Tensor]:
     return [a for a in tree_leaves(params) if a.is_floating_point()]
 
 
-class _GBMParams(Params):
+class _GBMParams(CheckpointableParams):
     """Shared GBM params (names, defaults and validators of the JAX
     package's ``_GBMParams``)."""
 
@@ -194,16 +204,18 @@ class _GBMParams(Params):
     aggregation_depth = Param(2, gt_eq(1), doc="API parity")
     scan_chunk = Param(
         16, gt_eq(1),
-        doc="rounds per compiled dispatch in the JAX package; the port's "
-        "eager round loop has no dispatch grouping, so it does not change "
-        "any result",
+        doc="rounds per chunk: the host commits a chunk at once (one read of "
+        "its finite flags and validation losses); a validation stop inside "
+        "a chunk drops its later rounds, so no result depends on it",
     )
     checkpoint_interval = Param(
         10, gt_eq(1), doc="rounds between training-state checkpoints"
     )
     checkpoint_dir = Param(
-        None, doc="training-state checkpoints; not ported yet (ROADMAP "
-        "queue 1, item 16)",
+        None,
+        doc="when set, training state (round, members, predictions, "
+        "patience) is checkpointed every checkpoint_interval rounds and "
+        "fit() resumes from the latest checkpoint",
     )
 
     def _base(self) -> BaseLearner:
@@ -227,8 +239,6 @@ class _GBMParams(Params):
         self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
-        if self.checkpoint_dir is not None:
-            not_supported("checkpoint_dir", self.checkpoint_dir, "queue 1, item 16")
 
     def _resolved_sampling(self, n: int):
         """The gradient row-sampling plan, fixed on the host at fit start,
@@ -325,34 +335,238 @@ class _GBMParams(Params):
             return best, v + 1
         return err, 0
 
-    def _drive_rounds(self, run_round, best: float):
-        """The host round loop (the JAX package's ``_drive_rounds`` at
-        pipeline depth 0): ``run_round(i) -> (params, weight, err|None)``.
-        Returns ``(members, weights, rounds_run, v, val_history)``; the
-        caller keeps ``rounds_run - v`` members."""
-        members, weights, val_history = [], [], []
-        i, v = 0, 0
-        label = type(self).__name__
-        check = str(self.on_nonfinite).lower() == "raise"
-        while i < self.num_base_learners and v < self.num_rounds:
-            params, weight, err = run_round(i)
-            if check and not bool(torch.stack(
-                [torch.isfinite(t).all() for t in [weight, *_fitted_values(params)]]
-            ).all()):
-                raise FloatingPointError(
-                    f"{label} round {i} produced non-finite member params or "
-                    "step sizes (on_nonfinite='raise')"
-                )
-            members.append(params)
-            weights.append(weight)
-            i += 1
-            if err is not None:
-                err = float(err)
-                val_history.append(err)
-                best, v = self._patience_step(best, err, v, self.validation_tol)
-                logger.info("%s round %d: val_loss=%.6f patience=%d",
-                            label, i - 1, err, v)
-        return members, weights, i, v, val_history
+    def _drive_rounds(self, ckpt, chunks, run_chunk, save_state, label, i, v,
+                      best, val_history, guard, snapshot, restore):
+        """The shared round loop of both GBM flavors, behind the
+        port's :class:`RoundExecutor` (the JAX package's ``_drive_rounds``
+        and its ``_Adapter``).
+
+        ``run_chunk(sl, step_scale) -> (params [c, ...], weights [c, ...],
+        errs f32[c] | None, aux [c] | None)`` runs rounds ``sl`` from the
+        carry and advances it (through its closure); ``snapshot()`` /
+        ``restore(snap)`` copy and rewind the carry.  ``chunks`` holds the
+        committed round-stacked ``members``, ``weights`` and ``aux`` lists.
+        A chunk is ``scan_chunk`` rounds, clamped to the next checkpoint
+        boundary.  Committing a chunk reads its finite flags and validation
+        losses in one host transfer, steps the patience recurrence, and
+        saves a checkpoint on a save round.
+
+        Robustness: each chunk runs under the retry layer (a transient
+        ``RuntimeError`` re-runs the same chunk from the same carry), and
+        when the guard flags a round the carry rewinds to the chunk start,
+        the clean prefix replays (same absolute rounds, same keys, same
+        results), and the poisoned round is raised, skipped, re-run at a
+        halved step or truncated per ``on_nonfinite``.  Returns ``(i, v,
+        best)``; the caller keeps ``i - v`` rounds."""
+        from spark_ensemble_tpu_torch.robustness.chaos import controller
+        from spark_ensemble_tpu_torch.robustness.retry import retry_call
+
+        chunk = int(self.scan_chunk)
+        retry_policy = self._retry_policy()
+        ctl = controller()
+        guard_on = guard.active
+        depth = _execution.resolve_pipeline_depth()
+        dp_on = _execution.device_patience_enabled()
+        drv = self
+
+        def dispatch(sl, step_scale=1.0):
+            site = f"{label}:round:{sl.start}"
+
+            def attempt():
+                ctl.transient(site)
+                return run_chunk(sl, step_scale)
+
+            params_c, weights_c, errs, aux = retry_call(
+                attempt, retry_policy, op=f"{label}.round_chunk"
+            )
+            return params_c, ctl.poison_array(site, weights_c), errs, aux
+
+        def read(params_c, weights_c, errs):
+            """One host read of a chunk -> (first bad round | None, errs as
+            host floats | None)."""
+            parts = []
+            if guard_on:
+                parts.append(guard.flags(params_c, weights_c, errs).to(torch.float32))
+            if errs is not None and not dp_on:
+                parts.append(errs.to(torch.float32))
+            host = torch.cat(parts).tolist() if parts else []
+            bad = None
+            if guard_on:
+                c = weights_c.shape[0]
+                flags, host = host[:c], host[c:]
+                bad = next((j for j, f in enumerate(flags) if f), None)
+            return bad, (host if errs is not None and not dp_on else None)
+
+        def process(i, c, params_c, weights_c, errs, errs_host, aux, v, best):
+            """One clean chunk's bookkeeping -> (i, v, best, stopped)."""
+            chunks["members"].append(params_c)
+            chunks["weights"].append(weights_c)
+            chunks["aux"].append(aux)
+            stopped = False
+            if errs is not None:
+                if dp_on:
+                    best, v, stopped, kept = _execution.device_patience_step(
+                        errs, best, v, self.validation_tol, self.num_rounds
+                    )
+                    val_history.extend(errs[:kept].tolist())
+                    if stopped:
+                        i += kept
+                else:
+                    for j, err in enumerate(errs_host):
+                        val_history.append(err)
+                        best, v = self._patience_step(best, err, v,
+                                                      self.validation_tol)
+                        logger.info("%s round %d: val_loss=%.6f patience=%d",
+                                    label, i + j, err, v)
+                        if v >= self.num_rounds:
+                            i += j + 1
+                            stopped = True
+                            break
+            if not stopped:
+                i += c
+                save_state(i - 1, v, best)
+            return i, v, best, stopped
+
+        def part(tree, lo, hi):
+            return tree_map(lambda x: x[lo:hi], tree)
+
+        def sanitize(tree):
+            return tree_map(
+                lambda x: torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+                if x.is_floating_point() else x,
+                tree,
+            )
+
+        def recover(i0, bad, snap, params_c, weights_c, errs, errs_host, aux,
+                    v, best):
+            """``on_nonfinite`` for a chunk whose first poisoned round is
+            chunk-relative index ``bad`` -> (i, v, best, halt)."""
+            rnd = i0 + bad
+            if guard.policy == "raise":
+                guard.raise_error(rnd)
+            if guard.policy == "stop_early":
+                # keep the clean prefix; the poisoned carry is never used
+                # again (the model is assembled from members)
+                guard.record(rnd, "stop_early")
+                i = i0
+                if bad > 0:
+                    i, v, best, _ = process(
+                        i0, bad, part(params_c, 0, bad), weights_c[:bad],
+                        None if errs is None else errs[:bad],
+                        None if errs_host is None else errs_host[:bad],
+                        part(aux, 0, bad), v, best,
+                    )
+                return i, v, best, True
+            # skip_round / halve_step: rewind the carry and replay the clean
+            # prefix (same absolute rounds -> same keys -> same outputs;
+            # injected faults fire at most once per site)
+            restore(snap)
+            i = i0
+            if bad > 0:
+                p_pre, w_pre, e_pre, a_pre = dispatch(slice(i0, i0 + bad))
+                _, eh_pre = read(p_pre, w_pre, e_pre)
+                i, v, best, stopped = process(i0, bad, p_pre, w_pre, e_pre,
+                                              eh_pre, a_pre, v, best)
+                if stopped:
+                    return i, v, best, False
+            if guard.policy == "halve_step":
+                for h in range(1, guard.max_halvings + 1):
+                    scale = 0.5 ** h
+                    snap2 = snapshot()
+                    p1, w1, e1, a1 = dispatch(slice(i, i + 1), step_scale=scale)
+                    bad1, eh1 = read(p1, w1, e1)
+                    if bad1 is None:
+                        guard.record(i, "halve_step", step_scale=scale)
+                        i, v, best, _ = process(i, 1, p1, w1, e1, eh1, a1, v, best)
+                        return i, v, best, False
+                    restore(snap2)
+                # not recoverable by damping: fall through to a skip
+            # skip: re-run the round at step_scale=0; the carry advances by
+            # exactly zero while keys, masks and the checkpoint cadence stay
+            # on absolute round indices
+            guard.record(i, "skip_round")
+            p1, w1, e1, a1 = dispatch(slice(i, i + 1), step_scale=0.0)
+            # the member fit itself may be the non-finite source: keep a
+            # sanitized zero-weight copy so predict never sees 0 * NaN
+            p1, w1 = sanitize(p1), sanitize(w1)
+            e1 = None if e1 is None else torch.nan_to_num(e1)
+            _, eh1 = read(p1, w1, e1)
+            i, v, best, _ = process(i, 1, p1, w1, e1, eh1, a1, v, best)
+            return i, v, best, False
+
+        class _Adapter(_execution.RoundAdapter):
+            """Each launched entry carries two carry snapshots: the chunk
+            start (the guard's rewind point) and the chunk end (the state a
+            checkpoint must see, so a speculative chunk is never saved
+            before its predecessor commits)."""
+
+            def __init__(self):
+                self.depth = depth
+                self.i, self.v, self.best = i, v, best
+                self.halt = False
+                self.i_disp = i  # launch frontier (absolute round index)
+
+            def should_continue(self):
+                return (not self.halt and self.i < drv.num_base_learners
+                        and self.v < drv.num_rounds)
+
+            def can_launch(self):
+                return self.i_disp < drv.num_base_learners
+
+            def launch(self):
+                c = min(chunk, drv.num_base_learners - self.i_disp)
+                if ckpt.enabled:
+                    c = min(c, ckpt.rounds_until_save(self.i_disp))
+                snap_pre = snapshot()
+                out = dispatch(slice(self.i_disp, self.i_disp + c))
+                entry = (self.i_disp, c, snap_pre, snapshot()) + out
+                self.i_disp += c
+                return entry
+
+            def commit(self, entry, speculated):
+                i0, c, snap_pre, snap_post, params_c, weights_c, errs, aux = entry
+                bad, errs_host = read(params_c, weights_c, errs)
+                if speculated:
+                    # commit under this chunk's own end state: a save must
+                    # persist committed arrays, not the speculative frontier
+                    frontier = snapshot()
+                    restore(snap_post)
+                if bad is None:
+                    self.i, self.v, self.best, stopped = process(
+                        i0, c, params_c, weights_c, errs, errs_host, aux,
+                        self.v, self.best,
+                    )
+                    # a mid-chunk validation stop: chunks in flight were
+                    # launched for rounds that no longer exist
+                    invalidate = stopped
+                    if speculated and not stopped:
+                        restore(frontier)
+                else:
+                    self.i, self.v, self.best, self.halt = recover(
+                        i0, bad, snap_pre, params_c, weights_c, errs,
+                        errs_host, aux, self.v, self.best,
+                    )
+                    invalidate = True
+                # chaos: a preemption lands here, after the chunk's
+                # periodic save, so kill-and-resume runs cross a real
+                # checkpoint boundary
+                ctl.preempt(f"{label}:after_round:{self.i}")
+                return invalidate
+
+            def reset_frontier(self):
+                self.i_disp = self.i
+
+            def finish(self):
+                # join the in-flight save (and surface its failure) before
+                # the model is assembled
+                ckpt.wait()
+
+        try:
+            ad = _execution.RoundExecutor(_Adapter()).run()
+        except BaseException:
+            ckpt.abandon()
+            raise
+        return ad.i, ad.v, ad.best
 
     @property
     def validation_history_(self) -> np.ndarray:
@@ -364,6 +578,8 @@ class _GBMParams(Params):
                 "validation_history_ exists only on models fit with a "
                 "validation split (validation_indicator=...)"
             )
+        if isinstance(vh, torch.Tensor):  # as a loaded model holds it
+            return vh.detach().cpu().numpy()
         return np.asarray(vh)
 
 
@@ -501,8 +717,8 @@ def _squared_step(bag_w, direction, res):
 def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
                         tol, max_iter, sampling=None):
     """One regressor round ``(ctx, X, bag_w, keys, mask, pred, delta, y, w,
-    lr) -> (params, weight, new_pred)``: the closed-form step for squared
-    loss, Brent over [0, 100] for the others.  ``keys`` is the round's
+    lr, step_scale=1.0) -> (params, weight, new_pred)``: the closed-form
+    step for squared loss, Brent over [0, 100] for the others.  ``keys`` is the round's
     ``(bag key, sampling key)`` (``_GBMParams._round_keys``): the base
     learner draws from the first, the gradient sampling from the second.
     With a ``sampling`` plan (``_resolved_sampling``) the tree fit, the
@@ -535,7 +751,8 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
         )
         return labels[:, 0].contiguous(), fit_w[:, 0].contiguous(), bag_w
 
-    def round_core(ctx, X, bag_w, keys, mask, pred, delta, y, w, lr):
+    def round_core(ctx, X, bag_w, keys, mask, pred, delta, y, w, lr,
+                   step_scale=1.0):
         base_key, samp_key = keys
         loss = _make_reg_loss(loss_name, alpha_q, delta)
         if sampling is None:
@@ -562,8 +779,8 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
                 fit_w[:, 0].contiguous(), mask, X, key=base_key,
             )
             alpha = step(loss, y_s, pred_s, bag_s, direction[idx])
-        weight = lr * alpha
-        return params, weight, pred + weight * direction
+        weight = _scaled_step(lr * alpha, step_scale)
+        return params, weight, _advance(pred, weight, direction, step_scale)
 
     round_core.targets = targets
     round_core.step = step
@@ -573,7 +790,8 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
 def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
                         max_iter, sampling=None):
     """One classifier round ``(ctx, X, y_enc, w, bag_w, keys, mask, pred,
-    alpha_ws, lr) -> (params, weight[dim], new_pred, alpha_carry)``, with
+    alpha_ws, lr, step_scale=1.0) -> (params, weight[dim], new_pred,
+    alpha_carry)``, with
     ``keys`` the round's ``(bag key, sampling key)``.  With a ``sampling``
     plan, rows rank by their gradient norm over the class dims, and every
     dim's tree fits on the same gathered buffer.  The step search is
@@ -613,13 +831,19 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
         )
         return labels.contiguous(), fit_w.contiguous(), bag_w
 
-    def round_core(ctx, X, y_enc, w, bag_w, keys, mask, pred, alpha_ws, lr):
+    def round_core(ctx, X, y_enc, w, bag_w, keys, mask, pred, alpha_ws, lr,
+                   step_scale=1.0, member=None):
+        """``member``: replay a committed round (``fit_resume``), its
+        directions the stored member's predictions in place of a fit."""
         base_key, samp_key = keys
         if sampling is None:
             labels, fit_w, bag_w = targets(y_enc, pred, bag_w, w, samp_key)
-            params, directions = base.fit_many_and_directions(
-                ctx, labels, fit_w, mask, X, keys=base_key
-            )
+            if member is None:
+                params, directions = base.fit_many_and_directions(
+                    ctx, labels, fit_w, mask, X, keys=base_key
+                )
+            else:
+                params, directions = member, base.predict_many_fn(member, X).T
             alpha = step(y_enc, pred, bag_w, directions, alpha_ws)
         else:
             idx, mult = _sample_compact(
@@ -630,13 +854,16 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
             labels, fit_w, bag_s = _pseudo_residuals_and_weights(
                 loss, updates, y_enc_s, pred_s, bag_w[idx] * mult, w[idx]
             )
-            params, directions = base.fit_gathered_many_and_directions(
-                base.ctx_gather_rows(ctx, idx), labels.contiguous(),
-                fit_w.contiguous(), mask, X, keys=base_key,
-            )
+            if member is None:
+                params, directions = base.fit_gathered_many_and_directions(
+                    base.ctx_gather_rows(ctx, idx), labels.contiguous(),
+                    fit_w.contiguous(), mask, X, keys=base_key,
+                )
+            else:
+                params, directions = member, base.predict_many_fn(member, X).T
             alpha = step(y_enc_s, pred_s, bag_s, directions[idx], alpha_ws)
-        weight = lr * alpha
-        new_pred = pred + weight[None, :] * directions
+        weight = _scaled_step(lr * alpha, step_scale)
+        new_pred = _advance(pred, weight[None, :], directions, step_scale)
         return params, weight, new_pred, alpha_carry(alpha)
 
     round_core.targets = targets
@@ -644,10 +871,59 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
     return round_core
 
 
+def _scaled_step(weight, step_scale):
+    """The guard's step damper on a round's weight: 1.0 on the clean path
+    (the weight untouched), a halving under ``halve_step``, and a hard zero
+    at 0 (``skip_round``), so a NaN step cannot leak through 0 * NaN."""
+    if step_scale == 1.0:
+        return weight
+    if step_scale > 0:
+        return weight * step_scale
+    return torch.zeros_like(weight)
+
+
+def _advance(pred, weight, direction, step_scale):
+    """The carried prediction after a round; unchanged at step_scale 0."""
+    if step_scale > 0:
+        return pred + weight * direction
+    return pred.clone()
+
+
 def alpha_carry(alpha):
     """The next round's warm start: this round's step sizes, 1 where not
     finite."""
     return torch.where(torch.isfinite(alpha), alpha, torch.ones_like(alpha))
+
+
+def _concat(chunks):
+    """Round-stacked chunks (leading round axis) -> one stack, or None."""
+    if not chunks:
+        return None
+    return tree_map(lambda *xs: torch.cat(xs), *chunks)
+
+
+def _take_rounds(members, k: int):
+    """The first ``k`` rounds of round-stacked members (None when none)."""
+    if members is None or k <= 0:
+        return None
+    return tree_map(lambda a: a[:k], members)
+
+
+def _check_resume_args(model, k: int, n_new: int, X) -> None:
+    """The ``fit_resume`` argument gate of the GBM and Boosting families."""
+    if k < 1:
+        raise ValueError(
+            "fit_resume needs at least one committed member to resume from"
+        )
+    if n_new < 1:
+        raise ValueError(f"n_new_rounds must be >= 1; got {n_new}")
+    shape = tuple(X.shape) if hasattr(X, "shape") else np.shape(X)
+    d = shape[1] if len(shape) == 2 else -1
+    if d != model.num_features:
+        raise ValueError(
+            f"fit_resume requires the original training matrix "
+            f"(num_features={model.num_features}); got shape {shape}"
+        )
 
 
 class GBMRegressor(_GBMParams, Estimator):
@@ -721,7 +997,7 @@ class GBMRegressor(_GBMParams, Estimator):
             int(self.max_iter), plan,
         )
         with_validation = X_val is not None
-        best = 0.0
+        best, pred_val = 0.0, None
         if with_validation:
             pred_val = init_model.predict(X_val).clone()
             y_val_enc = y_val[:, None]
@@ -729,41 +1005,105 @@ class GBMRegressor(_GBMParams, Estimator):
                 _make_reg_loss(loss_name, alpha_q, delta).loss(y_val_enc, pred_val[:, None])
             ))
         ones = torch.ones_like(y)
-        deltas = []
+        chunks = {"members": [], "weights": [], "aux": []}
+        val_history: List[float] = []
+        i, v = 0, 0
 
-        def run_round(i):
-            nonlocal pred, pred_val, delta
-            bag_w, mask = sample(i)
+        ckpt = self._checkpointer(dev, n, d, 0 if X_val is None else X_val.shape[0])
+        resumed = ckpt.load_latest()
+        if resumed is None:
+            resumed = self._take_warm_resume()
+        if resumed is not None:
+            last_round, st = resumed
+            i, v, best = last_round + 1, int(st["v"]), float(st["best"])
+            val_history[:] = [float(x) for x in st["val_hist"].tolist()]
+            pred = st["pred"].to(dev)
+            if st.get("pred_val") is not None:
+                pred_val = st["pred_val"].to(dev)
+            members, weights = self._resume_chunks(st)
+            chunks["members"], chunks["weights"] = members, weights
             if huber:
-                delta = weighted_quantile(torch.abs(y - pred), alpha_q, weights=ones)
-                deltas.append(delta)
-            params, weight, pred = round_core(
-                ctx, X, bag_w, (bag_keys[i], samp_keys[i]), mask, pred, delta,
-                y, w, lr,
-            )
-            err = None
-            if with_validation:
-                pred_val = pred_val + weight * base.predict_fn(params, X_val)
-                err = torch.mean(
-                    _make_reg_loss(loss_name, alpha_q, delta).loss(y_val_enc, pred_val[:, None])
-                )
-            return params, weight, err
+                chunks["aux"] = [st["huber_delta"]]
+            delta = st["delta"].to(dev)
+            logger.info("GBMRegressor resuming from round %d", i)
 
-        members, weights, i, v, val_history = self._drive_rounds(run_round, best)
+        def save_state(round_idx, v, best):
+            # gate before building the state: the concat below must not
+            # run every round
+            if not ckpt.should_save(round_idx):
+                return
+            ckpt.save(round_idx, {
+                "v": v,
+                "best": best,
+                "val_hist": torch.tensor(val_history, dtype=torch.float32),
+                "pred": pred,
+                "pred_val": pred_val,
+                "members_layout": self.MEMBERS_LAYOUT,
+                "members": _concat(chunks["members"]),
+                "weights": torch.cat(chunks["weights"]),
+                "delta": delta,
+                # the port's model keeps every round's huber delta
+                "huber_delta": _concat(chunks["aux"]) if huber else None,
+            })
+
+        def run_chunk(sl, step_scale=1.0):
+            nonlocal pred, pred_val, delta
+            p, pv, dl = pred, pred_val, delta
+            params_l, weights_l, errs_l, deltas_l = [], [], [], []
+            for r in range(sl.start, sl.stop):
+                bag_w, mask = sample(r)
+                if huber:
+                    dl = weighted_quantile(torch.abs(y - p), alpha_q, weights=ones)
+                    deltas_l.append(dl)
+                params, weight, p = round_core(
+                    ctx, X, bag_w, (bag_keys[r], samp_keys[r]), mask, p, dl,
+                    y, w, lr, step_scale,
+                )
+                if with_validation:
+                    pv = _advance(pv, weight, base.predict_fn(params, X_val),
+                                  step_scale)
+                    errs_l.append(torch.mean(
+                        _make_reg_loss(loss_name, alpha_q, dl).loss(y_val_enc, pv[:, None])
+                    ))
+                params_l.append(params)
+                weights_l.append(weight)
+            # the carry moves only once the whole chunk ran, so a retried
+            # chunk starts from the same state
+            pred, pred_val, delta = p, pv, dl
+            return (stack_members(params_l), torch.stack(weights_l),
+                    torch.stack(errs_l) if with_validation else None,
+                    torch.stack(deltas_l) if huber else None)
+
+        def snapshot():
+            return pred, pred_val, delta
+
+        def restore(snap):
+            nonlocal pred, pred_val, delta
+            pred, pred_val, delta = snap
+
+        guard = self._numeric_guard()
+        i, v, best = self._drive_rounds(
+            ckpt, chunks, run_chunk, save_state, "GBMRegressor", i, v, best,
+            val_history, guard, snapshot, restore,
+        )
+        ckpt.delete()
         keep = i - v
-        return self._model(members, weights, keep, d, dev, val_history if with_validation else None,
+        return _with_guard_events(guard, self._model(_concat(chunks["members"]),
+                           torch.cat(chunks["weights"]) if chunks["weights"] else None,
+                           keep, d, dev, val_history if with_validation else None,
                            init_model=init_model,
                            # each round's huber delta (every round run, kept or not)
-                           huber_delta=torch.stack(deltas) if huber else None)
+                           huber_delta=_concat(chunks["aux"]) if huber else None))
 
     def _model(self, members, weights, keep, d, dev, val_history, *, init_model,
                huber_delta):
-        """The fitted model of the first ``keep`` rounds (``val_history``
-        None without a validation split)."""
+        """The fitted model of the first ``keep`` of the round-stacked
+        ``members`` and ``weights`` (``val_history`` None without a
+        validation split)."""
         return GBMRegressionModel(
             params={
-                "members": stack_members(members[:keep]) if keep > 0 else None,
-                "weights": (torch.stack(weights[:keep]) if keep > 0
+                "members": _take_rounds(members, keep),
+                "weights": (weights[:keep] if keep > 0
                             else torch.zeros((0,), device=dev)),
                 "masks": self._model_masks(d, dev)[:keep],
                 "init": init_model.params,
@@ -794,6 +1134,75 @@ class GBMRegressionModel(RegressionModel, GBMRegressor):
             return out
         preds = self._base().predict_many_fn(self.params["members"], X)
         return out + torch.einsum("m,mn->n", self.params["weights"], preds)
+
+    def _persisted_params(self):
+        # huber's per-round deltas are a diagnostic of the fit; the JAX
+        # package's model has no such key, so a save leaves them out
+        return {k: v for k, v in self.params.items() if k != "huber_delta"}
+
+    def take(self, k: int) -> "GBMRegressionModel":
+        """The model of the first ``k`` rounds (the reference's rebuilt
+        ``new GBMRegressionModel(take(i), ...)``)."""
+        k = min(k, self.num_members)
+        vh, hd = self.params.get("val_hist"), self.params.get("huber_delta")
+        return GBMRegressionModel(
+            params={
+                "members": _take_rounds(self.params["members"], k),
+                "weights": self.params["weights"][:k],
+                "masks": self.params["masks"][:k],
+                "init": self.params["init"],
+                "val_hist": None if vh is None else vh[:k],
+                "huber_delta": None if hd is None else hd[:k],
+            },
+            num_features=self.num_features,
+            init_model=self.init_model,
+            num_members=k,
+            device=self.device,
+            **self.get_params(),
+        )
+
+    def fit_resume(self, X, y, n_new_rounds, sample_weight=None, device=None):
+        """Continue this model for ``n_new_rounds`` more rounds on the same
+        training data: bit-identical to one ``num_members + n_new_rounds``
+        round fit, since round keys and masks derive from absolute round
+        indices.  The carried predictions replay from the stored members in
+        the fit's own per-round f32 order (the trees' predict routes to the
+        leaf values the fit's same-row directions read), huber's per-round
+        delta with them; the state goes in as a warm resume that the next
+        fit consumes like a loaded checkpoint.  Fits without a validation
+        split; ``device`` defaults to this model's."""
+        k, n_new = int(self.num_members), int(n_new_rounds)
+        _check_resume_args(self, k, n_new, X)
+        dev = resolve_device(device if device is not None else self.device)
+        X32, y32 = as_f32(X, dev), as_f32(y, dev)
+        base = self._base().copy()
+        members = tree_map(lambda a: a.to(dev), self.params["members"])
+        weights = self.params["weights"].to(dev, torch.float32)
+        pred = self.init_model.predict(X32).to(dev).clone()
+        huber = self.loss.lower() == "huber"
+        ones = torch.ones_like(y32)
+        deltas = []
+        for r in range(k):
+            if huber:
+                deltas.append(weighted_quantile(torch.abs(y32 - pred),
+                                                float(self.alpha), weights=ones))
+            pred = pred + weights[r] * base.predict_fn(
+                tree_map(lambda a: a[r], members), X32)
+        delta = deltas[-1] if huber else torch.zeros((), device=dev)
+        est = GBMRegressor(**{**self.get_params(), "num_base_learners": k + n_new})
+        est._set_warm_resume(k - 1, {
+            "v": 0,
+            "best": 0.0,
+            "val_hist": torch.zeros((0,)),
+            "pred": pred,
+            "pred_val": None,
+            "members_layout": self.MEMBERS_LAYOUT,
+            "members": members,
+            "weights": weights,
+            "delta": delta,
+            "huber_delta": torch.stack(deltas) if huber else None,
+        })
+        return est.fit(X, y, sample_weight=sample_weight, device=dev)
 
 
 class GBMClassifier(_GBMParams, Estimator):
@@ -854,6 +1263,8 @@ class GBMClassifier(_GBMParams, Estimator):
         y_enc = loss.encode_label(y)
         pred = init_raw[None, :].expand(n, dim).clone()
         sample = self._sampling_plan(n, d, dev)
+        # the step search's warm start, carried across rounds and
+        # checkpoints (a resume replays the same Newton trajectory)
         alpha_ws = torch.ones((dim,), dtype=torch.float32, device=dev)
         lr = float(self.learning_rate)
         plan = self._resolved_sampling(n)
@@ -864,39 +1275,94 @@ class GBMClassifier(_GBMParams, Estimator):
             self._goss(), float(self.tol), int(self.max_iter), plan,
         )
         with_validation = X_val is not None
-        best = 0.0
+        best, pred_val = 0.0, None
         if with_validation:
             y_enc_val = loss.encode_label(y_val)
             pred_val = init_raw[None, :].expand(X_val.shape[0], dim).clone()
             best = float(torch.mean(loss.loss(y_enc_val, pred_val)))
+        chunks = {"members": [], "weights": [], "aux": []}
+        val_history: List[float] = []
+        i, v = 0, 0
 
-        def run_round(i):
+        ckpt = self._checkpointer(dev, n, d, num_classes,
+                                  0 if X_val is None else X_val.shape[0])
+        resumed = ckpt.load_latest()
+        if resumed is None:
+            resumed = self._take_warm_resume()
+        if resumed is not None:
+            last_round, st = resumed
+            i, v, best = last_round + 1, int(st["v"]), float(st["best"])
+            val_history[:] = [float(x) for x in st["val_hist"].tolist()]
+            alpha_ws = st["alpha_ws"].to(dev)
+            pred = st["pred"].to(dev)
+            if st.get("pred_val") is not None:
+                pred_val = st["pred_val"].to(dev)
+            chunks["members"], chunks["weights"] = self._resume_chunks(st)
+            logger.info("GBMClassifier resuming from round %d", i)
+
+        def save_state(round_idx, v, best):
+            if not ckpt.should_save(round_idx):
+                return
+            ckpt.save(round_idx, {
+                "v": v,
+                "best": best,
+                "val_hist": torch.tensor(val_history, dtype=torch.float32),
+                "pred": pred,
+                "pred_val": pred_val,
+                "alpha_ws": alpha_ws,
+                "members_layout": self.MEMBERS_LAYOUT,
+                "members": _concat(chunks["members"]),
+                "weights": torch.cat(chunks["weights"]),
+            })
+
+        def run_chunk(sl, step_scale=1.0):
             nonlocal pred, pred_val, alpha_ws
-            bag_w, mask = sample(i)
-            params, weight, pred, alpha_ws = round_core(
-                ctx, X, y_enc, w, bag_w, (bag_keys[i], samp_keys[i]), mask,
-                pred, alpha_ws, lr,
-            )
-            err = None
-            if with_validation:
-                dirs_val = base.predict_many_fn(params, X_val).T
-                pred_val = pred_val + weight[None, :] * dirs_val
-                err = torch.mean(loss.loss(y_enc_val, pred_val))
-            return params, weight, err
+            p, pv, aw = pred, pred_val, alpha_ws
+            params_l, weights_l, errs_l = [], [], []
+            for r in range(sl.start, sl.stop):
+                bag_w, mask = sample(r)
+                params, weight, p, aw = round_core(
+                    ctx, X, y_enc, w, bag_w, (bag_keys[r], samp_keys[r]), mask,
+                    p, aw, lr, step_scale,
+                )
+                if with_validation:
+                    dirs_val = base.predict_many_fn(params, X_val).T
+                    pv = _advance(pv, weight[None, :], dirs_val, step_scale)
+                    errs_l.append(torch.mean(loss.loss(y_enc_val, pv)))
+                params_l.append(params)
+                weights_l.append(weight)
+            pred, pred_val, alpha_ws = p, pv, aw
+            return (stack_members(params_l), torch.stack(weights_l),
+                    torch.stack(errs_l) if with_validation else None, None)
 
-        members, weights, i, v, val_history = self._drive_rounds(run_round, best)
+        def snapshot():
+            return pred, pred_val, alpha_ws
+
+        def restore(snap):
+            nonlocal pred, pred_val, alpha_ws
+            pred, pred_val, alpha_ws = snap
+
+        guard = self._numeric_guard()
+        i, v, best = self._drive_rounds(
+            ckpt, chunks, run_chunk, save_state, "GBMClassifier", i, v, best,
+            val_history, guard, snapshot, restore,
+        )
+        ckpt.delete()
         keep = i - v
-        return self._model(members, weights, keep, d, dev, val_history if with_validation else None,
-                           init_raw=init_raw, num_classes=num_classes, dim=dim)
+        return _with_guard_events(guard, self._model(_concat(chunks["members"]),
+                           torch.cat(chunks["weights"]) if chunks["weights"] else None,
+                           keep, d, dev, val_history if with_validation else None,
+                           init_raw=init_raw, num_classes=num_classes, dim=dim))
 
     def _model(self, members, weights, keep, d, dev, val_history, *, init_raw,
                num_classes, dim):
-        """The fitted model of the first ``keep`` rounds (``val_history``
-        None without a validation split)."""
+        """The fitted model of the first ``keep`` of the round-stacked
+        ``members`` and ``weights`` (``val_history`` None without a
+        validation split)."""
         return GBMClassificationModel(
             params={
-                "members": stack_members(members[:keep]) if keep > 0 else None,
-                "weights": (torch.stack(weights[:keep]) if keep > 0
+                "members": _take_rounds(members, keep),
+                "weights": (weights[:keep] if keep > 0
                             else torch.zeros((0, dim), device=dev)),
                 "masks": self._model_masks(d, dev)[:keep],
                 "init_raw": init_raw,
@@ -944,3 +1410,77 @@ class GBMClassificationModel(ClassificationModel, GBMClassifier):
 
     def predict(self, X):
         return torch.argmax(self.predict_raw(X), dim=-1).to(torch.float32)
+
+    def take(self, k: int) -> "GBMClassificationModel":
+        """The model of the first ``k`` rounds."""
+        k = min(k, self.num_members)
+        vh = self.params.get("val_hist")
+        return GBMClassificationModel(
+            params={
+                "members": _take_rounds(self.params["members"], k),
+                "weights": self.params["weights"][:k],
+                "masks": self.params["masks"][:k],
+                "init_raw": self.params["init_raw"],
+                "val_hist": None if vh is None else vh[:k],
+            },
+            num_features=self.num_features,
+            num_classes=self.num_classes,
+            num_members=k,
+            dim=self.dim,
+            device=self.device,
+            **self.get_params(),
+        )
+
+    def fit_resume(self, X, y, n_new_rounds, sample_weight=None, device=None):
+        """Continue for ``n_new_rounds`` more rounds on the same training
+        data (the classifier's :meth:`GBMRegressionModel.fit_resume`).  The
+        raw-score carry replays from ``init_raw`` over the [round,
+        class-dim] member grid with the stored weights.  The step search's
+        warm start is the last round's step, which ``weights[-1] /
+        learning_rate`` gives exactly only at a power-of-two learning rate;
+        so each committed round's step search runs again (the round with
+        the stored member's directions in place of a fit), which gives the
+        warm start bit for bit at any learning rate."""
+        k, n_new = int(self.num_members), int(n_new_rounds)
+        _check_resume_args(self, k, n_new, X)
+        dev = resolve_device(device if device is not None else self.device)
+        X32, y32 = as_f32(X, dev), as_f32(y, dev)
+        n, d = X32.shape
+        est = GBMClassifier(**{**self.get_params(), "num_base_learners": k + n_new})
+        base = est._base().copy()
+        loss = est._make_loss(self.num_classes)
+        members = tree_map(lambda a: a.to(dev), self.params["members"])
+        weights = self.params["weights"].to(dev, torch.float32)
+        pred = self.params["init_raw"].to(dev)[None, :].expand(n, self.dim).clone()
+        alpha_ws = torch.ones((self.dim,), dtype=torch.float32, device=dev)
+        plan = est._resolved_sampling(n)
+        round_core = make_cls_round_core(
+            base, loss, self.dim, est.updates.lower(), bool(est.optimized_weights),
+            est._goss(), float(est.tol), int(est.max_iter), plan,
+        )
+        sample = est._sampling_plan(n, d, dev)
+        bag_keys, samp_keys = est._round_keys(dev, plan)
+        y_enc = loss.encode_label(y32)
+        w = resolve_weights(y32, sample_weight)
+        for r in range(k):
+            member = tree_map(lambda a: a[r], members)
+            bag_w, mask = sample(r)
+            _, _, _, alpha_ws = round_core(
+                None, X32, y_enc, w, bag_w, (bag_keys[r], samp_keys[r]), mask,
+                pred, alpha_ws, float(est.learning_rate), member=member,
+            )
+            dirs = base.predict_many_fn(member, X32).T
+            pred = pred + weights[r][None, :] * dirs
+        est._set_warm_resume(k - 1, {
+            "v": 0,
+            "best": 0.0,
+            "val_hist": torch.zeros((0,)),
+            "pred": pred,
+            "pred_val": None,
+            "alpha_ws": alpha_ws,
+            "members_layout": self.MEMBERS_LAYOUT,
+            "members": members,
+            "weights": weights,
+        })
+        return est.fit(X, y, sample_weight=sample_weight,
+                       num_classes=self.num_classes, device=dev)

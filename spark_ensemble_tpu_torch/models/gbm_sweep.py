@@ -49,6 +49,7 @@ from spark_ensemble_tpu_torch.models.base import (
     not_supported,
     resolve_device,
     resolve_weights,
+    stack_members,
     tree_map,
 )
 from spark_ensemble_tpu_torch.models.gbm import (
@@ -222,6 +223,13 @@ def _check_finite(live, weights, params, r, label):
             )
 
 
+def _stacked(lane):
+    """A lane's round-stacked members and weights (None before round 0)."""
+    if not lane.members:
+        return None, None
+    return stack_members(lane.members), torch.stack(lane.weights)
+
+
 def _commit(lanes, live, params, weights, errs=None):
     """The round's members of the lanes live at its start, and their
     validation losses (one host read for all) into the patience
@@ -392,7 +400,7 @@ def _fit_reg_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev):
         _commit(lanes, live, params, weights, errs)
         r += 1
     return [
-        lane.est._model(lane.members, lane.weights, lane.i - lane.v, d, dev,
+        lane.est._model(*_stacked(lane), lane.i - lane.v, d, dev,
                         lane.val_hist if with_validation else None,
                         init_model=init_model,
                         huber_delta=torch.stack(lane.deltas) if huber else None)
@@ -467,7 +475,7 @@ def _fit_cls_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev):
         _commit(lanes, live, params, weights, errs)
         r += 1
     return [
-        lane.est._model(lane.members, lane.weights, lane.i - lane.v, d, dev,
+        lane.est._model(*_stacked(lane), lane.i - lane.v, d, dev,
                         lane.val_hist if with_validation else None,
                         init_raw=init_raw, num_classes=k, dim=dim)
         for lane, (_, init_raw) in zip(lanes, inits)

@@ -11,11 +11,13 @@ reference runs them in parallel Futures).  Their outputs are the meta-features:
 
 The stacker (meta-learner) trains on the meta-feature matrix; predict
 routes a fresh meta-feature row through it.  Base learners that do not
-support sample weights get them dropped with a warning.  The numeric
-guard (``on_nonfinite``: "raise" or "off" in the port) checks the members
-and the stacker for NaN params.  The JAX package's retry layer and chaos
-sites wait for the runtime planes (ROADMAP Slice F); a failing member fit
-raises on its first attempt, as ``max_retries`` says.
+support sample weights get them dropped with a warning.  Each member fit
+and the stacker fit run under the retry layer (``max_retries``).  The
+numeric guard (``on_nonfinite``) checks the members for NaN params and
+drops a bad one (``skip_round``/``halve_step`` keep every finite member,
+``stop_early`` the members before the first bad one); the stacker then
+trains on the kept members' meta-features, and predict reads the same
+member list.  A non-finite stacker is always fatal under the guard.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from spark_ensemble_tpu_torch.models.base import (
     Estimator,
     Model,
     RegressionModel,
+    _with_guard_events,
     as_f32,
     infer_num_classes,
     not_supported,
@@ -44,20 +47,9 @@ from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeRegressor,
 )
 from spark_ensemble_tpu_torch.params import Param, in_array
+from spark_ensemble_tpu_torch.robustness.guards import tree_any_nan
 
 logger = logging.getLogger(__name__)
-
-
-def _params_have_nan(params) -> bool:
-    """Any NaN in a model's params (tensors, dicts, tuples); NaN only, as
-    trees carry +inf threshold sentinels."""
-    if isinstance(params, torch.Tensor):
-        return params.is_floating_point() and bool(torch.isnan(params).any())
-    if isinstance(params, dict):
-        return any(_params_have_nan(v) for v in params.values())
-    if isinstance(params, (tuple, list)):
-        return any(_params_have_nan(v) for v in params)
-    return False
 
 
 class _StackingParams(Estimator):
@@ -85,50 +77,94 @@ class _StackingParams(Estimator):
 
     def _fit_bases(self, bases, X, y, w, sample_weight, device, num_classes=None):
         """Fit the heterogeneous base learners, concurrently when
-        ``parallelism > 1`` (order-preserving)."""
+        ``parallelism > 1`` (order-preserving), each under the retry layer
+        with its own chaos site, so one member's transient fault does not
+        kill the other fits."""
+        from spark_ensemble_tpu_torch.robustness.chaos import controller
+        from spark_ensemble_tpu_torch.robustness.retry import retry_call
 
-        def fit_one(base):
+        ctl = controller()
+        retry_policy = self._retry_policy()
+        label = type(self).__name__
+
+        def fit_one(job):
+            idx, base = job
             sw = w if base.supports_weight else None
             if not base.supports_weight and sample_weight is not None:
                 logger.warning(
                     "base learner %s does not support weights; ignoring",
                     type(base).__name__,
                 )
-            if num_classes is not None and base.is_classifier:
-                return base.fit(X, y, sample_weight=sw, num_classes=num_classes,
-                                device=device)
-            return base.fit(X, y, sample_weight=sw, device=device)
+            site = f"{label}:member:{idx}"
 
+            def attempt():
+                ctl.transient(site)
+                if num_classes is not None and base.is_classifier:
+                    return base.fit(X, y, sample_weight=sw,
+                                    num_classes=num_classes, device=device)
+                return base.fit(X, y, sample_weight=sw, device=device)
+
+            model = retry_call(attempt, retry_policy, op=f"{label}.member_fit")
+            if getattr(model, "params", None) is not None:
+                model.params = ctl.poison_tree(site, model.params)
+            return model
+
+        jobs = list(enumerate(bases))
         par = int(self.parallelism or 1)
         if par > 1 and len(bases) > 1:
             with ThreadPoolExecutor(max_workers=min(par, len(bases))) as ex:
-                return list(ex.map(fit_one, bases))
-        return [fit_one(b) for b in bases]
+                return list(ex.map(fit_one, jobs))
+        return [fit_one(j) for j in jobs]
 
-    def _drop_bad_base_models(self, models):
-        """The numeric guard over the fitted level-0 members: under
-        'raise' a member with NaN params raises (the JAX package's
-        drop/skip recovery policies wait for Slice F)."""
-        if str(self.on_nonfinite).lower() == "off":
+    def _fit_stacker(self, stacker, meta, y, w, device, num_classes=None):
+        """The level-1 fit under the retry layer and its chaos site."""
+        from spark_ensemble_tpu_torch.robustness.chaos import controller
+        from spark_ensemble_tpu_torch.robustness.retry import retry_call
+
+        ctl = controller()
+        site = f"{type(self).__name__}:stacker"
+
+        def attempt():
+            ctl.transient(site)
+            if num_classes is not None and stacker.is_classifier:
+                return stacker.fit(meta, y, sample_weight=w,
+                                   num_classes=num_classes, device=device)
+            return stacker.fit(meta, y, sample_weight=w, device=device)
+
+        return retry_call(attempt, self._retry_policy(),
+                          op=f"{type(self).__name__}.stacker_fit")
+
+    @staticmethod
+    def _drop_bad_base_models(models, guard):
+        """``on_nonfinite`` over the fitted level-0 members: a member with
+        NaN params is dropped; ``stop_early`` keeps the members before the
+        first bad one; at least one member must survive."""
+        if not guard.active:
             return models
-        bad = [i for i, m in enumerate(models) if _params_have_nan(m.params)]
-        if bad:
-            raise FloatingPointError(
-                f"non-finite base model params at member {bad[0]} in "
-                f"{type(self).__name__} (on_nonfinite='raise')"
-            )
-        return models
+        bad = [i for i, m in enumerate(models)
+               if tree_any_nan(getattr(m, "params", None))]
+        if not bad:
+            return models
+        first = bad[0]
+        if guard.policy == "raise":
+            guard.raise_error(first, what="base model params", unit="member")
+        if guard.policy == "stop_early":
+            kept, action = models[:first], "stop_early"
+        else:
+            kept = [m for i, m in enumerate(models) if i not in set(bad)]
+            action = "skip_round"
+        if not kept:
+            guard.raise_error(first, what="every base model's params", unit="member")
+        guard.record(first, action, members_dropped=len(models) - len(kept),
+                     members_kept=len(kept))
+        return kept
 
-    def _check_stacker(self, stack_model, n_members):
+    @staticmethod
+    def _check_stacker(stack_model, n_members, guard):
         """A non-finite stacker is always fatal under the guard: every
         prediction routes through it."""
-        if str(self.on_nonfinite).lower() == "off":
-            return
-        if _params_have_nan(stack_model.params):
-            raise FloatingPointError(
-                f"non-finite stacker params at member {n_members} in "
-                f"{type(self).__name__} (on_nonfinite='raise')"
-            )
+        if guard.active and tree_any_nan(getattr(stack_model, "params", None)):
+            guard.raise_error(n_members, what="stacker params", unit="member")
 
 
 class StackingRegressor(_StackingParams):
@@ -147,15 +183,16 @@ class StackingRegressor(_StackingParams):
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
         w = resolve_weights(y, sample_weight)
+        guard = self._numeric_guard()
         models = self._fit_bases(self._bases(), X, y, w, sample_weight, dev)
-        models = self._drop_bad_base_models(models)
+        models = self._drop_bad_base_models(models, guard)
         meta = torch.stack([m.predict(X) for m in models], dim=1)  # [n, bases]
-        stack_model = self._stacker().fit(meta, y, sample_weight=w, device=dev)
-        self._check_stacker(stack_model, len(models))
-        return StackingRegressionModel(
+        stack_model = self._fit_stacker(self._stacker(), meta, y, w, dev)
+        self._check_stacker(stack_model, len(models), guard)
+        return _with_guard_events(guard, StackingRegressionModel(
             base_models=models, stack_model=stack_model,
             num_features=X.shape[1], device=dev, **self.get_params(),
-        )
+        ))
 
 
 class StackingRegressionModel(RegressionModel, StackingRegressor):
@@ -207,22 +244,19 @@ class StackingClassifier(_StackingParams):
         self._validate_fit_inputs(X, y)
         w = resolve_weights(y, sample_weight)
         num_classes = infer_num_classes(y, num_classes)
+        guard = self._numeric_guard()
         models = self._fit_bases(self._bases(), X, y, w, sample_weight, dev,
                                  num_classes=num_classes)
-        models = self._drop_bad_base_models(models)
+        models = self._drop_bad_base_models(models, guard)
         meta = self._meta_features(models, X)
-        stacker = self._stacker()
-        if stacker.is_classifier:
-            stack_model = stacker.fit(meta, y, sample_weight=w,
-                                      num_classes=num_classes, device=dev)
-        else:
-            stack_model = stacker.fit(meta, y, sample_weight=w, device=dev)
-        self._check_stacker(stack_model, len(models))
-        return StackingClassificationModel(
+        stack_model = self._fit_stacker(self._stacker(), meta, y, w, dev,
+                                        num_classes=num_classes)
+        self._check_stacker(stack_model, len(models), guard)
+        return _with_guard_events(guard, StackingClassificationModel(
             base_models=models, stack_model=stack_model,
             num_features=X.shape[1], num_classes=num_classes, device=dev,
             **self.get_params(),
-        )
+        ))
 
 
 class StackingClassificationModel(ClassificationModel, StackingClassifier):

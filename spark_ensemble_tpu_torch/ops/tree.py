@@ -106,6 +106,15 @@ class Tree(NamedTuple):
     leaf_value: torch.Tensor  # f32[..., 2^depth, k]
     split_gain: torch.Tensor  # f32[..., 2^depth - 1]; 0 at no-split nodes
 
+    @classmethod
+    def _persist_defaults(cls, fields: dict) -> dict:
+        """Persistence format evolution (``utils/persist._decode``): saves
+        made before ``split_gain`` existed load with zero gains
+        (predictions unaffected; importances degrade to zeros)."""
+        if "split_gain" not in fields and "split_threshold" in fields:
+            fields["split_gain"] = torch.zeros_like(fields["split_threshold"])
+        return fields
+
 
 # bin-one-hot budget of the matmul tier under hist="auto": past it the
 # row-chunked stream tier runs (the JAX package's rule)

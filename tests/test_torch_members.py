@@ -165,7 +165,7 @@ def test_converted_ensembles_over_non_tree_members_predict_as_the_reference():
                                atol=1e-5 * np.abs(y_reg).max())
 
 
-def test_member_slices_and_unported_planes():
+def test_member_slices_and_unported_planes(tmp_path):
     """``member(i)`` of an ensemble over MLPs is that member's model; the
     planes this port has not reached still raise."""
     X, y, _ = _data(n=120)
@@ -176,8 +176,12 @@ def test_member_slices_and_unported_planes():
     probas = model._base().predict_proba_many_fn(model.params["members"],
                                                  torch.as_tensor(X))
     np.testing.assert_array_equal(m1.predict_proba(X).numpy(), probas[1].numpy())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        model.save("model.npz")
+    # save raised before persistence was ported; it round-trips now
+    path = str(tmp_path / "model")
+    model.save(path)
+    np.testing.assert_array_equal(
+        st.load(path, device="cpu").predict_proba(X).numpy(),
+        model.predict_proba(X).numpy())
     with pytest.raises(NotImplementedError, match="item 18"):
         st.BaggingClassifier(base_learner=st.GaussianNaiveBayes()).fit(
             X, y, mesh=object(), device="cpu")
