@@ -30,7 +30,13 @@ by the chaos harness after a checkpoint and resumed (``checkpoint``),
 shorter models continued with ``fit_resume``, a chaos NaN under each
 recovery policy, pipeline depths 0, 1 and 2 and a torn checkpoint
 (``robustness``), each held bit for bit to its uninterrupted fit, and the
-fit rate with and without checkpoints (``checkpoint_timing``).  It checks
+fit rate with and without checkpoints (``checkpoint_timing``), then the
+out-of-core data plane: bench.py's XL data sealed into a shard store and
+fitted with ``fit_streaming`` beside the resident stream-tier fit, and
+regressors on 8192x12 shards, each equal to its resident twin, a mid-shard
+preemption resumed (``streaming``), and packed export: the timed model
+packed, saved, loaded, sliced with ``take`` and continued with
+``fit_resume``, each equal to its live twin (``export``).  It checks
 the results; each phase prints one JSON line; any failed check raises,
 and so does a retry that no chaos fault injected, and the script exits
 non-zero.  Checkpoints and saves go to a scratch directory under
@@ -63,6 +69,7 @@ ADULT_ROWS, ADULT_FEATURES = 32561, 123  # a9a's shape
 XL_ROWS, XL_FEATURES, XL_CLASSES, XL_ROUNDS = 2_097_152, 64, 8, 10  # bench.py's XL leg
 STREAM_CHECK_ROWS = 262_144  # the stream-vs-matmul one-round check
 SWEEP_LANES = 12  # the tuning phase's candidates: 2 x 2 maps x 3 folds
+STREAM_FIT_ROUNDS = 3  # the streaming phase's XL fits
 
 
 def emit(obj):
@@ -793,9 +800,17 @@ def main():
     # where a fused fit's time goes: device time by kernel over a fit
     # (setup included), counting device-side events only (the CPU ops
     # that launched them carry the same time again)
-    def profile_fit(est, X_, y_, **row):
+    def profile_fit(est, X_, y_, store=None, **row):
+        """``store``: trace ``est.fit_streaming(store, y_)`` instead."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, wall, _ = fit_counted(est, X_, y_)
+            if store is None:
+                _, wall, _ = fit_counted(est, X_, y_)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                est.fit_streaming(store, y_, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
         dev_us, host_calls, host_us = {}, {}, {}
         for e in prof.key_averages():
             # host-side scalar reads (each one waits for the device) and launches
@@ -1673,10 +1688,11 @@ def main():
                        huber_ref, at=10, interval=10)
 
     # phase 21 (fit_resume): a shorter model continued to the longer fit
+    shorts = {}  # the short models, continued again from a packed artifact in phase 24
     for family, short, ref, X_, y_ in (
             ("GBMClassifier[fused]", gbm("fused", "highest", 60), timed_model, X_np, y_np),
             ("GBMRegressor[huber, fused]", huber(10), huber_ref, Xr, yr)):
-        base_model = short.fit(X_, y_, device="cuda")
+        base_model = shorts[family] = short.fit(X_, y_, device="cuda")
         n_new = ref.num_members - base_model.num_members
         hk.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1817,6 +1833,189 @@ def main():
           "checkpoint_cost_share_depth1": 1 - median["1", True] / median["1", False],
           "depth1_gain_share": median["1", False] / median["0", False] - 1, **card})
     no_stray_retries("checkpoint_timing")
+
+    # phase 23 (streaming): the out-of-core data plane.  bench.py's XL data
+    # sealed into a shard store at the default 32768 rows a shard (64
+    # shards), then a 3-round GBMClassifier fit_streaming beside the same
+    # resident hist="stream" fit: every tree table and the probabilities
+    # equal (torch.equal), each fit's rate and peak device memory, and the
+    # prefetcher's stats.  Then squared and huber GBMRegressor streaming
+    # fits on 8192x12 at 1024-row chunks and shards equal to their resident
+    # twins, and a chaos preemption mid-shard resumed from its checkpoint,
+    # equal to the uninterrupted fit.  The stream tier and the shard sweep
+    # run torch matmuls: no kernel of csrc/hist.cu launches
+    from spark_ensemble_tpu_torch.autotune.resolve import override
+    from spark_ensemble_tpu_torch.data import streaming as streaming_mod
+    from spark_ensemble_tpu_torch.data import write_shards
+    from spark_ensemble_tpu_torch.serving import fit_resume as packed_fit_resume
+    from spark_ensemble_tpu_torch.serving import load_packed, pack
+
+    pf_stats = []
+    real_prefetcher = streaming_mod.ShardPrefetcher
+
+    class StatPrefetcher(real_prefetcher):
+        """Keeps each fit's prefetch ledger at close."""
+
+        def close(self):
+            if not self._closed:
+                pf_stats.append(self.take_stats())
+            super().close()
+
+    def same_params(a, b):
+        la, lb = tree_leaves(a.params), tree_leaves(b.params)
+        return len(la) == len(lb) and all(
+            torch.equal(torch.as_tensor(x), torch.as_tensor(y_)) for x, y_ in zip(la, lb))
+
+    def peak_fit(fit):
+        """(model, seconds, peak device bytes, launches) of one fit; the peak
+        counts what the fit allocated above what was held before it."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        model = fit()
+        torch.cuda.synchronize()
+        return (model, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - held,
+                dict(hk.LAUNCHES))
+
+    no_launches = {k: 0 for k in hk.LAUNCHES}
+    streaming_mod.ShardPrefetcher = StatPrefetcher
+    try:
+        X_xl_np, y_xl = xl_data()
+        store_dir = os.path.join(scratch, "xl_store")
+        t0 = time.perf_counter()
+        store = write_shards(X_xl_np, store_dir, max_bins=MAX_BINS, device="cuda")
+        write_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(store_dir, f)) for f in os.listdir(store_dir))
+        emit({"phase": "streaming", "check": "write_shards", "n": XL_ROWS, "d": XL_FEATURES,
+              "shards": store.num_shards, "shard_rows": store.shard_rows, "bits": store.bits,
+              "words_per_row": store.words_per_row, "write_s": write_s, "bytes_on_disk": disk,
+              "packed_bytes": store.packed_nbytes, **card})
+        if store.num_shards != XL_ROWS // 32768 or store.bits != 8:
+            raise AssertionError(f"write_shards: {store.num_shards} shards at {store.bits} bits")
+        xl_cls = st.GBMClassifier(num_base_learners=STREAM_FIT_ROUNDS, loss="logloss",
+                                  updates="newton", learning_rate=0.3,
+                                  base_learner=st.DecisionTreeRegressor(hist="stream"))
+        xl_fits = {}
+        for way in ("resident", "streaming", "streaming", "resident"):
+            pf_stats.clear()
+            if way == "resident":
+                fit = lambda: xl_cls.fit(X_xl_np, y_xl, device="cuda")
+            else:
+                fit = lambda: xl_cls.fit_streaming(store, y_xl, device="cuda")
+            model, secs, peak, launches = peak_fit(fit)
+            if launches != no_launches:
+                raise AssertionError(f"streaming XL {way}: kernels launched {launches}")
+            prev = xl_fits.get(way)
+            xl_fits[way] = (model, min(secs, prev[1]) if prev else secs, peak,
+                            pf_stats[0] if pf_stats else None)
+        (res, res_s, res_peak, _), (stm, stm_s, stm_peak, stats) = xl_fits["resident"], xl_fits["streaming"]
+        Xq = torch.as_tensor(X_xl_np[:262144], device=dev)
+        equal = same_params(res, stm) and torch.equal(res.predict_proba(Xq), stm.predict_proba(Xq))
+        emit({"phase": "streaming", "family": "GBMClassifier", "n": XL_ROWS, "rounds": STREAM_FIT_ROUNDS,
+              "resident_fit_s": res_s, "streaming_fit_s": stm_s,
+              "resident_iters_per_s": STREAM_FIT_ROUNDS / res_s,
+              "streaming_iters_per_s": STREAM_FIT_ROUNDS / stm_s,
+              "resident_peak_memory_bytes": res_peak, "streaming_peak_memory_bytes": stm_peak,
+              "prefetch": stats, "prefetch_wait_share": stats["wait_s"] / stm_s,
+              "bit_identical": equal, **card})
+        if not equal:
+            raise AssertionError("streaming XL classifier differs from its resident twin")
+        if stats["loads"] != STREAM_FIT_ROUNDS * (DEPTH + 1) * store.num_shards or stats["errors"]:
+            raise AssertionError(f"streaming XL prefetch stats {stats}")
+        # where a streaming round goes, beside a resident one: one traced round each
+        xl_one = xl_cls.copy(num_base_learners=1)
+        profile_fit(xl_one, None, y_xl, store=store, tier="stream", way="streaming",
+                    n=XL_ROWS, rounds=1, **card)
+        profile_fit(xl_one, X_xl_np, y_xl, tier="stream", way="resident", n=XL_ROWS,
+                    rounds=1, **card)
+        del X_xl_np, Xq, res, stm, xl_fits
+        shutil.rmtree(store_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        reg_stream = lambda loss, ck=None: st.GBMRegressor(
+            num_base_learners=PARITY_ROUNDS, learning_rate=0.3, loss=loss, checkpoint_dir=ck,
+            checkpoint_interval=5, base_learner=st.DecisionTreeRegressor(max_depth=DEPTH, hist="stream"))
+        with override(stream_chunk_rows=1024, shard_rows=1024):
+            rstore = write_shards(Xr, os.path.join(scratch, "reg_store"), max_bins=MAX_BINS,
+                                  device="cuda")
+            for loss in ("squared", "huber"):
+                res, res_s, _, _ = peak_fit(lambda: reg_stream(loss).fit(Xr, yr, device="cuda"))
+                stm, stm_s, _, launches = peak_fit(
+                    lambda: reg_stream(loss).fit_streaming(rstore, yr, device="cuda"))
+                equal = same_params(res, stm) and torch.equal(res.predict(Xr), stm.predict(Xr))
+                emit({"phase": "streaming", "family": f"GBMRegressor[{loss}]", "n": len(yr),
+                      "shards": rstore.num_shards, "rounds": PARITY_ROUNDS,
+                      "resident_iters_per_s": PARITY_ROUNDS / res_s,
+                      "streaming_iters_per_s": PARITY_ROUNDS / stm_s, "launches": launches,
+                      "bit_identical": equal, **card})
+                if not equal or launches != no_launches:
+                    raise AssertionError(f"streaming {loss}: equal {equal}, launches {launches}")
+            site = "GBMRegressor:stream_round:12:level:2:shard:3"
+            ckdir = os.path.join(scratch, "streaming-huber")
+            ctl = FaultAt({"preempt": site})
+            chaos_mod.install(ctl)
+            try:
+                reg_stream("huber", ckdir).fit_streaming(rstore, yr, device="cuda")
+                raise AssertionError(f"streaming: the preemption at {site} did not fire")
+            except chaos_mod.ChaosPreemption:
+                pass
+            finally:
+                chaos_mod.install(None)
+            resumed, secs, _, _ = peak_fit(
+                lambda: reg_stream("huber", ckdir).fit_streaming(rstore, yr, device="cuda"))
+            equal = same_params(resumed, stm) and torch.equal(resumed.predict(Xr), stm.predict(Xr))
+            emit({"phase": "streaming", "family": "GBMRegressor[huber]", "check": "preempt_mid_shard",
+                  "site": site, "fired": [list(f) for f in ctl.fired], "resume_fit_s": secs,
+                  "bit_identical": equal, **card})
+            if not ctl.fired or not equal:
+                raise AssertionError(f"streaming resume: fired {ctl.fired}, equal {equal}")
+    finally:
+        streaming_mod.ShardPrefetcher = real_prefetcher
+    no_stray_retries("streaming")
+
+    # phase 24 (export): the timed 100-round fused model packed (equal to
+    # the model bit for bit), saved and loaded back on the card (equal),
+    # its 50-round prefix (equal to model.take(50)), and the 60-round model
+    # of phase 21, packed and continued by 40 rounds (equal to the timed
+    # 100-round fit; the new rounds launch 5/4/1 each)
+    p_ref = timed_model.predict_proba(Xd)
+    t0 = time.perf_counter()
+    packed = pack(timed_model)
+    pack_s = time.perf_counter() - t0
+    packed_equal = torch.equal(packed.predict_proba(Xd), p_ref)
+    path = os.path.join(scratch, "letter_gbm_packed")
+    t0 = time.perf_counter()
+    packed.save(path)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    t0 = time.perf_counter()
+    loaded = load_packed(path, device="cuda")
+    loaded_p = loaded.predict_proba(Xd)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded_equal = torch.equal(loaded_p, p_ref)
+    take_equal = torch.equal(packed.take(50).predict_proba(Xd), timed_model.take(50).predict_proba(Xd))
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    resumed = packed_fit_resume(pack(shorts["GBMClassifier[fused]"]), X_np, y_np, 40)
+    resumed_p = resumed.predict_proba(Xd)
+    torch.cuda.synchronize()
+    resume_s, launches = time.perf_counter() - t0, dict(hk.LAUNCHES)
+    resume_equal = torch.equal(resumed_p, p_ref)
+    emit({"phase": "export", "family": "GBMClassifier", "rounds": TIMED_ROUNDS,
+          "arrays": len(packed.array_names), "nbytes": packed.nbytes, "bytes_on_disk": nbytes,
+          "pack_s": pack_s, "save_s": save_s, "load_and_predict_s": load_s,
+          "packed_bit_identical": packed_equal, "loaded_bit_identical": loaded_equal,
+          "take50_bit_identical": take_equal, "fit_resume_s": resume_s,
+          "fit_resume_launches": launches, "fit_resume_bit_identical": resume_equal, **card})
+    if not (packed_equal and loaded_equal and take_equal and resume_equal) \
+            or launches != per_fit(TIMED_ROUNDS - 60):
+        raise AssertionError(f"export: packed {packed_equal}, loaded {loaded_equal}, take "
+                             f"{take_equal}, fit_resume {resume_equal}, launches {launches}")
+    no_stray_retries("export")
     shutil.rmtree(scratch, ignore_errors=True)
 
     no_stray_retries("all phases")

@@ -35,13 +35,22 @@ default) or on the CPU (``device="cpu"``):
   ``TrainingCheckpointer``, ``fit_resume`` and ``take`` on the GBM and
   Boosting models, the ``on_nonfinite`` recovery policies
   (``NonFiniteError``), retry with backoff (``RetryPolicy``,
-  ``max_retries``) and the ``SE_TPU_CHAOS`` fault injector.
+  ``max_retries``) and the ``SE_TPU_CHAOS`` fault injector;
+- the out-of-core data plane: ``write_shards`` / ``ShardStore`` (the JAX
+  package's shard format, either way), ``ShardPrefetcher``, and
+  ``fit_streaming`` on the GBM estimators, bit-identical to a resident
+  ``hist="stream"`` fit; the autotune resolution layer
+  (``autotune.resolve.override``);
+- packed export: ``pack`` / ``PackedModel`` / ``load_packed`` (the JAX
+  package's artifact, either way) and ``serving.fit_resume``.
 
 The level histograms, routes and leaf sums of the ``pallas`` and ``fused``
 tiers run as hand-written CUDA kernels (``csrc/hist.cu``) built with
 ``nvcc`` at first use.  The package imports torch and numpy, never jax or
 the JAX package.  ROADMAP.md's queues list what is still to port.
 """
+
+__version__ = "0.1.0"
 
 from spark_ensemble_tpu_torch.convert import (
     bagging_classifier_from_arrays,
@@ -145,8 +154,23 @@ from spark_ensemble_tpu_torch.tuning import (
     TrainValidationSplit,
     TrainValidationSplitModel,
 )
+from spark_ensemble_tpu_torch.data import (
+    DEFAULT_PREFETCH_DEPTH,
+    DEFAULT_SHARD_ROWS,
+    SHARD_FORMAT,
+    ShardLoadError,
+    ShardPrefetcher,
+    ShardStore,
+    write_shards,
+)
 from spark_ensemble_tpu_torch.robustness.guards import NonFiniteError
 from spark_ensemble_tpu_torch.robustness.retry import RetryPolicy
+from spark_ensemble_tpu_torch.serving import (
+    PACKED_FORMAT_VERSION,
+    PackedModel,
+    load_packed,
+    pack,
+)
 from spark_ensemble_tpu_torch.utils.checkpoint import TrainingCheckpointer
 from spark_ensemble_tpu_torch.utils.features import FeatureMetadata
 from spark_ensemble_tpu_torch.utils.persist import load, save
@@ -167,6 +191,8 @@ __all__ = [
     "BoostingRegressor",
     "CrossValidator",
     "CrossValidatorModel",
+    "DEFAULT_PREFETCH_DEPTH",
+    "DEFAULT_SHARD_ROWS",
     "DecisionTreeClassificationModel",
     "DecisionTreeClassifier",
     "DecisionTreeRegressionModel",
@@ -196,12 +222,18 @@ __all__ = [
     "MinMaxScalerModel",
     "MulticlassClassificationEvaluator",
     "NonFiniteError",
+    "PACKED_FORMAT_VERSION",
+    "PackedModel",
     "ParamGridBuilder",
     "Pipeline",
     "PipelineModel",
     "RegressionEvaluator",
     "RetryPolicy",
     "RoundExecutor",
+    "SHARD_FORMAT",
+    "ShardLoadError",
+    "ShardPrefetcher",
+    "ShardStore",
     "StackingClassificationModel",
     "StackingClassifier",
     "StackingRegressionModel",
@@ -223,10 +255,12 @@ __all__ = [
     "linear_regression_from_arrays",
     "linear_tree_regressor_from_arrays",
     "load",
+    "load_packed",
     "logistic_regression_from_arrays",
     "min_max_scaler_from_arrays",
     "mlp_classifier_from_arrays",
     "mlp_regressor_from_arrays",
+    "pack",
     "pipeline_from_models",
     "save",
     "stacking_classifier_from_models",
@@ -236,4 +270,5 @@ __all__ = [
     "sweep_unsupported_reason",
     "weighted_median",
     "weighted_quantile",
+    "write_shards",
 ]

@@ -53,7 +53,11 @@ key is its bag key ``fold_in(fold_in(PRNGKey(seed), i), 2)``.
   ``fold_in(key, 7)``).  Mixing the two raises ``ValueError``.
 
 ``leaf_model="linear"`` swaps a ``DecisionTreeRegressor`` base for a
-``LinearTreeRegressor`` (``_base``).  The planes not ported yet
+``LinearTreeRegressor`` (``_base``).
+
+``fit_streaming`` trains over an on-disk shard store
+(``data/streaming.py``): the same round loop (``_fit_rounds``) with the
+shard sweep in place of the base tree.  The planes not ported yet
 (telemetry, meshes) raise ``NotImplementedError``.
 """
 
@@ -239,6 +243,24 @@ class _GBMParams(CheckpointableParams):
         self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
+
+    def _check_streaming_supported(self, mesh) -> None:
+        """``fit_streaming``'s gates: the planes the port lacks, then what
+        the shard sweep cannot stage (the compacted row gather and the
+        linear-leaf solves both read the resident rows)."""
+        self._check_gbm_support(mesh)
+        if str(self.sampling).lower() != "none":
+            raise ValueError(
+                "fit_streaming does not support gradient-based row "
+                "sampling (sampling != 'none'): the compacted gather "
+                "needs the resident row matrix"
+            )
+        if str(self.leaf_model).lower() == "linear":
+            raise ValueError(
+                "fit_streaming does not support leaf_model='linear': the "
+                "leaf ridge solve reads raw rows the shard stream does "
+                "not stage"
+            )
 
     def _resolved_sampling(self, n: int):
         """The gradient row-sampling plan, fixed on the host at fit start,
@@ -968,17 +990,43 @@ class GBMRegressor(_GBMParams, Estimator):
     def fit(self, X, y, sample_weight=None, validation_indicator=None,
             mesh=None, device="cuda"):
         self._check_gbm_support(mesh)
-        loss_name = self.loss.lower()
-        alpha_q = float(self.alpha)
-        huber = loss_name == "huber"
         dev = resolve_device(device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
         w_all = resolve_weights(y, sample_weight)
         X, y, w, X_val, y_val = _split_validation(X, y, w_all, validation_indicator)
-        n, d = X.shape
         base = self._base().copy()
-        ctx = make_shared_fit_ctx(base, X)
+        return self._fit_rounds(X, y, w, X_val, y_val, base,
+                                make_shared_fit_ctx(base, X), dev)
+
+    def fit_streaming(self, store, y, sample_weight=None, X_val=None,
+                      y_val=None, mesh=None, device="cuda"):
+        """Out-of-core fit over a sealed ``ShardStore`` (``data/shards.py``):
+        the packed bins stream from disk shard by shard, never on the
+        device at once, and the fit is bit-identical to ``fit`` with a
+        ``hist="stream"`` base learner at matched chunk rows
+        (``data/streaming.py``).  The validation split (``X_val``,
+        ``y_val``) stays resident.  ``mesh`` raises until the port grows
+        distribution (ROADMAP queue 1, item 18)."""
+        self._check_streaming_supported(mesh)
+        from spark_ensemble_tpu_torch.data.streaming import fit_streaming_regressor
+
+        return fit_streaming_regressor(
+            self, store, y, sample_weight=sample_weight, X_val=X_val,
+            y_val=y_val, device=device,
+        )
+
+    def _fit_rounds(self, X, y, w, X_val, y_val, base, ctx, dev, trees=None,
+                    on_round=None):
+        """The round loop of :meth:`fit` from the training split on: ``X``
+        f32[n, d] (only its shape is read when ``trees`` fits the rounds),
+        ``ctx`` the base's fit context.  ``trees`` stands in for the base in
+        the round core (a streaming fit's shard sweep), and ``on_round(r)``
+        runs before round ``r``."""
+        loss_name = self.loss.lower()
+        alpha_q = float(self.alpha)
+        huber = loss_name == "huber"
+        n, d = X.shape
         init_model = self._fit_init(X, y, w, dev)
         # initial huber delta: the alpha-quantile of the label over the
         # full input, validation rows included
@@ -992,9 +1040,9 @@ class GBMRegressor(_GBMParams, Estimator):
         self._check_sampling_supported(plan)
         bag_keys, samp_keys = self._round_keys(dev, plan)
         round_core = make_reg_round_core(
-            base, loss_name, alpha_q, self.updates.lower(),
-            bool(self.optimized_weights), self._goss(), float(self.tol),
-            int(self.max_iter), plan,
+            base if trees is None else trees, loss_name, alpha_q,
+            self.updates.lower(), bool(self.optimized_weights), self._goss(),
+            float(self.tol), int(self.max_iter), plan,
         )
         with_validation = X_val is not None
         best, pred_val = 0.0, None
@@ -1051,6 +1099,8 @@ class GBMRegressor(_GBMParams, Estimator):
             p, pv, dl = pred, pred_val, delta
             params_l, weights_l, errs_l, deltas_l = [], [], [], []
             for r in range(sl.start, sl.stop):
+                if on_round is not None:
+                    on_round(r)
                 bag_w, mask = sample(r)
                 if huber:
                     dl = weighted_quantile(torch.abs(y - p), alpha_q, weights=ones)
@@ -1253,12 +1303,31 @@ class GBMClassifier(_GBMParams, Estimator):
         # over the FULL label set, so a validation split missing the top
         # class cannot shrink the model
         num_classes = infer_num_classes(y, num_classes)
+        X, y, w, X_val, y_val = _split_validation(X, y, w_all, validation_indicator)
+        base = self._base().copy()
+        return self._fit_rounds(X, y, w, X_val, y_val, num_classes, base,
+                                make_shared_fit_ctx(base, X), dev)
+
+    def fit_streaming(self, store, y, sample_weight=None, X_val=None,
+                      y_val=None, num_classes=None, mesh=None, device="cuda"):
+        """Out-of-core fit over a sealed ``ShardStore``; see
+        :meth:`GBMRegressor.fit_streaming`.  The class dims fold into the
+        shard sweep's member axis, as in the resident forest."""
+        self._check_streaming_supported(mesh)
+        from spark_ensemble_tpu_torch.data.streaming import fit_streaming_classifier
+
+        return fit_streaming_classifier(
+            self, store, y, sample_weight=sample_weight, X_val=X_val,
+            y_val=y_val, num_classes=num_classes, device=device,
+        )
+
+    def _fit_rounds(self, X, y, w, X_val, y_val, num_classes, base, ctx, dev,
+                    trees=None, on_round=None):
+        """The round loop of :meth:`fit` from the training split on; see
+        :meth:`GBMRegressor._fit_rounds`."""
         loss = self._make_loss(num_classes)
         dim = loss.dim
-        X, y, w, X_val, y_val = _split_validation(X, y, w_all, validation_indicator)
         n, d = X.shape
-        base = self._base().copy()
-        ctx = make_shared_fit_ctx(base, X)
         init_model, init_raw = self._init_raw_scores(X, y, w, num_classes, dim, dev)
         y_enc = loss.encode_label(y)
         pred = init_raw[None, :].expand(n, dim).clone()
@@ -1271,8 +1340,9 @@ class GBMClassifier(_GBMParams, Estimator):
         self._check_sampling_supported(plan)
         bag_keys, samp_keys = self._round_keys(dev, plan)
         round_core = make_cls_round_core(
-            base, loss, dim, self.updates.lower(), bool(self.optimized_weights),
-            self._goss(), float(self.tol), int(self.max_iter), plan,
+            base if trees is None else trees, loss, dim, self.updates.lower(),
+            bool(self.optimized_weights), self._goss(), float(self.tol),
+            int(self.max_iter), plan,
         )
         with_validation = X_val is not None
         best, pred_val = 0.0, None
@@ -1320,6 +1390,8 @@ class GBMClassifier(_GBMParams, Estimator):
             p, pv, aw = pred, pred_val, alpha_ws
             params_l, weights_l, errs_l = [], [], []
             for r in range(sl.start, sl.stop):
+                if on_round is not None:
+                    on_round(r)
                 bag_w, mask = sample(r)
                 params, weight, p, aw = round_core(
                     ctx, X, y_enc, w, bag_w, (bag_keys[r], samp_keys[r]), mask,

@@ -121,9 +121,8 @@ def unpack_bins(cb: CompressedBins) -> torch.Tensor:
     """Inverse of :func:`pack_bins`: ``i32[n, d]`` bin ids."""
     if cb.bits >= 32:
         return cb.packed.to(torch.int32)
-    mask = 2**cb.bits - 1
-    blocks = [
-        (cb.packed >> (lane * cb.bits)) & mask for lane in range(cb.lanes)
-    ]
-    full = torch.cat(blocks, dim=1)
-    return full[:, : cb.num_features].to(torch.int32).contiguous()
+    n, W = cb.packed.shape
+    shifts = torch.arange(0, 32, cb.bits, dtype=torch.int32, device=cb.packed.device)
+    # [n, lanes, W]: lane l of word w is feature l*W + w (three launches)
+    lanes = (cb.packed[:, None, :] >> shifts[None, :, None]) & (2**cb.bits - 1)
+    return lanes.reshape(n, cb.lanes * W)[:, : cb.num_features].contiguous()

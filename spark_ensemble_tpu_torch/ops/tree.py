@@ -50,17 +50,18 @@ single tree (``fit_tree``) at ``hist_precision="pallas"`` runs on this
 'high' matmul path, as the JAX package's does; a forest at "pallas"
 launches the kernel.
 
-- ``stream``: the HBM-scale tier, which ``hist="auto"`` takes on CUDA
-  past ``_MATMUL_HIST_MAX_CELLS`` one-hot cells (the JAX package's
-  ``_fit_forest_streamed``).  Each level is one pass over row chunks of
-  ``_STREAM_CHUNK_ROWS``: the chunk is routed through the previous level's
-  tables, and its histogram is one ``torch.matmul`` over the chunk's
-  one-hots, accumulated in chunk order.  No ``[n, d*B]`` tensor exists;
-  bins are kept as uint8 when ``max_bins <= 256``.  Its floors are the
-  direct 1e-12 (no histogram subtraction), and its prefix sums follow the
-  precision as on the matmul tier.  At ``hist_precision="pallas"`` the
-  stream tier wins, at the 'high' statistic precision, as in the JAX
-  package: no kernel launches there.
+- ``stream``: the HBM-scale tier, which ``hist="auto"`` takes on CUDA past
+  ``_MATMUL_HIST_MAX_CELLS`` one-hot cells (the JAX package's
+  ``_fit_forest_streamed``). Each level is one pass over row chunks of
+  ``stream_chunk_rows`` (``_STREAM_CHUNK_ROWS`` unless
+  ``autotune.resolve.override`` sets it): the chunk is routed through
+  the previous level's tables, and its histogram is one ``torch.matmul``
+  over the chunk's one-hots, accumulated in chunk order. No ``[n, d*B]``
+  tensor exists; bins are kept as uint8 when ``max_bins <= 256``. Its
+  floors are the direct 1e-12 (no histogram subtraction), and its prefix
+  sums follow the precision as on the matmul tier. At
+  ``hist_precision="pallas"`` the stream tier wins, at the 'high'
+  statistic precision, as in the JAX package: no kernel launches there.
 
 Lanes (``fit_forest(..., lanes=S)``): a megabatch sweep fits S
 candidates' K members each as one forest of M = S * K members, and every
@@ -88,6 +89,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from spark_ensemble_tpu_torch.autotune.resolve import resolve as _tuned
 from spark_ensemble_tpu_torch.ops.binning import pack_bins, pack_width
 from spark_ensemble_tpu_torch.ops.hist_kernels import (
     fused_round_level,
@@ -119,8 +121,9 @@ class Tree(NamedTuple):
 # bin-one-hot budget of the matmul tier under hist="auto": past it the
 # row-chunked stream tier runs (the JAX package's rule)
 _MATMUL_HIST_MAX_CELLS = 2**28
-# rows per chunk of the stream tier: bounds the chunk's one-hots (bin_oh
-# [chunk, d*B], A [chunk, M*nodes*(1+k)])
+# rows per chunk of the stream tier (the "stream_chunk_rows" tunable's
+# default): bounds the chunk's one-hots (bin_oh [chunk, d*B], A [chunk,
+# M*nodes*(1+k)]); data/shards.DEFAULT_SHARD_ROWS mirrors it
 _STREAM_CHUNK_ROWS = 32768
 # the leaf one-hots (linear leaves) serve trees up to this depth, as the
 # JAX package's path-scoring matmuls do
@@ -418,54 +421,77 @@ def _empty_splits(M, J, dev):
     )
 
 
-def _fit_forest_streamed(Xb, vals, y_mean, thresholds, feature_mask, *,
-                         max_depth, max_bins, min_info_gain, triangular,
-                         round_bf16, return_leaf, lanes=1):
-    """The stream tier: each level is one pass over row chunks of
-    ``_STREAM_CHUNK_ROWS``.  A chunk is routed through the previous level's
-    tables, then its histogram is one matmul over its one-hots, added to
-    the level's accumulator in chunk order; the leaf pass routes the last
-    level and sums the leaves the same way.  Only a chunk's one-hots ever
-    exist (``[chunk, d*B]``), never the matmul tier's ``[n, d*B]``, and
-    nothing in the chunk loop reads a value back to the host.  The ragged
-    last chunk is a shorter slice: the JAX package pads it with zero-weight
-    rows, which add exactly 0."""
-    n, d = Xb.shape
-    M, C = vals.shape[1], vals.shape[2]
+def stream_forest(sweep, y_mean, thresholds, feature_mask, *, d, max_depth,
+                  max_bins, min_info_gain, triangular, round_bf16, lanes=1):
+    """The stream tier's passes over a source of row chunks -> ``Tree [M,
+    ...]``.  ``sweep(tag)`` yields, for every chunk in row order, ``(xb
+    i32[r, d], nd i32[r, M], vl f32[r, M, C])``, ``nd`` a view of the
+    caller's node ids that each pass writes in place; ``tag`` is
+    ``"level:<l>"`` or ``"leaf"``.  Each level is one pass: a chunk is
+    routed through the previous level's tables, then its histogram is one
+    matmul over its one-hots, added to the level's accumulator in chunk
+    order; the leaf pass routes the last level and sums the leaves the same
+    way.  The resident tier (:func:`_fit_forest_streamed`) and the shard
+    sweep (``data/streaming.py``) both run this loop, so at equal chunks
+    they take the same products in the same order, bit for bit."""
+    M, C = y_mean.shape[0], 1 + y_mean.shape[1]
     B = max_bins
-    dev = Xb.device
-    # the chunk loop reads the bins once a level: kept as uint8 when ids
-    # 0..B-1 fit, and upcast per chunk (a uint8 index would be a mask)
-    if B <= 256:
-        Xb = Xb.to(torch.uint8)
-    chunk = _STREAM_CHUNK_ROWS
-    spans = [(r0, min(r0 + chunk, n)) for r0 in range(0, n, chunk)]
+    dev = y_mean.device
     out = _empty_splits(M, 2**max_depth - 1, dev)
-    node = torch.zeros((n, M), dtype=torch.int32, device=dev)
     parent_value = y_mean[:, None, :]
     tables = None
     for level in range(max_depth):
         n_nodes = 2**level
         H = torch.zeros((M, n_nodes, C, d, B), dtype=torch.float32, device=dev)
-        for r0, r1 in spans:
-            H, node[r0:r1] = stream_level_step(
-                H, Xb[r0:r1].to(torch.int32), node[r0:r1], vals[r0:r1],
-                n_nodes=n_nodes, tables=tables, max_bins=B, lanes=lanes,
+        for xb, nd, vl in sweep(f"level:{level}"):
+            H, nd[...] = stream_level_step(
+                H, xb, nd, vl, n_nodes=n_nodes, tables=tables, max_bins=B,
+                lanes=lanes,
             )
         tables, parent_value = stream_level_update(
             H, feature_mask, min_info_gain, thresholds, B, triangular,
             round_bf16, level, parent_value, out, lanes,
         )
     L = torch.zeros((M, 2**max_depth, C), dtype=torch.float32, device=dev)
-    for r0, r1 in spans:
-        L, node[r0:r1] = stream_leaf_step(
-            L, Xb[r0:r1].to(torch.int32), node[r0:r1], vals[r0:r1],
-            num_leaves=2**max_depth, tables=tables, lanes=lanes,
+    for xb, nd, vl in sweep("leaf"):
+        L, nd[...] = stream_leaf_step(
+            L, xb, nd, vl, num_leaves=2**max_depth, tables=tables, lanes=lanes,
         )
-    tree = Tree(
+    return Tree(
         *out[:3],
         leaf_value=stream_leaf_values(L[:, :, 0], L[:, :, 1:], parent_value, y_mean),
         split_gain=out[3],
+    )
+
+
+def _fit_forest_streamed(Xb, vals, y_mean, thresholds, feature_mask, *,
+                         max_depth, max_bins, min_info_gain, triangular,
+                         round_bf16, return_leaf, lanes=1):
+    """The stream tier over resident bins: :func:`stream_forest` over row
+    chunks of ``stream_chunk_rows`` (``_STREAM_CHUNK_ROWS`` unless an
+    autotune override sets it).  Only a chunk's one-hots ever exist
+    (``[chunk, d*B]``), never the matmul tier's ``[n, d*B]``, and nothing
+    in the chunk loop reads a value back to the host.  The ragged last
+    chunk is a shorter slice: the JAX package pads it with zero-weight
+    rows, which add exactly 0."""
+    n, d = Xb.shape
+    M = vals.shape[1]
+    # the chunk loop reads the bins once a level: kept as uint8 when ids
+    # 0..B-1 fit, and upcast per chunk (a uint8 index would be a mask)
+    if max_bins <= 256:
+        Xb = Xb.to(torch.uint8)
+    chunk = min(int(_tuned("stream_chunk_rows", _STREAM_CHUNK_ROWS, n=n)), n)
+    spans = [(r0, min(r0 + chunk, n)) for r0 in range(0, n, chunk)]
+    node = torch.zeros((n, M), dtype=torch.int32, device=Xb.device)
+
+    def sweep(_tag):
+        for r0, r1 in spans:
+            yield Xb[r0:r1].to(torch.int32), node[r0:r1], vals[r0:r1]
+
+    tree = stream_forest(
+        sweep, y_mean, thresholds, feature_mask, d=d, max_depth=max_depth,
+        max_bins=max_bins, min_info_gain=min_info_gain, triangular=triangular,
+        round_bf16=round_bf16, lanes=lanes,
     )
     return (tree, node) if return_leaf else tree
 
