@@ -36,8 +36,13 @@ fitted with ``fit_streaming`` beside the resident stream-tier fit, and
 regressors on 8192x12 shards, each equal to its resident twin, a mid-shard
 preemption resumed (``streaming``), and packed export: the timed model
 packed, saved, loaded, sliced with ``take`` and continued with
-``fit_resume``, each equal to its live twin (``export``).  It checks
-the results; each phase prints one JSON line; any failed check raises,
+``fit_resume``, each equal to its live twin (``export``), then the
+telemetry core: the timed main path streaming its events to a JSONL sink
+beside telemetry-off fits (``telemetry``: the same model bit for bit, the
+same launches, the overhead), a ``profile_dir`` capture naming the three
+kernels (``profile_dir``), and the serving engine over the timed model,
+one CUDA graph per (method, bucket, tier), with its latency, rows/s and
+drift sketches (``serving``).  It checks the results; each phase prints one JSON line; any failed check raises,
 and so does a retry that no chaos fault injected, and the script exits
 non-zero.  Checkpoints and saves go to a scratch directory under
 ``build/``, removed at the end.
@@ -1854,11 +1859,26 @@ def main():
     real_prefetcher = streaming_mod.ShardPrefetcher
 
     class StatPrefetcher(real_prefetcher):
-        """Keeps each fit's prefetch ledger at close."""
+        """Keeps each fit's prefetch ledger at close: the per-round ledgers
+        the fit takes (its shard I/O telemetry), summed."""
+
+        def take_stats(self):
+            out = super().take_stats()
+            total = getattr(self, "_fit_total", None)
+            if total is None:
+                self._fit_total = dict(out)
+            else:
+                for k, v in out.items():
+                    if k == "last_error":
+                        total[k] = v or total[k]
+                    else:
+                        total[k] += v
+            return out
 
         def close(self):
             if not self._closed:
-                pf_stats.append(self.take_stats())
+                self.take_stats()
+                pf_stats.append(self._fit_total)
             super().close()
 
     def same_params(a, b):
@@ -2016,6 +2036,308 @@ def main():
         raise AssertionError(f"export: packed {packed_equal}, loaded {loaded_equal}, take "
                              f"{take_equal}, fit_resume {resume_equal}, launches {launches}")
     no_stray_retries("export")
+
+    # phase 25 (telemetry): the timed main path (100 fused rounds) with the
+    # JSONL sink and record_fits on, beside adjacent telemetry-off fits in
+    # turns (off, on, on, off; bench.py's telemetry_overhead_pct, against
+    # adjacent fits).  Telemetry only reads: the model must equal the
+    # telemetry-off one bit for bit and launch the same 5/4/1 a round.  The
+    # stream must hold 100 round_end events, phases summing to wall, the
+    # card's memory, no builds (compile_count 0) and a span graph whose
+    # parents and flows all resolve.  Then one fit at hist_precision
+    # "pallas" (hist_i32) and a streaming fit's shard I/O tail.
+    from spark_ensemble_tpu_torch import telemetry as tel
+
+    def read_jsonl(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    def span_problems(events):
+        """tools/trace_viewer.py's validate: orphan spans, dangling flows."""
+        spans = [e for e in events if e.get("event") == "span"]
+        ids = {s["span_id"] for s in spans}
+        sources = {f for s in spans for f in (s.get("flow_out") or [])}
+        return ([f"orphan {s['name']}" for s in spans
+                 if s.get("parent_id") and s["parent_id"] not in ids]
+                + [f"dangling flow {s['name']}" for s in spans
+                   if s.get("flow_in") is not None and s["flow_in"] not in sources])
+
+    def telemetry_fit(est, X_, y_, path):
+        if os.path.exists(path):
+            os.remove(path)
+        with tel.record_fits() as rec:
+            model, secs, launches = fit_counted(est.copy(telemetry_path=path), X_, y_)
+        return model, secs, launches, read_jsonl(path), rec.events
+
+    t_phase = time.perf_counter()  # each new phase reports its own seconds
+    tel_path = os.path.join(scratch, "telemetry.jsonl")
+    tel_runs = {"off": [], "on": []}
+    for way in ("off", "on", "on", "off"):
+        est = gbm("fused", "highest", TIMED_ROUNDS)
+        tel_runs[way].append(telemetry_fit(est, X_np, y_np, tel_path) if way == "on"
+                             else fit_counted(est, X_np, y_np))
+    off_s = [r[1] for r in tel_runs["off"]]
+    on_s = [r[1] for r in tel_runs["on"]]
+    model_on, _, launches_on, events, recorded = tel_runs["on"][-1]
+    model_off = tel_runs["off"][-1][0]
+    ends = [e for e in events if e["event"] == "round_end"]
+    fit_end = events[-1]
+    phase_gap = abs(sum(fit_end["phases"].values()) - fit_end["wall_s"])
+    mem = fit_end.get("memory", {}).get("gpu:0")
+    same_model = same_params(model_on, model_off) and torch.equal(
+        model_on.predict_proba(Xd), model_off.predict_proba(Xd))
+    problems = span_problems(events)
+    mfu = [e["mfu_est"] for e in ends if "mfu_est" in e]
+    # the drift_ref_ capture every GBM fit now pays: the occupancy counted
+    # on the card from the fit context's bins, [d, B] counts copied back
+    from spark_ensemble_tpu_torch.telemetry.quality import drift_reference_from_ctx
+
+    ctx = gbm("fused", "highest", 1)._base().make_fit_ctx(Xd)
+    drift_ref_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drift_reference_from_ctx(ctx)
+        drift_ref_s.append(time.perf_counter() - t0)
+    emit({"phase": "telemetry", "rounds": TIMED_ROUNDS,
+          "telemetry_overhead_pct": 100.0 * (sum(on_s) - sum(off_s)) / sum(off_s),
+          "off_iters_per_s": [TIMED_ROUNDS / s for s in off_s],
+          "on_iters_per_s": [TIMED_ROUNDS / s for s in on_s],
+          "events": len(events), "recorded": len(recorded), "round_end": len(ends),
+          "spans": sum(e["event"] == "span" for e in events),
+          "phases": fit_end["phases"], "wall_s": fit_end["wall_s"],
+          "phase_sum_gap_s": phase_gap, "compile_count": fit_end["compile_count"],
+          "host_blocked_us": fit_end["host_blocked_us"], "memory_gpu0": mem,
+          "round_duration_s_median": statistics.median(e["duration_s"] for e in ends),
+          "mfu_est_median": statistics.median(mfu) if mfu else None,
+          "hist_tier": ends[0].get("hist_tier"), "hbm_bytes_est": ends[0].get("hbm_bytes_est"),
+          "history_rounds": len(model_on.fit_history_["round"]),
+          "drift_ref_ms": 1e3 * statistics.median(drift_ref_s),
+          "launches": launches_on, "bit_identical": same_model,
+          "span_problems": problems[:5], "phase_s": time.perf_counter() - t_phase, **card})
+    if (len(ends) != TIMED_ROUNDS or phase_gap > 1e-9 or not mem
+            or fit_end["compile_count"] != 0 or not same_model or problems
+            or len(recorded) != len(events)
+            or len(model_on.fit_history_["round"]) != TIMED_ROUNDS
+            or any(r[2] != per_fit(TIMED_ROUNDS) for r in tel_runs["on"] + tel_runs["off"])):
+        raise AssertionError("telemetry: the stream or the model is off (see the line above)")
+
+    t_phase = time.perf_counter()
+    model_p, secs, launches, events, _ = telemetry_fit(
+        gbm("matmul", "pallas", PARITY_ROUNDS), X_np, y_np, tel_path)
+    ends = [e for e in events if e["event"] == "round_end"]
+    emit({"phase": "telemetry", "check": "pallas", "rounds": PARITY_ROUNDS,
+          "iters_per_s": PARITY_ROUNDS / secs, "launches": launches,
+          "round_end": len(ends), "hist_tier": ends[0].get("hist_tier"),
+          "loss_last": ends[-1].get("loss"), "step_size_last": ends[-1].get("step_size"),
+          "compile_count": events[-1]["compile_count"],
+          "phase_s": time.perf_counter() - t_phase, **card})
+    if launches != want_launches["pallas"](PARITY_ROUNDS) or len(ends) != PARITY_ROUNDS \
+            or ends[0].get("hist_tier") != "pallas":
+        raise AssertionError(f"telemetry pallas: launches {launches}, {len(ends)} rounds")
+
+    t_phase = time.perf_counter()
+    g = tel.global_metrics()
+    shard_names = ("data/shard_loads", "data/shard_bytes", "data/shard_prefetch_hits",
+                   "data/shard_prefetch_misses")
+    before = {k: g.counter(k).value for k in shard_names}
+    stream_rounds = 5
+    telemetry_fit_streaming = st.GBMRegressor(
+        num_base_learners=stream_rounds, learning_rate=0.3, telemetry_path=tel_path,
+        base_learner=st.DecisionTreeRegressor(max_depth=DEPTH, hist="stream"))
+    os.remove(tel_path)
+    t0 = time.perf_counter()
+    telemetry_fit_streaming.fit_streaming(rstore, yr, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    events = read_jsonl(tel_path)
+    counters = {k: g.counter(k).value - before[k] for k in shard_names}
+    loads = [e for e in events if e.get("name") == "shard_load"]
+    waits = [e for e in events if e.get("name") == "shard_wait"]
+    io = [e for e in events if e["event"] in ("shard_load", "shard_prefetch_hit", "shard_wait_us")]
+    problems = span_problems(events)
+    emit({"phase": "telemetry", "check": "streaming", "rounds": stream_rounds,
+          "shards": rstore.num_shards, "fit_s": secs, "counters": counters,
+          "shard_load_spans": len(loads), "shard_wait_spans": len(waits),
+          "misses_with_flow": sum(1 for w in waits if w.get("flow_in") is not None),
+          "io_events_tail": io[-3:], "span_problems": problems[:5],
+          "load_ms_median": 1e3 * statistics.median(s["dur_s"] for s in loads),
+          "wait_ms_median": 1e3 * statistics.median(s["dur_s"] for s in waits),
+          "phase_s": time.perf_counter() - t_phase, **card})
+    visits = stream_rounds * (DEPTH + 1) * rstore.num_shards
+    if (counters["data/shard_loads"] != visits or len(loads) != visits
+            or len(waits) != visits or problems or len(io) != 3 * stream_rounds):
+        raise AssertionError(f"telemetry streaming: {counters}, {len(loads)} load spans")
+
+    # phase 26 (profile_dir): a 3-round fused fit with profile_dir; the
+    # capture's device rows (utils/profiling.py) must name the three kernels
+    from spark_ensemble_tpu_torch.utils import profiling as prof_mod
+
+    t_phase = time.perf_counter()
+    prof_dir = os.path.join(scratch, "profile")
+    _, secs, launches = fit_counted(gbm("fused", "highest", 3).copy(profile_dir=prof_dir),
+                                    X_np, y_np)
+    rows, total_us = prof_mod.summarize_trace(prof_dir, top=10_000)
+    named = {k: sum(c for n, _, c in rows if k in n) for k in ("level_hist", "route_packed",
+                                                               "leaf_sums")}
+    emit({"phase": "profile_dir", "rounds": 3, "fit_s": secs, "launches": launches,
+          "trace_files": len(prof_mod.find_trace_files(prof_dir)), "device_rows": len(rows),
+          "device_total_ms": total_us / 1e3, "kernel_slices": named,
+          "top": [dict(r, op=r["op"][:90]) for r in prof_mod.rows_to_records(rows[:6], total_us)],
+          "phase_s": time.perf_counter() - t_phase, **card})
+    if not all(named.values()) or launches != per_fit(3):
+        raise AssertionError(f"profile_dir: kernel slices {named}, launches {launches}")
+
+    # phase 27 (serving): an InferenceEngine over the timed 100-round,
+    # 26-class model: buckets 8..4096, predict and predict_proba, prefix
+    # tiers 25 and 50, one CUDA graph each (60), captured at warmup; then a
+    # mixed load that must capture nothing, outputs against the model,
+    # four threads of queued requests, latency per bucket, rows/s, and the
+    # drift sketch (training rows raise no alert, shifted rows do; the
+    # graph's sketch equals an eager bin_occupancy of the same padded rows)
+    import threading
+
+    from spark_ensemble_tpu_torch.ops.binning import Bins, bin_occupancy
+    from spark_ensemble_tpu_torch.serving import InferenceEngine
+    from spark_ensemble_tpu_torch.telemetry.quality import DriftMonitor
+
+    class RecordingMonitor(DriftMonitor):
+        """Keeps the histograms it is handed while ``record`` is set."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.record, self.seen = False, []
+
+        def observe(self, counts, pad_rows=0):
+            if self.record:
+                self.seen.append((np.array(counts), pad_rows))
+            super().observe(counts, pad_rows)
+
+    t_phase = time.perf_counter()
+    quality = pack(timed_model).quality
+    monitor = RecordingMonitor(quality["thresholds"], quality["occupancy"],
+                               window_rows=2048, stream="chip_smoke")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(timed_model, methods=("predict", "predict_proba"), min_bucket=8,
+                          max_batch_size=4096, prefix_tiers=(25, 50), drift_monitor=monitor)
+    warm_s = time.perf_counter() - t0
+    stats0 = eng.stats()
+    alerts0 = g.counter("quality/alerts_total").value
+    warm_per_bucket = {b: 0.0 for b in eng.buckets}
+    for key, s in stats0["compiled"].items():
+        warm_per_bucket[int(key.split("@")[1].split("~")[0])] += s
+    try:
+        p_all = timed_model.predict_proba(Xd).cpu().numpy()
+        gaps = []
+        for n in (1, 7, 100, 3000, 5000):
+            out = eng.predict(X_np[:n], method="predict_proba")
+            ref = timed_model.predict_proba(Xd[:n]).cpu().numpy()
+            labels_equal = np.array_equal(eng.predict(X_np[:n]),
+                                          timed_model.predict(Xd[:n]).cpu().numpy())
+            gaps.append({"n": n, "bit_identical": bool(np.array_equal(out, ref)),
+                         "max_abs_diff": float(np.abs(out - ref).max()),
+                         "within_rtol_1e-5": bool(np.allclose(out, ref, rtol=1e-5, atol=1e-6)),
+                         "labels_equal": bool(labels_equal)})
+        tier_ok = {k: bool(np.allclose(eng.predict(X_np[:100], method="predict_proba", tier=k),
+                                       timed_model.take(k).predict_proba(Xd[:100]).cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6)) for k in (25, 50)}
+        # four client threads, 40 queued requests each of 1-64 rows
+        futures = [[] for _ in range(4)]
+
+        def client(t):
+            rng_c = np.random.RandomState(t)
+            for _ in range(40):
+                lo, n = int(rng_c.randint(0, N_ROWS - 64)), int(rng_c.randint(1, 65))
+                futures[t].append((lo, n, eng.submit(X_np[lo:lo + n], method="predict_proba")))
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        queued = [(lo, n, f.result(timeout=120)) for fs in futures for lo, n, f in fs]
+        queue_ok = all(np.allclose(out, p_all[lo:lo + n], rtol=1e-5, atol=1e-6)
+                       for lo, n, out in queued)
+        queue_gap = max(float(np.abs(out - p_all[lo:lo + n]).max()) for lo, n, out in queued)
+        # latency per bucket: 20 synchronous requests of each bucket's rows
+        latency = {}
+        for b in eng.buckets:
+            lat = []
+            for i in range(20):
+                lo = (i * 997) % (N_ROWS - b + 1)  # other rows each time
+                t0 = time.perf_counter()
+                eng.predict(X_np[lo:lo + b], method="predict_proba")
+                lat.append(1e3 * (time.perf_counter() - t0))
+            latency[b] = {"p50_ms": float(np.percentile(lat, 50)),
+                          "p99_ms": float(np.percentile(lat, 99))}
+        # rows/s: all 15000 rows in one call (4096-row chunks), the same
+        # rows as 235 queued requests of 64, and the model's own predict
+        def best_of(fn, reps=3):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return min(times)
+
+        sync_s = best_of(lambda: eng.predict(X_np, method="predict_proba"))
+        queue_s = best_of(lambda: [f.result(timeout=120) for f in [
+            eng.submit(X_np[i:i + 64], method="predict_proba") for i in range(0, N_ROWS, 64)]])
+        model_s = best_of(lambda: timed_model.predict_proba(Xd).cpu())
+        compiles = eng.stats()["compiles_since_warmup"]
+        # drift: everything served so far is training rows (no alert); then
+        # 4096 shifted rows close a window that raises the alert, and 4096
+        # training rows one that clears it
+        alerts_trained = g.counter("quality/alerts_total").value - alerts0
+        trained = monitor.snapshot()
+        eng.predict(X_np[:4096] + 1.5, method="predict_proba")
+        shifted = monitor.snapshot()
+        eng.predict(X_np[4096:8192], method="predict_proba")
+        cleared = monitor.snapshot()
+        # the graph's sketch against an eager bin_occupancy of the same rows
+        monitor.record = True
+        sketch_ok = True
+        bins = Bins(thresholds=torch.as_tensor(quality["thresholds"], device=dev))
+        for n in (5, 100, 4096):
+            monitor.seen.clear()
+            eng.predict(X_np[:n])
+            (counts, pad), = monitor.seen
+            b = eng.bucket_for(n)
+            padded = torch.zeros((b, N_FEATURES), device=dev)
+            padded[:n] = Xd[:n]
+            sketch_ok &= pad == b - n and np.array_equal(
+                counts, bin_occupancy(padded, bins).cpu().numpy())
+        monitor.record = False
+        compiles = max(compiles, eng.stats()["compiles_since_warmup"])
+    finally:
+        eng.stop()
+        monitor.close()
+    emit({"phase": "serving", "rounds": TIMED_ROUNDS, "classes": N_CLASSES,
+          "buckets": list(eng.buckets), "graphs": len(stats0["compiled"]),
+          "warmup_s": warm_s, "warmup_s_per_bucket": warm_per_bucket,
+          "compiles_at_warmup": len(stats0["compiled"]), "compiles_since_warmup": compiles,
+          "outputs": gaps, "tiers_within_rtol": tier_ok,
+          "queued_requests": len(queued), "queued_within_rtol": queue_ok,
+          "queued_max_abs_diff": queue_gap, "latency_ms": latency,
+          "sync_rows_per_s": N_ROWS / sync_s, "queue_rows_per_s": N_ROWS / queue_s,
+          "model_predict_proba_rows_per_s": N_ROWS / model_s,
+          "drift_training": {k: trained.get(k) for k in ("windows", "psi_max", "alert_active")},
+          "drift_shifted": {k: shifted.get(k) for k in ("windows", "psi_max", "alert_active")},
+          "drift_cleared": {k: cleared.get(k) for k in ("windows", "psi_max", "alert_active")},
+          "alerts_on_training_rows": alerts_trained,
+          "alerts": g.counter("quality/alerts_total").value - alerts0,
+          "sketch_equals_eager": bool(sketch_ok), "phase_s": time.perf_counter() - t_phase,
+          **card})
+    if (compiles != 0 or len(stats0["compiled"]) != 60
+            or not all(x["within_rtol_1e-5"] for x in gaps) or not all(tier_ok.values())
+            or not queue_ok or len(queued) != 160 or trained["alert_active"]
+            or alerts_trained != 0
+            or not shifted["alert_active"] or cleared["alert_active"] or not sketch_ok):
+        raise AssertionError("serving: see the line above")
+    no_stray_retries("telemetry and serving")
     shutil.rmtree(scratch, ignore_errors=True)
 
     no_stray_retries("all phases")

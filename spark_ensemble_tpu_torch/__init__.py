@@ -42,7 +42,13 @@ default) or on the CPU (``device="cpu"``):
   ``hist="stream"`` fit; the autotune resolution layer
   (``autotune.resolve.override``);
 - packed export: ``pack`` / ``PackedModel`` / ``load_packed`` (the JAX
-  package's artifact, either way) and ``serving.fit_resume``.
+  package's artifact, either way) and ``serving.fit_resume``;
+- the serving engine ``InferenceEngine`` (one CUDA graph per bucket,
+  micro-batching, prefix tiers, on-device drift sketches);
+- telemetry: ``telemetry_path`` / ``SE_TPU_TELEMETRY`` / ``record_fits``
+  event streams in the JAX package's schema, ``fit_history_``, trace
+  spans, the metrics registry, ``DriftMonitor``, and ``profile_dir``
+  captures summarized by ``utils/profiling.py``.
 
 The level histograms, routes and leaf sums of the ``pallas`` and ``fused``
 tiers run as hand-written CUDA kernels (``csrc/hist.cu``) built with
@@ -165,11 +171,26 @@ from spark_ensemble_tpu_torch.data import (
 )
 from spark_ensemble_tpu_torch.robustness.guards import NonFiniteError
 from spark_ensemble_tpu_torch.robustness.retry import RetryPolicy
+from spark_ensemble_tpu_torch import telemetry
 from spark_ensemble_tpu_torch.serving import (
     PACKED_FORMAT_VERSION,
+    InferenceEngine,
     PackedModel,
     load_packed,
     pack,
+)
+from spark_ensemble_tpu_torch.telemetry import (
+    DriftMonitor,
+    FitTelemetry,
+    FlightRecorder,
+    MetricsRegistry,
+    Span,
+    TelemetryRecorder,
+    TraceContext,
+    Tracer,
+    dump_flight,
+    record_fits,
+    staged_attribution,
 )
 from spark_ensemble_tpu_torch.utils.checkpoint import TrainingCheckpointer
 from spark_ensemble_tpu_torch.utils.features import FeatureMetadata
@@ -201,13 +222,17 @@ __all__ = [
     "DummyClassifier",
     "DummyRegressionModel",
     "DummyRegressor",
+    "DriftMonitor",
     "FeatureMetadata",
+    "FitTelemetry",
+    "FlightRecorder",
     "GBMClassificationModel",
     "GBMClassifier",
     "GBMRegressionModel",
     "GBMRegressor",
     "GaussianNaiveBayes",
     "GaussianNaiveBayesModel",
+    "InferenceEngine",
     "LinearRegression",
     "LinearRegressionModel",
     "LinearTreeRegressionModel",
@@ -219,6 +244,7 @@ __all__ = [
     "MLPRegressionModel",
     "MLPRegressor",
     "MinMaxScaler",
+    "MetricsRegistry",
     "MinMaxScalerModel",
     "MulticlassClassificationEvaluator",
     "NonFiniteError",
@@ -234,12 +260,16 @@ __all__ = [
     "ShardLoadError",
     "ShardPrefetcher",
     "ShardStore",
+    "Span",
     "StackingClassificationModel",
     "StackingClassifier",
     "StackingRegressionModel",
     "StackingRegressor",
     "StandardScaler",
     "StandardScalerModel",
+    "TelemetryRecorder",
+    "TraceContext",
+    "Tracer",
     "TrainValidationSplit",
     "TrainValidationSplitModel",
     "TrainingCheckpointer",
@@ -248,6 +278,7 @@ __all__ = [
     "boosting_classifier_from_arrays",
     "boosting_regressor_from_arrays",
     "decision_tree_classifier_from_arrays",
+    "dump_flight",
     "fit_sweep",
     "gaussian_nb_from_arrays",
     "gbm_classifier_from_arrays",
@@ -262,12 +293,15 @@ __all__ = [
     "mlp_regressor_from_arrays",
     "pack",
     "pipeline_from_models",
+    "record_fits",
     "save",
     "stacking_classifier_from_models",
     "stacking_regressor_from_models",
+    "staged_attribution",
     "standard_scaler_from_arrays",
     "sweep_group_key",
     "sweep_unsupported_reason",
+    "telemetry",
     "weighted_median",
     "weighted_quantile",
     "write_shards",

@@ -28,9 +28,14 @@ not by queue position, so the next sweep reconciles against whatever is
 already loading: shard content is immutable, a loaded shard is valid
 whenever it arrives.
 
-The JAX package mirrors each shard's I/O into its process-wide metrics
-registry and trace spans; those wait for the port's telemetry (ROADMAP,
-Slice F).  ``take_stats`` keeps the same per-fit ledger.
+Telemetry, all on the consumer thread: each shard's I/O is mirrored into
+the process-wide registry (``data/shard_*`` counters and histograms of
+``telemetry.global_metrics()``), and with the fit's telemetry the
+consumer's wait is charged to ``host_blocked_us`` and both sides become
+spans: the worker's load, rebuilt from its measured wall window on the
+``se-tpu-shard`` track, and the consumer's wait, with a flow arrow from
+load to wait when the wait was a prefetch miss.  ``take_stats`` keeps
+the per-fit ledger the per-round events read.
 """
 
 from __future__ import annotations
@@ -44,10 +49,28 @@ import torch
 
 from spark_ensemble_tpu_torch.autotune.resolve import resolve as _tuned
 from spark_ensemble_tpu_torch.models.base import resolve_device
+from spark_ensemble_tpu_torch.telemetry.events import global_metrics
+from spark_ensemble_tpu_torch.telemetry.trace import new_flow_id
 
 #: default lookahead (shards in flight past the one being consumed): the
 #: "prefetch_depth" tunable's default
 DEFAULT_PREFETCH_DEPTH = 2
+
+
+def _mirror_shard_metrics(hit: bool, nbytes: int, load_s: float,
+                          wait_s: float) -> None:
+    """Mirror one shard's I/O into the process-global registry, so
+    ``global_metrics().snapshot()`` is a one-stop process view: the per-fit
+    ``take_stats()`` ledger resets on read, these accumulate for the life
+    of the process."""
+    g = global_metrics()
+    g.counter("data/shard_loads").inc()
+    g.counter("data/shard_bytes").inc(nbytes)
+    g.counter(
+        "data/shard_prefetch_hits" if hit else "data/shard_prefetch_misses"
+    ).inc()
+    g.histogram("data/shard_load_s").record(load_s)
+    g.histogram("data/shard_wait_s").record(wait_s)
 
 
 class ShardLoadError(RuntimeError):
@@ -74,8 +97,9 @@ class ShardPrefetcher:
     of the stored uint32 words), else the host ``u32`` numpy array."""
 
     def __init__(self, store, depth: Optional[int] = None,
-                 to_device: bool = True, device="cuda"):
+                 to_device: bool = True, device="cuda", telem=None):
         self.store = store
+        self.telem = telem
         if depth is None:
             depth = int(_tuned("prefetch_depth", DEFAULT_PREFETCH_DEPTH,
                                n=store.n))
@@ -102,11 +126,13 @@ class ShardPrefetcher:
             "errors": 0, "last_error": None,
         }
 
-    def _read(self, s: int) -> Tuple[np.ndarray, float]:
-        # worker thread: numpy and file I/O only
+    def _read(self, s: int) -> Tuple[np.ndarray, float, float]:
+        # worker thread: numpy and file I/O only.  The wall-clock start
+        # rides back so the consumer can rebuild the load as a span
+        wall0 = time.time()
         t0 = time.perf_counter()
         arr = self.store.load_shard(s)
-        return arr, time.perf_counter() - t0
+        return arr, time.perf_counter() - t0, wall0
 
     def _schedule_from(self, pos: int) -> None:
         S = self.store.num_shards
@@ -153,9 +179,10 @@ class ShardPrefetcher:
             if fut is None:  # pragma: no cover - reconcile safety net
                 fut = self._ex.submit(self._read, pos)
             hit = fut.done()
+            wait_wall0 = time.time()
             t0 = time.perf_counter()
             try:
-                arr, load_s = fut.result()
+                arr, load_s, load_wall0 = fut.result()
             except Exception as e:
                 # attribute the abort to the shard that broke: the wait is
                 # still charged and the failure lands in take_stats()
@@ -163,13 +190,30 @@ class ShardPrefetcher:
                 st["wait_s"] += time.perf_counter() - t0
                 st["errors"] += 1
                 st["last_error"] = f"shard {pos}: {type(e).__name__}: {e}"
+                global_metrics().counter("data/shard_errors").inc()
                 raise ShardLoadError(pos, e) from e
+            wait_s = time.perf_counter() - t0
             st = self._stats
             st["loads"] += 1
             st["bytes"] += arr.nbytes
             st["load_s"] += load_s
             st["hits" if hit else "misses"] += 1
-            st["wait_s"] += time.perf_counter() - t0
+            st["wait_s"] += wait_s
+            _mirror_shard_metrics(hit, arr.nbytes, load_s, wait_s)
+            if self.telem is not None and self.telem.enabled:
+                # the overlap miss the prefetcher exists to hide, charged
+                # to the same ledger as the device-read fences
+                self.telem.host_blocked(wait_s)
+                flow = None if hit else new_flow_id()
+                self.telem.emit_span(
+                    "shard_load", load_wall0, load_s,
+                    thread="se-tpu-shard", shard=pos, bytes=arr.nbytes,
+                    flow_out=None if flow is None else [flow],
+                )
+                self.telem.emit_span(
+                    "shard_wait", wait_wall0, wait_s,
+                    shard=pos, hit=hit, flow_in=flow,
+                )
             # keep the worker busy while the device consumes this shard
             self._schedule_from(pos + 1)
             yield pos, (self._upload(arr) if self.to_device else arr)

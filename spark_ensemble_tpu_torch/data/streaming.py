@@ -32,9 +32,16 @@ mid-shard resumes from the last round boundary like any other fit.  The
 chaos sites ``<Family>:stream_round:<r>:level:<l>:shard:<s>`` and
 ``<Family>:stream_round:<r>:leaf:shard:<s>`` are the JAX package's.
 
+Telemetry: a streaming fit is a fit of its own on the stream
+(``fit_start`` with the store's rows, then ``streaming_config``), its
+prefetcher mirrors each shard's I/O into ``global_metrics()`` and the
+trace (``data/prefetch.py``), and each round emits its shard I/O as
+``shard_load`` / ``shard_prefetch_hit`` / ``shard_wait_us`` events, as the
+JAX package's ``_emit_shard_io`` does.  A streaming fit captures no
+``drift_ref_``, as in the JAX package.
+
 Not ported yet: ``mesh=`` (the distributed sweep, ROADMAP queue 1, item
-18) and the telemetry events (``streaming_config``, per-round shard I/O;
-Slice F).
+18).
 """
 
 from __future__ import annotations
@@ -58,16 +65,36 @@ from spark_ensemble_tpu_torch.ops.tree import (
     stream_forest,
     stream_vals_prep,
 )
+from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
+from spark_ensemble_tpu_torch.utils.instrumentation import Instrumentation
+
+
+def _emit_shard_io(telem, prefetch):
+    """One round's shard I/O as events on the fit's stream
+    (``tools/telemetry_report.py`` folds them into the shard-I/O share)."""
+    st = prefetch.take_stats()
+    if not telem.enabled or not st["loads"]:
+        return
+    telem.emit(
+        "shard_load", count=st["loads"], bytes=st["bytes"],
+        duration_us=int(st["load_s"] * 1e6),
+    )
+    telem.emit(
+        "shard_prefetch_hit", hits=st["hits"], misses=st["misses"],
+    )
+    telem.emit("shard_wait_us", wait_us=int(st["wait_s"] * 1e6))
 
 
 class _ShardTrees:
     """The base tree as the GBM round cores call it, each round's trees
     fitted by sweeps over the shard store instead of over resident bins.
-    ``site`` names the round for the chaos sites (set before each round)."""
+    ``site`` names the round for the chaos sites (set before each round);
+    each round's shard I/O goes to ``telem`` after the round."""
 
-    def __init__(self, base, store, prefetch, ctl, label, device):
+    def __init__(self, base, store, prefetch, ctl, label, device, telem):
         self.base, self.store, self.prefetch, self.ctl = base, store, prefetch, ctl
         self.label = label
+        self.telem = telem
         self.thresholds = torch.as_tensor(store.thresholds, device=device)
         hp = str(base.hist_precision).lower()
         # the stream tier's precisions (ops/tree.fit_forest): triangular
@@ -79,6 +106,9 @@ class _ShardTrees:
 
     def begin_round(self, r: int) -> None:
         self.site = f"{self.label}:stream_round:{r}"
+
+    def end_round(self, r: int) -> None:
+        _emit_shard_io(self.telem, self.prefetch)
 
     def _sweep_forest(self, Y, w, feature_mask):
         """Fit ``M`` trees (``Y [n, M, k]``, ``w [n, M]``) in ``max_depth +
@@ -148,11 +178,13 @@ def _check_store(est, store, y):
     return base
 
 
-def _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run):
-    """Shared set-up: checks, the shard sweep and its prefetcher, and a
-    placeholder feature matrix of the store's shape (one zero broadcast,
-    no memory; the init fits read only its shape) -> ``run(X_ph, y, w,
-    X_val, y_val, base, trees)``'s model."""
+def _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run,
+                   num_classes=None):
+    """Shared set-up: checks, the fit's telemetry, the shard sweep and its
+    prefetcher, and a placeholder feature matrix of the store's shape (one
+    zero broadcast, no memory; the init fits read only its shape) ->
+    ``run(X_ph, y, w, X_val, y_val, base, trees, telem)``'s model.
+    ``num_classes(y)`` gives a classifier's class count."""
     from spark_ensemble_tpu_torch.robustness.chaos import controller
 
     dev = resolve_device(device)
@@ -168,12 +200,25 @@ def _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run):
         X_val, y_val = as_f32(X_val, dev), as_f32(y_val, dev)
     X_ph = torch.zeros((), dtype=torch.float32, device=dev).expand(store.n, store.d)
     label = type(est).__name__
-    prefetch = ShardPrefetcher(store, device=dev)
+    k = None if num_classes is None else num_classes(y)
+    instr = Instrumentation(f"{label}.fit_streaming")
+    instr.log_params(est.get_params())
+    instr.log_dataset(store.n, store.d, k)
+    meta = {} if k is None else {"num_classes": int(k)}
+    telem = FitTelemetry.start(est, n=store.n, d=store.d, **meta)
+    telem.emit(
+        "streaming_config", shards=store.num_shards,
+        shard_rows=store.shard_rows, bits=store.bits,
+        packed_bytes=store.packed_nbytes,
+    )
+    prefetch = ShardPrefetcher(store, device=dev, telem=telem)
     try:
-        trees = _ShardTrees(base, store, prefetch, controller(), label, dev)
-        return run(X_ph, y, w, X_val, y_val, base, trees)
+        trees = _ShardTrees(base, store, prefetch, controller(), label, dev, telem)
+        model = run(X_ph, y, w, X_val, y_val, base, trees, telem, k)
     finally:
         prefetch.close()
+    instr.log_outcome(kept_members=model.num_members)
+    return model
 
 
 def fit_streaming_regressor(est, store, y, sample_weight=None, X_val=None,
@@ -181,9 +226,9 @@ def fit_streaming_regressor(est, store, y, sample_weight=None, X_val=None,
     """Out-of-core ``GBMRegressor`` fit over a ``ShardStore``: the
     streaming twin of ``GBMRegressor.fit``, bit-identical to a resident
     ``hist="stream"`` fit at matched chunk rows."""
-    def run(X_ph, y, w, X_val, y_val, base, trees):
+    def run(X_ph, y, w, X_val, y_val, base, trees, telem, k):
         return est._fit_rounds(X_ph, y, w, X_val, y_val, base, None, X_ph.device,
-                               trees=trees, on_round=trees.begin_round)
+                               telem, trees=trees)
 
     return _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run)
 
@@ -192,9 +237,9 @@ def fit_streaming_classifier(est, store, y, sample_weight=None, X_val=None,
                              y_val=None, num_classes=None, device="cuda"):
     """Out-of-core ``GBMClassifier`` fit over a ``ShardStore``; the class
     dims fold into the sweep's member axis, as in the resident forest."""
-    def run(X_ph, y, w, X_val, y_val, base, trees):
-        k = infer_num_classes(y, num_classes)
+    def run(X_ph, y, w, X_val, y_val, base, trees, telem, k):
         return est._fit_rounds(X_ph, y, w, X_val, y_val, k, base, None,
-                               X_ph.device, trees=trees, on_round=trees.begin_round)
+                               X_ph.device, telem, trees=trees)
 
-    return _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run)
+    return _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run,
+                          num_classes=lambda y: infer_num_classes(y, num_classes))

@@ -39,6 +39,8 @@ from typing import Any, Tuple
 
 import torch
 
+from spark_ensemble_tpu_torch.telemetry.trace import NULL_SPAN, new_flow_id
+
 PIPELINE_ENV = "SE_TPU_PIPELINE"
 DEVICE_PATIENCE_ENV = "SE_TPU_DEVICE_PATIENCE"
 
@@ -70,11 +72,12 @@ def device_patience_enabled() -> bool:
 
 
 def device_patience_step(errs: torch.Tensor, best: float, v: int, tol: float,
-                         limit: int) -> Tuple[float, int, bool, int]:
+                         limit: int, telem=None) -> Tuple[float, int, bool, int]:
     """Fold a chunk's per-round validation losses on the device and read
     back four scalars ``(best, v, stopped, kept)``, ``kept`` counting the
     rounds up to and including the stopping round.  The recurrence runs in
-    float32, as the JAX package's ``lax.scan`` does."""
+    float32, as the JAX package's ``lax.scan`` does.  The read is charged
+    to ``telem``'s ``host_blocked_us``."""
     f32 = torch.float32
     dev = errs.device
     best_t = torch.tensor(best if math.isfinite(best) else float("inf"),
@@ -92,8 +95,11 @@ def device_patience_step(errs: torch.Tensor, best: float, v: int, tol: float,
         v_t = torch.where(done, v_t, new_v)
         kept = torch.where(done, kept, kept + 1)
         done = done | stop_now
-    host = torch.stack([best_t.double(), v_t.double(), done.double(),
-                        kept.double()]).tolist()
+    out = torch.stack([best_t.double(), v_t.double(), done.double(),
+                       kept.double()])
+    if telem is not None:
+        telem.blocking_read(out)
+    host = out.tolist()
     return float(host[0]), int(host[1]), bool(host[2]), int(host[3])
 
 
@@ -126,6 +132,17 @@ class RoundAdapter:
     #: chunks in flight past the committing one; 0 pins the synchronous path
     depth: int = 0
 
+    #: the fit's FitTelemetry, when the family wires one through: the
+    #: executor traces each chunk's launch-to-commit life as a span with
+    #: its committed / invalidated / abandoned fate (telemetry/trace.py);
+    #: None traces nothing
+    telem = None
+
+    #: extra fields merged into every round_chunk span (a dict, e.g. the
+    #: GBM sampling stage's ``{"sampling": "goss", "sample_bucket": 256}``);
+    #: None adds nothing
+    span_fields = None
+
     def should_continue(self) -> bool:
         raise NotImplementedError
 
@@ -152,24 +169,65 @@ class RoundExecutor:
     """The round loop every family routes through: fills the
     adapter's lookahead window, commits chunks strictly in launch order,
     and on invalidation drops the speculative tail unread.  At depth 0 the
-    window never holds more than one chunk: the synchronous loop."""
+    window never holds more than one chunk: the synchronous loop.
+
+    With the adapter's ``telem`` each chunk is a ``round_chunk`` span,
+    begun before its launch and ended at its commit with its fate; a
+    commit that invalidates the speculative tail draws a flow arrow from
+    its span to each invalidated chunk's."""
 
     def __init__(self, adapter: RoundAdapter):
         self.adapter = adapter
 
     def run(self) -> RoundAdapter:
         a = self.adapter
+        telem = a.telem
         pending: deque = deque()
-        while a.should_continue():
-            while a.can_launch() and len(pending) < max(1, a.window()):
-                pending.append(a.launch())
-            if not pending:
-                # frontier exhausted with nothing in flight: committed
-                # state lags the frontier and nothing can commit
-                break
-            entry = pending.popleft()
-            if a.commit(entry, speculated=bool(pending)):
-                pending.clear()
-                a.reset_frontier()
+        seq = 0
+        try:
+            while a.should_continue():
+                while a.can_launch() and len(pending) < max(1, a.window()):
+                    # span first, then launch: the chunk span covers the
+                    # launch and stays open until its commit resolves
+                    # its fate
+                    pending.append((
+                        NULL_SPAN if telem is None else telem.begin_span(
+                            "round_chunk", chunk_seq=seq,
+                            speculative=bool(pending),
+                            **(a.span_fields or {}),
+                        ),
+                        a.launch(),
+                    ))
+                    seq += 1
+                if not pending:
+                    # frontier exhausted with nothing in flight: committed
+                    # state lags the frontier and nothing can commit
+                    break
+                sp, entry = pending.popleft()
+                invalidate = False
+                fate = "aborted"
+                flow = None
+                try:
+                    invalidate = a.commit(entry, speculated=bool(pending))
+                    fate = "committed"
+                    if invalidate and pending and sp:
+                        flow = new_flow_id()
+                        sp.add(flow_out=[flow])
+                finally:
+                    sp.end(fate=fate)
+                if invalidate:
+                    while pending:
+                        psp, _ = pending.popleft()
+                        if flow is None:
+                            psp.end(fate="invalidated")
+                        else:
+                            psp.end(fate="invalidated", flow_in=flow)
+                    a.reset_frontier()
+        finally:
+            # a raise mid-loop (guard policy, chaos fault) discards the
+            # in-flight tail unread: their spans still close
+            while pending:
+                psp, _ = pending.popleft()
+                psp.end(fate="abandoned")
         a.finish()
         return a

@@ -19,10 +19,14 @@ unweighted mean (`BaggingRegressor.scala:221-228`).
 
 The one fused member fit runs under the retry layer, and the numeric
 guard (``on_nonfinite``) drops members with NaN params, so ``num_members``
-is the kept count and probabilities divide by it.
+is the kept count and probabilities divide by it.  With telemetry the one
+fused fit is one round chunk of ``num_base_learners`` rounds, each charged
+an equal share of its fenced wall time.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -46,6 +50,8 @@ from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeRegressor,
 )
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
+from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
+from spark_ensemble_tpu_torch.utils.instrumentation import instrumented_fit
 from spark_ensemble_tpu_torch.utils.random import (
     PRNGKey,
     bootstrap_weights,
@@ -95,11 +101,10 @@ class _BaggingParams(Estimator):
         ``fit_many_from_ctx`` under the robustness runtime (a chaos
         transient site and the retry layer around the one fused fit, then
         the guard's drop of non-finite members) -> ``(members, masks,
-        num_classes, d, device, guard)``."""
+        num_classes, d, device, guard, telem)``."""
         from spark_ensemble_tpu_torch.robustness.chaos import controller
         from spark_ensemble_tpu_torch.robustness.retry import retry_call
 
-        self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
         dev = resolve_device(device)
@@ -113,6 +118,10 @@ class _BaggingParams(Estimator):
         ctx = make_shared_fit_ctx(base, X, num_classes)
         fit_w, masks, keys = self._member_plan(n, d, w)
         m = fit_w.shape[0]
+        meta = {} if num_classes is None else {"num_classes": int(num_classes)}
+        telem = FitTelemetry.start(self, n=n, d=d, **meta)
+        telem.phase_mark("setup")
+        t_fit = time.perf_counter()
         ctl = controller()
         site = f"{type(self).__name__}:fit_all"
 
@@ -124,11 +133,15 @@ class _BaggingParams(Estimator):
             )
 
         members = retry_call(attempt, self._retry_policy(),
-                             op=f"{type(self).__name__}.fit_all")
+                             op=f"{type(self).__name__}.fit_all", telem=telem)
+        if telem.enabled:
+            # every member fits in ONE forest fit: all m "rounds" share
+            # its fenced wall time evenly
+            telem.round_chunk(0, m, t_fit, fence=members)
         members = ctl.poison_member_stack(site, members)
-        guard = self._numeric_guard()
+        guard = self._numeric_guard(telem)
         members, masks = self._drop_bad_members(members, masks, guard)
-        return members, masks, num_classes, d, dev, guard
+        return members, masks, num_classes, d, dev, guard, telem
 
     @staticmethod
     def _drop_bad_members(members, masks, guard):
@@ -166,16 +179,19 @@ class BaggingRegressor(_BaggingParams):
     def _base(self) -> BaseLearner:
         return self.base_learner or DecisionTreeRegressor()
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, mesh=None,
             device="cuda") -> "BaggingRegressionModel":
-        members, masks, _, d, dev, guard = self._fit_members(
+        members, masks, _, d, dev, guard, telem = self._fit_members(
             X, y, sample_weight, None, mesh, device
         )
-        return _with_guard_events(guard, BaggingRegressionModel(
+        model = _with_guard_events(guard, BaggingRegressionModel(
             params={"members": members, "masks": masks},
             num_features=d, num_members=masks.shape[0], device=dev,
             **self.get_params(),
         ))
+        telem.finish(model=model, members=model.num_members)
+        return model
 
 
 class BaggingRegressionModel(RegressionModel, BaggingRegressor):
@@ -204,16 +220,19 @@ class BaggingClassifier(_BaggingParams):
     def _base(self) -> BaseLearner:
         return self.base_learner or DecisionTreeClassifier()
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, mesh=None, num_classes=None,
             device="cuda") -> "BaggingClassificationModel":
-        members, masks, num_classes, d, dev, guard = self._fit_members(
+        members, masks, num_classes, d, dev, guard, telem = self._fit_members(
             X, y, sample_weight, num_classes, mesh, device
         )
-        return _with_guard_events(guard, BaggingClassificationModel(
+        model = _with_guard_events(guard, BaggingClassificationModel(
             params={"members": members, "masks": masks},
             num_features=d, num_classes=num_classes,
             num_members=masks.shape[0], device=dev, **self.get_params(),
         ))
+        telem.finish(model=model, members=model.num_members)
+        return model
 
 
 class BaggingClassificationModel(ClassificationModel, BaggingClassifier):

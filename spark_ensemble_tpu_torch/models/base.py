@@ -52,6 +52,7 @@ from spark_ensemble_tpu_torch.params import Param, Params, gt_eq, in_array
 from spark_ensemble_tpu_torch.robustness.validate import (  # noqa: F401
     validate_fit_inputs,
 )
+from spark_ensemble_tpu_torch.utils.instrumentation import instrumented_fit
 from spark_ensemble_tpu_torch.utils.random import PRNGKey
 
 
@@ -363,8 +364,8 @@ class ClassificationModel(Model):
 
 def _with_guard_events(guard, model):
     """``model`` carrying its fit's guard record as ``guard_events_`` (the
-    round index and action of every detection; the port has no telemetry
-    stream to put them on)."""
+    round index and action of every detection, also on the telemetry
+    stream as ``guard_nonfinite`` events)."""
     model.guard_events_ = guard.events
     return model
 
@@ -414,10 +415,11 @@ class CheckpointableParams(Params):
             )
         return [st["members"]], [st[weights_key].to(torch.float32)]
 
-    def _checkpointer(self, device, *shape_parts):
-        """The fit's checkpointer.  The fingerprint's shape parts are the
-        port's own (tagged ``"torch"``), so a checkpoint the JAX package
-        wrote starts a fresh fit (logged) instead of a half-way resume."""
+    def _checkpointer(self, device, *shape_parts, telem=None):
+        """The fit's checkpointer, reporting to the fit's telemetry
+        ``telem``.  The fingerprint's shape parts are the port's own
+        (tagged ``"torch"``), so a checkpoint the JAX package wrote starts
+        a fresh fit (logged) instead of a half-way resume."""
         from spark_ensemble_tpu_torch.utils.checkpoint import (
             TrainingCheckpointer,
             run_fingerprint,
@@ -432,6 +434,7 @@ class CheckpointableParams(Params):
             ),
             retry_policy=self._retry_policy(),
             device=device,
+            telem=telem,
         )
 
     # -- warm-start resume (fit_resume) -----------------------------------
@@ -449,6 +452,26 @@ class CheckpointableParams(Params):
         self._warm_resume_state = None
         return state
 
+    def _load_resume(self, ckpt, telem):
+        """The state a fit resumes from, or None: the newest loadable
+        checkpoint, else a ``fit_resume`` warm start.  A
+        resume emits ``resume_from_checkpoint`` (the round it resumes at
+        and which copy it came from) on the fit's telemetry."""
+        resumed = ckpt.load_latest()
+        warm = False
+        if resumed is None:
+            resumed = self._take_warm_resume()
+            warm = resumed is not None
+        if resumed is not None:
+            detail = ckpt.last_load_detail or {}
+            telem.emit(
+                "resume_from_checkpoint",
+                round=resumed[0] + 1,
+                source="warm_start" if warm else detail.get("source", "latest"),
+                fallback=bool(detail.get("fallback", False)),
+            )
+        return resumed
+
 
 class Estimator(Params):
     """Base estimator: ``fit(X, y, sample_weight, device=...) -> Model``."""
@@ -458,11 +481,18 @@ class Estimator(Params):
 
     profile_dir = Param(
         None,
-        doc="profiler trace directory; not ported yet (ROADMAP Slice F)",
+        doc="when set, every fit() captures a torch.profiler trace of CPU "
+        "and CUDA activity into this directory as a Chrome trace "
+        "(utils/profiling.py summarizes it)",
     )
     telemetry_path = Param(
         None,
-        doc="telemetry JSONL path; not ported yet (ROADMAP Slice F)",
+        doc="when set, every fit() appends its structured telemetry event "
+        "stream (round timings, losses, per-phase costs, kernel-build "
+        "counts, device memory stats) to this JSONL file; the "
+        "SE_TPU_TELEMETRY environment variable is the no-code-change "
+        "equivalent (docs/telemetry.md).  Not part of the checkpoint-resume "
+        "identity, and a fit's model is bit-identical with it on or off",
     )
     feature_names = Param(
         None, doc="optional column names for X; carried onto fitted models"
@@ -501,25 +531,19 @@ class Estimator(Params):
 
         persist.save(self, path)
 
-    def _check_port_support(self):
-        """Raise for Param values the port does not implement yet."""
-        if self.profile_dir is not None:
-            not_supported("profile_dir", self.profile_dir, "Slice F")
-        if self.telemetry_path is not None:
-            not_supported("telemetry_path", self.telemetry_path, "Slice F")
-
     def _retry_policy(self):
         """The retry policy of this estimator's ``max_retries``."""
         from spark_ensemble_tpu_torch.robustness.retry import RetryPolicy
 
         return RetryPolicy(max_retries=int(self.max_retries))
 
-    def _numeric_guard(self):
-        """A per-fit :class:`NumericGuard` of this ``on_nonfinite`` policy."""
+    def _numeric_guard(self, telem=None):
+        """A per-fit :class:`NumericGuard` of this ``on_nonfinite`` policy,
+        reporting to the fit's telemetry stream."""
         from spark_ensemble_tpu_torch.robustness.guards import NumericGuard
 
         return NumericGuard(str(self.on_nonfinite).lower(),
-                            family=type(self).__name__)
+                            family=type(self).__name__, telem=telem)
 
     def _validate_fit_inputs(self, X, y=None):
         validate_fit_inputs(
@@ -626,11 +650,11 @@ class BaseLearner(Estimator):
                           device=None) -> Model:
         raise NotImplementedError
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, num_classes=None,
             device="cuda") -> Model:
         """Fit this learner standalone on ``device``, from the key
         ``PRNGKey(seed)`` (0 for a learner without a ``seed``)."""
-        self._check_port_support()
         dev = resolve_device(device)
         X = as_f32(X, dev)
         y = as_f32(y, dev)

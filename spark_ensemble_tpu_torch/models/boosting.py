@@ -42,12 +42,16 @@ read of its stats, weight masses and finite flags, and the stopping rules
 replayed on the host.  ``checkpoint_dir`` resumes a preempted fit,
 ``fit_resume`` continues a fitted model from its boosting-weight carry
 (replayed over the stored members), and ``on_nonfinite`` drops a poisoned
-round.
+round.  With telemetry each committed chunk's kept rounds become
+``round_start`` / ``round_end`` events (loss: SAMME's weighted error,
+Drucker's estimator error; step size: the estimator weight), its wall time
+divided by the rounds the chunk computed.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 
 import torch
 
@@ -69,6 +73,8 @@ from spark_ensemble_tpu_torch.models.base import (
     tree_map,
 )
 from spark_ensemble_tpu_torch.models.gbm import _check_resume_args, _concat
+from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
+from spark_ensemble_tpu_torch.utils.instrumentation import instrumented_fit
 from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
@@ -179,7 +185,6 @@ class _BoostingParams(CheckpointableParams, Estimator):
     seed = Param(0, doc="PRNG seed of the round keys")
 
     def _prepare(self, X, y, sample_weight, mesh, device):
-        self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
         dev = resolve_device(device)
@@ -192,13 +197,11 @@ class _BoostingParams(CheckpointableParams, Estimator):
         m = int(self.num_base_learners)
         return fold_in(PRNGKey(self.seed, device), torch.arange(m, device=device))
 
-    def _resume(self, ckpt, bw):
+    def _resume(self, ckpt, bw, telem):
         """The loaded checkpoint or warm-resume state -> ``(start round,
         bw, chunks)``; a fresh fit starts at round 0 from ``bw``."""
         chunks = {"members": [], "weights": []}
-        resumed = ckpt.load_latest()
-        if resumed is None:
-            resumed = self._take_warm_resume()
+        resumed = self._load_resume(ckpt, telem)
         if resumed is None:
             return 0, bw, chunks
         last_round, st = resumed
@@ -209,7 +212,7 @@ class _BoostingParams(CheckpointableParams, Estimator):
         return last_round + 1, st["bw"].to(bw.device), chunks
 
     def _drive_boosting_rounds(self, ckpt, bw, chunks, run_chunk, replay,
-                               start_i: int, ramp: bool, guard) -> int:
+                               start_i: int, ramp: bool, guard, telem) -> int:
         """The chunked round loop of both Boosting flavors, behind the
         port's :class:`RoundExecutor` (the JAX package's
         ``_drive_boosting_rounds``).  ``run_chunk(i0, c, bw) -> (params
@@ -250,7 +253,8 @@ class _BoostingParams(CheckpointableParams, Estimator):
                 return run_chunk(i0, c, bw_in)
 
             params_c, est_ws, sum_bws, bw_out, extras = retry_call(
-                attempt, policy=retry_policy, op=f"{label}.round_chunk"
+                attempt, policy=retry_policy, op=f"{label}.round_chunk",
+                telem=telem,
             )
             return (ctl.poison_member_stack(site, params_c), est_ws, sum_bws,
                     bw_out, extras)
@@ -271,13 +275,17 @@ class _BoostingParams(CheckpointableParams, Estimator):
             ex_host = tuple(rows[1:]) if isinstance(extras, tuple) else rows[1]
             return bad, rows[0], ex_host
 
-        def commit_chunk(i, c, bw_prev, params_c, est_ws, sum_bws, bw_out, extras):
+        def commit_chunk(i, c, bw_prev, t_chunk, params_c, est_ws, sum_bws,
+                         bw_out, extras):
             """One launched chunk's bookkeeping (guard scan, abort replay,
-            append, gated save, preemption point) -> (i, bw, stop,
-            rewound)."""
+            telemetry, append, gated save, preemption point) -> (i, bw,
+            stop, rewound)."""
             bw = bw_out
             stop = halt = rewound = False
             skip_after = 0  # a guard-dropped round: its index, no member
+            if telem.enabled:
+                # host-blocked accounting: the read this commit waits on
+                telem.blocking_read((params_c, est_ws, sum_bws, extras))
             bad, sum_h, ex_h = read(params_c, est_ws, sum_bws, extras)
             if bad is not None:
                 rewound = True
@@ -299,6 +307,17 @@ class _BoostingParams(CheckpointableParams, Estimator):
                     skip_after = 1
             if c > 0:
                 kept, stop = replay(ex_h, sum_h, c, i)
+                if telem.enabled:
+                    # the classifier's stats are its per-round errors,
+                    # Drucker's (max_errs, est_errs): the estimator error
+                    # is the loss
+                    losses = ex_h[1] if isinstance(ex_h, tuple) else ex_h
+                    telem.round_chunk(
+                        i, kept, t_chunk, fence=(params_c, est_ws),
+                        losses=losses[:kept],
+                        step_sizes=est_ws[:kept] if kept > 0 else None,
+                        divisor=c,
+                    )
                 if not stop:
                     # the loop guard of the next round: weight mass after
                     # this chunk's last kept round stays positive
@@ -330,6 +349,7 @@ class _BoostingParams(CheckpointableParams, Estimator):
 
             def __init__(self):
                 self.depth = depth
+                self.telem = telem  # the executor traces chunk spans
                 self.i, self.bw = start_i, bw
                 self.stop = float(torch.sum(bw)) <= 0
                 self.i_disp, self.bw_frontier = start_i, bw
@@ -351,8 +371,9 @@ class _BoostingParams(CheckpointableParams, Estimator):
                 if ckpt.enabled:
                     c = min(c, ckpt.rounds_until_save(self.i_disp))
                 bw_prev = self.bw_frontier
+                t0 = time.perf_counter()
                 out = dispatch(self.i_disp, c, bw_prev)
-                entry = (self.i_disp, c, bw_prev) + out
+                entry = (self.i_disp, c, bw_prev, t0) + out
                 self.i_disp += c
                 self.bw_frontier = out[3]
                 return entry
@@ -413,11 +434,13 @@ class BoostingClassifier(_BoostingParams):
     def _base(self) -> BaseLearner:
         return self.base_learner or DecisionTreeClassifier()
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, num_classes=None, mesh=None,
             device="cuda") -> "BoostingClassificationModel":
         dev, X, y, w = self._prepare(X, y, sample_weight, mesh, device)
         k = infer_num_classes(y, num_classes)
         n, d = X.shape
+        telem = FitTelemetry.start(self, n=n, d=d, num_classes=int(k))
         base = self._base().copy()
         ctx = make_shared_fit_ctx(base, X, k)
         real = self.algorithm.lower() == "real"
@@ -456,19 +479,23 @@ class BoostingClassifier(_BoostingParams):
                     return kept, True
             return kept, False
 
-        ckpt = self._checkpointer(dev, n, d, k)
-        start_i, bw, chunks = self._resume(ckpt, w)
+        ckpt = self._checkpointer(dev, n, d, k, telem=telem)
+        start_i, bw, chunks = self._resume(ckpt, w, telem)
         run_chunk = self._rounds(run_round, self._round_keys(dev), torch.stack)
-        guard = self._numeric_guard()
+        guard = self._numeric_guard(telem)
+        telem.phase_mark("setup")
         self._drive_boosting_rounds(ckpt, bw, chunks, run_chunk, replay,
-                                    start_i, ramp=not real, guard=guard)
+                                    start_i, ramp=not real, guard=guard,
+                                    telem=telem)
         ckpt.delete()
         params = self._model_params(chunks, dev)
-        return _with_guard_events(guard, BoostingClassificationModel(
+        model = _with_guard_events(guard, BoostingClassificationModel(
             params=params, num_features=d, num_classes=k,
             num_members=params["weights"].shape[0], device=dev,
             **self.get_params(),
         ))
+        telem.finish(model=model, members=model.num_members)
+        return model
 
 
 def _samme_r_codes(y_int, k):
@@ -594,10 +621,12 @@ class BoostingRegressor(_BoostingParams):
                         est_errs[j])
         return kept, False
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, mesh=None,
             device="cuda") -> "BoostingRegressionModel":
         dev, X, y, w = self._prepare(X, y, sample_weight, mesh, device)
         n, d = X.shape
+        telem = FitTelemetry.start(self, n=n, d=d)
         base = self._base().copy()
         ctx = make_shared_fit_ctx(base, X)
         loss_name = self.loss.lower()
@@ -614,20 +643,23 @@ class BoostingRegressor(_BoostingParams):
             return (torch.stack([s[0] for s in stats]),
                     torch.stack([s[1] for s in stats]))
 
-        ckpt = self._checkpointer(dev, n, d)
-        start_i, bw, chunks = self._resume(ckpt, w)
+        ckpt = self._checkpointer(dev, n, d, telem=telem)
+        start_i, bw, chunks = self._resume(ckpt, w, telem)
         run_chunk = self._rounds(run_round, self._round_keys(dev), extras)
-        guard = self._numeric_guard()
+        guard = self._numeric_guard(telem)
+        telem.phase_mark("setup")
         self._drive_boosting_rounds(ckpt, bw, chunks, run_chunk,
                                     self._replay, start_i, ramp=True,
-                                    guard=guard)
+                                    guard=guard, telem=telem)
         ckpt.delete()
         params = self._model_params(chunks, dev)
-        return _with_guard_events(guard, BoostingRegressionModel(
+        model = _with_guard_events(guard, BoostingRegressionModel(
             params=params, num_features=d,
             num_members=params["weights"].shape[0], device=dev,
             **self.get_params(),
         ))
+        telem.finish(model=model, members=model.num_members)
+        return model
 
 
 class BoostingRegressionModel(RegressionModel, BoostingRegressor):

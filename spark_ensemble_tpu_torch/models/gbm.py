@@ -57,13 +57,24 @@ key is its bag key ``fold_in(fold_in(PRNGKey(seed), i), 2)``.
 
 ``fit_streaming`` trains over an on-disk shard store
 (``data/streaming.py``): the same round loop (``_fit_rounds``) with the
-shard sweep in place of the base tree.  The planes not ported yet
-(telemetry, meshes) raise ``NotImplementedError``.
+shard sweep in place of the base tree.  Meshes are not ported yet and
+raise ``NotImplementedError``.
+
+Telemetry follows the JAX package's call sites: ``fit_start`` (with a
+``sampling_config`` event for a sampled fit), the ``setup`` / ``probe`` /
+``rounds`` / ``finalize`` phase marks, one ``round_chunk`` per committed
+chunk with its validation losses, step sizes and ``round_cost``, the
+opt-in classifier ``phase_probe`` (``SE_TPU_TELEMETRY_PHASES``), and
+``finish`` attaching ``fit_history_``.  Every fit, telemetry on or off,
+captures its training-time drift reference ``drift_ref_``
+(``telemetry/quality.drift_reference_from_ctx``), which ``pack`` ships as
+the ``quality`` sidecar.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import List
 
 import numpy as np
@@ -94,6 +105,12 @@ from spark_ensemble_tpu_torch.ops import losses as losses_mod
 from spark_ensemble_tpu_torch.ops.linesearch import brent_minimize, projected_newton_box_lanes
 from spark_ensemble_tpu_torch.ops.tree import Tree
 from spark_ensemble_tpu_torch.params import Param, gt, gt_eq, in_array, in_range
+from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
+from spark_ensemble_tpu_torch.telemetry.quality import drift_reference_from_ctx
+from spark_ensemble_tpu_torch.utils.instrumentation import (
+    Instrumentation,
+    instrumented_fit,
+)
 from spark_ensemble_tpu_torch.utils.quantile import weighted_quantile
 from spark_ensemble_tpu_torch.utils.random import (
     PRNGKey,
@@ -109,6 +126,51 @@ logger = logging.getLogger(__name__)
 # smallest compaction bucket of gradient row sampling (the JAX package's
 # default ``sample_bucket_floor``; the port has no autotune)
 _SAMPLE_BUCKET_FLOOR = 256
+
+
+def _round_cost(base, n: int, d: int, members: int, device, sample_plan=None):
+    """Static per-round cost model for the telemetry round events
+    (``ops/tree.round_cost_est``): resolved histogram tier, packed-lane
+    width, memory bytes and flops per round.  ``members`` is the number of
+    trees a round fits (1 for the regressor, the class dims for the
+    classifier).  None when the base learner is not a histogram tree."""
+    try:
+        from spark_ensemble_tpu_torch.ops.tree import round_cost_est
+
+        out = round_cost_est(
+            n=int(n), d=int(d), k=1, M=int(members),
+            max_depth=int(base.max_depth), max_bins=int(base.max_bins),
+            hist=str(getattr(base, "hist", "auto")),
+            hist_precision=str(getattr(base, "hist_precision", "highest")),
+            sampled_rows=int(sample_plan["bucket"]) if sample_plan else None,
+            device=device,
+        )
+        if sample_plan is not None:
+            out["sampled_rows"] = int(sample_plan["sampled_rows"])
+            out["sample_bucket"] = int(sample_plan["bucket"])
+        return out
+    except (AttributeError, TypeError, ValueError):
+        return None
+
+
+def _emit_sampling_config(telem, plan) -> None:
+    if plan is not None:
+        telem.emit(
+            "sampling_config",
+            method=plan["method"],
+            top_rate=plan["top_rate"],
+            other_rate=plan["other_rate"],
+            mvs_lambda=plan["mvs_lambda"],
+            sampled_rows=plan["sampled_rows"],
+            sample_bucket=plan["bucket"],
+            amp=plan["amp"],
+        )
+
+
+def _sampling_span_fields(plan):
+    if plan is None:
+        return None
+    return {"sampling": plan["method"], "sample_bucket": plan["bucket"]}
 
 
 def _fitted_values(params) -> List[torch.Tensor]:
@@ -240,7 +302,6 @@ class _GBMParams(CheckpointableParams):
 
     def _check_gbm_support(self, mesh):
         """Raise for every Param value this slice does not implement."""
-        self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
 
@@ -287,6 +348,10 @@ class _GBMParams(CheckpointableParams):
             "bucket": _sample_pow2_bucket(n, k_top + k_rand, _SAMPLE_BUCKET_FLOOR),
             "samp": (k_top, k_rand, amp, lam),
             "sampled_rows": min(k_top + k_rand, n),
+            "top_rate": top,
+            "other_rate": other,
+            "mvs_lambda": lam,
+            "amp": amp,
         }
 
     def _check_sampling_supported(self, plan) -> None:
@@ -358,7 +423,8 @@ class _GBMParams(CheckpointableParams):
         return err, 0
 
     def _drive_rounds(self, ckpt, chunks, run_chunk, save_state, label, i, v,
-                      best, val_history, guard, snapshot, restore):
+                      best, val_history, guard, snapshot, restore, telem,
+                      round_cost=None, span_fields=None):
         """The shared round loop of both GBM flavors, behind the
         port's :class:`RoundExecutor` (the JAX package's ``_drive_rounds``
         and its ``_Adapter``).
@@ -379,7 +445,13 @@ class _GBMParams(CheckpointableParams):
         the clean prefix replays (same absolute rounds, same keys, same
         results), and the poisoned round is raised, skipped, re-run at a
         halved step or truncated per ``on_nonfinite``.  Returns ``(i, v,
-        best)``; the caller keeps ``i - v`` rounds."""
+        best)``; the caller keeps ``i - v`` rounds.
+
+        Telemetry: each committed chunk's wait is charged to
+        ``host_blocked_us``, and its rounds become ``round_start`` /
+        ``round_end`` events (``telem.round_chunk``) with the chunk's
+        validation losses, step sizes and ``round_cost``; the executor
+        traces the chunks as spans."""
         from spark_ensemble_tpu_torch.robustness.chaos import controller
         from spark_ensemble_tpu_torch.robustness.retry import retry_call
 
@@ -399,7 +471,7 @@ class _GBMParams(CheckpointableParams):
                 return run_chunk(sl, step_scale)
 
             params_c, weights_c, errs, aux = retry_call(
-                attempt, retry_policy, op=f"{label}.round_chunk"
+                attempt, retry_policy, op=f"{label}.round_chunk", telem=telem
             )
             return params_c, ctl.poison_array(site, weights_c), errs, aux
 
@@ -419,8 +491,15 @@ class _GBMParams(CheckpointableParams):
                 bad = next((j for j, f in enumerate(flags) if f), None)
             return bad, (host if errs is not None and not dp_on else None)
 
-        def process(i, c, params_c, weights_c, errs, errs_host, aux, v, best):
+        def process(i, c, params_c, weights_c, errs, errs_host, aux, v, best,
+                    t_chunk):
             """One clean chunk's bookkeeping -> (i, v, best, stopped)."""
+            if telem.enabled:
+                telem.round_chunk(
+                    i, c, t_chunk, fence=(params_c, weights_c, errs),
+                    losses=errs_host if errs_host is not None else errs,
+                    step_sizes=weights_c, round_cost=round_cost,
+                )
             chunks["members"].append(params_c)
             chunks["weights"].append(weights_c)
             chunks["aux"].append(aux)
@@ -428,7 +507,8 @@ class _GBMParams(CheckpointableParams):
             if errs is not None:
                 if dp_on:
                     best, v, stopped, kept = _execution.device_patience_step(
-                        errs, best, v, self.validation_tol, self.num_rounds
+                        errs, best, v, self.validation_tol, self.num_rounds,
+                        telem=telem,
                     )
                     val_history.extend(errs[:kept].tolist())
                     if stopped:
@@ -460,7 +540,7 @@ class _GBMParams(CheckpointableParams):
             )
 
         def recover(i0, bad, snap, params_c, weights_c, errs, errs_host, aux,
-                    v, best):
+                    v, best, t_chunk):
             """``on_nonfinite`` for a chunk whose first poisoned round is
             chunk-relative index ``bad`` -> (i, v, best, halt)."""
             rnd = i0 + bad
@@ -476,7 +556,7 @@ class _GBMParams(CheckpointableParams):
                         i0, bad, part(params_c, 0, bad), weights_c[:bad],
                         None if errs is None else errs[:bad],
                         None if errs_host is None else errs_host[:bad],
-                        part(aux, 0, bad), v, best,
+                        part(aux, 0, bad), v, best, t_chunk,
                     )
                 return i, v, best, True
             # skip_round / halve_step: rewind the carry and replay the clean
@@ -485,21 +565,24 @@ class _GBMParams(CheckpointableParams):
             restore(snap)
             i = i0
             if bad > 0:
+                t_pre = time.perf_counter()
                 p_pre, w_pre, e_pre, a_pre = dispatch(slice(i0, i0 + bad))
                 _, eh_pre = read(p_pre, w_pre, e_pre)
                 i, v, best, stopped = process(i0, bad, p_pre, w_pre, e_pre,
-                                              eh_pre, a_pre, v, best)
+                                              eh_pre, a_pre, v, best, t_pre)
                 if stopped:
                     return i, v, best, False
             if guard.policy == "halve_step":
                 for h in range(1, guard.max_halvings + 1):
                     scale = 0.5 ** h
                     snap2 = snapshot()
+                    t1 = time.perf_counter()
                     p1, w1, e1, a1 = dispatch(slice(i, i + 1), step_scale=scale)
                     bad1, eh1 = read(p1, w1, e1)
                     if bad1 is None:
                         guard.record(i, "halve_step", step_scale=scale)
-                        i, v, best, _ = process(i, 1, p1, w1, e1, eh1, a1, v, best)
+                        i, v, best, _ = process(i, 1, p1, w1, e1, eh1, a1, v,
+                                                best, t1)
                         return i, v, best, False
                     restore(snap2)
                 # not recoverable by damping: fall through to a skip
@@ -507,13 +590,14 @@ class _GBMParams(CheckpointableParams):
             # exactly zero while keys, masks and the checkpoint cadence stay
             # on absolute round indices
             guard.record(i, "skip_round")
+            t1 = time.perf_counter()
             p1, w1, e1, a1 = dispatch(slice(i, i + 1), step_scale=0.0)
             # the member fit itself may be the non-finite source: keep a
             # sanitized zero-weight copy so predict never sees 0 * NaN
             p1, w1 = sanitize(p1), sanitize(w1)
             e1 = None if e1 is None else torch.nan_to_num(e1)
             _, eh1 = read(p1, w1, e1)
-            i, v, best, _ = process(i, 1, p1, w1, e1, eh1, a1, v, best)
+            i, v, best, _ = process(i, 1, p1, w1, e1, eh1, a1, v, best, t1)
             return i, v, best, False
 
         class _Adapter(_execution.RoundAdapter):
@@ -524,6 +608,8 @@ class _GBMParams(CheckpointableParams):
 
             def __init__(self):
                 self.depth = depth
+                self.telem = telem  # the executor traces chunk spans
+                self.span_fields = span_fields
                 self.i, self.v, self.best = i, v, best
                 self.halt = False
                 self.i_disp = i  # launch frontier (absolute round index)
@@ -540,13 +626,18 @@ class _GBMParams(CheckpointableParams):
                 if ckpt.enabled:
                     c = min(c, ckpt.rounds_until_save(self.i_disp))
                 snap_pre = snapshot()
+                t0 = time.perf_counter()
                 out = dispatch(slice(self.i_disp, self.i_disp + c))
-                entry = (self.i_disp, c, snap_pre, snapshot()) + out
+                entry = (self.i_disp, c, snap_pre, snapshot(), t0) + out
                 self.i_disp += c
                 return entry
 
             def commit(self, entry, speculated):
-                i0, c, snap_pre, snap_post, params_c, weights_c, errs, aux = entry
+                i0, c, snap_pre, snap_post, t0, params_c, weights_c, errs, aux = entry
+                if telem.enabled:
+                    # host-blocked accounting (a pure fence): the wait the
+                    # lookahead exists to overlap
+                    telem.blocking_read((params_c, weights_c, errs))
                 bad, errs_host = read(params_c, weights_c, errs)
                 if speculated:
                     # commit under this chunk's own end state: a save must
@@ -556,7 +647,7 @@ class _GBMParams(CheckpointableParams):
                 if bad is None:
                     self.i, self.v, self.best, stopped = process(
                         i0, c, params_c, weights_c, errs, errs_host, aux,
-                        self.v, self.best,
+                        self.v, self.best, t0,
                     )
                     # a mid-chunk validation stop: chunks in flight were
                     # launched for rounds that no longer exist
@@ -566,7 +657,7 @@ class _GBMParams(CheckpointableParams):
                 else:
                     self.i, self.v, self.best, self.halt = recover(
                         i0, bad, snap_pre, params_c, weights_c, errs,
-                        errs_host, aux, self.v, self.best,
+                        errs_host, aux, self.v, self.best, t0,
                     )
                     invalidate = True
                 # chaos: a preemption lands here, after the chunk's
@@ -889,8 +980,18 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
         return params, weight, new_pred, alpha_carry(alpha)
 
     round_core.targets = targets
+    round_core.step = step
     round_core.step_problem = step_problem
     return round_core
+
+
+def _weighted_round_sum(weights, preds):
+    """``sum_m weights[m, ...] * preds[m, ..., n]`` over the round axis:
+    each product rounded, then summed in round order by one reduction
+    over the leading axis, so a row's sum does not depend on how many rows
+    share the call (a matmul's blocking does).  The serving engine relies
+    on that: a request padded into a bucket predicts as it does alone."""
+    return torch.sum(weights[..., None] * preds, dim=0)
 
 
 def _scaled_step(weight, step_scale):
@@ -987,6 +1088,7 @@ class GBMRegressor(_GBMParams, Estimator):
             dummy = DummyRegressor(strategy="mean")
         return dummy.fit(X, y, sample_weight=w, device=device)
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, validation_indicator=None,
             mesh=None, device="cuda"):
         self._check_gbm_support(mesh)
@@ -995,10 +1097,22 @@ class GBMRegressor(_GBMParams, Estimator):
         self._validate_fit_inputs(X, y)
         w_all = resolve_weights(y, sample_weight)
         X, y, w, X_val, y_val = _split_validation(X, y, w_all, validation_indicator)
+        n, d = X.shape
+        instr = Instrumentation("GBMRegressor.fit")
+        instr.log_params(self.get_params())
+        instr.log_dataset(n, d)
+        telem = FitTelemetry.start(self, n=n, d=d)
         base = self._base().copy()
-        return self._fit_rounds(X, y, w, X_val, y_val, base,
-                                make_shared_fit_ctx(base, X), dev)
+        ctx = make_shared_fit_ctx(base, X)
+        # the training-time drift reference (telemetry/quality.py),
+        # counted on the device from the binned ctx
+        drift_ref = drift_reference_from_ctx(ctx)
+        model = self._fit_rounds(X, y, w, X_val, y_val, base, ctx, dev,
+                                 telem=telem, drift_ref=drift_ref)
+        instr.log_outcome(kept_members=model.num_members)
+        return model
 
+    @instrumented_fit
     def fit_streaming(self, store, y, sample_weight=None, X_val=None,
                       y_val=None, mesh=None, device="cuda"):
         """Out-of-core fit over a sealed ``ShardStore`` (``data/shards.py``):
@@ -1016,13 +1130,15 @@ class GBMRegressor(_GBMParams, Estimator):
             y_val=y_val, device=device,
         )
 
-    def _fit_rounds(self, X, y, w, X_val, y_val, base, ctx, dev, trees=None,
-                    on_round=None):
+    def _fit_rounds(self, X, y, w, X_val, y_val, base, ctx, dev, telem,
+                    trees=None, drift_ref=None):
         """The round loop of :meth:`fit` from the training split on: ``X``
         f32[n, d] (only its shape is read when ``trees`` fits the rounds),
-        ``ctx`` the base's fit context.  ``trees`` stands in for the base in
-        the round core (a streaming fit's shard sweep), and ``on_round(r)``
-        runs before round ``r``."""
+        ``ctx`` the base's fit context, ``telem`` the fit's telemetry.
+        ``trees`` stands in for the base in the round core (a streaming
+        fit's shard sweep: ``trees.begin_round(r)`` runs before round ``r``
+        and ``trees.end_round(r)`` after it).  The model carries
+        ``drift_ref`` as ``drift_ref_`` when given."""
         loss_name = self.loss.lower()
         alpha_q = float(self.alpha)
         huber = loss_name == "huber"
@@ -1038,6 +1154,7 @@ class GBMRegressor(_GBMParams, Estimator):
         lr = float(self.learning_rate)
         plan = self._resolved_sampling(n)
         self._check_sampling_supported(plan)
+        _emit_sampling_config(telem, plan)
         bag_keys, samp_keys = self._round_keys(dev, plan)
         round_core = make_reg_round_core(
             base if trees is None else trees, loss_name, alpha_q,
@@ -1057,10 +1174,9 @@ class GBMRegressor(_GBMParams, Estimator):
         val_history: List[float] = []
         i, v = 0, 0
 
-        ckpt = self._checkpointer(dev, n, d, 0 if X_val is None else X_val.shape[0])
-        resumed = ckpt.load_latest()
-        if resumed is None:
-            resumed = self._take_warm_resume()
+        ckpt = self._checkpointer(dev, n, d, 0 if X_val is None else X_val.shape[0],
+                                  telem=telem)
+        resumed = self._load_resume(ckpt, telem)
         if resumed is not None:
             last_round, st = resumed
             i, v, best = last_round + 1, int(st["v"]), float(st["best"])
@@ -1099,8 +1215,8 @@ class GBMRegressor(_GBMParams, Estimator):
             p, pv, dl = pred, pred_val, delta
             params_l, weights_l, errs_l, deltas_l = [], [], [], []
             for r in range(sl.start, sl.stop):
-                if on_round is not None:
-                    on_round(r)
+                if trees is not None:
+                    trees.begin_round(r)
                 bag_w, mask = sample(r)
                 if huber:
                     dl = weighted_quantile(torch.abs(y - p), alpha_q, weights=ones)
@@ -1117,6 +1233,8 @@ class GBMRegressor(_GBMParams, Estimator):
                     ))
                 params_l.append(params)
                 weights_l.append(weight)
+                if trees is not None:
+                    trees.end_round(r)
             # the carry moves only once the whole chunk ran, so a retried
             # chunk starts from the same state
             pred, pred_val, delta = p, pv, dl
@@ -1131,19 +1249,27 @@ class GBMRegressor(_GBMParams, Estimator):
             nonlocal pred, pred_val, delta
             pred, pred_val, delta = snap
 
-        guard = self._numeric_guard()
+        guard = self._numeric_guard(telem)
+        telem.phase_mark("setup")
         i, v, best = self._drive_rounds(
             ckpt, chunks, run_chunk, save_state, "GBMRegressor", i, v, best,
-            val_history, guard, snapshot, restore,
+            val_history, guard, snapshot, restore, telem,
+            round_cost=(_round_cost(base, n, d, 1, dev, plan)
+                        if telem.enabled else None),
+            span_fields=_sampling_span_fields(plan),
         )
         ckpt.delete()
         keep = i - v
-        return _with_guard_events(guard, self._model(_concat(chunks["members"]),
+        model = _with_guard_events(guard, self._model(_concat(chunks["members"]),
                            torch.cat(chunks["weights"]) if chunks["weights"] else None,
                            keep, d, dev, val_history if with_validation else None,
                            init_model=init_model,
                            # each round's huber delta (every round run, kept or not)
                            huber_delta=_concat(chunks["aux"]) if huber else None))
+        if drift_ref is not None:
+            model.drift_ref_ = drift_ref
+        telem.finish(model=model, rounds=i, kept_members=keep)
+        return model
 
     def _model(self, members, weights, keep, d, dev, val_history, *, init_model,
                huber_delta):
@@ -1183,7 +1309,7 @@ class GBMRegressionModel(RegressionModel, GBMRegressor):
         if self.num_members == 0:
             return out
         preds = self._base().predict_many_fn(self.params["members"], X)
-        return out + torch.einsum("m,mn->n", self.params["weights"], preds)
+        return out + _weighted_round_sum(self.params["weights"], preds)
 
     def _persisted_params(self):
         # huber's per-round deltas are a diagnostic of the fit; the JAX
@@ -1255,6 +1381,45 @@ class GBMRegressionModel(RegressionModel, GBMRegressor):
         return est.fit(X, y, sample_weight=sample_weight, device=dev)
 
 
+def _probe_classifier_phases(telem, round_core, base, ctx, X, y_enc, w, bag_w,
+                             keys, mask, pred, alpha_ws):
+    """Opt-in fine-phase probe (``SE_TPU_TELEMETRY_PHASES=1``): runs round
+    0's pieces one by one on its inputs, each twice (the first run warms
+    the allocator), and emits a ``phase_probe`` event with each piece's
+    fenced wall time.  ``tree_fit`` covers the histogram kernels, the
+    split search and the leaf pass together (per-kernel splits:
+    ``utils/profiling.py`` on a ``profile_dir`` capture).  The probe reads
+    and writes no state the fit carries, so the fit is unchanged."""
+    from spark_ensemble_tpu_torch.utils.instrumentation import block_on_arrays
+
+    def time_once(fn, *args):
+        block_on_arrays(fn(*args))
+        t0 = time.perf_counter()
+        out = fn(*args)
+        block_on_arrays(out)
+        return time.perf_counter() - t0, out
+
+    base_key, samp_key = keys
+    durations = {}
+    dt, (labels, fit_w, bag_w) = time_once(
+        round_core.targets, y_enc, pred, bag_w, w, samp_key)
+    durations["grad_hess"] = dt
+    dt, (_, directions) = time_once(
+        lambda: base.fit_many_and_directions(ctx, labels, fit_w, mask, X,
+                                             keys=base_key))
+    durations["tree_fit"] = dt
+    dt, alpha = time_once(round_core.step, y_enc, pred, bag_w, directions,
+                          alpha_ws)
+    durations["line_search"] = dt
+    dt, _ = time_once(lambda: pred + alpha[None, :] * directions)
+    durations["update"] = dt
+    telem.phase_probe(
+        durations,
+        note="tree_fit fuses histogram build + split search + leaf solve; "
+        "single-round unsharded probe, times representative not additive",
+    )
+
+
 class GBMClassifier(_GBMParams, Estimator):
     """Multiclass GBM: dim regressors per round (one fused forest fit),
     K-dim box-constrained line search, raw-score prediction state."""
@@ -1293,6 +1458,7 @@ class GBMClassifier(_GBMParams, Estimator):
             init_raw = init_model.params["raw"]
         return init_model, init_raw
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, validation_indicator=None,
             mesh=None, num_classes=None, device="cuda"):
         self._check_gbm_support(mesh)
@@ -1304,10 +1470,22 @@ class GBMClassifier(_GBMParams, Estimator):
         # class cannot shrink the model
         num_classes = infer_num_classes(y, num_classes)
         X, y, w, X_val, y_val = _split_validation(X, y, w_all, validation_indicator)
+        n, d = X.shape
+        instr = Instrumentation("GBMClassifier.fit")
+        instr.log_params(self.get_params())
+        instr.log_dataset(n, d, num_classes)
+        telem = FitTelemetry.start(self, n=n, d=d, num_classes=int(num_classes))
         base = self._base().copy()
-        return self._fit_rounds(X, y, w, X_val, y_val, num_classes, base,
-                                make_shared_fit_ctx(base, X), dev)
+        ctx = make_shared_fit_ctx(base, X)
+        # the training-time drift reference (telemetry/quality.py),
+        # counted on the device from the binned ctx
+        drift_ref = drift_reference_from_ctx(ctx)
+        model = self._fit_rounds(X, y, w, X_val, y_val, num_classes, base, ctx,
+                                 dev, telem=telem, drift_ref=drift_ref)
+        instr.log_outcome(kept_members=model.num_members)
+        return model
 
+    @instrumented_fit
     def fit_streaming(self, store, y, sample_weight=None, X_val=None,
                       y_val=None, num_classes=None, mesh=None, device="cuda"):
         """Out-of-core fit over a sealed ``ShardStore``; see
@@ -1322,7 +1500,7 @@ class GBMClassifier(_GBMParams, Estimator):
         )
 
     def _fit_rounds(self, X, y, w, X_val, y_val, num_classes, base, ctx, dev,
-                    trees=None, on_round=None):
+                    telem, trees=None, drift_ref=None):
         """The round loop of :meth:`fit` from the training split on; see
         :meth:`GBMRegressor._fit_rounds`."""
         loss = self._make_loss(num_classes)
@@ -1338,6 +1516,7 @@ class GBMClassifier(_GBMParams, Estimator):
         lr = float(self.learning_rate)
         plan = self._resolved_sampling(n)
         self._check_sampling_supported(plan)
+        _emit_sampling_config(telem, plan)
         bag_keys, samp_keys = self._round_keys(dev, plan)
         round_core = make_cls_round_core(
             base if trees is None else trees, loss, dim, self.updates.lower(),
@@ -1355,10 +1534,9 @@ class GBMClassifier(_GBMParams, Estimator):
         i, v = 0, 0
 
         ckpt = self._checkpointer(dev, n, d, num_classes,
-                                  0 if X_val is None else X_val.shape[0])
-        resumed = ckpt.load_latest()
-        if resumed is None:
-            resumed = self._take_warm_resume()
+                                  0 if X_val is None else X_val.shape[0],
+                                  telem=telem)
+        resumed = self._load_resume(ckpt, telem)
         if resumed is not None:
             last_round, st = resumed
             i, v, best = last_round + 1, int(st["v"]), float(st["best"])
@@ -1390,8 +1568,8 @@ class GBMClassifier(_GBMParams, Estimator):
             p, pv, aw = pred, pred_val, alpha_ws
             params_l, weights_l, errs_l = [], [], []
             for r in range(sl.start, sl.stop):
-                if on_round is not None:
-                    on_round(r)
+                if trees is not None:
+                    trees.begin_round(r)
                 bag_w, mask = sample(r)
                 params, weight, p, aw = round_core(
                     ctx, X, y_enc, w, bag_w, (bag_keys[r], samp_keys[r]), mask,
@@ -1403,6 +1581,8 @@ class GBMClassifier(_GBMParams, Estimator):
                     errs_l.append(torch.mean(loss.loss(y_enc_val, pv)))
                 params_l.append(params)
                 weights_l.append(weight)
+                if trees is not None:
+                    trees.end_round(r)
             pred, pred_val, alpha_ws = p, pv, aw
             return (stack_members(params_l), torch.stack(weights_l),
                     torch.stack(errs_l) if with_validation else None, None)
@@ -1414,17 +1594,33 @@ class GBMClassifier(_GBMParams, Estimator):
             nonlocal pred, pred_val, alpha_ws
             pred, pred_val, alpha_ws = snap
 
-        guard = self._numeric_guard()
+        guard = self._numeric_guard(telem)
+        telem.phase_mark("setup")
+        if (telem.enabled and telem.phases_enabled() and plan is None
+                and trees is None and i == 0):
+            bag0, mask0 = sample(0)
+            _probe_classifier_phases(
+                telem, round_core, base, ctx, X, y_enc, w, bag0,
+                (bag_keys[0], samp_keys[0]), mask0, pred, alpha_ws,
+            )
+            telem.phase_mark("probe")
         i, v, best = self._drive_rounds(
             ckpt, chunks, run_chunk, save_state, "GBMClassifier", i, v, best,
-            val_history, guard, snapshot, restore,
+            val_history, guard, snapshot, restore, telem,
+            round_cost=(_round_cost(base, n, d, dim, dev, plan)
+                        if telem.enabled else None),
+            span_fields=_sampling_span_fields(plan),
         )
         ckpt.delete()
         keep = i - v
-        return _with_guard_events(guard, self._model(_concat(chunks["members"]),
+        model = _with_guard_events(guard, self._model(_concat(chunks["members"]),
                            torch.cat(chunks["weights"]) if chunks["weights"] else None,
                            keep, d, dev, val_history if with_validation else None,
                            init_raw=init_raw, num_classes=num_classes, dim=dim))
+        if drift_ref is not None:
+            model.drift_ref_ = drift_ref
+        telem.finish(model=model, rounds=i, kept_members=keep)
+        return model
 
     def _model(self, members, weights, keep, d, dev, val_history, *, init_raw,
                num_classes, dim):
@@ -1469,7 +1665,7 @@ class GBMClassificationModel(ClassificationModel, GBMClassifier):
         # every tree
         flat = tree_map(lambda a: a.reshape((r * dim,) + a.shape[2:]), members)
         preds = self._base().predict_many_fn(flat, X).reshape(r, dim, -1)
-        return out + torch.einsum("md,mdn->nd", weights, preds)
+        return out + _weighted_round_sum(weights, preds).T
 
     def predict_raw(self, X):
         f = self._raw_state(self._input(X))

@@ -34,10 +34,18 @@ stay sequential, as in the JAX package (``sweep_unsupported_reason``).
 Slabs hold at most ``_CONFIGS_PER_DISPATCH`` lanes; a short last slab is
 not padded (the JAX package pads it to keep one compiled program shape,
 which eager launches do not need).
+
+Telemetry: the sweep is one fit on the stream (family
+``GBMSweep[<estimator>]``, with ``candidates``), each lockstep round a
+``sweep_chunk`` event (its fenced wall time over the lanes live in it),
+and every candidate model carries the shared ``drift_ref_`` and an empty
+``fit_history_`` (per-candidate rounds do not exist inside a lockstep
+round), as in the JAX package.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, List, Optional, Sequence
 
 import torch
@@ -46,7 +54,6 @@ from spark_ensemble_tpu_torch.models.base import (
     as_f32,
     infer_num_classes,
     make_shared_fit_ctx,
-    not_supported,
     resolve_device,
     resolve_weights,
     stack_members,
@@ -65,6 +72,8 @@ from spark_ensemble_tpu_torch.models.gbm import (
 from spark_ensemble_tpu_torch.models.tree import _TreeLearner
 from spark_ensemble_tpu_torch.ops.linesearch import projected_newton_box_lanes
 from spark_ensemble_tpu_torch.ops.tree import leaf_values_at
+from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry, empty_history
+from spark_ensemble_tpu_torch.telemetry.quality import drift_reference_from_ctx
 from spark_ensemble_tpu_torch.utils.quantile import weighted_quantile
 
 #: lanes per slab (the JAX package's default ``configs_per_dispatch``; the
@@ -250,6 +259,25 @@ def _commit(lanes, live, params, weights, errs=None):
                 lane.best, err, lane.v, lane.val_tol)
 
 
+def _emit_sweep_round(telem, r, live, t0, fence):
+    """One lockstep round as a ``sweep_chunk`` event: fence on its outputs,
+    then charge its wall time to the lanes live in it."""
+    if not telem.enabled:
+        return
+    telem.blocking_read(fence)
+    wall = time.perf_counter() - t0
+    active = int(sum(live))
+    telem.emit(
+        "sweep_chunk",
+        start_round=r,
+        rounds=1,
+        candidates=len(live),
+        active_lane_rounds=active,
+        wall_s=wall,
+        per_candidate_round_s=wall / max(1, active),
+    )
+
+
 def _scaled(on, weight):
     # a stopped lane rides the round at scale 0
     return weight if on else weight * 0.0
@@ -291,8 +319,6 @@ def fit_sweep(
                 "within one batch (group structurally-distinct candidates "
                 "with sweep_group_key)"
             )
-    if telemetry_path is not None:
-        not_supported("telemetry_path", telemetry_path, "Slice F")
     for est in ests:
         est._check_gbm_support(mesh)
     B = len(ests)
@@ -316,12 +342,30 @@ def fit_sweep(
     else:
         k = None
         fit = _fit_reg_slab
-    base = est0._base().copy()
-    ctx = make_shared_fit_ctx(base, Xt)
-    models: List[Any] = []
-    for lo in range(0, B, _CONFIGS_PER_DISPATCH):
-        sl = slice(lo, lo + _CONFIGS_PER_DISPATCH)
-        models += fit(ests[sl], w_list[sl], base, ctx, Xt, yt, X_val, y_val, k, dev)
+    telem = FitTelemetry.start(
+        est0, family=f"GBMSweep[{type(est0).__name__}]", n=Xt.shape[0],
+        d=Xt.shape[1], telemetry_path=telemetry_path, candidates=B,
+    )
+    try:
+        base = est0._base().copy()
+        ctx = make_shared_fit_ctx(base, Xt)
+        drift_ref = drift_reference_from_ctx(ctx)
+        telem.phase_mark("setup")
+        models: List[Any] = []
+        for lo in range(0, B, _CONFIGS_PER_DISPATCH):
+            sl = slice(lo, lo + _CONFIGS_PER_DISPATCH)
+            models += fit(ests[sl], w_list[sl], base, ctx, Xt, yt, X_val, y_val,
+                          k, dev, telem)
+    except BaseException as e:  # a terminal telemetry record, then re-raise
+        telem.abort(e, candidates=B)
+        raise
+    for model in models:
+        if drift_ref is not None:
+            model.drift_ref_ = drift_ref
+        # per-candidate round rows do not exist inside a lockstep round:
+        # sweep models carry an empty (not missing) history
+        model.fit_history_ = empty_history()
+    telem.finish(candidates=B)
     return models
 
 
@@ -334,7 +378,7 @@ def _new_lanes(ests, w_list, n, d, dev):
     return lanes
 
 
-def _fit_reg_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev):
+def _fit_reg_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev, telem):
     """One slab of regressor lanes (the sequential ``GBMRegressor.fit``'s
     round loop in lockstep)."""
     est0 = ests[0]
@@ -366,6 +410,7 @@ def _fit_reg_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev):
     r = 0
     while any(lane.active for lane in lanes):
         live = [lane.active for lane in lanes]
+        t0 = time.perf_counter()
         labels, fit_ws, bag_ws, masks, keys, losses = [], [], [], [], [], []
         for s, lane in enumerate(lanes):
             bag_w, mask, bag_key, samp_key = lane.draws(r)
@@ -398,6 +443,7 @@ def _fit_reg_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev):
                 preds_val[s] = preds_val[s] + weights[s] * base.predict_fn(params[s], X_val)
                 errs.append(torch.mean(losses[s].loss(y_val_enc, preds_val[s][:, None])))
         _commit(lanes, live, params, weights, errs)
+        _emit_sweep_round(telem, r, live, t0, (params, weights))
         r += 1
     return [
         lane.est._model(*_stacked(lane), lane.i - lane.v, d, dev,
@@ -408,7 +454,7 @@ def _fit_reg_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev):
     ]
 
 
-def _fit_cls_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev):
+def _fit_cls_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev, telem):
     """One slab of classifier lanes (the sequential ``GBMClassifier.fit``'s
     round loop in lockstep, every lane's class dims in one forest)."""
     est0 = ests[0]
@@ -437,6 +483,7 @@ def _fit_cls_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev):
     r = 0
     while any(lane.active for lane in lanes):
         live = [lane.active for lane in lanes]
+        t0 = time.perf_counter()
         labels, fit_ws, bag_ws, masks, keys = [], [], [], [], []
         for lane, pred in zip(lanes, preds):
             bag_w, mask, bag_key, samp_key = lane.draws(r)
@@ -473,6 +520,7 @@ def _fit_cls_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev):
                 preds_val[s] = preds_val[s] + weights[s][None, :] * dirs_val
                 errs.append(torch.mean(loss.loss(y_enc_val, preds_val[s])))
         _commit(lanes, live, params, weights, errs)
+        _emit_sweep_round(telem, r, live, t0, (params, weights))
         r += 1
     return [
         lane.est._model(*_stacked(lane), lane.i - lane.v, d, dev,

@@ -18,11 +18,17 @@ drops a bad one (``skip_round``/``halve_step`` keep every finite member,
 ``stop_early`` the members before the first bad one); the stacker then
 trains on the kept members' meta-features, and predict reads the same
 member list.  A non-finite stacker is always fatal under the guard.
+
+With telemetry each member fit is one round (``member_fit``: its fenced
+wall time, the round index being the member index; with ``parallelism >
+1`` the members' times overlap), and the stacker fit is the ``stacker``
+phase.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
@@ -48,6 +54,11 @@ from spark_ensemble_tpu_torch.models.tree import (
 )
 from spark_ensemble_tpu_torch.params import Param, in_array
 from spark_ensemble_tpu_torch.robustness.guards import tree_any_nan
+from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
+from spark_ensemble_tpu_torch.utils.instrumentation import (
+    block_on_arrays,
+    instrumented_fit,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -71,11 +82,11 @@ class _StackingParams(Estimator):
     seed = Param(0, doc="PRNG seed (member fits are deterministic)")
 
     def _check_stacking_support(self, mesh):
-        self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
 
-    def _fit_bases(self, bases, X, y, w, sample_weight, device, num_classes=None):
+    def _fit_bases(self, bases, X, y, w, sample_weight, device, telem,
+                   num_classes=None):
         """Fit the heterogeneous base learners, concurrently when
         ``parallelism > 1`` (order-preserving), each under the retry layer
         with its own chaos site, so one member's transient fault does not
@@ -104,9 +115,17 @@ class _StackingParams(Estimator):
                                     num_classes=num_classes, device=device)
                 return base.fit(X, y, sample_weight=sw, device=device)
 
-            model = retry_call(attempt, retry_policy, op=f"{label}.member_fit")
+            t0 = time.perf_counter()
+            model = retry_call(attempt, retry_policy, op=f"{label}.member_fit",
+                               telem=telem)
             if getattr(model, "params", None) is not None:
                 model.params = ctl.poison_tree(site, model.params)
+            if telem.enabled:
+                # fence before stamping: the member fit returns with work
+                # still in flight
+                block_on_arrays(model)
+                telem.member_fit(idx, time.perf_counter() - t0,
+                                 family=type(base).__name__)
             return model
 
         jobs = list(enumerate(bases))
@@ -116,7 +135,8 @@ class _StackingParams(Estimator):
                 return list(ex.map(fit_one, jobs))
         return [fit_one(j) for j in jobs]
 
-    def _fit_stacker(self, stacker, meta, y, w, device, num_classes=None):
+    def _fit_stacker(self, stacker, meta, y, w, device, telem,
+                     num_classes=None):
         """The level-1 fit under the retry layer and its chaos site."""
         from spark_ensemble_tpu_torch.robustness.chaos import controller
         from spark_ensemble_tpu_torch.robustness.retry import retry_call
@@ -131,8 +151,13 @@ class _StackingParams(Estimator):
                                    num_classes=num_classes, device=device)
             return stacker.fit(meta, y, sample_weight=w, device=device)
 
-        return retry_call(attempt, self._retry_policy(),
-                          op=f"{type(self).__name__}.stacker_fit")
+        stack_model = retry_call(attempt, self._retry_policy(),
+                                 op=f"{type(self).__name__}.stacker_fit",
+                                 telem=telem)
+        if telem.enabled:
+            block_on_arrays(stack_model)
+            telem.phase_mark("stacker")
+        return stack_model
 
     @staticmethod
     def _drop_bad_base_models(models, guard):
@@ -176,6 +201,7 @@ class StackingRegressor(_StackingParams):
     def _stacker(self) -> BaseLearner:
         return self.stacker or LinearRegression()
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, mesh=None,
             device="cuda") -> "StackingRegressionModel":
         self._check_stacking_support(mesh)
@@ -183,16 +209,21 @@ class StackingRegressor(_StackingParams):
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
         w = resolve_weights(y, sample_weight)
-        guard = self._numeric_guard()
-        models = self._fit_bases(self._bases(), X, y, w, sample_weight, dev)
+        telem = FitTelemetry.start(self, n=X.shape[0], d=X.shape[1])
+        telem.phase_mark("setup")
+        guard = self._numeric_guard(telem)
+        models = self._fit_bases(self._bases(), X, y, w, sample_weight, dev,
+                                 telem)
         models = self._drop_bad_base_models(models, guard)
         meta = torch.stack([m.predict(X) for m in models], dim=1)  # [n, bases]
-        stack_model = self._fit_stacker(self._stacker(), meta, y, w, dev)
+        stack_model = self._fit_stacker(self._stacker(), meta, y, w, dev, telem)
         self._check_stacker(stack_model, len(models), guard)
-        return _with_guard_events(guard, StackingRegressionModel(
+        model = _with_guard_events(guard, StackingRegressionModel(
             base_models=models, stack_model=stack_model,
             num_features=X.shape[1], device=dev, **self.get_params(),
         ))
+        telem.finish(model=model, members=len(models))
+        return model
 
 
 class StackingRegressionModel(RegressionModel, StackingRegressor):
@@ -236,6 +267,7 @@ class StackingClassifier(_StackingParams):
                 cols.append(m.predict(X)[:, None])
         return torch.cat(cols, dim=1)
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, num_classes=None, mesh=None,
             device="cuda") -> "StackingClassificationModel":
         self._check_stacking_support(mesh)
@@ -244,19 +276,24 @@ class StackingClassifier(_StackingParams):
         self._validate_fit_inputs(X, y)
         w = resolve_weights(y, sample_weight)
         num_classes = infer_num_classes(y, num_classes)
-        guard = self._numeric_guard()
+        telem = FitTelemetry.start(self, n=X.shape[0], d=X.shape[1],
+                                   num_classes=int(num_classes))
+        telem.phase_mark("setup")
+        guard = self._numeric_guard(telem)
         models = self._fit_bases(self._bases(), X, y, w, sample_weight, dev,
-                                 num_classes=num_classes)
+                                 telem, num_classes=num_classes)
         models = self._drop_bad_base_models(models, guard)
         meta = self._meta_features(models, X)
-        stack_model = self._fit_stacker(self._stacker(), meta, y, w, dev,
+        stack_model = self._fit_stacker(self._stacker(), meta, y, w, dev, telem,
                                         num_classes=num_classes)
         self._check_stacker(stack_model, len(models), guard)
-        return _with_guard_events(guard, StackingClassificationModel(
+        model = _with_guard_events(guard, StackingClassificationModel(
             base_models=models, stack_model=stack_model,
             num_features=X.shape[1], num_classes=num_classes, device=dev,
             **self.get_params(),
         ))
+        telem.finish(model=model, members=len(models))
+        return model
 
 
 class StackingClassificationModel(ClassificationModel, StackingClassifier):

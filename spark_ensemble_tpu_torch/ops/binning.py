@@ -68,6 +68,31 @@ def bin_features(X: torch.Tensor, bins: Bins) -> torch.Tensor:
     return ids.T.to(torch.int32).contiguous()
 
 
+def bin_occupancy_ids(ids: torch.Tensor, max_bins: int) -> torch.Tensor:
+    """``int32[d, max_bins]`` per-feature counts of the bin ids ``ids``
+    (``int[n, d]``), counted where ``ids`` lives by one integer
+    ``scatter_add_`` into a fixed-size buffer.  ``torch.bincount`` would
+    read its output size back from the device: a host sync, which a CUDA
+    graph cannot capture."""
+    n, d = ids.shape
+    offsets = torch.arange(d, device=ids.device, dtype=torch.int64) * max_bins
+    flat = (ids.to(torch.int64) + offsets).reshape(-1)
+    out = torch.zeros(d * max_bins, dtype=torch.int32, device=ids.device)
+    out.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return out.reshape(d, max_bins)
+
+
+def bin_occupancy(X: torch.Tensor, bins: Bins) -> torch.Tensor:
+    """``int32[d, max_bins]`` per-feature bin-count histogram of ``X``'s
+    rows under ``bins``: the drift-sketch primitive
+    (``telemetry/quality.py``).  The counts are exact integers, so the
+    sketch does not depend on row order or on how a request stream was
+    split into batches: histograms of any partition of the rows sum to
+    the histogram of the whole, which the serving engine's padded-bucket
+    accumulation relies on."""
+    return bin_occupancy_ids(bin_features(X, bins), bins.max_bins)
+
+
 class CompressedBins(NamedTuple):
     """Bit-packed bin matrix: ``packed[r, w]`` holds ``32 // bits`` ids,
     stored as int32 bit patterns of the JAX package's uint32 words."""

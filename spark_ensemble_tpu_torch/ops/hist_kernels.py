@@ -51,6 +51,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -133,7 +134,11 @@ def _nvcc() -> str:
 def build_kernels() -> Path:
     """Compile ``csrc/hist.cu`` (if not built yet) into
     ``build/kernels/libse_hist_<sha256>.so`` and return its path.  The
-    name is keyed on the source's hash, so an edit rebuilds."""
+    name is keyed on the source's hash, so an edit rebuilds.  A build is
+    one compile on the telemetry ledger (``telemetry/events.note_compile``:
+    a fit's ``compile_count``)."""
+    from spark_ensemble_tpu_torch.telemetry.events import note_compile
+
     src = _SOURCE.read_bytes()
     so = _BUILD_DIR / f"libse_hist_{hashlib.sha256(src).hexdigest()[:16]}.so"
     if so.exists():
@@ -142,11 +147,13 @@ def build_kernels() -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     try:
+        t0 = time.perf_counter()
         subprocess.run(
             [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
             check=True, capture_output=True, text=True,
         )
         os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+        note_compile(time.perf_counter() - t0)
     except subprocess.CalledProcessError as e:
         raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{e.stderr}") from e
     finally:

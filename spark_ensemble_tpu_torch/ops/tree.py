@@ -181,6 +181,81 @@ def resolve_forest_tier(hist: str, hist_precision: str, device, n: int,
     return h
 
 
+#: per-card (float32 peak flop/s, memory bytes/s) for the round cost model,
+#: from NVIDIA's data sheet (SXM part, dense, at the full 700 W limit).  A
+#: card not listed here reports no peak, so its rounds carry no mfu_est.
+_CARD_PEAKS = {"NVIDIA H100 80GB HBM3": (67e12, 3.35e12)}
+
+#: the JAX package's CPU placeholders for a CPU fit's cost model
+_CPU_PEAKS = (1e12, 5e10)
+
+
+def round_cost_est(n: int, d: int, k: int, M: int, max_depth: int,
+                   max_bins: int, hist: str = "auto",
+                   hist_precision: str = "highest", sampled_rows: int = None,
+                   device="cuda") -> dict:
+    """Static per-round cost estimate from shapes and the resolved tier
+    (the JAX package's ``round_cost_est``, on the port's tiers):
+    ``{"hist_tier", "pack_bits", "hbm_bytes_est", "flops_est"}`` plus
+    ``peak_flops`` / ``hbm_bw_est`` where the device's figures are known
+    (``_CARD_PEAKS``; the CPU keeps the JAX package's placeholders).
+    ``hbm_bytes_est`` models each tier's reads of row-sized operands over
+    the tree's levels plus the leaf pass; ``flops_est`` is the
+    histogram-contraction MAC count (2 flops each), the same on every
+    tier.  With ``sampled_rows`` (a GOSS/MVS compaction bucket) the
+    histogram costs are modeled at the bucket plus one full-row feature
+    pass, and ``hbm_saved_est`` is the predicted saving."""
+    B = max_bins
+    C = 1 + k
+
+    def cost_at(n_rows: int):
+        tier = resolve_forest_tier(hist, hist_precision, device, n_rows, d, B)
+        bits = pack_width(B) if tier == "fused" else 0
+        lanes = 32 // bits if bits else 1
+        words = -(-d // lanes)
+
+        def level_bytes(nodes: int, leaf: bool) -> int:
+            flat = {
+                "scatter": n_rows * d * (C + 1) * 4,
+                "stream": n_rows * ((d if B <= 256 else d * 4) + M * 4 + M * C * 4),
+                "pallas": n_rows * (d * 4 + M * 4 + M * C * 4),
+                "fused": n_rows * (words * 4 + M * 4 + M * C * 4),
+            }
+            if tier != "matmul":
+                return flat[tier]
+            if leaf:
+                return n_rows * M * (nodes + C) * 4
+            return n_rows * (d * B * 4 + M * nodes * C * 4)
+
+        hbm = sum(level_bytes(2**level, False) for level in range(max_depth)
+                  ) + level_bytes(2**max_depth, True)
+        flops = sum(2.0 * n_rows * (M * 2**level * C) * (d * B)
+                    for level in range(max_depth)) + 2.0 * n_rows * M * 2**max_depth * C
+        return tier, bits, hbm, flops
+
+    tier, bits, hbm, flops = cost_at(n)
+    saved = None
+    if sampled_rows is not None and int(sampled_rows) < n:
+        hbm_full = hbm
+        tier, bits, hbm, flops = cost_at(int(sampled_rows))
+        hbm += n * d * 4
+        saved = max(int(hbm_full) - int(hbm), 0)
+    out = {
+        "hist_tier": tier,
+        "pack_bits": bits,
+        "hbm_bytes_est": int(hbm),
+        "flops_est": float(flops),
+    }
+    dev = torch.device(device)
+    peaks = (_CPU_PEAKS if dev.type == "cpu"
+             else _CARD_PEAKS.get(torch.cuda.get_device_name(dev)))
+    if peaks is not None:
+        out["peak_flops"], out["hbm_bw_est"] = float(peaks[0]), float(peaks[1])
+    if saved is not None:
+        out["hbm_saved_est"] = int(saved)
+    return out
+
+
 def _bin_one_hot(Xb: torch.Tensor, B: int) -> torch.Tensor:
     """Row-to-bin one-hot ``f32[n, d*B]``, the matmul tier's RHS."""
     n, d = Xb.shape

@@ -16,8 +16,10 @@ Recovery is policy-driven (``on_nonfinite`` estimator param):
 - ``stop_early``  truncate the ensemble to the last good round;
 - ``off``         no check at all.
 
-The port has no telemetry plane yet, so :meth:`NumericGuard.record` keeps
-its events on the guard (``NumericGuard.events``) besides logging them.
+:meth:`NumericGuard.record` logs each action, emits it as a
+``guard_nonfinite`` event on the fit's telemetry stream, and keeps it on
+the guard (``NumericGuard.events``, which the fitted model carries as
+``guard_events_``).
 """
 
 from __future__ import annotations
@@ -100,7 +102,8 @@ class NumericGuard:
     and replay); the guard owns detection (:meth:`first_nonfinite`,
     :meth:`member_flags`) and the ``events`` record."""
 
-    def __init__(self, policy: str, family: str = "", max_halvings: int = 4):
+    def __init__(self, policy: str, family: str = "", max_halvings: int = 4,
+                 telem=None):
         if policy not in NONFINITE_POLICIES:
             raise ValueError(
                 f"on_nonfinite must be one of {NONFINITE_POLICIES}, "
@@ -109,6 +112,7 @@ class NumericGuard:
         self.policy = policy
         self.family = family
         self.max_halvings = max_halvings
+        self.telem = telem
         self.events: List[dict] = []
 
     @property
@@ -141,11 +145,20 @@ class NumericGuard:
         return None if flags is None else flags.cpu().numpy()
 
     def record(self, round_index: int, action: str, **extra) -> None:
-        """Log and keep a record of what the policy did about a detection."""
+        """Log, emit a ``guard_nonfinite`` telemetry event and keep a
+        record of what the policy did about a detection."""
         logger.warning(
             "[%s] non-finite round output at round %d -> %s",
             self.family, round_index, action,
         )
+        if self.telem is not None:
+            self.telem.emit(
+                "guard_nonfinite",
+                round=round_index,
+                policy=self.policy,
+                action=action,
+                **extra,
+            )
         self.events.append({"round": int(round_index), "policy": self.policy,
                             "action": action, **extra})
 

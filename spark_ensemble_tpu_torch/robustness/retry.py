@@ -5,8 +5,8 @@ A transient failure (a flaky filesystem, a device error raised as
 ``RuntimeError``) is recovered by re-running the same call: a retried
 round chunk re-launches the same kernels from the same carried state, so
 a retry never reaches a different code path.  Every retry logs its error
-text and is counted (:func:`retry_count`), so recovery is visible, never
-silent.
+text, is counted (:func:`retry_count`) and, with the fit's telemetry,
+emits a ``retry`` event, so recovery is visible, never silent.
 
 Jitter is a pure function of the operation name and the attempt number
 (crc32), not ``random.random()``: backoff schedules reproduce exactly
@@ -70,9 +70,11 @@ def reset_retry_log() -> None:
 
 
 def retry_call(fn: Callable, policy: Optional[RetryPolicy] = None,
-               op: str = "", sleep: Callable[[float], None] = time.sleep):
+               op: str = "", telem=None,
+               sleep: Callable[[float], None] = time.sleep):
     """Call ``fn()`` under ``policy`` and return its result; re-raise once
-    ``max_retries`` is spent."""
+    ``max_retries`` is spent.  Each retry emits a ``retry`` event
+    (operation, attempt, backoff delay, error type) on ``telem``."""
     policy = policy or RetryPolicy()
     attempt = 0
     while True:
@@ -90,4 +92,14 @@ def retry_call(fn: Callable, policy: Optional[RetryPolicy] = None,
                 op or "operation", type(e).__name__, attempt,
                 policy.max_retries, delay, e,
             )
+            if telem is not None:
+                telem.emit(
+                    "retry",
+                    op=op,
+                    attempt=attempt,
+                    max_retries=policy.max_retries,
+                    delay_s=round(delay, 6),
+                    error_type=type(e).__name__,
+                    error=str(e)[:500],
+                )
             sleep(delay)

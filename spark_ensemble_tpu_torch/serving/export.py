@@ -19,11 +19,10 @@ size per file, written to a temp dir and renamed into place), so an
 artifact written by either package loads in the other.
 
 The ``quality`` sidecar (fit-time bin thresholds and occupancy, the drift
-reference) is read and written back when an artifact carries one, as JAX
-artifacts of GBM models do; the port's models capture no ``drift_ref_``
-until its ``telemetry/quality.py`` exists (ROADMAP, Slice E).  The JAX
-package's ``model_packed`` telemetry event waits for the port's telemetry
-(Slice F).
+reference) rides along: ``pack`` writes it from the model's ``drift_ref_``
+(which every GBM fit of either package captures), ``take`` keeps it, and
+an artifact that carries one is read and written back.  ``pack`` emits a
+``model_packed`` telemetry event.
 """
 
 from __future__ import annotations
@@ -424,8 +423,13 @@ def fit_resume(packed, X, y, n_new_rounds, sample_weight=None) -> PackedModel:
 
 def pack(model) -> PackedModel:
     """Compact a fitted model into a :class:`PackedModel` on the model's
-    device (see the module docstring)."""
+    device (see the module docstring); emits a ``model_packed`` telemetry
+    event."""
     from spark_ensemble_tpu_torch.models.base import Model
+    from spark_ensemble_tpu_torch.telemetry.events import (
+        emit_event,
+        serving_stream_id,
+    )
 
     if not isinstance(model, Model):
         raise TypeError(
@@ -446,7 +450,16 @@ def pack(model) -> PackedModel:
             "rows": int(ref.get("rows", 0)),
         }
     device = model.device if model.device is not None else torch.device("cpu")
-    return PackedModel(node, arrays, device=device)
+    packed = PackedModel(node, arrays, device=device)
+    emit_event(
+        "model_packed",
+        fit_id=serving_stream_id("pack"),
+        family=packed.class_name,
+        arrays=len(arrays),
+        bytes=packed.nbytes,
+        num_features=packed.num_features,
+    )
+    return packed
 
 
 def load_packed(path: str, device="cuda") -> PackedModel:

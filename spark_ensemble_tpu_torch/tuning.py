@@ -24,8 +24,12 @@ with the JAX package's semantics:
   ``validation_metrics`` keep Spark's names.
 
 X moves to the device once, so every candidate reads the same tensor.
-``mesh=`` and ``telemetry_path`` raise until the port has distribution
-(ROADMAP queue 1, item 18) and telemetry (Slice F).
+Each scored candidate emits a ``tuning_candidate`` event (map, fold,
+metric, rounds, wall time, whether it was swept) to the tuner's
+``telemetry_path`` or the other sinks; a swept group's wall time is the
+sweep's, shared evenly.  ``profile_dir`` captures the whole search.
+``mesh=`` raises until the port has distribution (ROADMAP queue 1, item
+18).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import logging
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -48,6 +53,8 @@ from spark_ensemble_tpu_torch.models.base import (
     shared_fit_context,
 )
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
+from spark_ensemble_tpu_torch.telemetry.events import emit_event
+from spark_ensemble_tpu_torch.utils.instrumentation import instrumented_fit
 from spark_ensemble_tpu_torch.utils.random import PRNGKey, permutation
 
 logger = logging.getLogger(__name__)
@@ -139,7 +146,6 @@ class _TuningParams(Estimator):
     def _prepare(self, X, y, sample_weight, mesh, device):
         """Validate, and move the data to the device once -> ``(dev, X, y,
         w)``; ``y`` and ``w`` stay on the host for the fold masks."""
-        self._check_port_support()
         if mesh is not None:
             not_supported("mesh", mesh, "queue 1, item 18")
         dev = resolve_device(device)
@@ -158,6 +164,25 @@ class _TuningParams(Estimator):
         if self.share_binning:
             return shared_fit_context()
         return contextlib.nullcontext()
+
+    def _emit_candidate(self, mi, fi, metric, model, wall_s, megabatch):
+        """One scored candidate: a log line and a ``tuning_candidate``
+        event."""
+        logger.info(
+            "%s map %d fold %d: %.5f%s", type(self).__name__, mi, fi,
+            metric, " [megabatch]" if megabatch else "",
+        )
+        emit_event(
+            "tuning_candidate",
+            path=self.telemetry_path or None,
+            tuner=type(self).__name__,
+            map_index=int(mi),
+            fold=int(fi),
+            metric=float(metric),
+            rounds=int(getattr(model, "num_members", 0) or 0),
+            wall_s=float(wall_s),
+            megabatch=bool(megabatch),
+        )
 
     def _candidate_metrics(self, X, y, w, maps, eval_masks, evaluator, k,
                            dev) -> np.ndarray:
@@ -214,23 +239,29 @@ class _TuningParams(Estimator):
         for items in groups.values():
             from spark_ensemble_tpu_torch.models.gbm_sweep import fit_sweep
 
+            t0 = time.perf_counter()
             models = fit_sweep(
                 [est for _, est in items], X, y,
                 sample_weights=[train_w(cand[3]) for cand, _ in items],
-                num_classes=k, device=dev,
+                num_classes=k, telemetry_path=self.telemetry_path or None,
+                device=dev,
             )
+            # per-candidate wall is the sweep's amortized over the group;
+            # per-round attribution is in the sweep_chunk events
+            per_wall = (time.perf_counter() - t0) / max(1, len(items))
             for (cand, _), model in zip(items, models):
                 mi, fi, _, eval_mask = cand
                 metrics[mi, fi] = score(model, eval_mask)
-                logger.info("%s map %d fold %d: %.5f [megabatch]",
-                            type(self).__name__, mi, fi, metrics[mi, fi])
+                self._emit_candidate(mi, fi, metrics[mi, fi], model, per_wall,
+                                     True)
 
         for mi, fi, pmap, eval_mask in seq:
+            t0 = time.perf_counter()
             model = _fit(self.estimator.copy(**pmap), X, y, train_w(eval_mask),
                          k, dev)
             metrics[mi, fi] = score(model, eval_mask)
-            logger.info("%s map %d fold %d: %.5f", type(self).__name__, mi, fi,
-                        metrics[mi, fi])
+            self._emit_candidate(mi, fi, metrics[mi, fi], model,
+                                 time.perf_counter() - t0, False)
         return metrics
 
     def _best(self, metrics) -> int:
@@ -243,6 +274,7 @@ class CrossValidator(_TuningParams):
 
     num_folds = Param(3, gt_eq(2), doc="cross-validation folds")
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, mesh=None,
             device="cuda") -> "CrossValidatorModel":
         dev, X, y, w = self._prepare(X, y, sample_weight, mesh, device)
@@ -301,6 +333,7 @@ class TrainValidationSplit(_TuningParams):
         doc="fraction of rows in the training split",
     )
 
+    @instrumented_fit
     def fit(self, X, y, sample_weight=None, mesh=None,
             device="cuda") -> "TrainValidationSplitModel":
         dev, X, y, w = self._prepare(X, y, sample_weight, mesh, device)

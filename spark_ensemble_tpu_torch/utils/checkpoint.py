@@ -21,7 +21,10 @@ stream, records a CUDA event, and hands the buffers to a writer thread
 that waits on that event before it reads them.  The round loop goes on
 launching while the copy and the write land, and the writer thread
 touches no CUDA tensor.  CPU tensors are cloned at ``save``, so a later
-in-place update of the carry cannot reach a pending write.
+in-place update of the carry cannot reach a pending write.  Each write is a
+``checkpoint_save`` span of the fit's trace, begun on the writer thread and
+parented to the fit's root span through the trace context captured on the
+fit thread.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_ensemble_tpu_torch.telemetry.trace import NULL_SPAN
 from spark_ensemble_tpu_torch.utils.persist import (
     _class_registry,
     _decode,
@@ -111,6 +115,7 @@ class TrainingCheckpointer:
         async_save: bool = True,
         retry_policy=None,
         device=None,
+        telem=None,
     ):
         self.directory = directory
         self.interval = max(int(interval), 1)
@@ -118,6 +123,8 @@ class TrainingCheckpointer:
         self.async_save = bool(async_save)
         self.retry_policy = retry_policy
         self.device = device
+        # the fit's FitTelemetry: checkpoint_save spans and retry events
+        self.telem = telem
         # set by load_latest: {"round", "source", "fallback"} describing
         # which on-disk copy a resume actually came from
         self.last_load_detail: Optional[Dict[str, Any]] = None
@@ -177,6 +184,10 @@ class TrainingCheckpointer:
                 event.synchronize()
             self._save_sync(round_idx, host)
             return
+        # the trace context is captured ON THE FIT THREAD: the writer
+        # thread parents its checkpoint_save span to this fit's root span
+        # through the two propagated ids (telemetry/trace.py)
+        ctx = None if self.telem is None else self.telem.trace_context()
         if self._executor is None:
             from concurrent.futures import ThreadPoolExecutor
 
@@ -184,29 +195,39 @@ class TrainingCheckpointer:
                 max_workers=1, thread_name_prefix="ckpt-writer"
             )
         self._pending = self._executor.submit(
-            self._save_after, event, round_idx, host
+            self._save_after, event, round_idx, host, ctx
         )
 
-    def _save_after(self, event, round_idx: int, state) -> None:
+    def _save_after(self, event, round_idx: int, state, parent) -> None:
         if event is not None:
             event.synchronize()  # the device-to-host copies have landed
-        self._save_sync(round_idx, state)
+        self._save_sync(round_idx, state, parent)
 
-    def _save_sync(self, round_idx: int, state: Dict[str, Any]) -> None:
+    def _save_sync(self, round_idx: int, state: Dict[str, Any],
+                   parent=None) -> None:
         from spark_ensemble_tpu_torch.robustness.chaos import controller
         from spark_ensemble_tpu_torch.robustness.retry import retry_call
 
-        retry_call(
-            lambda: self._write(round_idx, state),
-            policy=self.retry_policy,
-            op="checkpoint.save",
+        sp = NULL_SPAN if self.telem is None else self.telem.begin_span(
+            "checkpoint_save", parent=parent,
+            thread="ckpt-writer" if parent is not None else None,
+            round=round_idx,
         )
-        # chaos: a crash mid-write after the swap, the torn state that
-        # load_latest's manifest check must recover from
-        controller().corrupt_checkpoint(
-            f"ckpt:{self.directory}:{round_idx}",
-            os.path.join(self.directory, "latest", "state.json"),
-        )
+        try:
+            retry_call(
+                lambda: self._write(round_idx, state),
+                policy=self.retry_policy,
+                op="checkpoint.save",
+                telem=self.telem,
+            )
+            # chaos: a crash mid-write after the swap, the torn state that
+            # load_latest's manifest check must recover from
+            controller().corrupt_checkpoint(
+                f"ckpt:{self.directory}:{round_idx}",
+                os.path.join(self.directory, "latest", "state.json"),
+            )
+        finally:
+            sp.end()
 
     def _write(self, round_idx: int, state: Dict[str, Any]) -> None:
         os.makedirs(self.directory, exist_ok=True)

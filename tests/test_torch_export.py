@@ -254,13 +254,20 @@ def test_jax_artifact_loads_in_the_port(tmp_path, data, family):
 @pytest.mark.parametrize("family", sorted(_families(st)))
 def test_port_artifact_loads_in_the_jax_package(tmp_path, data, family):
     """A port artifact loads in the JAX package: same class, split tables
-    as written, outputs within 1e-5."""
+    as written, outputs within 1e-5, and the GBM models' quality sidecar
+    (every port GBM fit captures ``drift_ref_``) as written."""
     X, yr, _ = data
     tm, kind = _fit(family, data)
     path = str(tmp_path / family)
     pack(tm).save(path)
     jp = jexport.load_packed(path)
-    assert jp.class_name == type(tm).__name__ and jp.quality is None
+    assert jp.class_name == type(tm).__name__
+    assert (jp.quality is None) == (family not in ("gbm_r", "gbm_c"))
+    if jp.quality is not None:
+        for a, b in zip(_quality(pack(tm)), (jp.quality["thresholds"],
+                                             jp.quality["occupancy"],
+                                             jp.quality["rows"])):
+            np.testing.assert_array_equal(a, b)
     scale = np.abs(yr).max() if kind == "r" else 1.0
     np.testing.assert_allclose(_outputs(jp, X, kind), _outputs(tm, X, kind),
                                rtol=0, atol=1e-5 * scale)

@@ -9,6 +9,7 @@ its Pallas tiers in interpret mode, so every hist tier is set explicitly on
 both sides (on the CPU 'auto' means scatter)."""
 
 import ast
+import json
 from pathlib import Path
 
 import numpy as np
@@ -175,18 +176,27 @@ def test_params_have_the_reference_names_and_defaults(jcls, tcls):
      dict(on_nonfinite="skip_round"), dict(on_nonfinite="stop_early")],
 )
 def test_unsupported_params_raise(params, tmp_path):
-    """Telemetry and profiling still raise; the recovery policies and
-    checkpoints, which raised before the round runtime was ported, fit."""
+    """Params that raised before their plane was ported now fit: the
+    recovery policies and checkpoints (the round runtime), and telemetry
+    and profiling, which stream the fit's events and capture a trace."""
     X, y = _cls_data(n=64)
-    if "profile_dir" in params or "telemetry_path" in params:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            st.GBMClassifier(num_base_learners=1, **params).fit(X, y, device="cpu")
-        return
-    if "checkpoint_dir" in params:
-        params = dict(checkpoint_dir=str(tmp_path / "ckpt"))
+    for key in ("checkpoint_dir", "profile_dir", "telemetry_path"):
+        if key in params:
+            params = {key: str(tmp_path / params[key])}
     model = st.GBMClassifier(num_base_learners=1, **params).fit(X, y, device="cpu")
     assert model.num_members == 1
     assert torch.isfinite(model.predict_proba(X)).all()
+    if "telemetry_path" in params:
+        with open(params["telemetry_path"]) as f:
+            events = [json.loads(line) for line in f]
+        assert [e["event"] for e in events if e["event"] != "span"] == [
+            "fit_start", "round_start", "round_end", "fit_end"]
+        assert list(model.fit_history_["round"]) == [0]
+    if "profile_dir" in params:
+        from spark_ensemble_tpu_torch.utils.profiling import summarize_trace
+
+        rows, total = summarize_trace(params["profile_dir"], device_only=False)
+        assert rows and total > 0
 
 
 @pytest.mark.parametrize(

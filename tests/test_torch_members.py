@@ -13,6 +13,8 @@ iterate; measured 6.7e-5).  The gaps measured on these fixtures were
 1e-8..5e-6.
 """
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -185,6 +187,10 @@ def test_member_slices_and_unported_planes(tmp_path):
     with pytest.raises(NotImplementedError, match="item 18"):
         st.BaggingClassifier(base_learner=st.GaussianNaiveBayes()).fit(
             X, y, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        st.GBMClassifier(base_learner=st.LinearRegression(),
-                         telemetry_path="t.jsonl").fit(X, y, device="cpu")
+    # telemetry raised before the port had it; the fit streams now
+    path = str(tmp_path / "t.jsonl")
+    gbm = st.GBMClassifier(base_learner=st.LinearRegression(), num_base_learners=2,
+                           telemetry_path=path).fit(X, y, device="cpu")
+    with open(path) as f:
+        ends = [json.loads(line) for line in f if '"round_end"' in line]
+    assert [e["round"] for e in ends] == list(gbm.fit_history_["round"]) == [0, 1]

@@ -56,6 +56,14 @@ def test_every_port_module_imports_with_jax_blocked():
     assert report["failed"] == []
     expected = {"spark_ensemble_tpu_torch.data.streaming",
                 "spark_ensemble_tpu_torch.serving.export",
+                "spark_ensemble_tpu_torch.serving.engine",
+                "spark_ensemble_tpu_torch.telemetry.events",
+                "spark_ensemble_tpu_torch.telemetry.flight",
+                "spark_ensemble_tpu_torch.telemetry.quality",
+                "spark_ensemble_tpu_torch.telemetry.registry",
+                "spark_ensemble_tpu_torch.telemetry.trace",
+                "spark_ensemble_tpu_torch.utils.instrumentation",
+                "spark_ensemble_tpu_torch.utils.profiling",
                 "spark_ensemble_tpu_torch.autotune.resolve", "chip_smoke"}
     assert expected <= set(report["names"])
 

@@ -19,6 +19,8 @@ Tolerances:
   the packages may pick different points of equal loss (ROADMAP queue 3).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -304,12 +306,18 @@ def test_fit_streaming_input_validation(tmp_path):
                                                    leaf_model="linear"), y),
         (ValueError, "DecisionTreeRegressor",
          st.GBMRegressor(base_learner=st.LinearRegression()), y),
-        (NotImplementedError, "telemetry_path",
-         st.GBMRegressor(base_learner=_base(), telemetry_path="t.jsonl"), y),
     ]
     for exc, match, est, labels in cases:
         with pytest.raises(exc, match=match):
             est.fit_streaming(store, labels, device="cpu")
+    # telemetry_path raised before the port had telemetry; it streams now
+    path = str(tmp_path / "t.jsonl")
+    st.GBMRegressor(base_learner=_base(), num_base_learners=1,
+                    telemetry_path=path).fit_streaming(store, y, device="cpu")
+    with open(path) as f:
+        kinds = [json.loads(line)["event"] for line in f]
+    assert kinds[:2] == ["fit_start", "streaming_config"] and kinds[-1] == "fit_end"
+    assert "shard_load" in kinds and "shard_wait_us" in kinds
     for est in (st.GBMRegressor(base_learner=_base()), st.GBMClassifier(base_learner=_base())):
         with pytest.raises(NotImplementedError, match="item 18"):
             est.fit_streaming(store, _cls_labels(X), mesh=object(), device="cpu")

@@ -15,6 +15,8 @@ tuning.py`` and ``utils/random.py::permutation`` vs the JAX package's).
   fail there).
 """
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -165,13 +167,19 @@ def test_config_keys_and_tuner_params_match_the_reference():
             == se.ParamGridBuilder().add_grid("a", [1, 2]).base_on({"b": 3}).build())
 
 
-def test_unported_planes_and_missing_cuda_raise(monkeypatch):
+def test_unported_planes_and_missing_cuda_raise(monkeypatch, tmp_path):
     X, y, _, _ = _data(n=60)
     kw = dict(estimator=st.LinearRegression(), evaluator=st.RegressionEvaluator())
     with pytest.raises(NotImplementedError, match="item 18"):
         st.CrossValidator(**kw).fit(X, y, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        st.TrainValidationSplit(telemetry_path="t.jsonl", **kw).fit(X, y, device="cpu")
+    # telemetry_path raised before the port had telemetry; each scored
+    # candidate streams a tuning_candidate event now
+    path = str(tmp_path / "t.jsonl")
+    st.TrainValidationSplit(telemetry_path=path, **kw).fit(X, y, device="cpu")
+    with open(path) as f:
+        cands = [json.loads(line) for line in f]
+    assert [c["event"] for c in cands] == ["tuning_candidate"]
+    assert cands[0]["tuner"] == "TrainValidationSplit" and not cands[0]["megabatch"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         st.CrossValidator(**kw).fit(X, y)
