@@ -45,6 +45,11 @@ default) or on the CPU (``device="cpu"``):
   package's artifact, either way) and ``serving.fit_resume``;
 - the serving engine ``InferenceEngine`` (one CUDA graph per bucket,
   micro-batching, prefix tiers, on-device drift sketches);
+- the closed serving loop: ``ModelRegistry`` (LRU eviction of device
+  memory, pin-until-reply leases), ``FleetRouter`` (replicated engines,
+  breakers, hedging, prefix degradation, torn-free swaps, elastic width),
+  ``Watchdog``, ``ShadowScorer`` and ``Autopilot`` (scaling, warm-start
+  refresh fits, rollback);
 - telemetry: ``telemetry_path`` / ``SE_TPU_TELEMETRY`` / ``record_fits``
   event streams in the JAX package's schema, ``fit_history_``, trace
   spans, the metrics registry, ``DriftMonitor``, and ``profile_dir``
@@ -78,7 +83,11 @@ from spark_ensemble_tpu_torch.convert import (
     stacking_regressor_from_models,
     standard_scaler_from_arrays,
 )
-from spark_ensemble_tpu_torch.execution import RoundExecutor
+from spark_ensemble_tpu_torch.execution import (
+    RoundExecutor,
+    device_patience_enabled,
+    resolve_pipeline_depth,
+)
 from spark_ensemble_tpu_torch.evaluation import (
     BinaryClassificationEvaluator,
     MulticlassClassificationEvaluator,
@@ -164,18 +173,37 @@ from spark_ensemble_tpu_torch.data import (
     DEFAULT_PREFETCH_DEPTH,
     DEFAULT_SHARD_ROWS,
     SHARD_FORMAT,
+    PartitionedShardReader,
     ShardLoadError,
+    ShardPartition,
     ShardPrefetcher,
     ShardStore,
+    manifest_digest,
+    partition_shards,
     write_shards,
 )
-from spark_ensemble_tpu_torch.robustness.guards import NonFiniteError
-from spark_ensemble_tpu_torch.robustness.retry import RetryPolicy
+from spark_ensemble_tpu_torch.models.base import shared_fit_context
+from spark_ensemble_tpu_torch.robustness import (
+    ChaosController,
+    ChaosPreemption,
+    ChaosTransientError,
+    NonFiniteError,
+    NumericGuard,
+    RetryPolicy,
+    retry_call,
+    validate_fit_inputs,
+)
 from spark_ensemble_tpu_torch import telemetry
 from spark_ensemble_tpu_torch.serving import (
     PACKED_FORMAT_VERSION,
+    Autopilot,
+    FleetOverloadError,
+    FleetResponse,
+    FleetRouter,
     InferenceEngine,
+    ModelRegistry,
     PackedModel,
+    fit_resume,
     load_packed,
     pack,
 )
@@ -184,13 +212,16 @@ from spark_ensemble_tpu_torch.telemetry import (
     FitTelemetry,
     FlightRecorder,
     MetricsRegistry,
+    ShadowScorer,
     Span,
     TelemetryRecorder,
     TraceContext,
     Tracer,
+    Watchdog,
     dump_flight,
     record_fits,
     staged_attribution,
+    trace_annotations_enabled,
 )
 from spark_ensemble_tpu_torch.utils.checkpoint import TrainingCheckpointer
 from spark_ensemble_tpu_torch.utils.features import FeatureMetadata
@@ -201,6 +232,7 @@ from spark_ensemble_tpu_torch.utils.quantile import (
 )
 
 __all__ = [
+    "Autopilot",
     "BaggingClassificationModel",
     "BaggingClassifier",
     "BaggingRegressionModel",
@@ -210,6 +242,9 @@ __all__ = [
     "BoostingClassifier",
     "BoostingRegressionModel",
     "BoostingRegressor",
+    "ChaosController",
+    "ChaosPreemption",
+    "ChaosTransientError",
     "CrossValidator",
     "CrossValidatorModel",
     "DEFAULT_PREFETCH_DEPTH",
@@ -218,13 +253,16 @@ __all__ = [
     "DecisionTreeClassifier",
     "DecisionTreeRegressionModel",
     "DecisionTreeRegressor",
+    "DriftMonitor",
     "DummyClassificationModel",
     "DummyClassifier",
     "DummyRegressionModel",
     "DummyRegressor",
-    "DriftMonitor",
     "FeatureMetadata",
     "FitTelemetry",
+    "FleetOverloadError",
+    "FleetResponse",
+    "FleetRouter",
     "FlightRecorder",
     "GBMClassificationModel",
     "GBMClassifier",
@@ -243,21 +281,26 @@ __all__ = [
     "MLPClassifier",
     "MLPRegressionModel",
     "MLPRegressor",
-    "MinMaxScaler",
     "MetricsRegistry",
+    "MinMaxScaler",
     "MinMaxScalerModel",
+    "ModelRegistry",
     "MulticlassClassificationEvaluator",
     "NonFiniteError",
+    "NumericGuard",
     "PACKED_FORMAT_VERSION",
     "PackedModel",
     "ParamGridBuilder",
+    "PartitionedShardReader",
     "Pipeline",
     "PipelineModel",
     "RegressionEvaluator",
     "RetryPolicy",
     "RoundExecutor",
     "SHARD_FORMAT",
+    "ShadowScorer",
     "ShardLoadError",
+    "ShardPartition",
     "ShardPrefetcher",
     "ShardStore",
     "Span",
@@ -273,12 +316,15 @@ __all__ = [
     "TrainValidationSplit",
     "TrainValidationSplitModel",
     "TrainingCheckpointer",
+    "Watchdog",
     "bagging_classifier_from_arrays",
     "bagging_regressor_from_arrays",
     "boosting_classifier_from_arrays",
     "boosting_regressor_from_arrays",
     "decision_tree_classifier_from_arrays",
+    "device_patience_enabled",
     "dump_flight",
+    "fit_resume",
     "fit_sweep",
     "gaussian_nb_from_arrays",
     "gbm_classifier_from_arrays",
@@ -288,13 +334,18 @@ __all__ = [
     "load",
     "load_packed",
     "logistic_regression_from_arrays",
+    "manifest_digest",
     "min_max_scaler_from_arrays",
     "mlp_classifier_from_arrays",
     "mlp_regressor_from_arrays",
     "pack",
+    "partition_shards",
     "pipeline_from_models",
     "record_fits",
+    "resolve_pipeline_depth",
+    "retry_call",
     "save",
+    "shared_fit_context",
     "stacking_classifier_from_models",
     "stacking_regressor_from_models",
     "staged_attribution",
@@ -302,6 +353,8 @@ __all__ = [
     "sweep_group_key",
     "sweep_unsupported_reason",
     "telemetry",
+    "trace_annotations_enabled",
+    "validate_fit_inputs",
     "weighted_median",
     "weighted_quantile",
     "write_shards",

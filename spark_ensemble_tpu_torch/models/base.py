@@ -313,6 +313,14 @@ class Model(Params):
             masks[i].detach().cpu().numpy().astype(bool)
         ).names
 
+    def pack(self):
+        """This model compacted for serving: a :class:`~spark_ensemble_tpu_torch.
+        serving.export.PackedModel` (``serving/export.py::pack``) on the
+        model's device, with bit-identical predictions."""
+        from spark_ensemble_tpu_torch.serving.export import pack
+
+        return pack(self)
+
     def _persisted_params(self):
         """The learned params a save writes: all of them, unless a model
         keeps a diagnostic the JAX package's format has no key for."""
@@ -446,11 +454,19 @@ class CheckpointableParams(Params):
 
     def _set_warm_resume(self, last_round, st):
         self._warm_resume_state = (int(last_round), dict(st))
+        # marks this estimator as a refresh fit: the round loops expose the
+        # chaos ``refresh_crash`` sites only then, so a foreground fit can
+        # never trip a refresh-targeted fault
+        self._refresh_active = True
 
     def _take_warm_resume(self):
         state = getattr(self, "_warm_resume_state", None)
         self._warm_resume_state = None
         return state
+
+    @property
+    def _is_refresh_fit(self):
+        return bool(getattr(self, "_refresh_active", False))
 
     def _load_resume(self, ckpt, telem):
         """The state a fit resumes from, or None: the newest loadable

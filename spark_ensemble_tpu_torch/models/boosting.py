@@ -338,6 +338,10 @@ class _BoostingParams(CheckpointableParams, Estimator):
                 })
             if not stop:
                 ctl.preempt(f"{label}:after_round:{i}")
+                if self._is_refresh_fit:
+                    # refresh-only kill site: a warm-start refresh fit dies
+                    # mid-fit, and the served model must stay untouched
+                    ctl.refresh_crash(f"{label}:refresh_round:{i}")
             return i, bw, stop, rewound
 
         drv = self

@@ -458,6 +458,7 @@ class _GBMParams(CheckpointableParams):
         chunk = int(self.scan_chunk)
         retry_policy = self._retry_policy()
         ctl = controller()
+        refresh_fit = self._is_refresh_fit
         guard_on = guard.active
         depth = _execution.resolve_pipeline_depth()
         dp_on = _execution.device_patience_enabled()
@@ -664,6 +665,10 @@ class _GBMParams(CheckpointableParams):
                 # periodic save, so kill-and-resume runs cross a real
                 # checkpoint boundary
                 ctl.preempt(f"{label}:after_round:{self.i}")
+                if refresh_fit:
+                    # refresh-only kill site: a warm-start refresh fit dies
+                    # mid-fit, and the served model must stay untouched
+                    ctl.refresh_crash(f"{label}:refresh_round:{self.i}")
                 return invalidate
 
             def reset_frontier(self):
@@ -987,11 +992,22 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
 
 def _weighted_round_sum(weights, preds):
     """``sum_m weights[m, ...] * preds[m, ..., n]`` over the round axis:
-    each product rounded, then summed in round order by one reduction
-    over the leading axis, so a row's sum does not depend on how many rows
-    share the call (a matmul's blocking does).  The serving engine relies
-    on that: a request padded into a bucket predicts as it does alone."""
-    return torch.sum(weights[..., None] * preds, dim=0)
+    each product rounded, then summed by a fixed pairwise tree of
+    elementwise adds (round m with round m + half, level by level).  Every
+    element takes the same adds in the same order whatever the trailing
+    shape, so a row's sum does not depend on how many rows share the call:
+    neither a matmul's blocking nor a reduction kernel's split of the
+    round axis (CUDA's sum over the rounds reorders when one row is left)
+    can move its bits.  The serving engine relies on that: a request
+    padded into a bucket predicts as it does alone."""
+    terms = weights[..., None] * preds
+    r = terms.shape[0]
+    while r > 1:
+        half = r // 2
+        paired = terms[:half] + terms[half:2 * half]
+        terms = torch.cat((paired, terms[2 * half:r])) if r % 2 else paired
+        r = terms.shape[0]
+    return terms[0]
 
 
 def _scaled_step(weight, step_scale):

@@ -147,6 +147,14 @@ class Params:
             (name, enc(getattr(self, name))) for name in self._param_names()
         )
 
+    def params_to_json_dict(self) -> Dict[str, Any]:
+        """The JSON params of this instance (``utils/persist.py::
+        params_to_json_dict``): estimator-valued params left out, JSON
+        containers kept, anything else dropped."""
+        from spark_ensemble_tpu_torch.utils.persist import params_to_json_dict
+
+        return params_to_json_dict(self)
+
     def __repr__(self):
         parts = ", ".join(
             f"{k}={v!r}"

@@ -9,12 +9,15 @@ validation and the deterministic chaos harness.
   launches, member fits and checkpoint I/O;
 - ``validate``: NaN/Inf input validation at ``fit()`` entry;
 - ``chaos``: the fault injector (``SE_TPU_CHAOS``) for NaN gradients,
-  preemption, transient errors and checkpoint corruption.
+  preemption, transient errors, checkpoint corruption, and the serving
+  fleet's replica, swap, scale and refresh faults.
 """
 
 from spark_ensemble_tpu_torch.robustness.chaos import (
     ChaosController,
+    ChaosHostPreemption,
     ChaosPreemption,
+    ChaosReplicaCrash,
     ChaosTransientError,
 )
 from spark_ensemble_tpu_torch.robustness.guards import (
@@ -27,7 +30,9 @@ from spark_ensemble_tpu_torch.robustness.validate import validate_fit_inputs
 
 __all__ = [
     "ChaosController",
+    "ChaosHostPreemption",
     "ChaosPreemption",
+    "ChaosReplicaCrash",
     "ChaosTransientError",
     "NONFINITE_POLICIES",
     "NonFiniteError",

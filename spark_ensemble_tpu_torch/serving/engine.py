@@ -8,8 +8,8 @@ size would allocate anew.  :class:`InferenceEngine` fixes both:
 
 - **Shape buckets**: requests are zero-padded into a fixed set of
   power-of-two row buckets.  For every (method, bucket, tier) the engine
-  captures one CUDA graph at warmup (warm-up runs on a side stream, then
-  ``torch.cuda.graph``), over a static padded input ``[bucket, d]`` into
+  captures one CUDA graph at warmup (warm-up runs, then
+  ``torch.cuda.graph``, on the process's capture stream), over a static padded input ``[bucket, d]`` into
   which each request is copied and zero-padded on the host; a request is
   then one graph replay.  Steady-state serving captures nothing:
   ``stats()["compiles_since_warmup"]`` (graph captures and kernel builds,
@@ -27,6 +27,12 @@ A captured graph writes one static output, so a replay is not reentrant
 the way a JAX executable is: each graph replays under its own lock, and
 its output is copied to the host before the lock is released.
 ``clone()`` replicas share the graphs (warm once) and their locks.
+Captures are serialized process-wide, run on one stream per device
+(:func:`capture_stream`) and in the ``"thread_local"`` error mode, so an
+engine can warm while other engines serve and a fit runs on another
+stream (:func:`side_stream`) of the same card (the registry warms
+refreshed models under live fleet traffic); :meth:`release` drops the
+graphs and frees their memory.
 
 On ``device="cpu"`` the engine runs the same padded-bucket path eagerly,
 with no graph: that path exists for the tests.
@@ -74,6 +80,46 @@ _SHUTDOWN = object()
 #: the lazy initialization some kernels do on first use)
 _CAPTURE_WARMUP_RUNS = 2
 
+#: one capture at a time in the process.  Captures run in the
+#: "thread_local" error mode, so other threads may replay graphs, copy
+#: results to the host, allocate and launch (a refresh fit) meanwhile; but
+#: ``torch.cuda.graph`` synchronizes the device before it begins, which
+#: must never land inside another thread's capture.
+_CAPTURE_LOCK = threading.Lock()
+
+#: the one stream per device that captures (and their warm-up runs) go on
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream every graph capture on ``device`` runs on, made once per
+    process from PyTorch's high-priority stream pool.  A capture takes in
+    whatever any thread queues on its stream, so work that runs beside
+    captures (a refresh fit) must go on another stream:
+    :func:`side_stream` makes one."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with _STREAMS_LOCK:
+        stream = _CAPTURE_STREAMS.get(index)
+        if stream is None:
+            stream = torch.cuda.Stream(device=device, priority=-1)
+            _CAPTURE_STREAMS[index] = stream
+        return stream
+
+
+def side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """A stream of PyTorch's default-priority pool on ``device`` that is
+    never :func:`capture_stream`'s.  The two pools are disjoint on a card
+    with stream priorities; where the pools coincide, the pool hands its
+    streams out round robin, so the next draw is another stream."""
+    avoid = capture_stream(device).cuda_stream
+    for _ in range(2):
+        stream = torch.cuda.Stream(device=device)
+        if stream.cuda_stream != avoid:
+            return stream
+    raise RuntimeError("the CUDA stream pool gave the capture stream twice running")
+
 
 def _pow2_buckets(min_bucket: int, max_bucket: int) -> Tuple[int, ...]:
     out = []
@@ -99,15 +145,20 @@ class _Program:
         self.graph = None
         self.out = None
         if device.type == "cuda":
-            side = torch.cuda.Stream(device=device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                for _ in range(_CAPTURE_WARMUP_RUNS):
-                    fn(self.x)
-            torch.cuda.current_stream(device).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.out = fn(self.x)
+            with _CAPTURE_LOCK:
+                side = capture_stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    for _ in range(_CAPTURE_WARMUP_RUNS):
+                        fn(self.x)
+                torch.cuda.current_stream(device).wait_stream(side)
+                self.graph = torch.cuda.CUDAGraph()
+                # only this thread is held to the capture's rules: fleet
+                # workers replaying other graphs and a refresh fit on a
+                # stream of its own (side_stream) go on while this graph
+                # captures
+                with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                    self.out = fn(self.x)
 
     def run(self, Xp: np.ndarray) -> Tuple[np.ndarray, ...]:
         with self.lock:
@@ -422,6 +473,11 @@ class InferenceEngine:
         return np.concatenate(outs, axis=0), self._max_batch
 
     def _check_method(self, method: str, tier: int = 0):
+        if not self._models:
+            raise RuntimeError(
+                f"engine {self._label!r} was released (evicted or removed "
+                "from its registry); build a new engine to serve again"
+            )
         if method not in self._methods:
             raise ValueError(
                 f"engine was not configured to serve {method!r} "
@@ -580,6 +636,18 @@ class InferenceEngine:
             self._queue.put(_SHUTDOWN)
             if worker is not threading.current_thread():
                 worker.join(timeout=5.0)
+
+    def release(self) -> None:
+        """Stop this engine, then drop the captured graphs (and with them
+        their private memory pools), the static buffers and the live
+        models over the packed tensors, which this engine and every clone
+        of it share: their device memory frees at once.  The registry's
+        eviction and removal call it.  Serving afterwards raises."""
+        self.stop()
+        with self._lock:
+            self._compiled.clear()
+            self._compile_s.clear()
+            self._models.clear()
 
     def __enter__(self) -> "InferenceEngine":
         return self

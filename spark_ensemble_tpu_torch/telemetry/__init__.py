@@ -8,9 +8,12 @@ to a JSONL sink when the estimator's ``telemetry_path`` is set or
 :func:`record_fits`; every ensemble fit attaches ``fit_history_``.  The
 streams carry the JAX package's events and keys, so
 ``tools/telemetry_report.py`` and ``tools/trace_viewer.py`` read them.
-The JAX package's operator plane (``programz``, ``exporter``,
-``watchdog``, ``podview``) and ``ShadowScorer`` are not ported yet
-(ROADMAP, Slice E and F).
+The online :class:`Watchdog` (``watchdog.py``) applies the perf
+sentinel's thresholds to the live registry and drives ``slo_alert``
+events and the verdict the autopilot acts on; :class:`ShadowScorer`
+(``quality.py``) scores a registry candidate on sampled live traffic.
+The rest of the JAX package's operator plane (``programz``,
+``exporter``, ``podview``) is not ported yet (ROADMAP, Slice F).
 """
 
 from spark_ensemble_tpu_torch.telemetry.events import (
@@ -36,6 +39,7 @@ from spark_ensemble_tpu_torch.telemetry.flight import (
 )
 from spark_ensemble_tpu_torch.telemetry.quality import (
     DriftMonitor,
+    ShadowScorer,
     coarsen_counts,
     drift_reference_from_ctx,
     histogram_distribution,
@@ -61,9 +65,21 @@ from spark_ensemble_tpu_torch.telemetry.trace import (
     new_flow_id,
     new_span_id,
     new_trace_id,
+    trace_annotations_enabled,
+)
+from spark_ensemble_tpu_torch.telemetry.watchdog import (
+    FALLBACK_THRESHOLDS,
+    Rule,
+    Watchdog,
+    default_rules,
+    probe_fleet_max,
+    probe_gauge,
+    probe_quality_max,
+    sentinel_thresholds,
 )
 
 __all__ = [
+    "FALLBACK_THRESHOLDS",
     "PHASES_ENV",
     "TELEMETRY_ENV",
     "TRACE_ANNOTATIONS_ENV",
@@ -76,15 +92,19 @@ __all__ = [
     "NULL_SPAN",
     "NULL_TRACER",
     "RoundTimer",
+    "Rule",
+    "ShadowScorer",
     "Span",
     "StreamingHistogram",
     "TelemetryRecorder",
     "TraceContext",
     "Tracer",
+    "Watchdog",
     "abort_active_fits",
     "active_fit_depth",
     "coarsen_counts",
     "compile_snapshot",
+    "default_rules",
     "device_memory_stats",
     "drift_reference_from_ctx",
     "dump_flight",
@@ -98,9 +118,14 @@ __all__ = [
     "new_trace_id",
     "note_compile",
     "prediction_divergence",
+    "probe_fleet_max",
+    "probe_gauge",
+    "probe_quality_max",
     "psi",
     "record_fits",
+    "sentinel_thresholds",
     "serving_stream_id",
     "staged_attribution",
     "telemetry_sink_active",
+    "trace_annotations_enabled",
 ]

@@ -1,5 +1,6 @@
-"""Model-quality observability plane: on-device drift sketches and staged
-attribution (PyTorch port of ``telemetry/quality.py``; docs/quality.md).
+"""Model-quality observability plane: on-device drift sketches, staged
+attribution and shadow scoring (PyTorch port of ``telemetry/quality.py``;
+docs/quality.md).
 
 - **Feature-drift sketches** — the training-time quantile bins double as
   reference feature distributions: every GBM fit captures ``drift_ref_``
@@ -15,12 +16,16 @@ attribution (PyTorch port of ``telemetry/quality.py``; docs/quality.md).
   request over the ensemble prefixes the engine pre-warmed
   (``PackedModel.take(k)`` tiers): per-stage margins against the full
   model and a per-member-disagreement uncertainty score.
+- **Shadow scoring** — :class:`ShadowScorer` leases a candidate model
+  from a ``ModelRegistry`` and scores a sampled fraction of live
+  traffic: prediction divergence immediately, label-delayed accuracy
+  deltas when ``record_label`` is called.
 
 Everything lands in the existing planes: ``drift_window`` /
-``quality_alert`` events through the JSONL sinks and ``quality/*``
-sources + gauges in ``global_metrics()``.  The JAX package's
-``ShadowScorer`` leases candidates from its serving registry and comes
-with the port's registry.
+``shadow_eval`` / ``quality_alert`` events through the JSONL sinks,
+``quality/*`` sources + gauges in ``global_metrics()``, and the
+watchdog's ``quality_psi_max`` / ``shadow_divergence`` rules
+(``telemetry/watchdog.py``).
 
 The sketch math here is host-side numpy over already-materialized
 integer counts, the same float32 arithmetic as the JAX package's, so
@@ -43,6 +48,7 @@ __all__ = [
     "prediction_divergence",
     "drift_reference_from_ctx",
     "DriftMonitor",
+    "ShadowScorer",
     "staged_attribution",
 ]
 
@@ -422,3 +428,235 @@ def staged_attribution(
         "uncertainty": uncertainty,
         "flagged": uncertainty > float(uncertainty_threshold),
     }
+
+
+def _host_f32(x) -> np.ndarray:
+    """A host float32 array of ``x`` (numpy, a list, or a tensor on any
+    device)."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# ShadowScorer: registry-driven candidate evaluation on sampled traffic
+# ---------------------------------------------------------------------------
+
+
+class ShadowScorer:
+    """Score a candidate model against live primary traffic.
+
+    Every ``1/fraction``-th ``observe()`` call (deterministic counter —
+    no RNG, so CI runs are reproducible) leases the candidate engine
+    from the :class:`ModelRegistry` (pin-until-reply, so a hot-swap can
+    never free it mid-score), predicts the same rows, and records the
+    prediction divergence against the primary's served output.  When
+    ground truth arrives later, :meth:`record_label` joins it back by
+    request id and accumulates the label-delayed accuracy delta
+    (candidate minus primary; positive = candidate better).
+
+    Primary answers and labels may be numpy arrays or tensors on any
+    device (copied to the host).  Emits one ``shadow_eval`` event per
+    sampled request, keeps a rolling
+    divergence over the last ``window`` evals in the
+    ``quality/<stream>`` source + ``quality/shadow_divergence`` gauge
+    (the watchdog's ``shadow_divergence`` rule), and raise/clear
+    transitions across ``divergence_threshold`` emit ``quality_alert``
+    events."""
+
+    def __init__(
+        self,
+        registry,
+        candidate: str,
+        *,
+        fraction: float = 0.25,
+        method: str = "predict",
+        classification: Optional[bool] = None,
+        divergence_threshold: float = 0.25,
+        window: int = 64,
+        label_buffer: int = 1024,
+        stream: str = "shadow",
+        telemetry_path: Optional[str] = None,
+        metrics=None,
+    ):
+        from spark_ensemble_tpu_torch.telemetry.events import global_metrics
+
+        if not (0.0 < float(fraction) <= 1.0):
+            raise ValueError(f"fraction must be in (0, 1]; got {fraction}")
+        self._registry = registry
+        self._candidate = candidate
+        self._period = max(1, int(round(1.0 / float(fraction))))
+        self._method = method
+        self._classification = classification
+        self._threshold = float(divergence_threshold)
+        self._stream = stream
+        self._telemetry_path = telemetry_path
+        self._metrics = (
+            metrics if metrics is not None else global_metrics()
+        )
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._evals = 0
+        self._sampled_rows = 0
+        self._errors = 0
+        self._window: "collections.deque" = collections.deque(
+            maxlen=int(window)
+        )
+        self._pending: "collections.OrderedDict" = collections.OrderedDict()
+        self._label_buffer = int(label_buffer)
+        self._labeled_rows = 0
+        self._primary_score = 0.0
+        self._shadow_score = 0.0
+        self._alert_active = False
+        self._closed = False
+        self._source_name = f"quality/{stream}"
+        self._metrics.register_source(self._source_name, self.snapshot)
+
+    # -- live scoring ------------------------------------------------------
+
+    def observe(
+        self, X, primary, request_id: Optional[Any] = None
+    ) -> Optional[Dict[str, Any]]:
+        """Maybe shadow-score one served request: returns the eval record
+        for sampled requests, ``None`` for the rest.  The primary's
+        answer was already delivered to the caller — shadow scoring rides
+        AFTER the reply, off the request's critical path."""
+        with self._lock:
+            if self._closed:
+                return None
+            self._seq += 1
+            if (self._seq - 1) % self._period != 0:
+                return None
+        try:
+            with self._registry.lease(self._candidate) as eng:
+                classification = self._classification
+                if classification is None:
+                    classification = bool(
+                        eng.packed.is_classifier
+                        and self._method == "predict"
+                    )
+                shadow = eng.predict(X, method=self._method)
+        except Exception:  # noqa: BLE001 - a sick candidate never breaks serving
+            with self._lock:
+                self._errors += 1
+            return None
+        primary_f = _host_f32(primary)
+        shadow_f = _host_f32(shadow)
+        div = prediction_divergence(primary_f, shadow_f, classification)
+        rows = int(np.shape(primary_f)[0]) if primary_f.ndim else 1
+        with self._lock:
+            self._evals += 1
+            self._sampled_rows += rows
+            self._window.append(div)
+            rolling = float(np.mean(self._window))
+            evals = self._evals
+            if request_id is not None:
+                self._pending[request_id] = (
+                    primary_f, shadow_f, classification,
+                )
+                while len(self._pending) > self._label_buffer:
+                    self._pending.popitem(last=False)
+            was_active = self._alert_active
+            self._alert_active = rolling > self._threshold
+            transition = (
+                "raised" if self._alert_active and not was_active
+                else "cleared" if was_active and not self._alert_active
+                else None
+            )
+        self._metrics.gauge("quality/shadow_divergence").set(rolling)
+        self._metrics.counter("quality/shadow_evals").inc()
+        from spark_ensemble_tpu_torch.telemetry.events import emit_event
+
+        record = {
+            "candidate": self._candidate,
+            "rows": rows,
+            "divergence": div,
+            "rolling_divergence": rolling,
+            "evals": evals,
+        }
+        emit_event(
+            "shadow_eval",
+            path=self._telemetry_path,
+            fit_id=self._stream,
+            **record,
+        )
+        if transition is not None:
+            self._metrics.counter("quality/alerts_total").inc()
+            emit_event(
+                "quality_alert",
+                path=self._telemetry_path,
+                fit_id=self._stream,
+                state=transition,
+                metric="shadow_divergence",
+                value=rolling,
+                threshold=self._threshold,
+            )
+        return record
+
+    # -- label-delayed accuracy --------------------------------------------
+
+    def record_label(self, request_id: Any, y_true) -> bool:
+        """Join delayed ground truth back to a shadow-scored request;
+        returns ``False`` when the id was never sampled (or already aged
+        out of the buffer).  Scores: accuracy for classifiers, negative
+        mean-absolute error for regressors — either way the delta is
+        candidate minus primary, positive meaning the candidate wins."""
+        with self._lock:
+            entry = self._pending.pop(request_id, None)
+        if entry is None:
+            return False
+        primary_f, shadow_f, classification = entry
+        y = _host_f32(y_true).ravel()
+        a = primary_f.ravel()[: y.size]
+        b = shadow_f.ravel()[: y.size]
+        if classification:
+            p_score = float(np.mean(a == y))
+            s_score = float(np.mean(b == y))
+        else:
+            p_score = -float(np.mean(np.abs(a - y)))
+            s_score = -float(np.mean(np.abs(b - y)))
+        with self._lock:
+            self._labeled_rows += int(y.size)
+            self._primary_score += p_score
+            self._shadow_score += s_score
+            n = max(
+                1, self._labeled_rows // max(1, y.size)
+            )  # per-request averaging
+            delta = (self._shadow_score - self._primary_score) / n
+        self._metrics.gauge("quality/shadow_accuracy_delta").set(delta)
+        return True
+
+    # -- introspection -----------------------------------------------------
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            rolling = (
+                float(np.mean(self._window)) if self._window else None
+            )
+            n_req = max(
+                1, self._evals
+            )
+            out: Dict[str, Any] = {
+                "kind": "shadow",
+                "candidate": self._candidate,
+                "period": self._period,
+                "requests_seen": self._seq,
+                "evals": self._evals,
+                "sampled_rows": self._sampled_rows,
+                "errors": self._errors,
+                "threshold": self._threshold,
+                "alert_active": self._alert_active,
+                "labeled_rows": self._labeled_rows,
+            }
+            if rolling is not None:
+                out["divergence"] = rolling
+            if self._labeled_rows:
+                out["accuracy_delta"] = (
+                    self._shadow_score - self._primary_score
+                ) / n_req
+            return out
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+        self._metrics.unregister_source(self._source_name)

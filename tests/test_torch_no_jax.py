@@ -57,6 +57,10 @@ def test_every_port_module_imports_with_jax_blocked():
     expected = {"spark_ensemble_tpu_torch.data.streaming",
                 "spark_ensemble_tpu_torch.serving.export",
                 "spark_ensemble_tpu_torch.serving.engine",
+                "spark_ensemble_tpu_torch.serving.registry",
+                "spark_ensemble_tpu_torch.serving.fleet",
+                "spark_ensemble_tpu_torch.serving.autopilot",
+                "spark_ensemble_tpu_torch.telemetry.watchdog",
                 "spark_ensemble_tpu_torch.telemetry.events",
                 "spark_ensemble_tpu_torch.telemetry.flight",
                 "spark_ensemble_tpu_torch.telemetry.quality",
