@@ -49,7 +49,13 @@ threads with a stalled replica, a killed one and deadline pressure,
 torn-free swaps, the watchdog raising on shifted rows and the
 ``Autopilot`` refreshing the model in the background under traffic (equal
 to an uninterrupted longer fit), a shadow scorer's rollback, a chaos
-``refresh_crash``, and an eviction that frees device memory (``fleet``).  It checks the results; each phase prints one JSON line; any failed check raises,
+``refresh_crash``, and an eviction that frees device memory (``fleet``), then
+the SPMD fits over ``torch.distributed`` (``distributed``): the main path
+on a one-rank NCCL mesh, bit-identical to its unmeshed fit with the same
+launches, then 2 and 4 ranks of this script on the one card over gloo,
+every rank's fitted params bit-identical (the ranks' digests), the
+accuracy within 0.02 of one rank, and a dyadic regressor's first round,
+Bagging and SAMME on the same mesh.  It checks the results; each phase prints one JSON line; any failed check raises,
 and so does a retry that no chaos fault injected, and the script exits
 non-zero.  Checkpoints and saves go to a scratch directory under
 ``build/``, removed at the end.
@@ -201,6 +207,253 @@ FLEET_REPLICAS, FLEET_CLIENTS, FLEET_REQUESTS = 3, 4, 200
 REFRESH_ROUNDS = 10
 FLEET_PAUSE_S = 0.02
 SHADOW_THRESHOLD = 1e-4
+
+
+#: the distributed phase: rounds of the mesh fits, and the time a rank group
+#: may take before its processes are killed and the phase fails
+DIST_ROUNDS, DIST_TIMEOUT_S = 20, 300
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dyadic_regression_data(n=8192, d=12, seed=0):
+    """Targets k/64 in mirrored pairs: their mean is exactly 0, and every
+    f32 sum of them, and of the residuals from it, is exact in any order
+    (the fused tier's 3-term bf16 statistics hold them exactly too), so a
+    mesh fit's first round at a fixed step equals the unsharded one."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    half = (rng.randint(-256, 256, n // 2) / 64.0).astype(np.float32)
+    y = np.concatenate([half, -half])[rng.permutation(n)]
+    return X, y.astype(np.float32)
+
+
+def _main_path_gbm(st, rounds):
+    return st.GBMClassifier(
+        num_base_learners=rounds, loss="logloss", updates="newton",
+        learning_rate=0.3, optimized_weights=True,
+        base_learner=st.DecisionTreeRegressor(max_depth=DEPTH, max_bins=MAX_BINS,
+                                              hist="fused"),
+    )
+
+
+def _mesh_fit(torch, hk, coll, est, X_, y_, mesh, device):
+    """One mesh fit with its launches and the collectives' counts and time
+    -> (model, seconds, launches, collective stats)."""
+    hk.reset_launch_counts()
+    coll.reset_collective_stats()
+    coll.set_collective_timing(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = est.fit(X_, y_, mesh=mesh, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    coll.set_collective_timing(False)
+    return model, secs, dict(hk.LAUNCHES), coll.collective_stats()
+
+
+def distributed_rank(cfg):
+    """One rank of a gloo group on ``cuda:0`` (``python3 chip_smoke.py
+    --distributed-rank '<json>'``, started by :func:`distributed_phase`):
+    the main path on ``data_member_mesh(world, member)``, and with
+    ``extras`` a dyadic regressor's first round against its unmeshed fit,
+    a BaggingRegressor and a SAMME BoostingClassifier on the same mesh.
+    Writes its results as JSON to ``cfg["out"]``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import spark_ensemble_tpu_torch as st
+    from spark_ensemble_tpu_torch.ops import collective as coll, hist_kernels as hk
+    from spark_ensemble_tpu_torch.parallel import mesh as pmesh
+
+    rank, world = cfg["rank"], cfg["world"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{cfg['port']}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S // 2))
+    mesh = pmesh.data_member_mesh(world, member=cfg["member"], device="cuda:0")
+    coll.preduce(torch.zeros(1, device="cuda:0"), mesh.row_axis)  # the groups' first use
+    hk.build_kernels()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": rank, "world": world, "member": cfg["member"]}
+    X_np, y_np = letter_data()
+    model, secs, launches, stats = _mesh_fit(torch, hk, coll, _main_path_gbm(st, DIST_ROUNDS),
+                                             X_np, y_np, mesh, "cuda:0")
+    out["gbm"] = {
+        "digests": pmesh.replica_digests(model), "fit_s": secs,
+        "iters_per_s": DIST_ROUNDS / secs, "launches": launches,
+        "accuracy": float((model.predict(X_np).cpu().numpy() == y_np).mean()),
+        "gathers_per_round": stats["gathers"] / DIST_ROUNDS,
+        "bytes_per_round": stats["bytes"] / DIST_ROUNDS,
+        "gather_ms_per_round": stats["ms"] / DIST_ROUNDS,
+    }
+    if cfg["extras"]:
+        Xd, yd = dyadic_regression_data()
+        reg = st.GBMRegressor(num_base_learners=1, loss="squared", optimized_weights=False,
+                              base_learner=st.DecisionTreeRegressor(max_depth=DEPTH, hist="fused"))
+        meshed = reg.fit(Xd, yd, mesh=mesh, device="cuda:0")
+        single = reg.fit(Xd, yd, device="cuda:0")
+        out["dyadic_round"] = {
+            "params_equal": pmesh.params_digest(meshed.params["members"])
+            == pmesh.params_digest(single.params["members"]),
+            "predict_equal": bool(torch.equal(meshed.predict(Xd), single.predict(Xd))),
+            "digests": pmesh.replica_digests(meshed),
+        }
+        Xr, yr = regression_data()
+        bag = st.BaggingRegressor(num_base_learners=10, subspace_ratio=0.5,
+                                  base_learner=st.DecisionTreeRegressor(
+                                      max_depth=DEPTH, max_bins=MAX_BINS, hist="fused"))
+        bag_model = bag.fit(Xr, yr, mesh=mesh, device="cuda:0")
+        out["bagging"] = {"digests": pmesh.replica_digests(bag_model)}
+        boost = st.BoostingClassifier(num_base_learners=10, algorithm="discrete",
+                                      base_learner=st.DecisionTreeClassifier(
+                                          max_depth=DEPTH, max_bins=MAX_BINS, hist="fused"))
+        boost_model = boost.fit(X_np, y_np, mesh=mesh, device="cuda:0")
+        out["boosting"] = {
+            "digests": pmesh.replica_digests(boost_model),
+            "members": boost_model.num_members,
+            "accuracy": float((boost_model.predict(X_np).cpu().numpy() == y_np).mean()),
+        }
+    with open(cfg["out"], "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(world, member, extras, scratch):
+    """Start ``world`` ranks of this script on the card and wait for all;
+    a rank that fails or outlives the timeout fails the phase (the others
+    are killed) -> each rank's results."""
+    port = _free_port()
+    procs, outs = [], []
+    for rank in range(world):
+        out = os.path.join(scratch, f"dist_w{world}_r{rank}.json")
+        cfg = {"rank": rank, "world": world, "member": member, "extras": extras,
+               "port": port, "out": out}
+        outs.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--distributed-rank", json.dumps(cfg)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.time() + DIST_TIMEOUT_S
+    logs = [None] * world
+    while any(log is None for log in logs):
+        for r, p in enumerate(procs):
+            if logs[r] is None and p.poll() is not None:
+                logs[r] = p.stdout.read()
+        if any(p.returncode not in (None, 0) for p in procs) or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    for r, p in enumerate(procs):
+        if logs[r] is None:
+            p.kill()
+            logs[r] = (p.communicate()[0] or "") + "\n[killed]"
+    if any(p.returncode != 0 for p in procs):
+        tails = "\n".join(f"--- rank {r} (rc {p.returncode}) ---\n{log[-2000:]}"
+                          for r, (p, log) in enumerate(zip(procs, logs)))
+        raise AssertionError(f"distributed: a rank of {world} failed\n{tails}")
+    results = []
+    for out in outs:
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+def distributed_phase(st, hk, X_np, y_np, scratch, per_fit, card):
+    """The SPMD fits over ``torch.distributed``.  W=1: this process joins a
+    one-rank NCCL group; the main path on ``data_member_mesh(1)`` must equal
+    its unmeshed fit bit for bit with the same launches.  W=2 and W=4: that
+    many ranks of this script on ``cuda:0`` over gloo (NCCL refuses two
+    ranks on one card), rows halved or quartered per rank, the W=4 mesh
+    with 2 member blocks; every rank's params must be bit-identical and
+    the accuracy within 0.02 of one rank's."""
+    import torch
+    import torch.distributed as dist
+
+    from spark_ensemble_tpu_torch.ops import collective as coll
+    from spark_ensemble_tpu_torch.parallel import mesh as pmesh, multihost
+
+    t_phase = time.perf_counter()
+    failures = []
+    R = DIST_ROUNDS
+    hk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = _main_path_gbm(st, R).fit(X_np, y_np, device="cuda")
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_launches = dict(hk.LAUNCHES)
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+    try:
+        mesh1 = pmesh.data_member_mesh(1)
+        # the NCCL communicator starts at its first collective: not a fit's
+        coll.preduce(torch.zeros(1, device="cuda"), mesh1.row_axis)
+        model1, secs1, launches1, stats1 = _mesh_fit(torch, hk, coll, _main_path_gbm(st, R),
+                                                     X_np, y_np, mesh1, "cuda")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    acc1 = float((model1.predict(X_np).cpu().numpy() == y_np).mean())
+    same = pmesh.params_digest(model1.params) == pmesh.params_digest(single.params)
+    if not same:
+        failures.append("W=1 mesh fit differs from the unmeshed fit")
+    if launches1 != per_fit(R) or single_launches != per_fit(R):
+        failures.append(f"W=1 launches {launches1} / unmeshed {single_launches} != {per_fit(R)}")
+    w1 = {"world": 1, "backend": backend, "bit_identical_to_unmeshed": same,
+          "launches": launches1, "accuracy": acc1, "fit_s": secs1, "iters_per_s": R / secs1,
+          "unmeshed_iters_per_s": R / single_s,
+          "gathers_per_round": stats1["gathers"] / R, "bytes_per_round": stats1["bytes"] / R,
+          "gather_ms_per_round": stats1["ms"] / R}
+    emit({"phase": "distributed", **w1, **card})
+    rows = {}
+    for world, member, extras in ((2, 1, True), (4, 2, False)):
+        res = _run_ranks(world, member, extras, scratch)
+        g = [r["gbm"] for r in res]
+        digests = {d for r in g for d in r["digests"]}
+        accs = [r["accuracy"] for r in g]
+        row = {"world": world, "member": member, "backend": "gloo",
+               "digests_equal": len(digests) == 1, "accuracy": accs[0],
+               "accuracy_gap_to_w1": accs[0] - acc1,
+               "iters_per_s": [r["iters_per_s"] for r in g],
+               "launches_rank0": g[0]["launches"],
+               "gathers_per_round": g[0]["gathers_per_round"],
+               "bytes_per_round": g[0]["bytes_per_round"],
+               "gather_ms_per_round": [r["gather_ms_per_round"] for r in g]}
+        if len(digests) != 1:
+            failures.append(f"W={world}: the ranks' params differ")
+        if abs(accs[0] - acc1) > 0.02:
+            failures.append(f"W={world}: accuracy {accs[0]} vs {acc1} at W=1")
+        if extras:
+            dy = [r["dyadic_round"] for r in res]
+            row["dyadic_round_bit_identical"] = all(d["params_equal"] and d["predict_equal"]
+                                                    for d in dy)
+            row["dyadic_digests_equal"] = len({x for d in dy for x in d["digests"]}) == 1
+            row["bagging_digests_equal"] = len({x for r in res
+                                                for x in r["bagging"]["digests"]}) == 1
+            row["boosting_digests_equal"] = len({x for r in res
+                                                 for x in r["boosting"]["digests"]}) == 1
+            row["boosting_members"] = res[0]["boosting"]["members"]
+            row["boosting_accuracy"] = res[0]["boosting"]["accuracy"]
+            for k in ("dyadic_round_bit_identical", "dyadic_digests_equal",
+                      "bagging_digests_equal", "boosting_digests_equal"):
+                if not row[k]:
+                    failures.append(f"W={world}: {k} is false")
+        rows[world] = row
+        emit({"phase": "distributed", **row, **card})
+    emit({"phase": "distributed_summary", "failures": failures,
+          "iters_per_s": {"unmeshed": R / single_s, "w1": R / secs1,
+                          "w2": rows[2]["iters_per_s"], "w4": rows[4]["iters_per_s"]},
+          "phase_s": time.perf_counter() - t_phase, **card})
+    if failures:
+        raise AssertionError(f"distributed: {failures}")
 
 
 def _quantiles_ms(values):
@@ -1487,17 +1740,23 @@ def main():
 
     # Bagging: ten members with Poisson weights and half the features, on
     # letter; the regressor on the cpusmall-shaped data
-    bag_acc = {}
+    bag_acc, fused_members = {}, {}  # the fused models, for the member sums
     for tier, hist, hp in tiers:
         est = st.BaggingClassifier(num_base_learners=10, subspace_ratio=0.5, base_learner=cls_tree(hist, hp))
-        _, bag_acc[tier] = family_run("bagging", "BaggingClassifier", tier, est, X_np, y_np,
-                                      lambda m, launches: 1, accuracy)
+        m_, bag_acc[tier] = family_run("bagging", "BaggingClassifier", tier, est, X_np, y_np,
+                                       lambda m, launches: 1, accuracy)
+        if tier == "fused":
+            fused_members["BaggingClassifier[hard]"] = (m_, "predict_proba", X_np)
+            fused_members["BaggingClassifier[soft]"] = (
+                m_.copy(voting_strategy="soft"), "predict_proba", X_np)
     near("BaggingClassifier", bag_acc, "accuracy", 0.02)
     bag_rmse = {}
     for tier in ("matmul", "fused"):
         est = st.BaggingRegressor(num_base_learners=10, subspace_ratio=0.5, base_learner=reg_tree(tier))
-        _, bag_rmse[tier] = family_run("bagging", "BaggingRegressor", tier, est, Xr, yr,
-                                       lambda m, launches: 1, rmse)
+        m_, bag_rmse[tier] = family_run("bagging", "BaggingRegressor", tier, est, Xr, yr,
+                                        lambda m, launches: 1, rmse)
+        if tier == "fused":
+            fused_members["BaggingRegressor"] = (m_, "predict", Xr)
     near("BaggingRegressor", bag_rmse, "rmse", 0.02)
 
     # Boosting: 20 rounds, one tree a round; a dropped round (SAMME's
@@ -1537,6 +1796,7 @@ def main():
                                                   boost_rounds, accuracy)
         first_round_moved(family, models, X_np, torch.ne)
         near(family, accs, "accuracy", 0.02)
+        fused_members[family] = (models["fused"], "predict_proba", X_np)
     models, rmses_b = {}, {}
     for tier in ("matmul", "fused"):
         est = st.BoostingRegressor(num_base_learners=PARITY_ROUNDS, voting_strategy="median",
@@ -1546,6 +1806,21 @@ def main():
     first_round_moved("BoostingRegressor[median]", models, Xr,
                       lambda a, b: (a - b).abs() > 1e-3 * float(np.std(yr)))
     near("BoostingRegressor[median]", rmses_b, "rmse", 0.02)
+    fused_members["BoostingRegressor[median]"] = (models["fused"], "predict", Xr)
+    fused_members["BoostingRegressor[mean]"] = (
+        models["fused"].copy(voting_strategy="mean"), "predict", Xr)
+
+    # member sums: Boosting's and Bagging's sums over their members run by
+    # a fixed pairwise tree, so a row predicted alone equals the same row
+    # in a 4096-row batch, bit for bit on the card
+    sums = {}
+    for family, (m_, method, X_) in fused_members.items():
+        batch = getattr(m_, method)(X_[:4096])
+        sums[family] = all(bool(torch.equal(getattr(m_, method)(X_[i:i + 1])[0], batch[i]))
+                           for i in (0, 1, 4095))
+    emit({"phase": "member_sums", "one_row_equals_batch_row": sums})
+    if not all(sums.values()):
+        raise AssertionError(f"member sums: a one-row predict parts from its batch row: {sums}")
 
     # GBM with row and feature sampling: the main path's classifier with
     # subsample_ratio and subspace_ratio 0.8
@@ -2865,6 +3140,10 @@ def main():
                 lambda r: gbm("fused", "highest", r), scratch,
                 {"latency_ms": latency, "sync_rows_per_s": N_ROWS / sync_s}, per_fit, card)
     no_stray_retries("fleet")
+
+    # phase 29 (distributed): the SPMD fits over torch.distributed
+    distributed_phase(st, hk, X_np, y_np, scratch, per_fit, card)
+    no_stray_retries("distributed")
     shutil.rmtree(scratch, ignore_errors=True)
 
     no_stray_retries("all phases")
@@ -2877,4 +3156,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--distributed-rank":
+        sys.exit(distributed_rank(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -50,6 +50,10 @@ default) or on the CPU (``device="cpu"``):
   breakers, hedging, prefix degradation, torn-free swaps, elastic width),
   ``Watchdog``, ``ShadowScorer`` and ``Autopilot`` (scaling, warm-start
   refresh fits, rollback);
+- distribution: ``fit(X, y, mesh=...)`` on GBM, Bagging, Boosting and
+  the base learners, one process per device over ``torch.distributed``
+  (``parallel``: ``multihost.initialize``, ``data_member_mesh``,
+  ``hybrid_data_member_mesh``);
 - telemetry: ``telemetry_path`` / ``SE_TPU_TELEMETRY`` / ``record_fits``
   event streams in the JAX package's schema, ``fit_history_``, trace
   spans, the metrics registry, ``DriftMonitor``, and ``profile_dir``
@@ -223,6 +227,8 @@ from spark_ensemble_tpu_torch.telemetry import (
     staged_attribution,
     trace_annotations_enabled,
 )
+from spark_ensemble_tpu_torch import parallel
+from spark_ensemble_tpu_torch.parallel import slice_count
 from spark_ensemble_tpu_torch.utils.checkpoint import TrainingCheckpointer
 from spark_ensemble_tpu_torch.utils.features import FeatureMetadata
 from spark_ensemble_tpu_torch.utils.persist import load, save
@@ -346,6 +352,7 @@ __all__ = [
     "retry_call",
     "save",
     "shared_fit_context",
+    "slice_count",
     "stacking_classifier_from_models",
     "stacking_regressor_from_models",
     "staged_attribution",

@@ -149,13 +149,16 @@ class _ShardTrees:
 
     # -- the round cores' calls (models/tree._TreeLearner's, by leaf ids) --
 
-    def fit_and_direction(self, ctx, y, w, feature_mask, X, key=None):
+    def fit_and_direction(self, ctx, y, w, feature_mask, X, key=None,
+                          axis_name=None):
+        # a streaming fit runs on one device (a mesh raises at fit_streaming)
         mask = None if feature_mask is None else feature_mask.reshape(1, -1)
         forest, node = self._sweep_forest(y[:, None, None], w[:, None], mask)
         tree = Tree(*(a[0] for a in forest))
         return tree, self.base._direction_from_leaf(tree.leaf_value[node[:, 0].long()])
 
-    def fit_many_and_directions(self, ctx, ys, ws, feature_masks, X, keys=None):
+    def fit_many_and_directions(self, ctx, ys, ws, feature_masks, X, keys=None,
+                                axis_name=None):
         forest, node = self._sweep_forest(ys[:, :, None], ws, feature_masks)
         return forest, self.base._direction_from_leaf(leaf_values_at(forest, node))
 

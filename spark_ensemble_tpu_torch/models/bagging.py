@@ -22,6 +22,15 @@ guard (``on_nonfinite``) drops members with NaN params, so ``num_members``
 is the kept count and probabilities divide by it.  With telemetry the one
 fused fit is one round chunk of ``num_base_learners`` rounds, each charged
 an equal share of its fenced wall time.
+
+``fit(X, y, mesh=...)`` places rows and members on the mesh's two axes at
+once, as the JAX package's ``_shard_rows_and_members``: each rank keeps its
+block of the rows (the reference's partitions on executors) and fits its
+block of the members (the driver's thread pool) in one forest fit whose
+statistics are reduced over the row axis; the member blocks are gathered
+over "member" (phantom members of zero weight round the count up to a
+multiple of its size, and are trimmed).  A mesh without a "member" axis
+fits every member on every rank.  Every rank returns the same model.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from spark_ensemble_tpu_torch.models.base import (
     as_f32,
     infer_num_classes,
     make_shared_fit_ctx,
-    not_supported,
+    mesh_device,
     resolve_device,
     resolve_weights,
     tree_map,
@@ -49,6 +58,7 @@ from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
 )
+from spark_ensemble_tpu_torch.ops.collective import pairwise_sum, pgather
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
 from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
 from spark_ensemble_tpu_torch.utils.instrumentation import instrumented_fit
@@ -105,9 +115,7 @@ class _BaggingParams(Estimator):
         from spark_ensemble_tpu_torch.robustness.chaos import controller
         from spark_ensemble_tpu_torch.robustness.retry import retry_call
 
-        if mesh is not None:
-            not_supported("mesh", mesh, "queue 1, item 18")
-        dev = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
         w = resolve_weights(y, sample_weight)
@@ -119,7 +127,15 @@ class _BaggingParams(Estimator):
         fit_w, masks, keys = self._member_plan(n, d, w)
         m = fit_w.shape[0]
         meta = {} if num_classes is None else {"num_classes": int(num_classes)}
-        telem = FitTelemetry.start(self, n=n, d=d, **meta)
+        telem = FitTelemetry.start(self, n=n, d=d, mesh=mesh, **meta)
+        ax = member_axis = None
+        fit_masks, fit_keys = masks, keys
+        if mesh is not None:
+            ctx, y, fit_w, fit_masks, fit_keys = self._shard_rows_and_members(
+                mesh, base, ctx, y, fit_w, masks, keys)
+            ax, n = mesh.row_axis, y.shape[0]
+            if mesh.member_axis is not None and mesh.member_axis.size > 1:
+                member_axis = mesh.member_axis
         telem.phase_mark("setup")
         t_fit = time.perf_counter()
         ctl = controller()
@@ -127,10 +143,13 @@ class _BaggingParams(Estimator):
 
         def attempt():
             ctl.transient(site)
-            return base.fit_many_from_ctx(
-                ctx, y[:, None].expand(n, m), fit_w.T.contiguous(), masks,
-                keys=keys,
+            out = base.fit_many_from_ctx(
+                ctx, y[:, None].expand(n, fit_w.shape[0]), fit_w.T.contiguous(),
+                fit_masks, keys=fit_keys, axis_name=ax,
             )
+            if member_axis is None:
+                return out
+            return tree_map(lambda a: pgather(a, member_axis, 0)[:m], out)
 
         members = retry_call(attempt, self._retry_policy(),
                              op=f"{type(self).__name__}.fit_all", telem=telem)
@@ -142,6 +161,28 @@ class _BaggingParams(Estimator):
         guard = self._numeric_guard(telem)
         members, masks = self._drop_bad_members(members, masks, guard)
         return members, masks, num_classes, d, dev, guard, telem
+
+    @staticmethod
+    def _shard_rows_and_members(mesh, base, ctx, y, fit_w, masks, keys):
+        """This rank's rows and member block -> ``(ctx, y, fit_w [blk, rows],
+        masks [blk, d], keys [blk, 2])``: the members padded to a multiple
+        of the "member" axis by zero-weight phantoms (all features on, zero
+        keys), rows padded with zero-weight rows."""
+        from spark_ensemble_tpu_torch.parallel.mesh import shard_ctx_rows, shard_rows
+
+        n, m = y.shape[0], fit_w.shape[0]
+        member_axis = mesh.member_axis
+        size = 1 if member_axis is None else member_axis.size
+        m_pad = m + (-m) % size
+        if m_pad != m:
+            fit_w = torch.cat([fit_w, fit_w.new_zeros((m_pad - m, n))])
+            masks = torch.cat([masks, masks.new_ones((m_pad - m, masks.shape[1]))])
+            keys = torch.cat([keys, keys.new_zeros((m_pad - m, keys.shape[1]))])
+        blk = m_pad // size
+        lo = 0 if member_axis is None else member_axis.index * blk
+        return (shard_ctx_rows(mesh, base, ctx, n), shard_rows(mesh, y, n),
+                shard_rows(mesh, fit_w[lo:lo + blk], n, dim=1),
+                masks[lo:lo + blk], keys[lo:lo + blk])
 
     @staticmethod
     def _drop_bad_members(members, masks, guard):
@@ -205,7 +246,9 @@ class BaggingRegressionModel(RegressionModel, BaggingRegressor):
         return self._base().predict_many_fn(self.params["members"], self._input(X))
 
     def predict(self, X):
-        return torch.mean(self.member_predictions(X), dim=0)
+        # members summed by the fixed pairwise tree (batch-independent)
+        preds = self.member_predictions(X)
+        return pairwise_sum(preds) / preds.shape[0]
 
 
 class BaggingClassifier(_BaggingParams):
@@ -248,11 +291,10 @@ class BaggingClassificationModel(ClassificationModel, BaggingClassifier):
     def predict_raw(self, X):
         base, Xq = self._base(), self._input(X)
         if self.voting_strategy.lower() == "soft":
-            return torch.sum(base.predict_proba_many_fn(self.params["members"], Xq), dim=0)
+            return pairwise_sum(base.predict_proba_many_fn(self.params["members"], Xq))
         votes = base.predict_many_fn(self.params["members"], Xq).to(torch.int64)
-        return torch.sum(
-            torch.nn.functional.one_hot(votes, self.num_classes).to(torch.float32),
-            dim=0,
+        return pairwise_sum(
+            torch.nn.functional.one_hot(votes, self.num_classes).to(torch.float32)
         )
 
     def predict_proba(self, X):

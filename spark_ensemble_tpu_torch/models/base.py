@@ -5,12 +5,17 @@ A base learner exposes the same functional triple as in the JAX package:
 
   - ``make_fit_ctx(X, num_classes)``: shared preprocessing computed once per
     ensemble fit (quantile binning for trees);
-  - ``fit_from_ctx(ctx, y, w, feature_mask, key=None) -> params``: one
-    member fit over fixed-shape tensors; row sampling arrives as ``w``,
-    feature subspaces as ``feature_mask``, and the member's PRNG key
-    (``int64[2]``, ``utils/random.py``) as ``key`` for the learners that
-    draw (the MLP's initial weights; trees, linear models and naive Bayes
-    ignore it);
+  - ``fit_from_ctx(ctx, y, w, feature_mask, key=None, axis_name=None)
+    -> params``: one member fit over fixed-shape tensors; row sampling
+    arrives as ``w``, feature subspaces as ``feature_mask``, and the
+    member's PRNG key (``int64[2]``, ``utils/random.py``) as ``key`` for
+    the learners that draw (the MLP's initial weights; trees, linear
+    models and naive Bayes ignore it).  Under a mesh the tensors hold this
+    rank's rows and ``axis_name`` is the mesh's row axis
+    (``ops/collective.Axis``): the learner reduces its sufficient
+    statistics over it, so every rank computes the same global model (the
+    reference's executors combining partition statistics with
+    ``treeAggregate``);
   - ``predict_fn(params, X)`` (+ ``predict_raw_fn``/``predict_proba_fn``).
 
 The ensembles hand out the JAX package's keys: Bagging member ``i`` gets
@@ -29,8 +34,11 @@ a loop over the members (``fit_many_from_ctx``, ``predict_many_fn``).
 :func:`shared_fit_context` scopes a memo of fit contexts, keyed by X's
 identity and the learner's ``config_key``: inside it, every fit of the
 same data and learner config (the tuners' param maps and folds) bins once.
-The mesh ``axis_name`` argument is absent until the port grows
-distribution (ROADMAP queue 1, item 18).
+A learner's ``ctx_row_leaves(ctx)`` marks the ctx entries that are
+row-indexed (the stand-in for the JAX package's ``ctx_specs``): a mesh fit
+cuts those to each rank's rows (``parallel/mesh.shard_ctx_rows``) and
+keeps the rest whole.  ``fit(..., mesh=...)`` fits a learner standalone
+over a mesh's rows.
 
 Devices: every ``fit`` takes ``device`` (default ``"cuda"``); the fitted
 model keeps its tensors there and moves predict inputs to it.  Asking for
@@ -81,6 +89,33 @@ def as_f32(x, device=None) -> torch.Tensor:
         t = x.to(dtype=torch.float32)
         return t if device is None else t.to(device)
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+def mesh_fit_kwargs(estimator, mesh) -> dict:
+    """``{"mesh": mesh}`` when the estimator's fit takes a mesh, else
+    ``{}``: composite fits forward a mesh without caring which stages are
+    mesh-aware."""
+    if mesh is None:
+        return {}
+    import inspect
+
+    if "mesh" in inspect.signature(estimator.fit).parameters:
+        return {"mesh": mesh}
+    return {}
+
+
+def mesh_device(mesh, device) -> torch.device:
+    """The device of a mesh fit: the mesh's own (``cuda:{local rank}`` for
+    a CUDA mesh).  A ``device`` of another type, or another card, raises:
+    nothing moves to the CPU behind the caller's back."""
+    dev = resolve_device(mesh.device)
+    want = torch.device(device)
+    if want.type != dev.type or (want.index is not None and want != dev):
+        raise ValueError(
+            f"device={device!r} disagrees with the mesh's device {dev}; a "
+            "mesh fit runs on its mesh's devices"
+        )
+    return dev
 
 
 def not_supported(param: str, value, roadmap: str):
@@ -574,11 +609,18 @@ class BaseLearner(Estimator):
         """Shared preprocessing (binning, feature stats)."""
         return X
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
-        """One member fit -> params."""
+    def ctx_row_leaves(self, ctx):
+        """The ctx's row-indexed entries (a tree of bools shaped like the
+        ctx): the default ctx is the feature matrix itself."""
+        return None if ctx is None else True
+
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None, axis_name=None):
+        """One member fit -> params; under a mesh, over this rank's rows
+        with the statistics reduced over ``axis_name``."""
         raise NotImplementedError
 
-    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None):
+    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None,
+                          axis_name=None):
         """Fit M members (``ys``/``ws`` [n, M]; ``feature_masks`` [M, d],
         [d] or None; ``keys`` [M, 2], one [2] key for every member, or
         None) -> stacked params with a leading member axis.  Default: one
@@ -588,27 +630,33 @@ class BaseLearner(Estimator):
         members = [
             self.fit_from_ctx(ctx, ys[:, m].contiguous(), ws[:, m].contiguous(),
                               _member_mask(feature_masks, m),
-                              key=_member_key(keys, m))
+                              key=_member_key(keys, m), axis_name=axis_name)
             for m in range(ys.shape[1])
         ]
         return stack_members(members)
 
-    def fit_and_direction(self, ctx, y, w, feature_mask, X, key=None):
+    def fit_and_direction(self, ctx, y, w, feature_mask, X, key=None,
+                          axis_name=None):
         """Member fit PLUS its predictions on the same rows -> (params,
         pred[n]).  Default: fit then predict."""
-        params = self.fit_from_ctx(ctx, y, w, feature_mask, key=key)
+        params = self.fit_from_ctx(ctx, y, w, feature_mask, key=key,
+                                   axis_name=axis_name)
         return params, self.predict_fn(params, X)
 
-    def fit_and_proba(self, ctx, y, w, feature_mask, X, key=None):
+    def fit_and_proba(self, ctx, y, w, feature_mask, X, key=None,
+                      axis_name=None):
         """Classifier member fit PLUS its class probabilities on the same
         rows (SAMME.R's input) -> (params, proba[n, k])."""
-        params = self.fit_from_ctx(ctx, y, w, feature_mask, key=key)
+        params = self.fit_from_ctx(ctx, y, w, feature_mask, key=key,
+                                   axis_name=axis_name)
         return params, self.predict_proba_fn(params, X)
 
-    def fit_many_and_directions(self, ctx, ys, ws, feature_masks, X, keys=None):
+    def fit_many_and_directions(self, ctx, ys, ws, feature_masks, X, keys=None,
+                                axis_name=None):
         """Fused-member analogue of ``fit_and_direction`` -> (stacked
         params, preds[n, M])."""
-        params = self.fit_many_from_ctx(ctx, ys, ws, feature_masks, keys=keys)
+        params = self.fit_many_from_ctx(ctx, ys, ws, feature_masks, keys=keys,
+                                        axis_name=axis_name)
         return params, self.predict_many_fn(params, X).T
 
     def ctx_gather_rows(self, ctx, idx: torch.Tensor):
@@ -667,11 +715,15 @@ class BaseLearner(Estimator):
         raise NotImplementedError
 
     @instrumented_fit
-    def fit(self, X, y, sample_weight=None, num_classes=None,
+    def fit(self, X, y, sample_weight=None, num_classes=None, mesh=None,
             device="cuda") -> Model:
         """Fit this learner standalone on ``device``, from the key
-        ``PRNGKey(seed)`` (0 for a learner without a ``seed``)."""
-        dev = resolve_device(device)
+        ``PRNGKey(seed)`` (0 for a learner without a ``seed``).  With
+        ``mesh`` (``parallel/mesh.py``; every rank calls with the same
+        arrays) each rank fits over its block of the rows, zero-weight
+        padding included, reducing its statistics over the mesh's row
+        axis, and every rank returns the same model."""
+        dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X = as_f32(X, dev)
         y = as_f32(y, dev)
         self._validate_fit_inputs(X, y)
@@ -681,5 +733,17 @@ class BaseLearner(Estimator):
         )
         ctx = make_shared_fit_ctx(self, X, num_classes)
         key = PRNGKey(getattr(self, "seed", 0) or 0, dev)
-        params = self.fit_from_ctx(ctx, y, w, None, key=key)
+        if mesh is None:
+            params = self.fit_from_ctx(ctx, y, w, None, key=key)
+        else:
+            from spark_ensemble_tpu_torch.parallel.mesh import (
+                shard_ctx_rows,
+                shard_rows,
+            )
+
+            n = y.shape[0]
+            params = self.fit_from_ctx(
+                shard_ctx_rows(mesh, self, ctx, n), shard_rows(mesh, y, n),
+                shard_rows(mesh, w, n), None, key=key, axis_name=mesh.row_axis,
+            )
         return self.model_from_params(params, X.shape[1], num_classes, dev)

@@ -46,6 +46,14 @@ round.  With telemetry each committed chunk's kept rounds become
 ``round_start`` / ``round_end`` events (loss: SAMME's weighted error,
 Drucker's estimator error; step size: the estimator weight), its wall time
 divided by the rounds the chunk computed.
+
+``fit(X, y, mesh=...)`` shards the rows and the boosting weights over the
+mesh's row axes (zero-weight padding included; every rank passes the same
+global arrays): the weight masses and the weighted errors are reduced
+across the ranks in rank order, Drucker's ``maxError`` is their max (the
+padding rows masked out), and the base fit reduces its statistics.  So
+every rank replays the same stopping rules on the same values and returns
+the same model.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from spark_ensemble_tpu_torch.models.base import (
     as_f32,
     infer_num_classes,
     make_shared_fit_ctx,
+    mesh_device,
     not_supported,
     resolve_device,
     resolve_weights,
@@ -73,6 +82,7 @@ from spark_ensemble_tpu_torch.models.base import (
     tree_map,
 )
 from spark_ensemble_tpu_torch.models.gbm import _check_resume_args, _concat
+from spark_ensemble_tpu_torch.ops.collective import pairwise_sum, pmax_reduce, preduce
 from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
 from spark_ensemble_tpu_torch.utils.instrumentation import instrumented_fit
 from spark_ensemble_tpu_torch.models.tree import (
@@ -98,32 +108,37 @@ def _slice_members(members, m):
     return None if members is None else tree_map(lambda a: a[:m], members)
 
 
-def _samme_update(w_norm, pred, y, k):
+def _samme_update(w_norm, pred, y, k, ax=None):
     """SAMME's round statistics from the member's class predictions ->
     (err, est_weight, new_bw); shared by the fit and ``fit_resume``'s
-    replay, so both take the same f32 steps."""
+    replay, so both take the same f32 steps.  Under a mesh the error is
+    reduced over the row axis ``ax``."""
     miss = (pred != y).to(torch.float32)
-    err = torch.sum(w_norm * miss)
+    err = preduce(torch.sum(w_norm * miss), ax)
     beta = err / torch.clamp((1.0 - err) * (k - 1.0), min=1e-30)
     inv = 1.0 / torch.maximum(beta, _f32(1e-300, y))
     est_weight = torch.where(beta == 0.0, _f32(1.0, y), torch.log(inv))
     return err, est_weight, w_norm * torch.pow(inv, miss)
 
 
-def _samme_r_update(w_norm, proba, y_int, codes, k):
+def _samme_r_update(w_norm, proba, y_int, codes, k, ax=None):
     """SAMME.R's round statistics from the member's class probabilities
     -> (err, new_bw)."""
     miss = (torch.argmax(proba, dim=-1) != y_int).to(torch.float32)
-    err = torch.sum(w_norm * miss)
+    err = preduce(torch.sum(w_norm * miss), ax)
     ll = torch.sum(codes * torch.log(torch.clamp(proba, min=EPSILON)), dim=-1)
     return err, w_norm * torch.exp(-((k - 1.0) / k) * ll)
 
 
-def _drucker_update(w_norm, pred, y, loss_name):
+def _drucker_update(w_norm, pred, y, loss_name, valid=None, ax=None):
     """Drucker R2's round statistics from the member's predictions ->
-    (max_error, est_err, est_weight, new_bw)."""
+    (max_error, est_err, est_weight, new_bw).  Under a mesh ``valid``
+    masks the padding rows out of ``maxError`` (a padded row's error means
+    nothing), which is the max over the ranks, and ``estErr`` is reduced."""
     errors = torch.abs(y - pred)
-    max_error = torch.max(errors)
+    if valid is not None:
+        errors = valid * errors
+    max_error = pmax_reduce(torch.max(errors), ax)
     rel = torch.where(
         max_error > 0, errors / torch.clamp(max_error, min=1e-30), errors
     )
@@ -133,7 +148,7 @@ def _drucker_update(w_norm, pred, y, loss_name):
         losses = rel * rel
     else:
         losses = rel
-    est_err = torch.sum(w_norm * losses)
+    est_err = preduce(torch.sum(w_norm * losses), ax)
     beta = est_err / torch.clamp(1.0 - est_err, min=1e-30)
     floor = torch.maximum(beta, _f32(1e-300, y))
     est_weight = torch.where(beta == 0.0, _f32(1.0, y), torch.log(1.0 / floor))
@@ -142,8 +157,8 @@ def _drucker_update(w_norm, pred, y, loss_name):
     return max_error, est_err, est_weight, new_bw
 
 
-def _normalized(bw):
-    return bw / torch.clamp(torch.sum(bw), min=1e-30)
+def _normalized(bw, ax=None):
+    return bw / torch.clamp(preduce(torch.sum(bw), ax), min=1e-30)
 
 
 class _BoostingParams(CheckpointableParams, Estimator):
@@ -185,12 +200,25 @@ class _BoostingParams(CheckpointableParams, Estimator):
     seed = Param(0, doc="PRNG seed of the round keys")
 
     def _prepare(self, X, y, sample_weight, mesh, device):
-        if mesh is not None:
-            not_supported("mesh", mesh, "queue 1, item 18")
-        dev = resolve_device(device)
+        if mesh is not None and self.checkpoint_dir is not None:
+            not_supported("checkpoint_dir with mesh", self.checkpoint_dir,
+                          "queue 1, item 29")
+        dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
         return dev, X, y, resolve_weights(y, sample_weight)
+
+    @staticmethod
+    def _shard(mesh, base, ctx, X, y, w):
+        """This rank's rows under a mesh -> ``(ctx, X, y, w, valid, ax)``
+        (all whole and ``ax`` None without one)."""
+        if mesh is None:
+            return ctx, X, y, w, None, None
+        from spark_ensemble_tpu_torch.parallel.mesh import setup_row_sharding
+
+        ctx, X, ax, _, (y, w, valid) = setup_row_sharding(
+            mesh, base, ctx, X, y.shape[0], (y, w, torch.ones_like(y)))
+        return ctx, X, y, w, valid, ax
 
     def _round_keys(self, device):
         """Every round's key ``fold_in(PRNGKey(seed), i)``, in one hash."""
@@ -212,7 +240,8 @@ class _BoostingParams(CheckpointableParams, Estimator):
         return last_round + 1, st["bw"].to(bw.device), chunks
 
     def _drive_boosting_rounds(self, ckpt, bw, chunks, run_chunk, replay,
-                               start_i: int, ramp: bool, guard, telem) -> int:
+                               start_i: int, ramp: bool, guard, telem,
+                               ax=None) -> int:
         """The chunked round loop of both Boosting flavors, behind the
         port's :class:`RoundExecutor` (the JAX package's
         ``_drive_boosting_rounds``).  ``run_chunk(i0, c, bw) -> (params
@@ -355,7 +384,7 @@ class _BoostingParams(CheckpointableParams, Estimator):
                 self.depth = depth
                 self.telem = telem  # the executor traces chunk spans
                 self.i, self.bw = start_i, bw
-                self.stop = float(torch.sum(bw)) <= 0
+                self.stop = float(preduce(torch.sum(bw), ax)) <= 0
                 self.i_disp, self.bw_frontier = start_i, bw
                 self.cur = 1 if probe else chunk
                 self.probe_pending = probe
@@ -407,10 +436,11 @@ class _BoostingParams(CheckpointableParams, Estimator):
         }
 
     @staticmethod
-    def _rounds(run_round, keys, c_extras):
+    def _rounds(run_round, keys, c_extras, ax=None):
         """A chunk runner over ``run_round(bw, key) -> (params, est_weight,
         new_bw, stats)``: rounds ``i0 .. i0+c`` one after another, their
-        outputs stacked, ``c_extras(stats list) -> extras``."""
+        outputs stacked, ``c_extras(stats list) -> extras``; each round's
+        weight mass reduced over ``ax`` under a mesh."""
 
         def run_chunk(i0, c, bw):
             params_l, est_l, sums_l, stats_l = [], [], [], []
@@ -418,7 +448,7 @@ class _BoostingParams(CheckpointableParams, Estimator):
                 params, est_weight, bw, stats = run_round(bw, keys[r])
                 params_l.append(params)
                 est_l.append(est_weight)
-                sums_l.append(torch.sum(bw))
+                sums_l.append(preduce(torch.sum(bw), ax))
                 stats_l.append(stats)
             return (stack_members(params_l), torch.stack(est_l),
                     torch.stack(sums_l), bw, c_extras(stats_l))
@@ -444,24 +474,25 @@ class BoostingClassifier(_BoostingParams):
         dev, X, y, w = self._prepare(X, y, sample_weight, mesh, device)
         k = infer_num_classes(y, num_classes)
         n, d = X.shape
-        telem = FitTelemetry.start(self, n=n, d=d, num_classes=int(k))
+        telem = FitTelemetry.start(self, n=n, d=d, num_classes=int(k), mesh=mesh)
         base = self._base().copy()
         ctx = make_shared_fit_ctx(base, X, k)
+        ctx, X, y, w, _, ax = self._shard(mesh, base, ctx, X, y, w)
         real = self.algorithm.lower() == "real"
         y_int = y.to(torch.int64)
         codes = _samme_r_codes(y_int, k)
 
         def run_round(bw, round_key):
-            w_norm = _normalized(bw)
+            w_norm = _normalized(bw, ax)
             if real:
                 params, proba = base.fit_and_proba(ctx, y, w_norm, None, X,
-                                                   key=round_key)
-                err, new_bw = _samme_r_update(w_norm, proba, y_int, codes, k)
+                                                   key=round_key, axis_name=ax)
+                err, new_bw = _samme_r_update(w_norm, proba, y_int, codes, k, ax)
                 est_weight = _f32(1.0, y)
             else:
                 params, pred = base.fit_and_direction(ctx, y, w_norm, None, X,
-                                                      key=round_key)
-                err, est_weight, new_bw = _samme_update(w_norm, pred, y, k)
+                                                      key=round_key, axis_name=ax)
+                err, est_weight, new_bw = _samme_update(w_norm, pred, y, k, ax)
             return params, est_weight, new_bw, err
 
         def replay(errs, sum_bws, c, i):
@@ -485,12 +516,12 @@ class BoostingClassifier(_BoostingParams):
 
         ckpt = self._checkpointer(dev, n, d, k, telem=telem)
         start_i, bw, chunks = self._resume(ckpt, w, telem)
-        run_chunk = self._rounds(run_round, self._round_keys(dev), torch.stack)
+        run_chunk = self._rounds(run_round, self._round_keys(dev), torch.stack, ax)
         guard = self._numeric_guard(telem)
         telem.phase_mark("setup")
         self._drive_boosting_rounds(ckpt, bw, chunks, run_chunk, replay,
                                     start_i, ramp=not real, guard=guard,
-                                    telem=telem)
+                                    telem=telem, ax=ax)
         ckpt.delete()
         params = self._model_params(chunks, dev)
         model = _with_guard_events(guard, BoostingClassificationModel(
@@ -525,11 +556,13 @@ class BoostingClassificationModel(ClassificationModel, BoostingClassifier):
             probas = base.predict_proba_many_fn(members, X)
             logp = torch.log(torch.clamp(probas, min=EPSILON))
             decisions = logp - torch.mean(logp, dim=-1, keepdim=True)
-            return (k - 1.0) * torch.sum(decisions, dim=0)
+            # members summed by the fixed pairwise tree: a row's raw score
+            # does not depend on how many rows share the call
+            return (k - 1.0) * pairwise_sum(decisions)
         preds = base.predict_many_fn(members, X).to(torch.int64)
         onehot = torch.nn.functional.one_hot(preds, k)
         votes = torch.where(onehot > 0, _f32(1.0, X), _f32(-1.0 / (k - 1.0), X))
-        return torch.einsum("m,mnk->nk", self.params["weights"], votes)
+        return pairwise_sum(self.params["weights"][:, None, None] * votes)
 
     def predict_proba(self, X):
         return torch.softmax(self.predict_raw(X) / (self.num_classes - 1.0), dim=-1)
@@ -630,17 +663,18 @@ class BoostingRegressor(_BoostingParams):
             device="cuda") -> "BoostingRegressionModel":
         dev, X, y, w = self._prepare(X, y, sample_weight, mesh, device)
         n, d = X.shape
-        telem = FitTelemetry.start(self, n=n, d=d)
+        telem = FitTelemetry.start(self, n=n, d=d, mesh=mesh)
         base = self._base().copy()
         ctx = make_shared_fit_ctx(base, X)
+        ctx, X, y, w, valid, ax = self._shard(mesh, base, ctx, X, y, w)
         loss_name = self.loss.lower()
 
         def run_round(bw, round_key):
-            w_norm = _normalized(bw)
+            w_norm = _normalized(bw, ax)
             params, pred = base.fit_and_direction(ctx, y, w_norm, None, X,
-                                                  key=round_key)
+                                                  key=round_key, axis_name=ax)
             max_error, est_err, est_weight, new_bw = _drucker_update(
-                w_norm, pred, y, loss_name)
+                w_norm, pred, y, loss_name, valid, ax)
             return params, est_weight, new_bw, (max_error, est_err)
 
         def extras(stats):
@@ -649,12 +683,12 @@ class BoostingRegressor(_BoostingParams):
 
         ckpt = self._checkpointer(dev, n, d, telem=telem)
         start_i, bw, chunks = self._resume(ckpt, w, telem)
-        run_chunk = self._rounds(run_round, self._round_keys(dev), extras)
+        run_chunk = self._rounds(run_round, self._round_keys(dev), extras, ax)
         guard = self._numeric_guard(telem)
         telem.phase_mark("setup")
         self._drive_boosting_rounds(ckpt, bw, chunks, run_chunk,
                                     self._replay, start_i, ramp=True,
-                                    guard=guard, telem=telem)
+                                    guard=guard, telem=telem, ax=ax)
         ckpt.delete()
         params = self._model_params(chunks, dev)
         model = _with_guard_events(guard, BoostingRegressionModel(
@@ -682,7 +716,7 @@ class BoostingRegressionModel(RegressionModel, BoostingRegressor):
         preds = self.member_predictions(X)
         weights = self.params["weights"]
         if self.voting_strategy.lower() == "mean":
-            return torch.einsum("m,mn->n", weights, preds) / torch.clamp(
+            return pairwise_sum(weights[:, None] * preds) / torch.clamp(
                 torch.sum(weights), min=1e-30
             )
         return weighted_median_rows(preds.T, weights)

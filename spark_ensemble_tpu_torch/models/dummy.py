@@ -15,6 +15,7 @@ from spark_ensemble_tpu_torch.models.base import (
     ClassificationModel,
     RegressionModel,
 )
+from spark_ensemble_tpu_torch.ops.collective import preduce
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array, in_range
 from spark_ensemble_tpu_torch.utils.quantile import weighted_median, weighted_quantile
 
@@ -36,14 +37,15 @@ class DummyRegressor(BaseLearner):
     def make_fit_ctx(self, X, num_classes=None):
         return None
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None, axis_name=None):
         strategy = self.strategy.lower()
         if strategy == "mean":
-            value = torch.sum(w * y) / torch.clamp(torch.sum(w), min=1e-30)
+            sw_y, sw = preduce([torch.sum(w * y), torch.sum(w)], axis_name)
+            value = sw_y / torch.clamp(sw, min=1e-30)
         elif strategy == "median":
-            value = weighted_median(y, w)
+            value = weighted_median(y, w, axis_name=axis_name)
         elif strategy == "quantile":
-            value = weighted_quantile(y, self.quantile, w)
+            value = weighted_quantile(y, self.quantile, w, axis_name=axis_name)
         else:
             value = torch.tensor(float(self.constant), device=y.device)
         return {"value": value.to(torch.float32)}
@@ -77,14 +79,17 @@ class DummyClassifier(BaseLearner):
     def make_fit_ctx(self, X, num_classes=None):
         return {"num_classes": num_classes}
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
+    def ctx_row_leaves(self, ctx):
+        return {"num_classes": False}
+
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None, axis_name=None):
         k = ctx["num_classes"]
         strategy = self.strategy.lower()
         if strategy == "uniform":
             proba = torch.full((k,), 1.0 / k, dtype=torch.float32, device=y.device)
         elif strategy == "prior":
             onehot = torch.nn.functional.one_hot(y.to(torch.int64), k).to(torch.float32)
-            counts = torch.sum(w[:, None] * onehot, dim=0)
+            counts = preduce(torch.sum(w[:, None] * onehot, dim=0), axis_name)
             proba = counts / torch.clamp(torch.sum(counts), min=1e-30)
         else:
             proba = torch.nn.functional.one_hot(

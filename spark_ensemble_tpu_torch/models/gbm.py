@@ -57,8 +57,21 @@ key is its bag key ``fold_in(fold_in(PRNGKey(seed), i), 2)``.
 
 ``fit_streaming`` trains over an on-disk shard store
 (``data/streaming.py``): the same round loop (``_fit_rounds``) with the
-shard sweep in place of the base tree.  Meshes are not ported yet and
-raise ``NotImplementedError``.
+shard sweep in place of the base tree.
+
+``fit(X, y, mesh=...)`` runs the JAX package's SPMD fit, one process per
+device (``parallel/mesh.py``): every rank passes the same global arrays,
+keeps its block of the rows (zero-weight padding included) and reduces
+every row sum across the mesh's row axis: the hessian sums, the tree
+statistics, the step searches' objectives, the validation losses and
+huber's quantile (the sharded walk of ``utils/quantile.py``).  The draws
+over all rows come out whole on every rank and each keeps its block.  The
+classifier's class dims split into equal blocks over a "member" axis
+(zero-weight phantom dims round them up): a rank fits its block, and the
+params and directions are gathered over "member" and trimmed before the
+step search.  Every rank takes the same decisions on the same reduced
+values and returns the same model.  ``fit_streaming(mesh=...)`` and
+checkpoints under a mesh wait in ROADMAP queue 1, item 29.
 
 Telemetry follows the JAX package's call sites: ``fit_start`` (with a
 ``sampling_config`` event for a sampled fit), the ``setup`` / ``probe`` /
@@ -91,6 +104,8 @@ from spark_ensemble_tpu_torch.models.base import (
     as_f32,
     infer_num_classes,
     make_shared_fit_ctx,
+    mesh_device,
+    mesh_fit_kwargs,
     not_supported,
     resolve_device,
     resolve_weights,
@@ -102,8 +117,10 @@ from spark_ensemble_tpu_torch.models.dummy import DummyClassifier, DummyRegresso
 from spark_ensemble_tpu_torch.models.linear_tree import LinearTreeRegressor
 from spark_ensemble_tpu_torch.models.tree import DecisionTreeRegressor
 from spark_ensemble_tpu_torch.ops import losses as losses_mod
+from spark_ensemble_tpu_torch.ops.collective import pairwise_sum, pgather, preduce
 from spark_ensemble_tpu_torch.ops.linesearch import brent_minimize, projected_newton_box_lanes
 from spark_ensemble_tpu_torch.ops.tree import Tree
+from spark_ensemble_tpu_torch.parallel.mesh import setup_row_sharding, shard_rows
 from spark_ensemble_tpu_torch.params import Param, gt, gt_eq, in_array, in_range
 from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
 from spark_ensemble_tpu_torch.telemetry.quality import drift_reference_from_ctx
@@ -302,14 +319,16 @@ class _GBMParams(CheckpointableParams):
 
     def _check_gbm_support(self, mesh):
         """Raise for every Param value this slice does not implement."""
-        if mesh is not None:
-            not_supported("mesh", mesh, "queue 1, item 18")
+        if mesh is not None and self.checkpoint_dir is not None:
+            not_supported("checkpoint_dir with mesh", self.checkpoint_dir,
+                          "queue 1, item 29")
 
     def _check_streaming_supported(self, mesh) -> None:
         """``fit_streaming``'s gates: the planes the port lacks, then what
         the shard sweep cannot stage (the compacted row gather and the
         linear-leaf solves both read the resident rows)."""
-        self._check_gbm_support(mesh)
+        if mesh is not None:
+            not_supported("mesh", mesh, "queue 1, item 29")
         if str(self.sampling).lower() != "none":
             raise ValueError(
                 "fit_streaming does not support gradient-based row "
@@ -354,8 +373,17 @@ class _GBMParams(CheckpointableParams):
             "amp": amp,
         }
 
-    def _check_sampling_supported(self, plan) -> None:
-        if plan is not None and str(self.sample_method).lower() == "goss":
+    def _check_sampling_supported(self, plan, mesh=None) -> None:
+        if plan is None:
+            return
+        if mesh is not None:
+            raise ValueError(
+                "sampling != 'none' is single-device only for now: the "
+                "compacted row gather has no shard_map story yet (rows "
+                "would need a cross-shard gather); drop mesh= or set "
+                "sampling='none'"
+            )
+        if str(self.sample_method).lower() == "goss":
             raise ValueError(
                 "sampling != 'none' supersedes the legacy weight-mask "
                 "sample_method='goss'; configure one of the two"
@@ -701,6 +729,25 @@ class _GBMParams(CheckpointableParams):
         return np.asarray(vh)
 
 
+def _row_sharded_sample(sample, mesh, n):
+    """A sampling plan's draws over all ``n`` rows (the same on every rank,
+    bit for bit the unsharded draws), cut to this rank's block of the padded
+    rows (padding at weight 0), as the JAX package's ``P(None, ax)``."""
+
+    def sample_l(i):
+        bag_w, mask = sample(i)
+        return shard_rows(mesh, bag_w, n), mask
+
+    return sample_l
+
+
+def _sharded_mean(values, valid, ax):
+    """The mean of ``values`` over the real rows of every rank: both sums
+    reduced over ``ax`` (the JAX package's psum-ed weighted mean)."""
+    num, den = preduce(torch.stack([torch.sum(valid * values), torch.sum(valid)]), ax)
+    return num / den
+
+
 def _split_validation(X, y, w_all, validation_indicator):
     if validation_indicator is None:
         return X, y, w_all, None, None
@@ -708,13 +755,20 @@ def _split_validation(X, y, w_all, validation_indicator):
     return X[~vi], y[~vi], w_all[~vi], X[vi], y[vi]
 
 
-def _goss_multiplier(neg_grad, w, bag_w, key, top_rate, other_rate):
+def _goss_multiplier(neg_grad, w, bag_w, key, top_rate, other_rate,
+                     axis_name=None):
     """The legacy GOSS weight mask ``f32[n]``: 1 on the rows whose gradient
     norm is in the top ``top_rate`` (the exact weighted quantile), and a
     Bernoulli keep of the rest at rate ``other_rate / (1 - top_rate)``
-    weighted by its reciprocal, so the rest's gradient mass is unbiased."""
+    weighted by its reciprocal, so the rest's gradient mass is unbiased.
+    Under a mesh the threshold is the sharded quantile, and each rank folds
+    its coordinate on every row axis into the key, as the JAX package
+    folds ``axis_index``, so the ranks draw different patterns."""
     score = torch.sqrt(torch.sum(neg_grad * neg_grad, dim=-1))
-    thr = weighted_quantile(score, 1.0 - top_rate, w * bag_w)
+    thr = weighted_quantile(score, 1.0 - top_rate, w * bag_w, axis_name=axis_name)
+    if axis_name is not None:
+        for name in axis_name.names:
+            key = fold_in(key, axis_name.coords[name])
     # the JAX package's f32 arithmetic on the rates
     f32 = np.float32
     p = np.minimum(f32(1.0), f32(other_rate) / np.maximum(f32(1.0 - top_rate), f32(1e-9)))
@@ -792,17 +846,20 @@ def _sample_compact(method, score, alive, key, m, samp):
 
 
 def _pseudo_residuals_and_weights(loss, updates, y_enc, pred, bag_w, w,
-                                  goss=None, goss_key=None):
+                                  goss=None, goss_key=None, axis_name=None):
     """Targets/weights for the round's base fit -> (labels[n, dim],
     fit_w[n, dim], bag_w); ``bag_w`` comes back multiplied by the legacy
     GOSS mask when ``goss=(top_rate, other_rate)``, so the line search
-    sees the rows the trees fit."""
+    sees the rows the trees fit.  Under a mesh the hessian sum is reduced
+    over ``axis_name``."""
     neg_grad = loss.negative_gradient(y_enc, pred)
     if goss is not None:
-        bag_w = bag_w * _goss_multiplier(neg_grad, w, bag_w, goss_key, *goss)
+        bag_w = bag_w * _goss_multiplier(neg_grad, w, bag_w, goss_key, *goss,
+                                         axis_name=axis_name)
     if updates == "newton" and loss.has_hessian:
         h = torch.clamp(loss.hessian(y_enc, pred), min=1e-2)
-        sum_h = torch.sum(bag_w[:, None] * h, dim=0, keepdim=True)
+        sum_h = preduce(torch.sum(bag_w[:, None] * h, dim=0, keepdim=True),
+                        axis_name)
         labels = neg_grad / h
         fit_w = 0.5 * h / torch.clamp(sum_h, min=1e-30) * (w * bag_w)[:, None]
     else:
@@ -819,12 +876,15 @@ def _make_reg_loss(loss_name, alpha_q, delta):
     return losses_mod.get_regression_loss(loss_name, alpha=alpha_q, quantile=alpha_q)
 
 
-def _squared_step(bag_w, direction, res):
+def _squared_step(bag_w, direction, res, axis_name=None):
     """The closed-form step of squared loss: ``phi(a) = sum bw*(res -
     a*dir)^2/2`` is exactly quadratic; its minimizer, clamped to Brent's
-    [0, 100] bracket (1.0 for a zero direction)."""
+    [0, 100] bracket (1.0 for a zero direction).  Both sums are reduced
+    under a mesh."""
     num = torch.sum(bag_w * direction * res)
     den = torch.sum(bag_w * direction * direction)
+    if axis_name is not None:
+        num, den = preduce(torch.stack([num, den]), axis_name)
     return torch.where(
         den > 1e-30,
         torch.clamp(num / torch.clamp(den, min=1e-30), 0.0, 100.0),
@@ -833,7 +893,7 @@ def _squared_step(bag_w, direction, res):
 
 
 def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
-                        tol, max_iter, sampling=None):
+                        tol, max_iter, sampling=None, ax=None):
     """One regressor round ``(ctx, X, bag_w, keys, mask, pred, delta, y, w,
     lr, step_scale=1.0) -> (params, weight, new_pred)``: the closed-form
     step for squared loss, Brent over [0, 100] for the others.  ``keys`` is the round's
@@ -843,11 +903,13 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
     hessian sum and the step search run over the gathered survivors, and
     only the prediction update routes every row.  The round's parts
     without sampling (``round_core.targets`` and ``round_core.step``) are
-    what a megabatch sweep runs per lane (``models/gbm_sweep.py``)."""
+    what a megabatch sweep runs per lane (``models/gbm_sweep.py``).  ``ax``
+    is a mesh fit's row axis: the rows are this rank's, and every row sum
+    is reduced over it."""
 
     def step(loss, y_s, pred_s, bag_s, dir_s):
         if optimized and loss_name == "squared":
-            return _squared_step(bag_s, dir_s, y_s - pred_s)
+            return _squared_step(bag_s, dir_s, y_s - pred_s, ax)
         if optimized:
             y_enc_s = loss.encode_label(y_s)
 
@@ -856,8 +918,8 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
                     bag_s * loss.loss(y_enc_s, (pred_s + a * dir_s)[:, None])
                 )
 
-            return brent_minimize(phi, 0.0, 100.0, tol=tol,
-                                  max_iter=max_iter).to(pred_s.device)
+            return brent_minimize(phi, 0.0, 100.0, tol=tol, max_iter=max_iter,
+                                  axis_name=ax).to(pred_s.device)
         return torch.ones((), device=pred_s.device)
 
     def targets(loss, y, pred, bag_w, w, samp_key):
@@ -865,7 +927,7 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
         bag_w)."""
         labels, fit_w, bag_w = _pseudo_residuals_and_weights(
             loss, updates, loss.encode_label(y), pred[:, None], bag_w, w,
-            goss, samp_key,
+            goss, samp_key, axis_name=ax,
         )
         return labels[:, 0].contiguous(), fit_w[:, 0].contiguous(), bag_w
 
@@ -876,7 +938,7 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
         if sampling is None:
             labels, fit_w, bag_w = targets(loss, y, pred, bag_w, w, samp_key)
             params, direction = base.fit_and_direction(
-                ctx, labels, fit_w, mask, X, key=base_key
+                ctx, labels, fit_w, mask, X, key=base_key, axis_name=ax
             )
             alpha = step(loss, y, pred, bag_w, direction)
         else:
@@ -906,7 +968,7 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
 
 
 def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
-                        max_iter, sampling=None):
+                        max_iter, sampling=None, ax=None, member_axis=None):
     """One classifier round ``(ctx, X, y_enc, w, bag_w, keys, mask, pred,
     alpha_ws, lr, step_scale=1.0) -> (params, weight[dim], new_pred,
     alpha_carry)``, with
@@ -915,7 +977,34 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
     dim's tree fits on the same gathered buffer.  The step search is
     ``projected_newton_box_lanes`` over one lane; a megabatch sweep runs it
     over every candidate at once (``round_core.targets``,
-    ``round_core.step_problem``)."""
+    ``round_core.step_problem``).
+
+    Under a mesh ``ax`` is the row axis (every row sum reduced over it)
+    and ``member_axis`` the "member" axis, whose ranks fit equal blocks of
+    the class dims: the dims round up to a multiple of its size with
+    phantom dims of zero labels and weights, each rank fits its block, and
+    the params and directions are gathered over it and trimmed to ``dim``
+    before the step search."""
+    member_size = 1 if member_axis is None else member_axis.size
+    dim_blk = dim + (-dim) % member_size
+    k_local = dim_blk // member_size
+
+    def fit_dims(ctx, labels, fit_w, mask, X, base_key):
+        if member_axis is None:
+            return base.fit_many_and_directions(
+                ctx, labels, fit_w, mask, X, keys=base_key, axis_name=ax
+            )
+        if dim_blk != dim:
+            pad = labels.new_zeros((labels.shape[0], dim_blk - dim))
+            labels, fit_w = torch.cat([labels, pad], 1), torch.cat([fit_w, pad], 1)
+        lo = member_axis.index * k_local
+        params, directions = base.fit_many_and_directions(
+            ctx, labels[:, lo:lo + k_local].contiguous(),
+            fit_w[:, lo:lo + k_local].contiguous(), mask, X, keys=base_key,
+            axis_name=ax,
+        )
+        params = tree_map(lambda a: pgather(a, member_axis, 0)[:dim], params)
+        return params, pgather(directions, member_axis, 1)[:, :dim]
 
     def step_problem(y_enc_s, pred_s, bag_s, dirs_s):
         """The step search's objective and its closed-form gradient and
@@ -938,14 +1027,14 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
         # warm start from the previous round's step sizes
         return projected_newton_box_lanes(
             [phi], alpha_ws[None], max_iter=min(max_iter, 25), tol=tol,
-            grad_hess=[gh],
+            grad_hess=[gh], axis_name=ax,
         )[0]
 
     def targets(y_enc, pred, bag_w, w, samp_key):
         """The round's fit targets and weights -> (labels[n, dim],
         fit_w[n, dim], bag_w)."""
         labels, fit_w, bag_w = _pseudo_residuals_and_weights(
-            loss, updates, y_enc, pred, bag_w, w, goss, samp_key,
+            loss, updates, y_enc, pred, bag_w, w, goss, samp_key, axis_name=ax,
         )
         return labels.contiguous(), fit_w.contiguous(), bag_w
 
@@ -957,9 +1046,7 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
         if sampling is None:
             labels, fit_w, bag_w = targets(y_enc, pred, bag_w, w, samp_key)
             if member is None:
-                params, directions = base.fit_many_and_directions(
-                    ctx, labels, fit_w, mask, X, keys=base_key
-                )
+                params, directions = fit_dims(ctx, labels, fit_w, mask, X, base_key)
             else:
                 params, directions = member, base.predict_many_fn(member, X).T
             alpha = step(y_enc, pred, bag_w, directions, alpha_ws)
@@ -992,22 +1079,12 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
 
 def _weighted_round_sum(weights, preds):
     """``sum_m weights[m, ...] * preds[m, ..., n]`` over the round axis:
-    each product rounded, then summed by a fixed pairwise tree of
-    elementwise adds (round m with round m + half, level by level).  Every
-    element takes the same adds in the same order whatever the trailing
-    shape, so a row's sum does not depend on how many rows share the call:
-    neither a matmul's blocking nor a reduction kernel's split of the
-    round axis (CUDA's sum over the rounds reorders when one row is left)
-    can move its bits.  The serving engine relies on that: a request
-    padded into a bucket predicts as it does alone."""
-    terms = weights[..., None] * preds
-    r = terms.shape[0]
-    while r > 1:
-        half = r // 2
-        paired = terms[:half] + terms[half:2 * half]
-        terms = torch.cat((paired, terms[2 * half:r])) if r % 2 else paired
-        r = terms.shape[0]
-    return terms[0]
+    each product rounded, then summed by the fixed pairwise tree of
+    ``ops/collective.pairwise_sum``, so a row's sum does not depend on how
+    many rows share the call (CUDA's sum over the rounds reorders when one
+    row is left).  The serving engine relies on that: a request padded
+    into a bucket predicts as it does alone."""
+    return pairwise_sum(weights[..., None] * preds)
 
 
 def _scaled_step(weight, step_scale):
@@ -1089,10 +1166,14 @@ class GBMRegressor(_GBMParams, Estimator):
 
     is_classifier = False
 
-    def _fit_init(self, X, y, w, device):
+    def _fit_init(self, X, y, w, device, mesh=None):
+        """The init model; under a mesh its fit runs over the mesh's rows
+        too (the base learner's or the dummy's standalone mesh fit)."""
         strategy = self.init_strategy.lower()
         if strategy == "base":
-            return self._base().fit(X, y, sample_weight=w, device=device)
+            base = self._base()
+            return base.fit(X, y, sample_weight=w, device=device,
+                            **mesh_fit_kwargs(base, mesh))
         name = self.loss.lower()
         if strategy == "zero":
             dummy = DummyRegressor(strategy="constant", constant=0.0)
@@ -1102,13 +1183,17 @@ class GBMRegressor(_GBMParams, Estimator):
             dummy = DummyRegressor(strategy="quantile", quantile=self.alpha)
         else:
             dummy = DummyRegressor(strategy="mean")
-        return dummy.fit(X, y, sample_weight=w, device=device)
+        return dummy.fit(X, y, sample_weight=w, device=device,
+                         **mesh_fit_kwargs(dummy, mesh))
 
     @instrumented_fit
     def fit(self, X, y, sample_weight=None, validation_indicator=None,
             mesh=None, device="cuda"):
+        """Fit; with ``mesh`` (``parallel/mesh.py``; every rank calls with
+        the same arrays) the rows shard over the mesh's row axes and every
+        rank returns the same model."""
         self._check_gbm_support(mesh)
-        dev = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
         w_all = resolve_weights(y, sample_weight)
@@ -1117,14 +1202,14 @@ class GBMRegressor(_GBMParams, Estimator):
         instr = Instrumentation("GBMRegressor.fit")
         instr.log_params(self.get_params())
         instr.log_dataset(n, d)
-        telem = FitTelemetry.start(self, n=n, d=d)
+        telem = FitTelemetry.start(self, n=n, d=d, mesh=mesh)
         base = self._base().copy()
         ctx = make_shared_fit_ctx(base, X)
         # the training-time drift reference (telemetry/quality.py),
         # counted on the device from the binned ctx
         drift_ref = drift_reference_from_ctx(ctx)
         model = self._fit_rounds(X, y, w, X_val, y_val, base, ctx, dev,
-                                 telem=telem, drift_ref=drift_ref)
+                                 telem=telem, drift_ref=drift_ref, mesh=mesh)
         instr.log_outcome(kept_members=model.num_members)
         return model
 
@@ -1136,8 +1221,8 @@ class GBMRegressor(_GBMParams, Estimator):
         device at once, and the fit is bit-identical to ``fit`` with a
         ``hist="stream"`` base learner at matched chunk rows
         (``data/streaming.py``).  The validation split (``X_val``,
-        ``y_val``) stays resident.  ``mesh`` raises until the port grows
-        distribution (ROADMAP queue 1, item 18)."""
+        ``y_val``) stays resident.  ``mesh`` raises until the sharded
+        shard sweep lands (ROADMAP queue 1, item 29)."""
         self._check_streaming_supported(mesh)
         from spark_ensemble_tpu_torch.data.streaming import fit_streaming_regressor
 
@@ -1147,35 +1232,41 @@ class GBMRegressor(_GBMParams, Estimator):
         )
 
     def _fit_rounds(self, X, y, w, X_val, y_val, base, ctx, dev, telem,
-                    trees=None, drift_ref=None):
+                    trees=None, drift_ref=None, mesh=None):
         """The round loop of :meth:`fit` from the training split on: ``X``
         f32[n, d] (only its shape is read when ``trees`` fits the rounds),
         ``ctx`` the base's fit context, ``telem`` the fit's telemetry.
         ``trees`` stands in for the base in the round core (a streaming
         fit's shard sweep: ``trees.begin_round(r)`` runs before round ``r``
         and ``trees.end_round(r)`` after it).  The model carries
-        ``drift_ref`` as ``drift_ref_`` when given."""
+        ``drift_ref`` as ``drift_ref_`` when given.  With ``mesh`` the
+        arrays are the global ones and each rank keeps its rows here."""
         loss_name = self.loss.lower()
         alpha_q = float(self.alpha)
         huber = loss_name == "huber"
         n, d = X.shape
-        init_model = self._fit_init(X, y, w, dev)
+        init_model = self._fit_init(X, y, w, dev, mesh)
         # initial huber delta: the alpha-quantile of the label over the
         # full input, validation rows included
         delta = (weighted_quantile(torch.cat([y, y_val]) if y_val is not None else y,
                                    alpha_q)
                  if huber else torch.zeros((), device=dev))
-        pred = init_model.predict(X).clone()
         sample = self._sampling_plan(n, d, dev)
         lr = float(self.learning_rate)
         plan = self._resolved_sampling(n)
-        self._check_sampling_supported(plan)
+        self._check_sampling_supported(plan, mesh)
         _emit_sampling_config(telem, plan)
         bag_keys, samp_keys = self._round_keys(dev, plan)
+        ax = valid = None
+        if mesh is not None:
+            ctx, X, ax, _, (y, w, valid) = setup_row_sharding(
+                mesh, base, ctx, X, n, (y, w, torch.ones_like(y)))
+            sample = _row_sharded_sample(sample, mesh, n)
+        pred = init_model.predict(X).clone()
         round_core = make_reg_round_core(
             base if trees is None else trees, loss_name, alpha_q,
             self.updates.lower(), bool(self.optimized_weights), self._goss(),
-            float(self.tol), int(self.max_iter), plan,
+            float(self.tol), int(self.max_iter), plan, ax=ax,
         )
         with_validation = X_val is not None
         best, pred_val = 0.0, None
@@ -1185,7 +1276,14 @@ class GBMRegressor(_GBMParams, Estimator):
             best = float(torch.mean(
                 _make_reg_loss(loss_name, alpha_q, delta).loss(y_val_enc, pred_val[:, None])
             ))
-        ones = torch.ones_like(y)
+            if mesh is not None:
+                nv = X_val.shape[0]
+                X_val, y_val_enc, pred_val, valid_val = (
+                    shard_rows(mesh, t, nv)
+                    for t in (X_val, y_val_enc, pred_val, torch.ones_like(y_val)))
+        # huber's per-round quantile: every real row at weight 1 (zero-weight
+        # padding under a mesh, as the JAX package's validity mask)
+        ones = torch.ones_like(y) if valid is None else valid
         chunks = {"members": [], "weights": [], "aux": []}
         val_history: List[float] = []
         i, v = 0, 0
@@ -1235,7 +1333,8 @@ class GBMRegressor(_GBMParams, Estimator):
                     trees.begin_round(r)
                 bag_w, mask = sample(r)
                 if huber:
-                    dl = weighted_quantile(torch.abs(y - p), alpha_q, weights=ones)
+                    dl = weighted_quantile(torch.abs(y - p), alpha_q, weights=ones,
+                                           axis_name=ax)
                     deltas_l.append(dl)
                 params, weight, p = round_core(
                     ctx, X, bag_w, (bag_keys[r], samp_keys[r]), mask, p, dl,
@@ -1244,9 +1343,9 @@ class GBMRegressor(_GBMParams, Estimator):
                 if with_validation:
                     pv = _advance(pv, weight, base.predict_fn(params, X_val),
                                   step_scale)
-                    errs_l.append(torch.mean(
-                        _make_reg_loss(loss_name, alpha_q, dl).loss(y_val_enc, pv[:, None])
-                    ))
+                    le = _make_reg_loss(loss_name, alpha_q, dl).loss(y_val_enc, pv[:, None])
+                    errs_l.append(torch.mean(le) if ax is None
+                                  else _sharded_mean(le.reshape(-1), valid_val, ax))
                 params_l.append(params)
                 weights_l.append(weight)
                 if trees is not None:
@@ -1455,12 +1554,15 @@ class GBMClassifier(_GBMParams, Estimator):
     def _make_loss(self, num_classes):
         return losses_mod.get_classification_loss(self.loss.lower(), num_classes)
 
-    def _init_raw_scores(self, X, y, w, num_classes, dim, device):
+    def _init_raw_scores(self, X, y, w, num_classes, dim, device, mesh=None):
         """Init model + round-0 raw scores: log prior for logloss (dim ==
         num_classes); for the binary dim-1 losses the prior log-odds, or
-        zero under 'uniform'."""
-        init_model = DummyClassifier(strategy=self.init_strategy).fit(
-            X, y, sample_weight=w, num_classes=num_classes, device=device
+        zero under 'uniform'.  Under a mesh the prior's counts are reduced
+        over the mesh's rows."""
+        dummy = DummyClassifier(strategy=self.init_strategy)
+        init_model = dummy.fit(
+            X, y, sample_weight=w, num_classes=num_classes, device=device,
+            **mesh_fit_kwargs(dummy, mesh),
         )
         if dim == 1 and num_classes == 2 and self.init_strategy.lower() == "prior":
             # clamp both sides: a train split can hold no positives
@@ -1477,8 +1579,11 @@ class GBMClassifier(_GBMParams, Estimator):
     @instrumented_fit
     def fit(self, X, y, sample_weight=None, validation_indicator=None,
             mesh=None, num_classes=None, device="cuda"):
+        """Fit; with ``mesh`` the rows shard over the mesh's row axes and
+        the class dims over its "member" axis, and every rank returns the
+        same model (module docstring)."""
         self._check_gbm_support(mesh)
-        dev = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
         w_all = resolve_weights(y, sample_weight)
@@ -1490,14 +1595,15 @@ class GBMClassifier(_GBMParams, Estimator):
         instr = Instrumentation("GBMClassifier.fit")
         instr.log_params(self.get_params())
         instr.log_dataset(n, d, num_classes)
-        telem = FitTelemetry.start(self, n=n, d=d, num_classes=int(num_classes))
+        telem = FitTelemetry.start(self, n=n, d=d, num_classes=int(num_classes),
+                                   mesh=mesh)
         base = self._base().copy()
         ctx = make_shared_fit_ctx(base, X)
         # the training-time drift reference (telemetry/quality.py),
         # counted on the device from the binned ctx
         drift_ref = drift_reference_from_ctx(ctx)
         model = self._fit_rounds(X, y, w, X_val, y_val, num_classes, base, ctx,
-                                 dev, telem=telem, drift_ref=drift_ref)
+                                 dev, telem=telem, drift_ref=drift_ref, mesh=mesh)
         instr.log_outcome(kept_members=model.num_members)
         return model
 
@@ -1516,28 +1622,36 @@ class GBMClassifier(_GBMParams, Estimator):
         )
 
     def _fit_rounds(self, X, y, w, X_val, y_val, num_classes, base, ctx, dev,
-                    telem, trees=None, drift_ref=None):
+                    telem, trees=None, drift_ref=None, mesh=None):
         """The round loop of :meth:`fit` from the training split on; see
         :meth:`GBMRegressor._fit_rounds`."""
         loss = self._make_loss(num_classes)
         dim = loss.dim
         n, d = X.shape
-        init_model, init_raw = self._init_raw_scores(X, y, w, num_classes, dim, dev)
-        y_enc = loss.encode_label(y)
-        pred = init_raw[None, :].expand(n, dim).clone()
+        init_model, init_raw = self._init_raw_scores(X, y, w, num_classes, dim, dev,
+                                                     mesh)
         sample = self._sampling_plan(n, d, dev)
+        ax = member_axis = None
+        if mesh is not None:
+            ctx, X, ax, _, (y, w) = setup_row_sharding(mesh, base, ctx, X, n, (y, w))
+            sample = _row_sharded_sample(sample, mesh, n)
+            # a one-rank member axis holds every class dim: nothing to gather
+            if mesh.member_axis is not None and mesh.member_axis.size > 1:
+                member_axis = mesh.member_axis
+        y_enc = loss.encode_label(y)
+        pred = init_raw[None, :].expand(X.shape[0], dim).clone()
         # the step search's warm start, carried across rounds and
         # checkpoints (a resume replays the same Newton trajectory)
         alpha_ws = torch.ones((dim,), dtype=torch.float32, device=dev)
         lr = float(self.learning_rate)
         plan = self._resolved_sampling(n)
-        self._check_sampling_supported(plan)
+        self._check_sampling_supported(plan, mesh)
         _emit_sampling_config(telem, plan)
         bag_keys, samp_keys = self._round_keys(dev, plan)
         round_core = make_cls_round_core(
             base if trees is None else trees, loss, dim, self.updates.lower(),
             bool(self.optimized_weights), self._goss(), float(self.tol),
-            int(self.max_iter), plan,
+            int(self.max_iter), plan, ax=ax, member_axis=member_axis,
         )
         with_validation = X_val is not None
         best, pred_val = 0.0, None
@@ -1545,6 +1659,11 @@ class GBMClassifier(_GBMParams, Estimator):
             y_enc_val = loss.encode_label(y_val)
             pred_val = init_raw[None, :].expand(X_val.shape[0], dim).clone()
             best = float(torch.mean(loss.loss(y_enc_val, pred_val)))
+            if mesh is not None:
+                nv = X_val.shape[0]
+                X_val, y_enc_val, pred_val, valid_val = (
+                    shard_rows(mesh, t, nv)
+                    for t in (X_val, y_enc_val, pred_val, torch.ones_like(y_val)))
         chunks = {"members": [], "weights": [], "aux": []}
         val_history: List[float] = []
         i, v = 0, 0
@@ -1594,7 +1713,9 @@ class GBMClassifier(_GBMParams, Estimator):
                 if with_validation:
                     dirs_val = base.predict_many_fn(params, X_val).T
                     pv = _advance(pv, weight[None, :], dirs_val, step_scale)
-                    errs_l.append(torch.mean(loss.loss(y_enc_val, pv)))
+                    le = loss.loss(y_enc_val, pv)
+                    errs_l.append(torch.mean(le) if ax is None
+                                  else _sharded_mean(le.reshape(-1), valid_val, ax))
                 params_l.append(params)
                 weights_l.append(weight)
                 if trees is not None:

@@ -26,6 +26,7 @@ from spark_ensemble_tpu_torch.models.base import (
     ClassificationModel,
     RegressionModel,
 )
+from spark_ensemble_tpu_torch.ops.collective import preduce
 from spark_ensemble_tpu_torch.params import Param, gt_eq, in_array
 
 # parameter-count ceiling of the exact-Hessian Newton path under
@@ -46,12 +47,16 @@ def _mask_vector(feature_mask, d, device):
     return feature_mask.to(torch.float32)
 
 
-def _feature_stats(X, w):
+def _feature_stats(X, w, axis_name=None):
     """Weighted per-feature mean and std; constant (or masked) columns get
-    sd=1, so they contribute nothing and stay solvable."""
-    wsum = torch.clamp(torch.sum(w), min=1e-30)
-    mu = torch.sum(w[:, None] * X, dim=0) / wsum
-    var = torch.sum(w[:, None] * (X - mu[None, :]) ** 2, dim=0) / wsum
+    sd=1, so they contribute nothing and stay solvable.  Under a mesh the
+    moments are reduced over ``axis_name``."""
+    wsum, wx = preduce([torch.sum(w)[None], torch.sum(w[:, None] * X, dim=0)],
+                       axis_name)
+    wsum = torch.clamp(wsum[0], min=1e-30)
+    mu = wx / wsum
+    var = preduce(torch.sum(w[:, None] * (X - mu[None, :]) ** 2, dim=0),
+                  axis_name) / wsum
     sd = torch.sqrt(var)
     sd = torch.where(sd > 1e-7 * (1.0 + torch.abs(mu)), sd, torch.ones_like(sd))
     return mu, sd
@@ -63,20 +68,20 @@ class LinearRegression(BaseLearner):
 
     is_classifier = False
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None, axis_name=None):
         X = _apply_mask(ctx, feature_mask)
         n, d = X.shape
         # standardize (as Spark's LinearRegression does): f32 normal
         # equations on raw-scale data would lose the small features
-        mu, sd = _feature_stats(X, w)
+        mu, sd = _feature_stats(X, w, axis_name)
         Xs = (X - mu[None, :]) / sd[None, :]
         if self.fit_intercept:
             Xs = torch.cat([Xs, torch.ones((n, 1), dtype=X.dtype, device=X.device)], dim=1)
         Xw = Xs * w[:, None]
-        A = Xs.T @ Xw + (self.reg_param + 1e-6) * torch.eye(
+        A, b = preduce([Xs.T @ Xw, Xw.T @ y], axis_name)
+        A = A + (self.reg_param + 1e-6) * torch.eye(
             Xs.shape[1], dtype=X.dtype, device=X.device
         )
-        b = Xw.T @ y
         L, _ = torch.linalg.cholesky_ex(A)
         beta = torch.cholesky_solve(b[:, None], L)[:, 0]
         coef_s = beta[:d]
@@ -236,12 +241,16 @@ def _solve_ridged(H, g, reg_vec):
     return -torch.linalg.solve(H, g)
 
 
-def _newton_multinomial(Xs, onehot, w_norm, reg, max_iter, tol, fit_intercept):
+def _newton_multinomial(Xs, onehot, w_norm, reg, max_iter, tol, fit_intercept,
+                        axis_name=None):
     """Damped Newton for weighted multinomial cross-entropy with the exact
     softmax Hessian ``sum_i w_i x_i x_i' (x) (diag(p_i) - p_i p_i')``.  With
     ``fit_intercept`` the last column of ``Xs`` is ones and its row of
     ``theta`` the unpenalized intercept.  Binary problems solve the sigmoid
-    form on ``d1`` parameters and return the symmetric softmax solution."""
+    form on ``d1`` parameters and return the symmetric softmax solution.
+    Under a mesh the data terms of the objective, gradient and Hessian are
+    reduced over ``axis_name``; the penalty is added once, after."""
+    red = lambda v: preduce(v, axis_name)  # noqa: E731
     n, d1 = Xs.shape
     k = onehot.shape[1]
     dev = Xs.device
@@ -258,13 +267,13 @@ def _newton_multinomial(Xs, onehot, w_norm, reg, max_iter, tol, fit_intercept):
         def fval_b(beta):
             f = Xs @ beta
             ce = torch.logaddexp(f, torch.zeros_like(f)) - y1 * f
-            return torch.sum(w_norm * ce) + 0.5 * torch.sum(reg_b * beta**2)
+            return red(torch.sum(w_norm * ce)) + 0.5 * torch.sum(reg_b * beta**2)
 
         def grad_step_b(beta):
             p1 = torch.sigmoid(Xs @ beta)
-            g = Xs.T @ (w_norm * (p1 - y1)) + reg_b * beta
             s = w_norm * p1 * (1.0 - p1)
-            H = (Xs * s[:, None]).T @ Xs
+            g, H = red([Xs.T @ (w_norm * (p1 - y1)), (Xs * s[:, None]).T @ Xs])
+            g = g + reg_b * beta
             return g, _solve_ridged(H, g, reg_b)
 
         beta = _damped_newton(
@@ -276,17 +285,20 @@ def _newton_multinomial(Xs, onehot, w_norm, reg, max_iter, tol, fit_intercept):
     def fval(theta):
         logits = Xs @ theta
         ce = -torch.sum(onehot * torch.log_softmax(logits, dim=-1), dim=-1)
-        return torch.sum(w_norm * ce) + 0.5 * torch.sum(reg_diag[:, None] * theta**2)
+        return (red(torch.sum(w_norm * ce))
+                + 0.5 * torch.sum(reg_diag[:, None] * theta**2))
 
     def grad_step(theta):
         p = torch.softmax(Xs @ theta, dim=-1)  # [n, k]
-        g = Xs.T @ (w_norm[:, None] * (p - onehot)) + reg_diag[:, None] * theta
         # H[(a,c),(b,e)] = sum_i w x_a x_b (d_ce p_c - p_c p_e), by GEMMs
         Xw = Xs * w_norm[:, None]
         U = (Xs[:, :, None] * p[:, None, :]).reshape(n, d1 * k)
         Uw = (Xw[:, :, None] * p[:, None, :]).reshape(n, d1 * k)
-        Mdiag = (Xw.T @ U).reshape(d1, d1, k)  # the c == e part
-        H = -(Uw.T @ U).reshape(d1, k, d1, k)
+        g, Mdiag, UU = red([Xs.T @ (w_norm[:, None] * (p - onehot)), Xw.T @ U,
+                            Uw.T @ U])
+        g = g + reg_diag[:, None] * theta
+        Mdiag = Mdiag.reshape(d1, d1, k)  # the c == e part
+        H = -UU.reshape(d1, k, d1, k)
         ii = torch.arange(k, device=dev)
         H[:, ii, :, ii] += torch.movedim(Mdiag, 2, 0)
         H = H.reshape(d1 * k, d1 * k)
@@ -318,20 +330,24 @@ class LogisticRegression(BaseLearner):
     def make_fit_ctx(self, X, num_classes=None):
         return {"X": X, "num_classes": num_classes}
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
+    def ctx_row_leaves(self, ctx):
+        return {"X": True, "num_classes": False}
+
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None, axis_name=None):
         X = _apply_mask(ctx["X"], feature_mask)
         k = int(ctx["num_classes"])
         n, d = X.shape
         dev = X.device
         fit_icpt = bool(self.fit_intercept)
-        mu, sd = _feature_stats(X, w)
+        red = lambda v: preduce(v, axis_name)  # noqa: E731
+        mu, sd = _feature_stats(X, w, axis_name)
         if not fit_icpt:
             # scale-only standardization: centering would smuggle an
             # implicit intercept into a no-intercept model
             mu = torch.zeros_like(mu)
         Xs = (X - mu[None, :]) / sd[None, :]
         onehot = torch.nn.functional.one_hot(y.to(torch.int64), k).to(torch.float32)
-        w_norm = w / torch.clamp(torch.sum(w), min=1e-30)
+        w_norm = w / torch.clamp(red(torch.sum(w)), min=1e-30)
         reg = float(self.reg_param)
 
         solver = self.solver.lower()
@@ -341,7 +357,7 @@ class LogisticRegression(BaseLearner):
             Xn = (torch.cat([Xs, torch.ones((n, 1), dtype=Xs.dtype, device=dev)], dim=1)
                   if fit_icpt else Xs)
             th = _newton_multinomial(Xn, onehot, w_norm, reg, int(self.max_iter),
-                                     float(self.tol), fit_icpt)
+                                     float(self.tol), fit_icpt, axis_name)
             coef_s = th[:d]
             icpt_s = th[d] if fit_icpt else torch.zeros((k,), device=dev)
         else:
@@ -351,11 +367,13 @@ class LogisticRegression(BaseLearner):
                 coef, icpt = theta[: d * k].reshape(d, k), theta[d * k:]
                 logits = Xs @ coef + icpt_scale * icpt[None, :]
                 logp = torch.log_softmax(logits, dim=-1)
-                f = (torch.sum(w_norm * -torch.sum(onehot * logp, dim=-1))
-                     + 0.5 * reg * torch.sum(coef**2))
                 r = w_norm[:, None] * (torch.exp(logp) - onehot)
-                g_coef = Xs.T @ r + reg * coef
-                g_icpt = icpt_scale * torch.sum(r, dim=0)
+                f, g_coef, g_icpt = red([
+                    torch.sum(w_norm * -torch.sum(onehot * logp, dim=-1))[None],
+                    Xs.T @ r, torch.sum(r, dim=0)])
+                f = f[0] + 0.5 * reg * torch.sum(coef**2)
+                g_coef = g_coef + reg * coef
+                g_icpt = icpt_scale * g_icpt
                 return f, torch.cat([g_coef.reshape(-1), g_icpt])
 
             theta = _lbfgs_minimize(

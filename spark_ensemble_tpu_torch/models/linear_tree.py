@@ -33,6 +33,7 @@ from spark_ensemble_tpu_torch.models.base import (
 )
 from spark_ensemble_tpu_torch.models.linear import _apply_mask, _feature_stats
 from spark_ensemble_tpu_torch.models.tree import DecisionTreeRegressor
+from spark_ensemble_tpu_torch.ops.collective import preduce
 from spark_ensemble_tpu_torch.ops.linesearch import chol_solve_psd_lanes
 from spark_ensemble_tpu_torch.ops.tree import (
     _PREDICT_MAX_CELLS,
@@ -76,11 +77,17 @@ class LinearTreeRegressor(DecisionTreeRegressor):
         """The leaf solves read the raw rows too: gather both matrices."""
         return {**super().ctx_gather_rows(ctx, idx), "X": ctx["X"][idx]}
 
-    def _leaf_models(self, ctx, tree: Tree, y, w, feature_mask):
-        """The leaf-regression stage on a fitted constant-leaf tree."""
+    def ctx_row_leaves(self, ctx):
+        """The bins and the raw rows are row-indexed."""
+        return {k: k in ("Xb", "X") for k in ctx}
+
+    def _leaf_models(self, ctx, tree: Tree, y, w, feature_mask, axis_name=None):
+        """The leaf-regression stage on a fitted constant-leaf tree; under a
+        mesh the moments and every leaf's normal equations are reduced over
+        ``axis_name`` before the solves."""
         X = _apply_mask(ctx["X"], feature_mask)
         n, d = X.shape
-        mu, sd = _feature_stats(X, w)
+        mu, sd = _feature_stats(X, w, axis_name)
         Xs = torch.cat(
             [(X - mu[None, :]) / sd[None, :], torch.ones((n, 1), dtype=X.dtype, device=X.device)],
             dim=1,
@@ -88,9 +95,12 @@ class LinearTreeRegressor(DecisionTreeRegressor):
         oh = leaf_one_hot(tree, ctx["Xb"], binned=True)  # [n, leaves], exact
         Xw = Xs * w[:, None]
         # every leaf's normal equations in two one-hot contractions (f32)
-        A = (oh.T @ (Xw[:, :, None] * Xs[:, None, :]).reshape(n, -1)).reshape(-1, d + 1, d + 1)
-        b = oh.T @ (Xw * y[:, None])
-        leaf_w = oh.T @ w
+        A, b, leaf_w, n_pr, w_sum = preduce(
+            [(oh.T @ (Xw[:, :, None] * Xs[:, None, :]).reshape(n, -1)).reshape(-1, d + 1, d + 1),
+             oh.T @ (Xw * y[:, None]), oh.T @ w,
+             torch.sum((w > 0).to(torch.float32))[None], torch.sum(w)[None]],
+            axis_name,
+        )
         # penalize SLOPES only: a feature constant within a leaf (collinear
         # with the bias column) gets slope exactly 0
         ridge = torch.diag(torch.cat([
@@ -101,8 +111,8 @@ class LinearTreeRegressor(DecisionTreeRegressor):
         # the support bar is in EFFECTIVE rows (weight over the mean
         # positive weight); strict, so an empty leaf falls back even at
         # min_leaf_weight=0
-        n_present = torch.clamp(torch.sum((w > 0).to(torch.float32)), min=1.0)
-        w_bar = torch.sum(w) / n_present
+        n_present = torch.clamp(n_pr[0], min=1.0)
+        w_bar = w_sum[0] / n_present
         const = torch.cat(
             [torch.zeros((tree.leaf_value.shape[0], d), dtype=X.dtype, device=X.device),
              tree.leaf_value[:, :1]],
@@ -114,25 +124,28 @@ class LinearTreeRegressor(DecisionTreeRegressor):
                 else torch.ones((d,), dtype=torch.float32, device=X.device))
         return {"tree": tree, "beta": beta, "x_mu": mu, "x_sd": sd, "mask": mask}
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
-        tree = super().fit_from_ctx(ctx, y, w, feature_mask)
-        return self._leaf_models(ctx, tree, y, w, feature_mask)
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None, axis_name=None):
+        tree = super().fit_from_ctx(ctx, y, w, feature_mask, axis_name=axis_name)
+        return self._leaf_models(ctx, tree, y, w, feature_mask, axis_name)
 
     # the tree learner's leaf-id shortcuts return constant-leaf directions:
     # keep the generic fit-then-predict
     fit_and_direction = BaseLearner.fit_and_direction
     fit_many_and_directions = BaseLearner.fit_many_and_directions
 
-    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None):
+    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None,
+                          axis_name=None):
         """One forest fit for every member's tree (``fit_forest``), then
         each member's leaf stage, stacked along a leading member axis."""
-        trees = super().fit_many_from_ctx(ctx, ys, ws, feature_masks)
+        trees = super().fit_many_from_ctx(ctx, ys, ws, feature_masks,
+                                          axis_name=axis_name)
         M = ys.shape[1]
         if feature_masks is not None and feature_masks.dim() == 1:
             feature_masks = feature_masks[None, :].expand(M, -1)
         models = [
             self._leaf_models(ctx, Tree(*(a[m] for a in trees)), ys[:, m], ws[:, m],
-                              None if feature_masks is None else feature_masks[m])
+                              None if feature_masks is None else feature_masks[m],
+                              axis_name)
             for m in range(M)
         ]
         return {

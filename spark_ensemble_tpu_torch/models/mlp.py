@@ -39,6 +39,7 @@ from spark_ensemble_tpu_torch.models.base import (
     member_params,
 )
 from spark_ensemble_tpu_torch.models.linear import _apply_mask, _feature_stats
+from spark_ensemble_tpu_torch.ops.collective import preduce
 from spark_ensemble_tpu_torch.params import Param, gt, gt_eq, in_array
 from spark_ensemble_tpu_torch.utils.random import PRNGKey, split, uniform
 
@@ -108,12 +109,15 @@ class _MLPBase(BaseLearner):
             h = self._act(torch.baddbmm(layer["b"][:, None, :], h, layer["W"]))
         return torch.baddbmm(layers[-1]["b"][:, None, :], h, layers[-1]["W"])
 
-    def _train_nets(self, Xs, w, keys, out_dim, per_example_loss):
+    def _train_nets(self, Xs, w, keys, out_dim, per_example_loss, axis_name=None):
         """Adam on every member's mean weighted loss -> trained layers.
         ``Xs [M, n, d]``, ``w [M, n]``; ``per_example_loss(out [M, n,
-        out]) -> [M, n]``."""
+        out]) -> [M, n]``.  Under a mesh each rank differentiates its rows'
+        share of the objective and the gradients are reduced over
+        ``axis_name`` before the step, as in the JAX package."""
         net = self._init_nets(keys, self._sizes(Xs.shape[2], out_dim))
-        wsum = torch.clamp(torch.sum(w, dim=1, keepdim=True), min=1e-30)
+        wsum = torch.clamp(preduce(torch.sum(w, dim=1, keepdim=True), axis_name),
+                           min=1e-30)
         reg = float(np.float32(self.reg_param))
         lr = float(self.learning_rate_init)
         params = [t for layer in net for t in (layer["W"], layer["b"])]
@@ -127,7 +131,8 @@ class _MLPBase(BaseLearner):
             with torch.enable_grad():
                 obj = torch.sum(torch.sum(w * per_example_loss(self._forward(layers, Xs)),
                                           dim=1, keepdim=True) / wsum)
-                grads = list(torch.autograd.grad(obj, leaves))
+                grads = list(preduce(list(torch.autograd.grad(obj, leaves)),
+                                     axis_name))
             for i in range(0, len(grads), 2):  # L2 on the weights, after the loss
                 grads[i] = grads[i] + reg * params[i]
             bc1 = float(f32(1) - f32(_B1) ** f32(t))
@@ -139,7 +144,7 @@ class _MLPBase(BaseLearner):
                 params[i] = params[i] + update * (-lr)
         return [{"W": params[2 * i], "b": params[2 * i + 1]} for i in range(len(net))]
 
-    def _prep(self, X, feature_masks, ws):
+    def _prep(self, X, feature_masks, ws, axis_name=None):
         """Every member's masked, standardized features ``[M, n, d]`` and
         the stats and masks to keep."""
         M, d = ws.shape[1], X.shape[1]
@@ -148,7 +153,7 @@ class _MLPBase(BaseLearner):
             mask = None if feature_masks is None else (
                 feature_masks if feature_masks.dim() == 1 else feature_masks[m])
             Xm = _apply_mask(X, mask)
-            mu, sd = _feature_stats(Xm, ws[:, m])
+            mu, sd = _feature_stats(Xm, ws[:, m], axis_name)
             stats.append(((Xm - mu[None, :]) / sd[None, :], mu, sd,
                           mask.to(torch.float32) if mask is not None
                           else torch.ones((d,), dtype=torch.float32, device=X.device)))
@@ -167,9 +172,10 @@ class _MLPBase(BaseLearner):
         Xm = X[None] * params["mask"][:, None, :]
         return (Xm - params["x_mu"][:, None, :]) / params["x_sd"][:, None, :]
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None, axis_name=None):
         stacked = self.fit_many_from_ctx(ctx, y[:, None], w[:, None],
-                                         feature_mask, keys=key)
+                                         feature_mask, keys=key,
+                                         axis_name=axis_name)
         return member_params(stacked, 0)
 
 
@@ -179,17 +185,22 @@ class MLPClassifier(_MLPBase):
     def make_fit_ctx(self, X, num_classes: Optional[int] = None):
         return {"X": as_f32(X), "num_classes": num_classes}
 
-    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None):
+    def ctx_row_leaves(self, ctx):
+        return {"X": True, "num_classes": False}
+
+    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None,
+                          axis_name=None):
         """Every member's network trained at once (``_train_nets``)."""
         X, k = ctx["X"], int(ctx["num_classes"])
         M = ys.shape[1]
-        Xs, stats = self._prep(X, feature_masks, ws)
+        Xs, stats = self._prep(X, feature_masks, ws, axis_name)
         onehot = torch.nn.functional.one_hot(ys.T.to(torch.int64), k).to(torch.float32)
 
         def ce(logits):
             return -torch.sum(torch.log_softmax(logits, dim=-1) * onehot, dim=-1)
 
-        layers = self._train_nets(Xs, ws.T, self._keys(keys, M, X.device), k, ce)
+        layers = self._train_nets(Xs, ws.T, self._keys(keys, M, X.device), k, ce,
+                                  axis_name)
         return {"layers": layers, **stats}
 
     def predict_raw_many_fn(self, params, X):
@@ -233,24 +244,27 @@ class MLPClassificationModel(ClassificationModel, MLPClassifier):
 class MLPRegressor(_MLPBase):
     is_classifier = False
 
-    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None):
+    def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None,
+                          axis_name=None):
         """Every member's network trained at once (``_train_nets``), on
         targets standardized by each member's weighted moments (raw-scale
         targets would need a per-dataset learning rate)."""
         X = ctx
         M = ys.shape[1]
-        Xs, stats = self._prep(X, feature_masks, ws)
+        Xs, stats = self._prep(X, feature_masks, ws, axis_name)
         y, w = ys.T, ws.T  # [M, n]
-        wsum = torch.clamp(torch.sum(w, dim=1), min=1e-30)
-        y_mu = torch.sum(w * y, dim=1) / wsum
-        y_var = torch.sum(w * (y - y_mu[:, None]) ** 2, dim=1) / wsum
+        w_s, wy_s = preduce([torch.sum(w, dim=1), torch.sum(w * y, dim=1)], axis_name)
+        wsum = torch.clamp(w_s, min=1e-30)
+        y_mu = wy_s / wsum
+        y_var = preduce(torch.sum(w * (y - y_mu[:, None]) ** 2, dim=1), axis_name) / wsum
         y_sd = torch.clamp(torch.sqrt(y_var), min=1e-7)
         yn = (y - y_mu[:, None]) / y_sd[:, None]
 
         def sq(out):
             return 0.5 * (out[:, :, 0] - yn) ** 2
 
-        layers = self._train_nets(Xs, w, self._keys(keys, M, X.device), 1, sq)
+        layers = self._train_nets(Xs, w, self._keys(keys, M, X.device), 1, sq,
+                                  axis_name)
         return {"layers": layers, "y_mu": y_mu, "y_sd": y_sd, **stats}
 
     def predict_many_fn(self, params, X):

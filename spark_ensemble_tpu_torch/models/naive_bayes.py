@@ -13,6 +13,7 @@ import math
 import torch
 
 from spark_ensemble_tpu_torch.models.base import BaseLearner, ClassificationModel
+from spark_ensemble_tpu_torch.ops.collective import preduce
 from spark_ensemble_tpu_torch.params import Param, gt_eq
 
 
@@ -28,22 +29,33 @@ class GaussianNaiveBayes(BaseLearner):
     def make_fit_ctx(self, X, num_classes=None):
         return {"X": X, "num_classes": num_classes}
 
-    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None):
+    def ctx_row_leaves(self, ctx):
+        return {"X": True, "num_classes": False}
+
+    def fit_from_ctx(self, ctx, y, w, feature_mask, key=None, axis_name=None):
         X = ctx["X"]
         k = int(ctx["num_classes"])
         d = X.shape[1]
         onehot = torch.nn.functional.one_hot(y.to(torch.int64), k).to(torch.float32)
         wc = onehot * w[:, None]  # [n, k]
-        class_w = torch.sum(wc, dim=0)  # [k]
+        # the class moments reduced over the mesh's rows (one gather)
+        present = (w > 0).to(torch.float32)
+        class_w, wx, wxx, n_pr, x_sum = preduce(
+            [torch.sum(wc, dim=0), wc.T @ X, wc.T @ (X * X),
+             torch.sum(present)[None], torch.sum(X * present[:, None], dim=0)],
+            axis_name,
+        )
         denom = torch.clamp(class_w[:, None], min=1e-30)
-        mean = (wc.T @ X) / denom  # [k, d]
-        var = (wc.T @ (X * X)) / denom - mean * mean
+        mean = wx / denom  # [k, d]
+        var = wxx / denom - mean * mean
         # the smoothing floor's feature variance counts PRESENT rows only
         # (w > 0): zero-weight rows are out-of-bag and must not move it
-        present = (w > 0).to(torch.float32)
-        n_present = torch.clamp(torch.sum(present), min=1.0)
-        x_mu = torch.sum(X * present[:, None], dim=0) / n_present
-        x_var = torch.sum(((X - x_mu[None, :]) ** 2) * present[:, None], dim=0) / n_present
+        n_present = torch.clamp(n_pr[0], min=1.0)
+        x_mu = x_sum / n_present
+        x_var = preduce(
+            torch.sum(((X - x_mu[None, :]) ** 2) * present[:, None], dim=0),
+            axis_name,
+        ) / n_present
         var = torch.clamp(var, min=0.0) + self.var_smoothing * torch.clamp(x_var, min=1e-12)
         prior = class_w / torch.clamp(torch.sum(class_w), min=1e-30)
         mask = (feature_mask.to(torch.float32) if feature_mask is not None

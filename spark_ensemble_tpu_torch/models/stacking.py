@@ -83,7 +83,7 @@ class _StackingParams(Estimator):
 
     def _check_stacking_support(self, mesh):
         if mesh is not None:
-            not_supported("mesh", mesh, "queue 1, item 18")
+            not_supported("mesh", mesh, "queue 1, item 29")
 
     def _fit_bases(self, bases, X, y, w, sample_weight, device, telem,
                    num_classes=None):

@@ -118,39 +118,47 @@ class _TreeLearner(BaseLearner):
         shared (GBM's gradient row sampling, models/gbm.py)."""
         return {**ctx, "Xb": ctx["Xb"][idx]}
 
+    def ctx_row_leaves(self, ctx):
+        """Only the binned matrix is row-indexed."""
+        return {k: k == "Xb" for k in ctx}
+
     def fit_from_ctx(self, ctx, y, w, feature_mask, key=None,
-                     return_leaf=False):
+                     return_leaf=False, axis_name=None):
         return fit_tree(
             ctx["Xb"], self._targets(ctx, y), w, ctx["thresholds"],
-            feature_mask, **self._fit_kw(return_leaf),
+            feature_mask, axis_name=axis_name, **self._fit_kw(return_leaf),
         )
 
     def fit_many_from_ctx(self, ctx, ys, ws, feature_masks, keys=None,
-                          return_leaf=False, lanes=1):
+                          return_leaf=False, lanes=1, axis_name=None):
         """All members in ONE forest fit (``ops.tree.fit_forest``); with
         ``lanes`` (a megabatch sweep) every lane of M / lanes members fits
         as it would alone."""
         return fit_forest(
             ctx["Xb"], self._targets_many(ctx, ys), ws, ctx["thresholds"],
-            feature_masks, lanes=lanes, **self._fit_kw(return_leaf),
+            feature_masks, lanes=lanes, axis_name=axis_name,
+            **self._fit_kw(return_leaf),
         )
 
-    def _fit_and_leaf_pred(self, ctx, y, w, feature_mask):
+    def _fit_and_leaf_pred(self, ctx, y, w, feature_mask, axis_name=None):
         """Fit + each row's selected leaf-value vector -> (tree, [n, k]),
         read off the leaf ids the fit computed instead of re-walking the
         tree (an exact selection, as the JAX package's one-hot contraction)."""
-        tree, node = self.fit_from_ctx(ctx, y, w, feature_mask, return_leaf=True)
+        tree, node = self.fit_from_ctx(ctx, y, w, feature_mask, return_leaf=True,
+                                       axis_name=axis_name)
         return tree, tree.leaf_value[node.long()]
 
-    def fit_and_direction(self, ctx, y, w, feature_mask, X, key=None):
+    def fit_and_direction(self, ctx, y, w, feature_mask, X, key=None,
+                          axis_name=None):
         """Fit + the fitted predictions on the same rows (leaf-id reuse)."""
-        tree, pred = self._fit_and_leaf_pred(ctx, y, w, feature_mask)
+        tree, pred = self._fit_and_leaf_pred(ctx, y, w, feature_mask, axis_name)
         return tree, self._direction_from_leaf(pred)
 
     def fit_many_and_directions(self, ctx, ys, ws, feature_masks, X,
-                                keys=None, lanes=1):
+                                keys=None, lanes=1, axis_name=None):
         trees, node = self.fit_many_from_ctx(
-            ctx, ys, ws, feature_masks, return_leaf=True, lanes=lanes
+            ctx, ys, ws, feature_masks, return_leaf=True, lanes=lanes,
+            axis_name=axis_name,
         )
         return trees, self._direction_from_leaf(leaf_values_at(trees, node))
 
@@ -211,10 +219,11 @@ class DecisionTreeClassifier(_TreeLearner):
         # parity with predict_fn: argmax over the leaf class distribution
         return _argmax_f32(pred)
 
-    def fit_and_proba(self, ctx, y, w, feature_mask, X, key=None):
+    def fit_and_proba(self, ctx, y, w, feature_mask, X, key=None,
+                      axis_name=None):
         """Leaf-id reuse for SAMME.R: the selected leaf distribution,
         renormalized exactly like ``predict_proba_fn``."""
-        tree, pred = self._fit_and_leaf_pred(ctx, y, w, feature_mask)
+        tree, pred = self._fit_and_leaf_pred(ctx, y, w, feature_mask, axis_name)
         return tree, _renorm_proba(pred)
 
     def predict_raw_fn(self, params: Tree, X):

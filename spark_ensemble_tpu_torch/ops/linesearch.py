@@ -32,6 +32,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from spark_ensemble_tpu_torch.ops.collective import preduce
+
 _CGOLD = 0.3819660112501051  # golden-section fraction
 
 
@@ -78,14 +80,17 @@ def brent_minimize(
     hi: float,
     tol: float = 1e-6,
     max_iter: int = 100,
+    axis_name=None,
 ) -> torch.Tensor:
     """Classic Brent minimization (golden section + parabolic steps), the
     JAX package's update rules with its float32 bookkeeping kept in numpy
-    float32 scalars.  NaN objective values count as +inf."""
+    float32 scalars.  NaN objective values count as +inf.  Under a mesh
+    ``f`` is this rank's share of the objective and each evaluation is
+    reduced over ``axis_name``, so every rank walks the same bracket."""
     f32 = np.float32
 
     def f_safe(x):
-        fx = f32(float(f(torch.tensor(x, dtype=torch.float32))))
+        fx = f32(float(preduce(f(torch.tensor(x, dtype=torch.float32)), axis_name)))
         return f32(np.inf) if np.isnan(fx) else fx
 
     tol = f32(tol)
@@ -145,6 +150,17 @@ def brent_minimize(
     return torch.tensor(x, dtype=torch.float32)
 
 
+def _reduced(fn, axis_name):
+    """``fn`` with its output (a tensor, or a tuple of tensors) reduced."""
+
+    def red(a):
+        out = fn(a)
+        return (tuple(preduce(list(out), axis_name)) if isinstance(out, tuple)
+                else preduce(out, axis_name))
+
+    return red
+
+
 def projected_newton_box(
     f: Callable[[torch.Tensor], torch.Tensor],
     x0: torch.Tensor,
@@ -153,6 +169,7 @@ def projected_newton_box(
     tol: float = 1e-6,
     num_backtracks: int = 15,
     grad_hess: Callable = None,
+    axis_name=None,
 ) -> torch.Tensor:
     """Minimize ``f`` over the box ``x >= lower`` by projected Newton:
     ``projected_newton_box_lanes`` over one lane.  ``grad_hess(x) -> (g,
@@ -160,7 +177,7 @@ def projected_newton_box(
     (``linesearch_grad_hess``)."""
     return projected_newton_box_lanes(
         [f], x0[None], lower, max_iter, tol, num_backtracks,
-        None if grad_hess is None else [grad_hess],
+        None if grad_hess is None else [grad_hess], axis_name=axis_name,
     )[0]
 
 
@@ -172,6 +189,7 @@ def projected_newton_box_lanes(
     tol: float = 1e-6,
     num_backtracks: int = 15,
     grad_hess: Sequence[Callable] = None,
+    axis_name=None,
 ) -> torch.Tensor:
     """Minimize every lane's ``fs[s]`` over the box ``x >= lower`` from
     ``x0[s]`` (``x0 [S, k]``) by projected Newton -> ``x [S, k]``.
@@ -187,12 +205,20 @@ def projected_newton_box_lanes(
     on the lane's own tensors; the projections and steps are elementwise
     ops over the live lanes.  One host read
     per Newton iteration covers every live lane, and one per backtracking
-    step every lane still backtracking."""
+    step every lane still backtracking.
+
+    Under a mesh each ``fs[s]`` and ``grad_hess[s]`` is this rank's share
+    of the objective, and every value, gradient and hessian is reduced
+    over ``axis_name`` (the gradient and hessian in one gather), so every
+    rank runs the same iteration on the global objective."""
     if grad_hess is None:
         raise NotImplementedError(
             "projected_newton_box needs grad_hess: autodiff hessians are "
             "not ported (ROADMAP queue 1, item 3)"
         )
+    if axis_name is not None:
+        fs = [_reduced(f, axis_name) for f in fs]
+        grad_hess = [_reduced(gh, axis_name) for gh in grad_hess]
 
     def proj(x):
         return torch.clamp(x, min=lower)

@@ -11,9 +11,8 @@ Inventory, as in the JAX package:
 
 Absolute, huber and quantile have no hessian (``has_hessian=False``):
 GBM's ``updates="newton"`` falls back to gradient pseudo-residuals for
-them.  ``aggregate_loss`` is the weighted-mean objective; the JAX
-package's cross-shard ``psum`` waits for distribution (ROADMAP queue 1,
-item 18).
+them.  ``aggregate_loss`` is the weighted-mean objective, its sums reduced
+across a mesh's ranks under ``axis_name``.
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from spark_ensemble_tpu_torch.ops.collective import preduce
 
 
 def _logcosh(x):
@@ -370,8 +371,14 @@ def loss_from_config(cfg: dict) -> GBMLoss:
     )
 
 
-def aggregate_loss(loss: GBMLoss, label, weight, prediction) -> torch.Tensor:
-    """Weighted-mean objective ``sum(w * L) / max(sum(w), 1e-30)``."""
+def aggregate_loss(loss: GBMLoss, label, weight, prediction,
+                   axis_name=None) -> torch.Tensor:
+    """Weighted-mean objective ``sum(w * L) / max(sum(w), 1e-30)``; under a
+    mesh both sums are reduced over ``axis_name``, so every rank holds the
+    same global mean (the reference's ``GBMLossAggregator``,
+    `GBMLoss.scala:34-76`)."""
     num = torch.sum(weight * loss.loss(label, prediction))
     den = torch.sum(weight)
+    if axis_name is not None:
+        num, den = preduce(torch.stack([num, den]), axis_name)
     return num / torch.clamp(den, min=1e-30)

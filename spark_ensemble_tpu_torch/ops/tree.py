@@ -91,6 +91,7 @@ import torch
 
 from spark_ensemble_tpu_torch.autotune.resolve import resolve as _tuned
 from spark_ensemble_tpu_torch.ops.binning import pack_bins, pack_width
+from spark_ensemble_tpu_torch.ops.collective import preduce
 from spark_ensemble_tpu_torch.ops.hist_kernels import (
     fused_round_level,
     hist_level_pallas,
@@ -265,23 +266,28 @@ def _bin_one_hot(Xb: torch.Tensor, B: int) -> torch.Tensor:
 
 
 def _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B, prev_H=None,
-                lanes=1):
+                lanes=1, reduce=None):
     """Level histogram ``H f32[M, n_nodes, C, d, B]`` of the non-fused
     tiers.  With ``prev_H`` (the parents' histograms, fast precisions on
     the matmul tier) only the left children are computed and the right
     siblings are ``parent - left``.  With lanes, the matmul tier runs each
     lane's product on the lane's own columns (one batched product may sum
-    in another order than the lane's own)."""
+    in another order than the lane's own).  ``reduce`` (a mesh fit's
+    cross-rank sum) applies to what this rank computed, before the
+    subtraction: right siblings are reduced parents minus reduced left
+    children, as in the JAX package."""
+    red = reduce if reduce is not None else (lambda t: t)
     if tier == "scatter":
-        return hist_plain(Xb, node, vals, n_nodes, B, 1, ordered=True)
+        return red(hist_plain(Xb, node, vals, n_nodes, B, 1, ordered=True))
     if tier == "pallas":
-        return hist_level_pallas(Xb, node, vals, n_nodes=n_nodes, max_bins=B,
-                                 lanes=lanes)
+        return red(hist_level_pallas(Xb, node, vals, n_nodes=n_nodes, max_bins=B,
+                                     lanes=lanes))
     if lanes > 1:
         parts = zip(node.chunk(lanes, dim=1), vals.chunk(lanes, dim=1),
                     prev_H.chunk(lanes) if prev_H is not None else [None] * lanes)
         return torch.cat([
-            _level_hist(tier, Xb, bin_oh, nd.contiguous(), vl.contiguous(), n_nodes, B, ph)
+            _level_hist(tier, Xb, bin_oh, nd.contiguous(), vl.contiguous(), n_nodes, B, ph,
+                        reduce=reduce)
             for nd, vl, ph in parts
         ])
     n, M, C = vals.shape
@@ -289,12 +295,12 @@ def _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B, prev_H=None,
     if prev_H is None:
         node_oh = torch.nn.functional.one_hot(node.long(), n_nodes).to(torch.float32)
         A = (node_oh[:, :, :, None] * vals[:, :, None, :]).reshape(n, M * n_nodes * C)
-        return (A.T @ bin_oh).reshape(M, n_nodes, C, d, B)
+        return red((A.T @ bin_oh).reshape(M, n_nodes, C, d, B))
     half = n_nodes // 2
     left_oh = torch.nn.functional.one_hot((node >> 1).long(), half).to(torch.float32)
     left_oh = left_oh * (1 - (node & 1)).to(torch.float32)[:, :, None]
     A = (left_oh[:, :, :, None] * vals[:, :, None, :]).reshape(n, M * half * C)
-    Hl = (A.T @ bin_oh).reshape(M, half, C, d, B)
+    Hl = red((A.T @ bin_oh).reshape(M, half, C, d, B))
     # interleave: children 2p (left), 2p+1 (right)
     return torch.stack([Hl, prev_H - Hl], dim=2).reshape(M, n_nodes, C, d, B)
 
@@ -385,21 +391,26 @@ def _level_split_tables(H, feature_mask, node_floor, min_info_gain,
     return best_f, best_t, thr, do_split, best_gain, node_w, node_wy
 
 
-def stream_vals_prep(Y: torch.Tensor, w: torch.Tensor, lanes: int = 1):
+def stream_vals_prep(Y: torch.Tensor, w: torch.Tensor, lanes: int = 1,
+                     axis_name=None):
     """Per-row statistics of a forest fit -> ``(w_tot [M], y_mean [M, k],
     vals [n, M, 1+k])``: the weight channel and the weighted targets
     centred at each member's root mean.  Every tier takes them from here;
-    with lanes, each lane's sums over the rows run on its own columns."""
+    with lanes, each lane's sums over the rows run on its own columns.
+    Under a mesh (``axis_name``) both sums are reduced across the ranks,
+    so the rows are centred at the global mean."""
     if lanes > 1:
-        parts = [stream_vals_prep(Yl.contiguous(), wl.contiguous())
+        parts = [stream_vals_prep(Yl.contiguous(), wl.contiguous(),
+                                  axis_name=axis_name)
                  for Yl, wl in zip(Y.chunk(lanes, dim=1), w.chunk(lanes, dim=1))]
         return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
                 torch.cat([p[2] for p in parts], dim=1))
     w = w.to(torch.float32)
     w_tot = torch.sum(w, dim=0)
-    y_mean = torch.sum(w[:, :, None] * Y, dim=0) / torch.clamp(
-        w_tot[:, None], min=1e-30
-    )
+    wy = torch.sum(w[:, :, None] * Y, dim=0)
+    if axis_name is not None:
+        w_tot, wy = preduce([w_tot, wy], axis_name)
+    y_mean = wy / torch.clamp(w_tot[:, None], min=1e-30)
     vals = torch.cat(
         [w[:, :, None], w[:, :, None] * (Y - y_mean[None, :, :])], dim=2
     ).contiguous()
@@ -497,7 +508,8 @@ def _empty_splits(M, J, dev):
 
 
 def stream_forest(sweep, y_mean, thresholds, feature_mask, *, d, max_depth,
-                  max_bins, min_info_gain, triangular, round_bf16, lanes=1):
+                  max_bins, min_info_gain, triangular, round_bf16, lanes=1,
+                  axis_name=None):
     """The stream tier's passes over a source of row chunks -> ``Tree [M,
     ...]``.  ``sweep(tag)`` yields, for every chunk in row order, ``(xb
     i32[r, d], nd i32[r, M], vl f32[r, M, C])``, ``nd`` a view of the
@@ -508,7 +520,10 @@ def stream_forest(sweep, y_mean, thresholds, feature_mask, *, d, max_depth,
     order; the leaf pass routes the last level and sums the leaves the same
     way.  The resident tier (:func:`_fit_forest_streamed`) and the shard
     sweep (``data/streaming.py``) both run this loop, so at equal chunks
-    they take the same products in the same order, bit for bit."""
+    they take the same products in the same order, bit for bit.  Under a
+    mesh each level's and the leaves' sums over this rank's chunks are
+    reduced across the ranks (``axis_name``), as the JAX package psums
+    after its chunk scan."""
     M, C = y_mean.shape[0], 1 + y_mean.shape[1]
     B = max_bins
     dev = y_mean.device
@@ -523,6 +538,7 @@ def stream_forest(sweep, y_mean, thresholds, feature_mask, *, d, max_depth,
                 H, xb, nd, vl, n_nodes=n_nodes, tables=tables, max_bins=B,
                 lanes=lanes,
             )
+        H = preduce(H, axis_name)
         tables, parent_value = stream_level_update(
             H, feature_mask, min_info_gain, thresholds, B, triangular,
             round_bf16, level, parent_value, out, lanes,
@@ -532,6 +548,7 @@ def stream_forest(sweep, y_mean, thresholds, feature_mask, *, d, max_depth,
         L, nd[...] = stream_leaf_step(
             L, xb, nd, vl, num_leaves=2**max_depth, tables=tables, lanes=lanes,
         )
+    L = preduce(L, axis_name)
     return Tree(
         *out[:3],
         leaf_value=stream_leaf_values(L[:, :, 0], L[:, :, 1:], parent_value, y_mean),
@@ -541,7 +558,7 @@ def stream_forest(sweep, y_mean, thresholds, feature_mask, *, d, max_depth,
 
 def _fit_forest_streamed(Xb, vals, y_mean, thresholds, feature_mask, *,
                          max_depth, max_bins, min_info_gain, triangular,
-                         round_bf16, return_leaf, lanes=1):
+                         round_bf16, return_leaf, lanes=1, axis_name=None):
     """The stream tier over resident bins: :func:`stream_forest` over row
     chunks of ``stream_chunk_rows`` (``_STREAM_CHUNK_ROWS`` unless an
     autotune override sets it).  Only a chunk's one-hots ever exist
@@ -566,7 +583,7 @@ def _fit_forest_streamed(Xb, vals, y_mean, thresholds, feature_mask, *,
     tree = stream_forest(
         sweep, y_mean, thresholds, feature_mask, d=d, max_depth=max_depth,
         max_bins=max_bins, min_info_gain=min_info_gain, triangular=triangular,
-        round_bf16=round_bf16, lanes=lanes,
+        round_bf16=round_bf16, lanes=lanes, axis_name=axis_name,
     )
     return (tree, node) if return_leaf else tree
 
@@ -585,6 +602,7 @@ def fit_forest(
     hist_precision: str = "highest",
     return_leaf: bool = False,  # also return row leaf ids i32[n, M]
     lanes: int = 1,  # M = lanes * K: each lane sums as its own K-member fit
+    axis_name=None,  # a mesh fit's row axis (ops/collective.Axis)
 ):
     """Fit M trees at once on shared binned features -> stacked ``Tree``
     (leading member axis), optionally with each row's leaf id per member.
@@ -596,7 +614,14 @@ def fit_forest(
     its floors at the fast precisions on the matmul tier.  The stream tier
     is :func:`_fit_forest_streamed`.  With ``lanes`` every member equals
     the one its lane's own fit of K = M / lanes members gives, bit for bit
-    (see the module docstring)."""
+    (see the module docstring).
+
+    Under a mesh, ``Xb``, ``Y`` and ``w`` hold this rank's rows and
+    ``axis_name`` is the row axis: the root sums, every level histogram
+    and the leaf sums are reduced across the ranks exactly where the JAX
+    package psums them, so every rank takes the same splits; the tier
+    resolves from the local row count, as shard_map's local shapes make it
+    in the JAX package.  Each rank's kernels run on its own rows."""
     n, d = Xb.shape
     _, M, k = Y.shape
     B = max_bins
@@ -616,15 +641,16 @@ def fit_forest(
 
     if M % lanes:
         raise ValueError(f"{M} members do not split into {lanes} lanes")
-    _, y_mean, vals = stream_vals_prep(Y, w, lanes)
+    _, y_mean, vals = stream_vals_prep(Y, w, lanes, axis_name)
     stat_vals = _bf16_round(vals) if round_bf16 else vals
     if tier == "stream":
         return _fit_forest_streamed(
             Xb, stat_vals, y_mean, thresholds, feature_mask,
             max_depth=max_depth, max_bins=B, min_info_gain=min_info_gain,
             triangular=triangular, round_bf16=round_bf16,
-            return_leaf=return_leaf, lanes=lanes,
+            return_leaf=return_leaf, lanes=lanes, axis_name=axis_name,
         )
+    red = None if axis_name is None else (lambda t: preduce(t, axis_name))
 
     out = _empty_splits(M, 2**max_depth - 1, dev)
     node = torch.zeros((n, M), dtype=torch.int32, device=dev)
@@ -646,9 +672,10 @@ def fit_forest(
                 packed, node, vals, tables[0], tables[1], n_nodes=n_nodes,
                 max_bins=B, bits=bits, num_features=d, lanes=lanes,
             )
+            H = preduce(H, axis_name)
         else:
             H = _level_hist(tier, Xb, bin_oh, node, stat_vals, n_nodes, B,
-                            prev_H if derived else None, lanes)
+                            prev_H if derived else None, lanes, reduce=red)
         if derived:
             # left children are direct (an empty one reads exactly 0.0);
             # right children accumulate their parents' floors plus this
@@ -680,6 +707,7 @@ def fit_forest(
         L = leaf_plain(node, vals, num_leaves, ordered=True)
     else:
         L = _leaf_onehot_sums(node, stat_vals, num_leaves, lanes)
+    L = preduce(L, axis_name)
     tree = Tree(
         *out[:3],
         leaf_value=stream_leaf_values(L[:, :, 0], L[:, :, 1:], parent_value, y_mean),
@@ -692,7 +720,7 @@ def fit_forest(
 
 def fit_tree(Xb, Y, w, thresholds, feature_mask=None, *, max_depth=5,
              max_bins=64, min_info_gain=0.0, hist="auto",
-             hist_precision="highest", return_leaf=False):
+             hist_precision="highest", return_leaf=False, axis_name=None):
     """One tree (``Y f32[n, k]``, ``w f32[n]``): ``fit_forest`` with M=1,
     on every tier (the stream and fused tiers' single tree is their M=1
     case, as in the JAX package).
@@ -707,6 +735,7 @@ def fit_tree(Xb, Y, w, thresholds, feature_mask=None, *, max_depth=5,
         Xb, Y[:, None, :], w[:, None], thresholds, mask,
         max_depth=max_depth, max_bins=max_bins, min_info_gain=min_info_gain,
         hist=hist, hist_precision=hist_precision, return_leaf=return_leaf,
+        axis_name=axis_name,
     )
     if return_leaf:
         forest, node = out

@@ -118,7 +118,7 @@ class Pipeline(Estimator):
     def fit(self, X, y=None, sample_weight=None, num_classes=None, mesh=None,
             device="cuda") -> "PipelineModel":
         if mesh is not None:
-            not_supported("mesh", mesh, "queue 1, item 18")
+            not_supported("mesh", mesh, "queue 1, item 29")
         dev = resolve_device(device)
         fitted: List[Any] = []
         Xc = as_f32(X, dev)

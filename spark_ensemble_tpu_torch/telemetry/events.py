@@ -359,9 +359,12 @@ class FitTelemetry:
     @classmethod
     def start(cls, estimator=None, family: str = "", n: Optional[int] = None,
               d: Optional[int] = None, telemetry_path: Optional[str] = None,
-              **meta) -> "FitTelemetry":
+              mesh=None, **meta) -> "FitTelemetry":
         """Resolve the sink (param > env > in-memory recorder) and open the
-        stream; returns the disabled singleton when nothing is listening."""
+        stream; returns the disabled singleton when nothing is listening,
+        and on every rank of a mesh fit but rank 0 (one stream a fit)."""
+        if mesh is not None and mesh.rank != 0:
+            return _DISABLED
         path = telemetry_path or getattr(estimator, "telemetry_path", None)
         path = path or os.environ.get(TELEMETRY_ENV) or None
         recorder = _active_recorder()

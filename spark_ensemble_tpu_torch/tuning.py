@@ -147,7 +147,7 @@ class _TuningParams(Estimator):
         """Validate, and move the data to the device once -> ``(dev, X, y,
         w)``; ``y`` and ``w`` stay on the host for the fold masks."""
         if mesh is not None:
-            not_supported("mesh", mesh, "queue 1, item 18")
+            not_supported("mesh", mesh, "queue 1, item 29")
         dev = resolve_device(device)
         X = as_f32(X, dev)  # one conversion: every fit reads this tensor
         y = y.detach().cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)

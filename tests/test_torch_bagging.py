@@ -141,8 +141,11 @@ def test_bagging_params_have_the_reference_names_and_defaults(jcls, tcls):
 
 def test_bagging_mesh_unported_policies_and_missing_cuda_raise(monkeypatch):
     X, y, w = _cls_data(n=64)
-    with pytest.raises(NotImplementedError, match="queue 1, item 18"):
-        st.BaggingClassifier(num_base_learners=2).fit(X, y, mesh=object(), device="cpu")
+    # a mesh fits now (tests/test_torch_distributed_fit.py); a device= that
+    # disagrees with the mesh's device raises instead of moving the fit
+    cpu_mesh = type("CpuMesh", (), {"device": torch.device("cpu")})()
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        st.BaggingClassifier(num_base_learners=2).fit(X, y, mesh=cpu_mesh, device="cuda")
     # the recovery policies raised before the round runtime was ported
     model = st.BaggingRegressor(num_base_learners=2, on_nonfinite="skip_round").fit(
         X, y, device="cpu")

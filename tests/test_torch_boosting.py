@@ -195,13 +195,14 @@ def test_boosting_params_have_the_reference_names_and_defaults(jcls, tcls):
 
 
 def test_unported_boosting_planes_raise(tmp_path):
-    """A mesh still raises; checkpoints and fit_resume, which raised before
-    persistence was ported, run."""
+    """Checkpoints under a mesh still raise (queue 1, item 29); checkpoints
+    and fit_resume, which raised before persistence was ported, run."""
     X, y = _cls_data(n=64)
     ck = st.BoostingClassifier(num_base_learners=2, checkpoint_dir=str(tmp_path / "ckpt"))
     assert ck.fit(X, y, device="cpu").num_members >= 1
-    with pytest.raises(NotImplementedError, match="queue 1, item 18"):
-        st.BoostingRegressor().fit(X, y, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 29"):
+        st.BoostingRegressor(checkpoint_dir=str(tmp_path / "m")).fit(
+            X, y, mesh=object(), device="cpu")
     model = st.BoostingClassifier(num_base_learners=1).fit(X, y, device="cpu")
     resumed = model.fit_resume(X, y, 2)
     assert resumed.num_members >= model.num_members

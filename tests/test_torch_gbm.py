@@ -224,13 +224,13 @@ def test_formerly_unported_params_fit_as_the_reference(params):
 
 
 def test_mesh_and_regressor_losses_raise():
-    """A mesh raises (distribution is not ported); every regression loss
-    of the JAX package is ported, and an unknown one is refused."""
+    """Checkpoints under a mesh raise (queue 1, item 29); every regression
+    loss of the JAX package is ported, and an unknown one is refused."""
     X, y = _reg_data(n=64)
     with pytest.raises(ValueError):
         st.GBMRegressor(loss="nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.GBMRegressor().fit(X, y, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 29"):
+        st.GBMRegressor(checkpoint_dir="unused").fit(X, y, mesh=object(), device="cpu")
 
 
 def test_cuda_is_the_default_and_raises_without_it(monkeypatch):

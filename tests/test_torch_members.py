@@ -184,9 +184,11 @@ def test_member_slices_and_unported_planes(tmp_path):
     np.testing.assert_array_equal(
         st.load(path, device="cpu").predict_proba(X).numpy(),
         model.predict_proba(X).numpy())
-    with pytest.raises(NotImplementedError, match="item 18"):
+    # a mesh fits now; a device= that disagrees with its device raises
+    cpu_mesh = type("CpuMesh", (), {"device": torch.device("cpu")})()
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
         st.BaggingClassifier(base_learner=st.GaussianNaiveBayes()).fit(
-            X, y, mesh=object(), device="cpu")
+            X, y, mesh=cpu_mesh, device="cuda")
     # telemetry raised before the port had it; the fit streams now
     path = str(tmp_path / "t.jsonl")
     gbm = st.GBMClassifier(base_learner=st.LinearRegression(), num_base_learners=2,

@@ -43,6 +43,8 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the mesh tests' rank processes import only the port
+    yield os.path.join(ROOT, "tests", "_torch_mesh_worker.py")
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -68,7 +70,10 @@ def test_every_port_module_imports_with_jax_blocked():
                 "spark_ensemble_tpu_torch.telemetry.trace",
                 "spark_ensemble_tpu_torch.utils.instrumentation",
                 "spark_ensemble_tpu_torch.utils.profiling",
-                "spark_ensemble_tpu_torch.autotune.resolve", "chip_smoke"}
+                "spark_ensemble_tpu_torch.autotune.resolve",
+                "spark_ensemble_tpu_torch.ops.collective",
+                "spark_ensemble_tpu_torch.parallel.mesh",
+                "spark_ensemble_tpu_torch.parallel.multihost", "chip_smoke"}
     assert expected <= set(report["names"])
 
 

@@ -147,7 +147,7 @@ def test_numeric_guard_unported_planes_and_bases_raise():
         bad.set_params(on_nonfinite="off").fit(X, y, device="cpu")
     with pytest.raises(FloatingPointError, match="stacker"):
         st.StackingRegressor(stacker=_NaNRegression()).fit(X, y, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 18"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 29"):
         st.StackingRegressor().fit(X, y, mesh=object(), device="cpu")
     # ensembles over non-tree learners are members like any other
     for family in (st.BaggingRegressor, st.BoostingRegressor, st.GBMRegressor):

@@ -319,7 +319,7 @@ def test_fit_streaming_input_validation(tmp_path):
     assert kinds[:2] == ["fit_start", "streaming_config"] and kinds[-1] == "fit_end"
     assert "shard_load" in kinds and "shard_wait_us" in kinds
     for est in (st.GBMRegressor(base_learner=_base()), st.GBMClassifier(base_learner=_base())):
-        with pytest.raises(NotImplementedError, match="item 18"):
+        with pytest.raises(NotImplementedError, match="item 29"):
             est.fit_streaming(store, _cls_labels(X), mesh=object(), device="cpu")
 
 

@@ -26,8 +26,7 @@ QUEUED = {
     "spark_ensemble_tpu.telemetry.programz": 24,
     "spark_ensemble_tpu.telemetry.exporter": 25,
     "spark_ensemble_tpu.telemetry.podview": 26,
-    "spark_ensemble_tpu.parallel.elastic": 18,
-    "spark_ensemble_tpu.parallel.multihost": 18,
+    "spark_ensemble_tpu.parallel.elastic": 29,
     "spark_ensemble_tpu.autotune.space": 27,
     "spark_ensemble_tpu.autotune.cache": 27,
     "spark_ensemble_tpu.autotune.search": 27,

@@ -170,7 +170,7 @@ def test_config_keys_and_tuner_params_match_the_reference():
 def test_unported_planes_and_missing_cuda_raise(monkeypatch, tmp_path):
     X, y, _, _ = _data(n=60)
     kw = dict(estimator=st.LinearRegression(), evaluator=st.RegressionEvaluator())
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="item 29"):
         st.CrossValidator(**kw).fit(X, y, mesh=object(), device="cpu")
     # telemetry_path raised before the port had telemetry; each scored
     # candidate streams a tuning_candidate event now
