@@ -55,7 +55,16 @@ on a one-rank NCCL mesh, bit-identical to its unmeshed fit with the same
 launches, then 2 and 4 ranks of this script on the one card over gloo,
 every rank's fitted params bit-identical (the ranks' digests), the
 accuracy within 0.02 of one rank, and a dyadic regressor's first round,
-Bagging and SAMME on the same mesh.  It checks the results; each phase prints one JSON line; any failed check raises,
+Bagging and SAMME on the same mesh, then the elastic plane (``elastic``):
+2 ranks stream the XL store over a mesh, bit-identical to the
+single-process streaming fit; 3 ranks run an ``ElasticCoordinator`` fit
+that loses rank 1 mid-level and resumes on the 2 survivors, bit-identical
+to the single-process fit, with the victim's flight dump on disk; and 2
+ranks kill and resume checkpointed mesh fits of the main path and SAMME
+(equal to the uninterrupted mesh fits), stack with each member on one
+rank, sweep the tuning phase's 12 candidates with the lanes sharded over
+the member axis (each lane held to the whole sweep's) and cross-validate
+over the mesh.  It checks the results; each phase prints one JSON line; any failed check raises,
 and so does a retry that no chaos fault injected, and the script exits
 non-zero.  Checkpoints and saves go to a scratch directory under
 ``build/``, removed at the end.
@@ -329,22 +338,16 @@ def distributed_rank(cfg):
     return 0
 
 
-def _run_ranks(world, member, extras, scratch):
-    """Start ``world`` ranks of this script on the card and wait for all;
-    a rank that fails or outlives the timeout fails the phase (the others
-    are killed) -> each rank's results."""
-    port = _free_port()
-    procs, outs = [], []
-    for rank in range(world):
-        out = os.path.join(scratch, f"dist_w{world}_r{rank}.json")
-        cfg = {"rank": rank, "world": world, "member": member, "extras": extras,
-               "port": port, "out": out}
-        outs.append(out)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--distributed-rank", json.dumps(cfg)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    deadline = time.time() + DIST_TIMEOUT_S
-    logs = [None] * world
+def _run_group(flag, cfgs, timeout):
+    """Start one rank of this script per config (``python3 chip_smoke.py
+    <flag> '<json>'``) and wait for all; a rank that fails or outlives
+    ``timeout`` fails the phase (the others are killed) -> each rank's
+    results, read from its ``cfg["out"]``."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, json.dumps(cfg)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cfg in cfgs]
+    deadline = time.time() + timeout
+    logs = [None] * len(procs)
     while any(log is None for log in logs):
         for r, p in enumerate(procs):
             if logs[r] is None and p.poll() is not None:
@@ -359,12 +362,22 @@ def _run_ranks(world, member, extras, scratch):
     if any(p.returncode != 0 for p in procs):
         tails = "\n".join(f"--- rank {r} (rc {p.returncode}) ---\n{log[-2000:]}"
                           for r, (p, log) in enumerate(zip(procs, logs)))
-        raise AssertionError(f"distributed: a rank of {world} failed\n{tails}")
+        raise AssertionError(f"{flag}: a rank of {len(procs)} failed\n{tails}")
     results = []
-    for out in outs:
-        with open(out) as f:
+    for cfg in cfgs:
+        with open(cfg["out"]) as f:
             results.append(json.load(f))
     return results
+
+
+def _run_ranks(world, member, extras, scratch):
+    """The distributed phase's ``world`` ranks on the card -> each rank's
+    results."""
+    port = _free_port()
+    return _run_group("--distributed-rank", [
+        {"rank": rank, "world": world, "member": member, "extras": extras, "port": port,
+         "out": os.path.join(scratch, f"dist_w{world}_r{rank}.json")}
+        for rank in range(world)], DIST_TIMEOUT_S)
 
 
 def distributed_phase(st, hk, X_np, y_np, scratch, per_fit, card):
@@ -454,6 +467,353 @@ def distributed_phase(st, hk, X_np, y_np, scratch, per_fit, card):
           "phase_s": time.perf_counter() - t_phase, **card})
     if failures:
         raise AssertionError(f"distributed: {failures}")
+
+
+#: the elastic phase: the time a rank group may take, the host preemption
+#: of its rewind (round 1, level 2, the second of 3 steps over 8 shards),
+#: and the preemption after a checkpoint of its checkpointed mesh fits
+ELASTIC_TIMEOUT_S = 240
+ELASTIC_SITE = "GBMClassifier:stream_round:1:level:2:dist_step:1"
+ELASTIC_VICTIM = 1
+
+
+def _xl_stream_gbm(st, rounds, **kw):
+    """The streaming phase's XL classifier: logloss, a depth-5, 64-bin
+    ``hist="stream"`` base."""
+    return st.GBMClassifier(num_base_learners=rounds, loss="logloss", updates="newton",
+                            learning_rate=0.3,
+                            base_learner=st.DecisionTreeRegressor(hist="stream"), **kw)
+
+
+def _fault_at(chaos_mod, fault, site, victim=0):
+    """A chaos controller that fires ``fault`` at ``site`` only, picking
+    rank ``victim`` where the fault picks one (every other draw misses)."""
+    class FaultAt(chaos_mod.ChaosController):
+        def _draw(self, f, s):
+            return 0.0 if (f, s) == (fault, site) else 1.0
+
+        def pick(self, f, s, n):
+            return victim % n
+
+    return FaultAt(seed=0, rate=0.5, faults=(fault,))
+
+
+def _counted(base, fits):
+    """``base`` with its ``fit`` appending the learner's name to ``fits``."""
+    real = base.fit
+
+    def fit(*a, **k):
+        fits.append(type(base).__name__)
+        return real(*a, **k)
+
+    object.__setattr__(base, "fit", fit)
+    return base
+
+
+def elastic_rank(cfg):
+    """One rank of a gloo group on ``cuda:0`` for the elastic phase
+    (``python3 chip_smoke.py --elastic-rank '<json>'``), by ``cfg["job"]``:
+    ``sweep`` (the XL streaming fit over the mesh), ``rewind`` (an
+    ElasticCoordinator fit that loses rank 1) or ``planes`` (checkpointed
+    mesh fits, Stacking, the sharded sweep and a CrossValidator over the
+    mesh).  Writes its results as JSON to ``cfg["out"]``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import spark_ensemble_tpu_torch as st
+    from spark_ensemble_tpu_torch.data import ShardStore
+    from spark_ensemble_tpu_torch.data import streaming as streaming_mod
+    from spark_ensemble_tpu_torch.ops import collective as coll, hist_kernels as hk
+    from spark_ensemble_tpu_torch.parallel import elastic, mesh as pmesh
+    from spark_ensemble_tpu_torch.robustness import chaos as chaos_mod
+    from spark_ensemble_tpu_torch.telemetry import global_metrics, record_fits
+
+    rank, world, job = cfg["rank"], cfg["world"], cfg["job"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{cfg['port']}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=ELASTIC_TIMEOUT_S // 2))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pmesh.data_member_mesh(world, device="cuda:0")
+    coll.preduce(torch.zeros(1, device="cuda:0"), mesh.row_axis)  # the groups' first use
+    digest = pmesh.params_digest
+    R = STREAM_FIT_ROUNDS
+    out = {"rank": rank, "world": world, "job": job}
+    if job == "sweep":
+        store = ShardStore.open(cfg["store"])
+        y = np.load(cfg["labels"])
+        loads = global_metrics().counter("data/shard_loads")
+        loads0 = loads.value
+        hk.reset_launch_counts()
+        coll.reset_collective_stats()
+        coll.set_collective_timing(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = _xl_stream_gbm(st, R).fit_streaming(store, y, mesh=mesh, device="cuda:0")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        coll.set_collective_timing(False)
+        stats = coll.collective_stats()
+        out.update(digest=digest(model.params), fit_s=secs, iters_per_s=R / secs,
+                   gathers_per_round=stats["gathers"] / R, bytes_per_round=stats["bytes"] / R,
+                   gather_ms_per_round=stats["ms"] / R, loads=loads.value - loads0,
+                   launches=dict(hk.LAUNCHES))
+    elif job == "rewind":
+        store = ShardStore.open(cfg["store"])
+        y = np.load(cfg["labels"])[:store.n]
+        tel = os.path.join(cfg["scratch"], f"elastic_tel_r{rank}")
+        os.makedirs(tel, exist_ok=True)
+        ends = []
+        real_end = streaming_mod._ShardTrees.end_round
+
+        def end_round(self, r):
+            ends.append(time.perf_counter())
+            return real_end(self, r)
+
+        streaming_mod._ShardTrees.end_round = end_round
+        chaos_mod.install(_fault_at(chaos_mod, "host_preempt", ELASTIC_SITE, ELASTIC_VICTIM))
+        coord = elastic.ElasticCoordinator(mesh)
+        est = _xl_stream_gbm(st, R, checkpoint_interval=1,
+                             checkpoint_dir=os.path.join(cfg["scratch"], f"elastic_ck_r{rank}"),
+                             telemetry_path=os.path.join(tel, "t.jsonl"))
+        try:
+            model = coord.fit_streaming(est, store, y, device="cuda:0")
+            verdict = coord.verdicts[0]
+            out.update(victim=False, digest=digest(model.params), losses=coord.losses,
+                       width=pmesh.mesh_sizes(coord.mesh)[0], attempts=coord.attempts,
+                       resume_s=min(t for t in ends if t > verdict) - verdict)
+        except chaos_mod.ChaosHostPreemption:
+            out["victim"] = True
+        finally:
+            chaos_mod.install(None)
+            streaming_mod._ShardTrees.end_round = real_end
+        out["flight_dump"] = os.path.exists(os.path.join(tel, f"flight_p{os.getpid()}.json"))
+        with open(cfg["out"], "w") as f:
+            json.dump(out, f)
+        # the survivors' groups exclude the victim: no collective on the
+        # old group after the verdict, so no barrier here
+        dist.destroy_process_group()
+        return 0
+    else:  # planes
+        hk.build_kernels()
+        X_np, y_np = letter_data()
+        ck = lambda name: os.path.join(cfg["scratch"], f"elastic_{name}_r{rank}")
+
+        def resumed_fit(family, make, X_, y_, at, rounds):
+            """The uninterrupted mesh fit, then a checkpointed one killed
+            after round ``at`` and refitted -> the check's line."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = make(rounds).fit(X_, y_, mesh=mesh, device="cuda:0")
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            est = make(rounds).copy(checkpoint_dir=ck(family), checkpoint_interval=5)
+            # chunks of 2 rounds (clamped to the saves), so the kill after
+            # round ``at`` lands between two checkpoints
+            label = type(est).__name__
+            chaos_mod.install(_fault_at(chaos_mod, "preempt", f"{label}:after_round:{at}"))
+            try:
+                est.fit(X_, y_, mesh=mesh, device="cuda:0")
+                fired = False
+            except chaos_mod.ChaosPreemption:
+                fired = True
+            finally:
+                chaos_mod.install(None)
+            hk.reset_launch_counts()
+            with record_fits() as rec:
+                resumed = est.fit(X_, y_, mesh=mesh, device="cuda:0")
+            return {"fired": fired, "equal": digest(resumed.params) == digest(ref.params),
+                    "digests": pmesh.replica_digests(resumed), "rounds": rounds,
+                    "preempted_after_round": at, "uninterrupted_fit_s": ref_s,
+                    "resumed_at": [e["round"] for e in rec.events
+                                   if e["event"] == "resume_from_checkpoint"],
+                    "resume_launches": dict(hk.LAUNCHES)}
+
+        cls_tree = lambda: st.DecisionTreeClassifier(max_depth=DEPTH, max_bins=MAX_BINS,
+                                                     hist="fused")
+        out["gbm"] = resumed_fit("gbm", lambda r: _main_path_gbm(st, r).copy(scan_chunk=2),
+                                 X_np, y_np, 12, DIST_ROUNDS)
+        out["samme"] = resumed_fit(
+            "samme", lambda r: st.BoostingClassifier(num_base_learners=r, algorithm="discrete",
+                                                     base_learner=cls_tree(), scan_chunk=2),
+            X_np, y_np, 7, 10)
+        # Stacking: bench.py's members with the fused DT, member i on rank i mod W
+        Xa, ya = adult_data()
+        fits = []
+        stack = lambda counted: st.StackingClassifier(
+            base_learners=[_counted(b, fits) if counted else b for b in
+                           (cls_tree(), st.LogisticRegression(), st.GaussianNaiveBayes())],
+            stacker=st.LogisticRegression(), stack_method="proba")
+        meshed = stack(True).fit(Xa, ya, mesh=mesh, device="cuda:0")
+        single = stack(False).fit(Xa, ya, device="cuda:0")
+        out["stacking"] = {
+            "fits": fits,
+            "digest": digest([m.params for m in meshed.base_models]
+                             + [meshed.stack_model.params]),
+            "proba_max_abs_diff_to_single": float(
+                (meshed.predict_proba(Xa) - single.predict_proba(Xa)).abs().max()),
+        }
+        # the tuning phase's 12 candidates, swept with the lanes over
+        # member=2 and whole, lane by lane
+        from spark_ensemble_tpu_torch.models.gbm_sweep import fit_sweep
+        from spark_ensemble_tpu_torch.tuning import _kfold_indices
+
+        est = st.GBMClassifier(num_base_learners=PARITY_ROUNDS, loss="logloss",
+                               updates="newton", learning_rate=0.3,
+                               base_learner=st.DecisionTreeRegressor(
+                                   max_depth=DEPTH, max_bins=MAX_BINS, hist="fused"))
+        grid = (st.ParamGridBuilder().add_grid("learning_rate", [0.1, 0.3])
+                .add_grid("subsample_ratio", [1.0, 0.8]).build())
+        folds = _kfold_indices(len(y_np), 3, 0)
+        lanes = [est.copy(**pmap) for _ in folds for pmap in grid]
+        wts = [np.where(fold, 0.0, 1.0).astype(np.float32) for fold in folds for _ in grid]
+        member_mesh = pmesh.data_member_mesh(world, member=world, device="cuda:0")
+        times = {}
+        for name, m in (("whole", None), ("sharded", member_mesh)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kw = {} if m is None else {"mesh": m}
+            times[name] = (fit_sweep(lanes, X_np, y_np, sample_weights=wts, num_classes=N_CLASSES,
+                                     device="cuda:0", **kw), time.perf_counter() - t0)
+        whole, sharded = times["whole"][0], times["sharded"][0]
+        equal = [digest(a.params) == digest(b.params) for a, b in zip(whole, sharded)]
+        Xq = torch.as_tensor(X_np, device="cuda:0")
+        gap = max(float((a.predict_proba(Xq) - b.predict_proba(Xq)).abs().max())
+                  for a, b in zip(whole, sharded))
+        out["sweep"] = {"lanes": len(lanes), "lanes_equal": equal, "proba_max_abs_diff": gap,
+                        "whole_fit_s": times["whole"][1], "sharded_fit_s": times["sharded"][1]}
+        # a 2-map x 2-fold CrossValidator over the mesh, 10 rounds a fit
+        cv = st.CrossValidator(estimator=_main_path_gbm(st, 10),
+                               estimator_param_maps=st.ParamGridBuilder().add_grid(
+                                   "learning_rate", [0.1, 0.3]).build(),
+                               evaluator=st.MulticlassClassificationEvaluator(), num_folds=2,
+                               seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cv_model = cv.fit(X_np, y_np, mesh=mesh, device="cuda:0")
+        torch.cuda.synchronize()
+        out["cross_validator"] = {"fit_s": time.perf_counter() - t0,
+                                  "avg_metrics": cv_model.avg_metrics,
+                                  "unmeshed_avg_metrics": cv.fit(X_np, y_np,
+                                                                 device="cuda:0").avg_metrics,
+                                  "best_index": cv_model.best_index,
+                                  "digests": pmesh.replica_digests(cv_model.best_model)}
+    with open(cfg["out"], "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def elastic_phase(scratch, xl, card):
+    """The elastic shard sweep and the rest of the mesh planes, each group
+    of ranks of this script joining a gloo group on ``cuda:0`` (NCCL
+    refuses two ranks on one card).  ``sweep``: 2 ranks stream the XL store
+    over ``data_member_mesh(2)``; every rank's params must equal the
+    single-process streaming fit's bit for bit.  ``rewind``: 3 ranks run an
+    ElasticCoordinator fit over the first STREAM_CHECK_ROWS XL rows with a
+    checkpoint a round; a host_preempt in round 1 takes rank 1, and the
+    survivors' params must equal the single-process fit's, on a mesh 2
+    wide, with the victim's flight dump on disk.  ``planes``: 2 ranks
+    checkpoint, kill and resume the main path and SAMME (equal to the
+    uninterrupted mesh fits), stack with each member on one rank (proba
+    within 2e-3 of one process), sweep the tuning phase's 12 candidates
+    with the lanes over member=2 (each lane equal to the whole sweep's)
+    and cross-validate over the mesh (the best mean score within 0.02 of
+    the unmeshed search's)."""
+    t_phase = time.perf_counter()
+    failures = []
+
+    def group(job, world, **extra):
+        port = _free_port()
+        return _run_group("--elastic-rank", [
+            {"rank": r, "world": world, "job": job, "port": port, "scratch": scratch,
+             "out": os.path.join(scratch, f"elastic_{job}_r{r}.json"), **extra}
+            for r in range(world)], ELASTIC_TIMEOUT_S)
+
+    t0 = time.perf_counter()
+    res = group("sweep", 2, store=xl["store"], labels=xl["labels"])
+    row = {"check": "distributed_shard_sweep", "world": 2, "n": XL_ROWS, "d": XL_FEATURES,
+           "classes": XL_CLASSES, "rounds": STREAM_FIT_ROUNDS,
+           "bit_identical_to_single": [r["digest"] == xl["digest"] for r in res],
+           "iters_per_s": [r["iters_per_s"] for r in res],
+           "gathers_per_round": res[0]["gathers_per_round"],
+           "bytes_per_round": res[0]["bytes_per_round"],
+           "gather_ms_per_round": [r["gather_ms_per_round"] for r in res],
+           "loads": [r["loads"] for r in res], "launches_rank0": res[0]["launches"],
+           "group_s": time.perf_counter() - t0}
+    emit({"phase": "elastic", **row, **card})
+    if not all(row["bit_identical_to_single"]):
+        failures.append("sweep: a rank's params differ from the single-process fit")
+    t0 = time.perf_counter()
+    res = group("rewind", 3, store=xl["rewind_store"], labels=xl["labels"])
+    surv = [r for r in res if not r["victim"]]
+    row = {"check": "elastic_rewind", "world": 3, "n": STREAM_CHECK_ROWS, "site": ELASTIC_SITE,
+           "victims": [r["rank"] for r in res if r["victim"]],
+           "losses": [r["losses"] for r in surv], "widths": [r["width"] for r in surv],
+           "attempts": [r["attempts"] for r in surv],
+           "bit_identical_to_single": [r["digest"] == xl["rewind_digest"] for r in surv],
+           "victim_flight_dump": [r["flight_dump"] for r in res if r["victim"]],
+           "verdict_to_resumed_round_s": [r["resume_s"] for r in surv],
+           "group_s": time.perf_counter() - t0}
+    emit({"phase": "elastic", **row, **card})
+    if (row["victims"] != [ELASTIC_VICTIM] or len(surv) != 2
+            or not all(row["bit_identical_to_single"]) or row["widths"] != [2, 2]
+            or any(lo[0][0] != ELASTIC_VICTIM for lo in row["losses"])
+            or row["victim_flight_dump"] != [True]):
+        failures.append("rewind: see the line above")
+    t0 = time.perf_counter()
+    res = group("planes", 2)
+    for key in ("gbm", "samme"):
+        rows = [r[key] for r in res]
+        line = {"check": f"checkpoint_resume_{key}", "world": 2,
+                **{k: rows[0][k] for k in ("rounds", "preempted_after_round", "resumed_at",
+                                           "uninterrupted_fit_s", "resume_launches")},
+                "fired": [x["fired"] for x in rows],
+                "bit_identical": [x["equal"] for x in rows],
+                "digests_equal": len({d for x in rows for d in x["digests"]}) == 1}
+        emit({"phase": "elastic", **line, **card})
+        if not (all(line["fired"]) and all(line["bit_identical"]) and line["digests_equal"]
+                and line["resumed_at"]):
+            failures.append(f"{key}: the resumed mesh fit differs or did not resume")
+    stk = [r["stacking"] for r in res]
+    line = {"check": "stacking", "world": 2, "fits": [x["fits"] for x in stk],
+            "digests_equal": len({x["digest"] for x in stk}) == 1,
+            "proba_max_abs_diff_to_single": [x["proba_max_abs_diff_to_single"] for x in stk]}
+    emit({"phase": "elastic", **line, **card})
+    owners = sorted(f for x in stk for f in x["fits"])
+    if (owners != sorted(["DecisionTreeClassifier", "LogisticRegression",
+                          "GaussianNaiveBayes"]) or not line["digests_equal"]
+            or max(line["proba_max_abs_diff_to_single"]) > 2e-3):
+        failures.append("stacking: see the line above")
+    sw = [r["sweep"] for r in res]
+    identical = all(all(x["lanes_equal"]) for x in sw)
+    line = {"check": "sharded_sweep", "world": 2, "member": 2, "lanes": sw[0]["lanes"],
+            "held_to": "bit_identical" if identical else "proba_within_1e-5",
+            "lanes_equal": [sum(x["lanes_equal"]) for x in sw],
+            "proba_max_abs_diff": [x["proba_max_abs_diff"] for x in sw],
+            "whole_fit_s": [x["whole_fit_s"] for x in sw],
+            "sharded_fit_s": [x["sharded_fit_s"] for x in sw]}
+    emit({"phase": "elastic", **line, **card})
+    if not identical and max(line["proba_max_abs_diff"]) > 1e-5:
+        failures.append("sharded sweep: a lane parts from the whole sweep's")
+    cvs = [r["cross_validator"] for r in res]
+    line = {"check": "cross_validator", "world": 2, "maps": 2, "folds": 2, "rounds": 10,
+            "fit_s": [x["fit_s"] for x in cvs], "avg_metrics": cvs[0]["avg_metrics"],
+            "unmeshed_avg_metrics": cvs[0]["unmeshed_avg_metrics"],
+            "best_index": cvs[0]["best_index"],
+            "digests_equal": len({d for x in cvs for d in x["digests"]}) == 1,
+            "group_s": time.perf_counter() - t0}
+    emit({"phase": "elastic", **line, **card})
+    if (not line["digests_equal"] or any(x["avg_metrics"] != cvs[0]["avg_metrics"] for x in cvs)
+            or abs(max(line["avg_metrics"]) - max(line["unmeshed_avg_metrics"])) > 0.02):
+        failures.append("cross_validator: see the line above")
+    emit({"phase": "elastic_summary", "failures": failures,
+          "phase_s": time.perf_counter() - t_phase, **card})
+    if failures:
+        raise AssertionError(f"elastic: {failures}")
 
 
 def _quantiles_ms(values):
@@ -2570,7 +2930,7 @@ def main():
     finally:
         chaos_mod.install(None)
     probe = st.TrainingCheckpointer(ckdir, 5, fingerprint=est._checkpointer(
-        dev, N_ROWS, N_FEATURES, N_CLASSES, 0).fingerprint)
+        dev, N_ROWS, N_FEATURES, N_CLASSES, 0, N_ROWS, 0).fingerprint)  # nv, n_pad, nv_pad
     loaded = probe.load_latest()
     resumed = est.fit(X_np, y_np, device="cuda")
     equal = torch.equal(resumed.predict_proba(Xd), runs["fused"][0])
@@ -2709,9 +3069,7 @@ def main():
               "packed_bytes": store.packed_nbytes, **card})
         if store.num_shards != XL_ROWS // 32768 or store.bits != 8:
             raise AssertionError(f"write_shards: {store.num_shards} shards at {store.bits} bits")
-        xl_cls = st.GBMClassifier(num_base_learners=STREAM_FIT_ROUNDS, loss="logloss",
-                                  updates="newton", learning_rate=0.3,
-                                  base_learner=st.DecisionTreeRegressor(hist="stream"))
+        xl_cls = _xl_stream_gbm(st, STREAM_FIT_ROUNDS)
         xl_fits = {}
         for way in ("resident", "streaming", "streaming", "resident"):
             pf_stats.clear()
@@ -2739,6 +3097,19 @@ def main():
             raise AssertionError("streaming XL classifier differs from its resident twin")
         if stats["loads"] != STREAM_FIT_ROUNDS * (DEPTH + 1) * store.num_shards or stats["errors"]:
             raise AssertionError(f"streaming XL prefetch stats {stats}")
+        # kept for the elastic phase: the store, the labels, the streaming
+        # fit's digest, and a store of the first STREAM_CHECK_ROWS rows with
+        # its own single-process fit's digest
+        from spark_ensemble_tpu_torch.parallel.mesh import params_digest
+
+        xl = {"store": store_dir, "labels": os.path.join(scratch, "xl_labels.npy"),
+              "digest": params_digest(stm.params),
+              "rewind_store": os.path.join(scratch, "xl_rewind_store")}
+        np.save(xl["labels"], y_xl)
+        rewind_store = write_shards(X_xl_np[:STREAM_CHECK_ROWS], xl["rewind_store"],
+                                    max_bins=MAX_BINS, device="cuda")
+        xl["rewind_digest"] = params_digest(xl_cls.fit_streaming(
+            rewind_store, y_xl[:STREAM_CHECK_ROWS], device="cuda").params)
         # where a streaming round goes, beside a resident one: one traced round each
         xl_one = xl_cls.copy(num_base_learners=1)
         profile_fit(xl_one, None, y_xl, store=store, tier="stream", way="streaming",
@@ -2746,7 +3117,6 @@ def main():
         profile_fit(xl_one, X_xl_np, y_xl, tier="stream", way="resident", n=XL_ROWS,
                     rounds=1, **card)
         del X_xl_np, Xq, res, stm, xl_fits
-        shutil.rmtree(store_dir, ignore_errors=True)
         torch.cuda.empty_cache()
 
         reg_stream = lambda loss, ck=None: st.GBMRegressor(
@@ -3144,6 +3514,11 @@ def main():
     # phase 29 (distributed): the SPMD fits over torch.distributed
     distributed_phase(st, hk, X_np, y_np, scratch, per_fit, card)
     no_stray_retries("distributed")
+
+    # phase 30 (elastic): the distributed shard sweep, the elastic rewind
+    # and the rest of the mesh planes (elastic_phase)
+    elastic_phase(scratch, xl, card)
+    no_stray_retries("elastic")
     shutil.rmtree(scratch, ignore_errors=True)
 
     no_stray_retries("all phases")
@@ -3158,4 +3533,6 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--distributed-rank":
         sys.exit(distributed_rank(json.loads(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--elastic-rank":
+        sys.exit(elastic_rank(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -50,10 +50,13 @@ default) or on the CPU (``device="cpu"``):
   breakers, hedging, prefix degradation, torn-free swaps, elastic width),
   ``Watchdog``, ``ShadowScorer`` and ``Autopilot`` (scaling, warm-start
   refresh fits, rollback);
-- distribution: ``fit(X, y, mesh=...)`` on GBM, Bagging, Boosting and
-  the base learners, one process per device over ``torch.distributed``
-  (``parallel``: ``multihost.initialize``, ``data_member_mesh``,
-  ``hybrid_data_member_mesh``);
+- distribution: ``fit(X, y, mesh=...)`` on GBM, Bagging, Boosting,
+  Stacking, the tuners, ``Pipeline``, the megabatch sweep and the base
+  learners (checkpoints too), one process per device over
+  ``torch.distributed`` (``parallel``: ``multihost.initialize``,
+  ``data_member_mesh``, ``hybrid_data_member_mesh``), and the elastic shard
+  sweep ``fit_streaming(mesh=...)`` with ``ElasticCoordinator``, which
+  absorbs a lost rank and resumes bit-identically;
 - telemetry: ``telemetry_path`` / ``SE_TPU_TELEMETRY`` / ``record_fits``
   event streams in the JAX package's schema, ``fit_history_``, trace
   spans, the metrics registry, ``DriftMonitor``, and ``profile_dir``
@@ -228,7 +231,13 @@ from spark_ensemble_tpu_torch.telemetry import (
     trace_annotations_enabled,
 )
 from spark_ensemble_tpu_torch import parallel
-from spark_ensemble_tpu_torch.parallel import slice_count
+from spark_ensemble_tpu_torch.parallel import (
+    DistributedSweep,
+    ElasticCoordinator,
+    HostLostError,
+    slice_count,
+    survivor_mesh,
+)
 from spark_ensemble_tpu_torch.utils.checkpoint import TrainingCheckpointer
 from spark_ensemble_tpu_torch.utils.features import FeatureMetadata
 from spark_ensemble_tpu_torch.utils.persist import load, save
@@ -259,11 +268,13 @@ __all__ = [
     "DecisionTreeClassifier",
     "DecisionTreeRegressionModel",
     "DecisionTreeRegressor",
+    "DistributedSweep",
     "DriftMonitor",
     "DummyClassificationModel",
     "DummyClassifier",
     "DummyRegressionModel",
     "DummyRegressor",
+    "ElasticCoordinator",
     "FeatureMetadata",
     "FitTelemetry",
     "FleetOverloadError",
@@ -276,6 +287,7 @@ __all__ = [
     "GBMRegressor",
     "GaussianNaiveBayes",
     "GaussianNaiveBayesModel",
+    "HostLostError",
     "InferenceEngine",
     "LinearRegression",
     "LinearRegressionModel",
@@ -357,6 +369,7 @@ __all__ = [
     "stacking_regressor_from_models",
     "staged_attribution",
     "standard_scaler_from_arrays",
+    "survivor_mesh",
     "sweep_group_key",
     "sweep_unsupported_reason",
     "telemetry",

@@ -14,8 +14,8 @@ manifests.
 The round-robin layout is what makes a distributed sweep *ordered*: at
 step ``k`` the mesh holds shards ``k*W .. k*W+W-1``, one per position, and
 folding their contributions in position order is exactly the global shard
-order ``0..S-1`` of the single-host sweep.  (The port's distributed sweep
-is ROADMAP queue 1, item 29; this module is its layout.)
+order ``0..S-1`` of the single-host sweep (``parallel/elastic.py``, the
+port's distributed sweep, runs on this layout).
 
 ``PartitionedShardReader`` adapts a host's slice of the layout to the
 ``ShardPrefetcher`` duck-type (``num_shards`` / ``load_shard`` / ``n``),

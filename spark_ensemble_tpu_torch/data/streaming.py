@@ -40,8 +40,14 @@ trace (``data/prefetch.py``), and each round emits its shard I/O as
 JAX package's ``_emit_shard_io`` does.  A streaming fit captures no
 ``drift_ref_``, as in the JAX package.
 
-Not ported yet: ``mesh=`` (the distributed sweep, ROADMAP queue 1, item
-18).
+With ``mesh=`` the shard sweeps span the mesh's ranks
+(``parallel/elastic.DistributedSweep``): each rank prefetches and opens only
+its round-robin slice of the manifest (``data/partition.py``), and the
+ranks fold their per-step histograms in global shard order, so the fit is
+bit-identical to the single-process one under ``reduce="ordered"``.  The
+labels, weights and carried predictions stay whole on every rank, so the
+round loop and its checkpoints are the single-process ones: a checkpoint
+has no mesh component, and an elastic rewind resumes it at another width.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from spark_ensemble_tpu_torch.data.prefetch import ShardPrefetcher
 from spark_ensemble_tpu_torch.models.base import (
     as_f32,
     infer_num_classes,
+    mesh_device,
     resolve_device,
     resolve_weights,
 )
@@ -91,8 +98,13 @@ class _ShardTrees:
     ``site`` names the round for the chaos sites (set before each round);
     each round's shard I/O goes to ``telem`` after the round."""
 
-    def __init__(self, base, store, prefetch, ctl, label, device, telem):
+    def __init__(self, base, store, prefetch, ctl, label, device, telem,
+                 dist=None):
         self.base, self.store, self.prefetch, self.ctl = base, store, prefetch, ctl
+        #: the distributed sweep under a mesh (None on one process), and the
+        #: axis its ranks agree on a resume over
+        self.dist = dist
+        self.agree_axis = None if dist is None else dist.axis
         self.label = label
         self.telem = telem
         self.thresholds = torch.as_tensor(store.thresholds, device=device)
@@ -128,6 +140,16 @@ class _ShardTrees:
         vals_all = torch.zeros((S * R, M, C), dtype=torch.float32, device=dev)
         vals_all[:n] = vals
         vals_all = vals_all.reshape(S, R, M, C)
+        mask = feature_mask.to(torch.bool)
+        if self.dist is not None:
+            forest, node_all = self.dist.sweep_forest(
+                self.prefetch, self.ctl, self.site, vals_all, y_mean, mask,
+                self.thresholds, rows=self.rows, d=d, bits=store.bits,
+                max_depth=int(self.base.max_depth), max_bins=store.max_bins,
+                min_info_gain=float(self.base.min_info_gain),
+                triangular=self.triangular, round_bf16=self.round_bf16,
+            )
+            return forest, node_all.reshape(S * R, M)[:n]
         node_all = torch.zeros((S, R, M), dtype=torch.int32, device=dev)
 
         def sweep(tag):
@@ -140,7 +162,7 @@ class _ShardTrees:
                 yield xb, node_all[s, :r], vals_all[s, :r]
 
         forest = stream_forest(
-            sweep, y_mean, self.thresholds, feature_mask.to(torch.bool), d=d,
+            sweep, y_mean, self.thresholds, mask, d=d,
             max_depth=int(self.base.max_depth), max_bins=store.max_bins,
             min_info_gain=float(self.base.min_info_gain),
             triangular=self.triangular, round_bf16=self.round_bf16,
@@ -151,7 +173,7 @@ class _ShardTrees:
 
     def fit_and_direction(self, ctx, y, w, feature_mask, X, key=None,
                           axis_name=None):
-        # a streaming fit runs on one device (a mesh raises at fit_streaming)
+        # under a mesh only the sweep is distributed: the rows are whole
         mask = None if feature_mask is None else feature_mask.reshape(1, -1)
         forest, node = self._sweep_forest(y[:, None, None], w[:, None], mask)
         tree = Tree(*(a[0] for a in forest))
@@ -182,15 +204,16 @@ def _check_store(est, store, y):
 
 
 def _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run,
-                   num_classes=None):
-    """Shared set-up: checks, the fit's telemetry, the shard sweep and its
-    prefetcher, and a placeholder feature matrix of the store's shape (one
-    zero broadcast, no memory; the init fits read only its shape) ->
-    ``run(X_ph, y, w, X_val, y_val, base, trees, telem)``'s model.
-    ``num_classes(y)`` gives a classifier's class count."""
+                   num_classes=None, mesh=None, reduce="ordered"):
+    """Shared set-up: checks, the fit's telemetry, the shard sweep (the
+    distributed one under ``mesh``) and its prefetcher, and a placeholder
+    feature matrix of the store's shape (one zero broadcast, no memory; the
+    init fits read only its shape) -> ``run(X_ph, y, w, X_val, y_val, base,
+    trees, telem)``'s model.  ``num_classes(y)`` gives a classifier's class
+    count.  Under a mesh every rank streams its own telemetry."""
     from spark_ensemble_tpu_torch.robustness.chaos import controller
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
     y = as_f32(y, dev)
     base = _check_store(est, store, y)
     if str(getattr(est, "init_strategy", "")).lower() == "base":
@@ -214,35 +237,54 @@ def _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run,
         shard_rows=store.shard_rows, bits=store.bits,
         packed_bytes=store.packed_nbytes,
     )
-    prefetch = ShardPrefetcher(store, device=dev, telem=telem)
+    dist = None
+    if mesh is not None:
+        from spark_ensemble_tpu_torch.parallel.elastic import DistributedSweep
+
+        dist = DistributedSweep(mesh, store, reduce=reduce, telem=telem)
+        dist.check_agreement()
+    # under a mesh each rank prefetches only its slice of the manifest
+    prefetch = ShardPrefetcher(store if dist is None else dist.reader(),
+                               device=dev, telem=telem)
     try:
-        trees = _ShardTrees(base, store, prefetch, controller(), label, dev, telem)
+        trees = _ShardTrees(base, store, prefetch, controller(), label, dev, telem,
+                            dist=dist)
         model = run(X_ph, y, w, X_val, y_val, base, trees, telem, k)
     finally:
         prefetch.close()
+        if dist is not None:
+            from spark_ensemble_tpu_torch.parallel.elastic import _record_fit_stats
+
+            _record_fit_stats(dist)
     instr.log_outcome(kept_members=model.num_members)
     return model
 
 
 def fit_streaming_regressor(est, store, y, sample_weight=None, X_val=None,
-                            y_val=None, device="cuda"):
+                            y_val=None, mesh=None, reduce="ordered", device="cuda"):
     """Out-of-core ``GBMRegressor`` fit over a ``ShardStore``: the
     streaming twin of ``GBMRegressor.fit``, bit-identical to a resident
-    ``hist="stream"`` fit at matched chunk rows."""
+    ``hist="stream"`` fit at matched chunk rows.  With ``mesh`` the shard
+    sweeps span its ranks (still bit-identical under ``reduce="ordered"``,
+    allclose under ``"psum"``)."""
     def run(X_ph, y, w, X_val, y_val, base, trees, telem, k):
         return est._fit_rounds(X_ph, y, w, X_val, y_val, base, None, X_ph.device,
                                telem, trees=trees)
 
-    return _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run)
+    return _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run,
+                          mesh=mesh, reduce=reduce)
 
 
 def fit_streaming_classifier(est, store, y, sample_weight=None, X_val=None,
-                             y_val=None, num_classes=None, device="cuda"):
+                             y_val=None, num_classes=None, mesh=None,
+                             reduce="ordered", device="cuda"):
     """Out-of-core ``GBMClassifier`` fit over a ``ShardStore``; the class
-    dims fold into the sweep's member axis, as in the resident forest."""
+    dims fold into the sweep's member axis, as in the resident forest.
+    ``mesh`` and ``reduce`` as in :func:`fit_streaming_regressor`."""
     def run(X_ph, y, w, X_val, y_val, base, trees, telem, k):
         return est._fit_rounds(X_ph, y, w, X_val, y_val, k, base, None,
                                X_ph.device, telem, trees=trees)
 
     return _streaming_fit(est, store, y, sample_weight, X_val, y_val, device, run,
-                          num_classes=lambda y: infer_num_classes(y, num_classes))
+                          num_classes=lambda y: infer_num_classes(y, num_classes),
+                          mesh=mesh, reduce=reduce)

@@ -118,14 +118,6 @@ def mesh_device(mesh, device) -> torch.device:
     return dev
 
 
-def not_supported(param: str, value, roadmap: str):
-    """Raise for a Param value the port does not implement yet."""
-    raise NotImplementedError(
-        f"{param}={value!r} is not supported by the PyTorch port yet "
-        f"(ROADMAP {roadmap})"
-    )
-
-
 def tree_map(fn: Callable, *trees):
     """``fn`` over the tensors of one or more params trees of the same
     structure (dicts, lists, tuples and NamedTuples of tensors; ``None``
@@ -458,16 +450,23 @@ class CheckpointableParams(Params):
             )
         return [st["members"]], [st[weights_key].to(torch.float32)]
 
-    def _checkpointer(self, device, *shape_parts, telem=None):
+    def _checkpointer(self, device, *shape_parts, telem=None, axis=None):
         """The fit's checkpointer, reporting to the fit's telemetry
         ``telem``.  The fingerprint's shape parts are the port's own
         (tagged ``"torch"``), so a checkpoint the JAX package wrote starts
-        a fresh fit (logged) instead of a half-way resume."""
+        a fresh fit (logged) instead of a half-way resume.  Under a mesh
+        (``axis``, every rank of it) each rank writes its own
+        ``checkpoint_dir``: ranks given one directory, or some ranks a
+        directory and others none, raise ``ValueError`` on every rank
+        (``utils/checkpoint.check_rank_directories``)."""
         from spark_ensemble_tpu_torch.utils.checkpoint import (
             TrainingCheckpointer,
+            check_rank_directories,
             run_fingerprint,
         )
 
+        if axis is not None:
+            check_rank_directories(self.checkpoint_dir, axis)
         return TrainingCheckpointer(
             self.checkpoint_dir,
             self.checkpoint_interval,
@@ -503,16 +502,22 @@ class CheckpointableParams(Params):
     def _is_refresh_fit(self):
         return bool(getattr(self, "_refresh_active", False))
 
-    def _load_resume(self, ckpt, telem):
+    def _load_resume(self, ckpt, telem, axis=None):
         """The state a fit resumes from, or None: the newest loadable
         checkpoint, else a ``fit_resume`` warm start.  A
         resume emits ``resume_from_checkpoint`` (the round it resumes at
-        and which copy it came from) on the fit's telemetry."""
+        and which copy it came from) on the fit's telemetry.  Under a mesh
+        (``axis``) every rank must resume at the same round: ranks whose
+        checkpoints disagree all start fresh (``utils/checkpoint.
+        agree_resume``)."""
+        from spark_ensemble_tpu_torch.utils.checkpoint import agree_resume
+
         resumed = ckpt.load_latest()
         warm = False
         if resumed is None:
             resumed = self._take_warm_resume()
             warm = resumed is not None
+        resumed = agree_resume(resumed, axis, telem)
         if resumed is not None:
             detail = ckpt.last_load_detail or {}
             telem.emit(

@@ -53,7 +53,9 @@ global arrays): the weight masses and the weighted errors are reduced
 across the ranks in rank order, Drucker's ``maxError`` is their max (the
 padding rows masked out), and the base fit reduces its statistics.  So
 every rank replays the same stopping rules on the same values and returns
-the same model.
+the same model.  A checkpoint under a mesh holds the global padded boosting
+weights (``parallel/mesh.CheckpointBlocks``), each rank writing its own
+``checkpoint_dir``.
 """
 
 from __future__ import annotations
@@ -75,7 +77,6 @@ from spark_ensemble_tpu_torch.models.base import (
     infer_num_classes,
     make_shared_fit_ctx,
     mesh_device,
-    not_supported,
     resolve_device,
     resolve_weights,
     stack_members,
@@ -83,6 +84,7 @@ from spark_ensemble_tpu_torch.models.base import (
 )
 from spark_ensemble_tpu_torch.models.gbm import _check_resume_args, _concat
 from spark_ensemble_tpu_torch.ops.collective import pairwise_sum, pmax_reduce, preduce
+from spark_ensemble_tpu_torch.parallel.mesh import CheckpointBlocks
 from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
 from spark_ensemble_tpu_torch.utils.instrumentation import instrumented_fit
 from spark_ensemble_tpu_torch.models.tree import (
@@ -200,9 +202,6 @@ class _BoostingParams(CheckpointableParams, Estimator):
     seed = Param(0, doc="PRNG seed of the round keys")
 
     def _prepare(self, X, y, sample_weight, mesh, device):
-        if mesh is not None and self.checkpoint_dir is not None:
-            not_supported("checkpoint_dir with mesh", self.checkpoint_dir,
-                          "queue 1, item 29")
         dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
@@ -225,11 +224,20 @@ class _BoostingParams(CheckpointableParams, Estimator):
         m = int(self.num_base_learners)
         return fold_in(PRNGKey(self.seed, device), torch.arange(m, device=device))
 
-    def _resume(self, ckpt, bw, telem):
+    def _checkpoint(self, dev, mesh, n, d, *parts, telem):
+        """The fit's checkpointer and its carry blocks: under a mesh a
+        checkpoint holds the global padded ``bw`` (``n_pad`` enters the
+        fingerprint; ``parallel/mesh.CheckpointBlocks``)."""
+        blocks = CheckpointBlocks(mesh, n)
+        ckpt = self._checkpointer(dev, n, d, *parts, blocks.n_pad, telem=telem,
+                                  axis=blocks.axis)
+        return ckpt, blocks
+
+    def _resume(self, ckpt, bw, telem, blocks):
         """The loaded checkpoint or warm-resume state -> ``(start round,
         bw, chunks)``; a fresh fit starts at round 0 from ``bw``."""
         chunks = {"members": [], "weights": []}
-        resumed = self._load_resume(ckpt, telem)
+        resumed = self._load_resume(ckpt, telem, blocks.axis)
         if resumed is None:
             return 0, bw, chunks
         last_round, st = resumed
@@ -237,11 +245,11 @@ class _BoostingParams(CheckpointableParams, Estimator):
             st, weights_key="est_weights")
         logger.info("%s resuming from round %d", type(self).__name__,
                     last_round + 1)
-        return last_round + 1, st["bw"].to(bw.device), chunks
+        return last_round + 1, blocks.own(st["bw"].to(bw.device)), chunks
 
     def _drive_boosting_rounds(self, ckpt, bw, chunks, run_chunk, replay,
                                start_i: int, ramp: bool, guard, telem,
-                               ax=None) -> int:
+                               ax=None, *, blocks) -> int:
         """The chunked round loop of both Boosting flavors, behind the
         port's :class:`RoundExecutor` (the JAX package's
         ``_drive_boosting_rounds``).  ``run_chunk(i0, c, bw) -> (params
@@ -360,7 +368,7 @@ class _BoostingParams(CheckpointableParams, Estimator):
                 i += skip_after
             if not stop and i > start_i and ckpt.should_save(i - 1):
                 ckpt.save(i - 1, {
-                    "bw": bw,
+                    "bw": blocks.whole(bw),
                     "members_layout": self.MEMBERS_LAYOUT,
                     "members": _concat(chunks["members"]),
                     "est_weights": torch.cat(chunks["weights"]),
@@ -514,14 +522,14 @@ class BoostingClassifier(_BoostingParams):
                     return kept, True
             return kept, False
 
-        ckpt = self._checkpointer(dev, n, d, k, telem=telem)
-        start_i, bw, chunks = self._resume(ckpt, w, telem)
+        ckpt, blocks = self._checkpoint(dev, mesh, n, d, k, telem=telem)
+        start_i, bw, chunks = self._resume(ckpt, w, telem, blocks)
         run_chunk = self._rounds(run_round, self._round_keys(dev), torch.stack, ax)
         guard = self._numeric_guard(telem)
         telem.phase_mark("setup")
         self._drive_boosting_rounds(ckpt, bw, chunks, run_chunk, replay,
                                     start_i, ramp=not real, guard=guard,
-                                    telem=telem, ax=ax)
+                                    telem=telem, ax=ax, blocks=blocks)
         ckpt.delete()
         params = self._model_params(chunks, dev)
         model = _with_guard_events(guard, BoostingClassificationModel(
@@ -681,14 +689,15 @@ class BoostingRegressor(_BoostingParams):
             return (torch.stack([s[0] for s in stats]),
                     torch.stack([s[1] for s in stats]))
 
-        ckpt = self._checkpointer(dev, n, d, telem=telem)
-        start_i, bw, chunks = self._resume(ckpt, w, telem)
+        ckpt, blocks = self._checkpoint(dev, mesh, n, d, telem=telem)
+        start_i, bw, chunks = self._resume(ckpt, w, telem, blocks)
         run_chunk = self._rounds(run_round, self._round_keys(dev), extras, ax)
         guard = self._numeric_guard(telem)
         telem.phase_mark("setup")
         self._drive_boosting_rounds(ckpt, bw, chunks, run_chunk,
                                     self._replay, start_i, ramp=True,
-                                    guard=guard, telem=telem, ax=ax)
+                                    guard=guard, telem=telem, ax=ax,
+                                    blocks=blocks)
         ckpt.delete()
         params = self._model_params(chunks, dev)
         model = _with_guard_events(guard, BoostingRegressionModel(

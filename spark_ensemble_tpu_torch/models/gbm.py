@@ -70,8 +70,10 @@ classifier's class dims split into equal blocks over a "member" axis
 (zero-weight phantom dims round them up): a rank fits its block, and the
 params and directions are gathered over "member" and trimmed before the
 step search.  Every rank takes the same decisions on the same reduced
-values and returns the same model.  ``fit_streaming(mesh=...)`` and
-checkpoints under a mesh wait in ROADMAP queue 1, item 29.
+values and returns the same model.  Checkpoints under a mesh hold the
+global padded carry (``parallel/mesh.CheckpointBlocks``), and
+``fit_streaming(mesh=...)`` distributes the shard sweeps
+(``parallel/elastic.py``).
 
 Telemetry follows the JAX package's call sites: ``fit_start`` (with a
 ``sampling_config`` event for a sampled fit), the ``setup`` / ``probe`` /
@@ -106,7 +108,6 @@ from spark_ensemble_tpu_torch.models.base import (
     make_shared_fit_ctx,
     mesh_device,
     mesh_fit_kwargs,
-    not_supported,
     resolve_device,
     resolve_weights,
     stack_members,
@@ -120,7 +121,11 @@ from spark_ensemble_tpu_torch.ops import losses as losses_mod
 from spark_ensemble_tpu_torch.ops.collective import pairwise_sum, pgather, preduce
 from spark_ensemble_tpu_torch.ops.linesearch import brent_minimize, projected_newton_box_lanes
 from spark_ensemble_tpu_torch.ops.tree import Tree
-from spark_ensemble_tpu_torch.parallel.mesh import setup_row_sharding, shard_rows
+from spark_ensemble_tpu_torch.parallel.mesh import (
+    CheckpointBlocks,
+    setup_row_sharding,
+    shard_rows,
+)
 from spark_ensemble_tpu_torch.params import Param, gt, gt_eq, in_array, in_range
 from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
 from spark_ensemble_tpu_torch.telemetry.quality import drift_reference_from_ctx
@@ -317,18 +322,10 @@ class _GBMParams(CheckpointableParams):
                 )
         return base
 
-    def _check_gbm_support(self, mesh):
-        """Raise for every Param value this slice does not implement."""
-        if mesh is not None and self.checkpoint_dir is not None:
-            not_supported("checkpoint_dir with mesh", self.checkpoint_dir,
-                          "queue 1, item 29")
-
-    def _check_streaming_supported(self, mesh) -> None:
-        """``fit_streaming``'s gates: the planes the port lacks, then what
-        the shard sweep cannot stage (the compacted row gather and the
-        linear-leaf solves both read the resident rows)."""
-        if mesh is not None:
-            not_supported("mesh", mesh, "queue 1, item 29")
+    def _check_streaming_supported(self) -> None:
+        """``fit_streaming``'s gates: what the shard sweep cannot stage (the
+        compacted row gather and the linear-leaf solves both read the
+        resident rows)."""
         if str(self.sampling).lower() != "none":
             raise ValueError(
                 "fit_streaming does not support gradient-based row "
@@ -1192,7 +1189,6 @@ class GBMRegressor(_GBMParams, Estimator):
         """Fit; with ``mesh`` (``parallel/mesh.py``; every rank calls with
         the same arrays) the rows shard over the mesh's row axes and every
         rank returns the same model."""
-        self._check_gbm_support(mesh)
         dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
@@ -1215,20 +1211,24 @@ class GBMRegressor(_GBMParams, Estimator):
 
     @instrumented_fit
     def fit_streaming(self, store, y, sample_weight=None, X_val=None,
-                      y_val=None, mesh=None, device="cuda"):
+                      y_val=None, mesh=None, reduce="ordered", device="cuda"):
         """Out-of-core fit over a sealed ``ShardStore`` (``data/shards.py``):
         the packed bins stream from disk shard by shard, never on the
         device at once, and the fit is bit-identical to ``fit`` with a
         ``hist="stream"`` base learner at matched chunk rows
         (``data/streaming.py``).  The validation split (``X_val``,
-        ``y_val``) stays resident.  ``mesh`` raises until the sharded
-        shard sweep lands (ROADMAP queue 1, item 29)."""
-        self._check_streaming_supported(mesh)
+        ``y_val``) stays resident.  With ``mesh`` (every rank calls with
+        the same store and labels) each rank sweeps its round-robin slice
+        of the shards and the ranks fold their histograms together
+        (``parallel/elastic.DistributedSweep``): bit-identical to the
+        single-process fit under ``reduce="ordered"``, allclose under
+        ``"psum"``."""
+        self._check_streaming_supported()
         from spark_ensemble_tpu_torch.data.streaming import fit_streaming_regressor
 
         return fit_streaming_regressor(
             self, store, y, sample_weight=sample_weight, X_val=X_val,
-            y_val=y_val, device=device,
+            y_val=y_val, mesh=mesh, reduce=reduce, device=device,
         )
 
     def _fit_rounds(self, X, y, w, X_val, y_val, base, ctx, dev, telem,
@@ -1288,16 +1288,18 @@ class GBMRegressor(_GBMParams, Estimator):
         val_history: List[float] = []
         i, v = 0, 0
 
-        ckpt = self._checkpointer(dev, n, d, 0 if X_val is None else X_val.shape[0],
-                                  telem=telem)
-        resumed = self._load_resume(ckpt, telem)
+        nv = 0 if y_val is None else y_val.shape[0]  # X_val is this rank's block
+        blocks = CheckpointBlocks(mesh, n, nv, trees)
+        ckpt = self._checkpointer(dev, n, d, nv, blocks.n_pad, blocks.nv_pad,
+                                  telem=telem, axis=blocks.axis)
+        resumed = self._load_resume(ckpt, telem, blocks.axis)
         if resumed is not None:
             last_round, st = resumed
             i, v, best = last_round + 1, int(st["v"]), float(st["best"])
             val_history[:] = [float(x) for x in st["val_hist"].tolist()]
-            pred = st["pred"].to(dev)
+            pred = blocks.own(st["pred"].to(dev))
             if st.get("pred_val") is not None:
-                pred_val = st["pred_val"].to(dev)
+                pred_val = blocks.own(st["pred_val"].to(dev), val=True)
             members, weights = self._resume_chunks(st)
             chunks["members"], chunks["weights"] = members, weights
             if huber:
@@ -1314,8 +1316,8 @@ class GBMRegressor(_GBMParams, Estimator):
                 "v": v,
                 "best": best,
                 "val_hist": torch.tensor(val_history, dtype=torch.float32),
-                "pred": pred,
-                "pred_val": pred_val,
+                "pred": blocks.whole(pred),
+                "pred_val": blocks.whole(pred_val),
                 "members_layout": self.MEMBERS_LAYOUT,
                 "members": _concat(chunks["members"]),
                 "weights": torch.cat(chunks["weights"]),
@@ -1582,7 +1584,6 @@ class GBMClassifier(_GBMParams, Estimator):
         """Fit; with ``mesh`` the rows shard over the mesh's row axes and
         the class dims over its "member" axis, and every rank returns the
         same model (module docstring)."""
-        self._check_gbm_support(mesh)
         dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
@@ -1609,16 +1610,19 @@ class GBMClassifier(_GBMParams, Estimator):
 
     @instrumented_fit
     def fit_streaming(self, store, y, sample_weight=None, X_val=None,
-                      y_val=None, num_classes=None, mesh=None, device="cuda"):
+                      y_val=None, num_classes=None, mesh=None, reduce="ordered",
+                      device="cuda"):
         """Out-of-core fit over a sealed ``ShardStore``; see
-        :meth:`GBMRegressor.fit_streaming`.  The class dims fold into the
-        shard sweep's member axis, as in the resident forest."""
-        self._check_streaming_supported(mesh)
+        :meth:`GBMRegressor.fit_streaming` (``mesh`` and ``reduce`` too).
+        The class dims fold into the shard sweep's member axis, as in the
+        resident forest."""
+        self._check_streaming_supported()
         from spark_ensemble_tpu_torch.data.streaming import fit_streaming_classifier
 
         return fit_streaming_classifier(
             self, store, y, sample_weight=sample_weight, X_val=X_val,
-            y_val=y_val, num_classes=num_classes, device=device,
+            y_val=y_val, num_classes=num_classes, mesh=mesh, reduce=reduce,
+            device=device,
         )
 
     def _fit_rounds(self, X, y, w, X_val, y_val, num_classes, base, ctx, dev,
@@ -1668,18 +1672,19 @@ class GBMClassifier(_GBMParams, Estimator):
         val_history: List[float] = []
         i, v = 0, 0
 
-        ckpt = self._checkpointer(dev, n, d, num_classes,
-                                  0 if X_val is None else X_val.shape[0],
-                                  telem=telem)
-        resumed = self._load_resume(ckpt, telem)
+        nv = 0 if y_val is None else y_val.shape[0]  # X_val is this rank's block
+        blocks = CheckpointBlocks(mesh, n, nv, trees)
+        ckpt = self._checkpointer(dev, n, d, num_classes, nv, blocks.n_pad,
+                                  blocks.nv_pad, telem=telem, axis=blocks.axis)
+        resumed = self._load_resume(ckpt, telem, blocks.axis)
         if resumed is not None:
             last_round, st = resumed
             i, v, best = last_round + 1, int(st["v"]), float(st["best"])
             val_history[:] = [float(x) for x in st["val_hist"].tolist()]
             alpha_ws = st["alpha_ws"].to(dev)
-            pred = st["pred"].to(dev)
+            pred = blocks.own(st["pred"].to(dev))
             if st.get("pred_val") is not None:
-                pred_val = st["pred_val"].to(dev)
+                pred_val = blocks.own(st["pred_val"].to(dev), val=True)
             chunks["members"], chunks["weights"] = self._resume_chunks(st)
             logger.info("GBMClassifier resuming from round %d", i)
 
@@ -1690,8 +1695,8 @@ class GBMClassifier(_GBMParams, Estimator):
                 "v": v,
                 "best": best,
                 "val_hist": torch.tensor(val_history, dtype=torch.float32),
-                "pred": pred,
-                "pred_val": pred_val,
+                "pred": blocks.whole(pred),
+                "pred_val": blocks.whole(pred_val),
                 "alpha_ws": alpha_ws,
                 "members_layout": self.MEMBERS_LAYOUT,
                 "members": _concat(chunks["members"]),

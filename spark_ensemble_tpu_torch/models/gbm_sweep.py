@@ -35,6 +35,14 @@ Slabs hold at most ``_CONFIGS_PER_DISPATCH`` lanes; a short last slab is
 not padded (the JAX package pads it to keep one compiled program shape,
 which eager launches do not need).
 
+With ``mesh`` the config axis shards over the mesh's "member" axis
+(``_config_axis``): member rank ``m`` fits the ``m``-th contiguous block of
+each slab's lanes on the whole rows, and the fitted lanes are gathered so
+that every rank returns every model.  Each lane's sums run on its own
+columns, so a lane fitted in a block equals its lane of the unsharded
+sweep bit for bit.  A member axis of one rank, or one that does not divide
+the slab, runs the unsharded sweep on every rank.
+
 Telemetry: the sweep is one fit on the stream (family
 ``GBMSweep[<estimator>]``, with ``candidates``), each lockstep round a
 ``sweep_chunk`` event (its fenced wall time over the lanes live in it),
@@ -54,6 +62,7 @@ from spark_ensemble_tpu_torch.models.base import (
     as_f32,
     infer_num_classes,
     make_shared_fit_ctx,
+    mesh_device,
     resolve_device,
     resolve_weights,
     stack_members,
@@ -70,6 +79,11 @@ from spark_ensemble_tpu_torch.models.gbm import (
     make_reg_round_core,
 )
 from spark_ensemble_tpu_torch.models.tree import _TreeLearner
+from spark_ensemble_tpu_torch.ops.collective import (
+    gather_objects,
+    model_bytes,
+    model_from_bytes,
+)
 from spark_ensemble_tpu_torch.ops.linesearch import projected_newton_box_lanes
 from spark_ensemble_tpu_torch.ops.tree import leaf_values_at
 from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry, empty_history
@@ -319,10 +333,8 @@ def fit_sweep(
                 "within one batch (group structurally-distinct candidates "
                 "with sweep_group_key)"
             )
-    for est in ests:
-        est._check_gbm_support(mesh)
     B = len(ests)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
     X, y = as_f32(X, dev), as_f32(y, dev)
     est0._validate_fit_inputs(X, y)
     if sample_weights is None:
@@ -344,7 +356,7 @@ def fit_sweep(
         fit = _fit_reg_slab
     telem = FitTelemetry.start(
         est0, family=f"GBMSweep[{type(est0).__name__}]", n=Xt.shape[0],
-        d=Xt.shape[1], telemetry_path=telemetry_path, candidates=B,
+        d=Xt.shape[1], telemetry_path=telemetry_path, mesh=mesh, candidates=B,
     )
     try:
         base = est0._base().copy()
@@ -354,8 +366,21 @@ def fit_sweep(
         models: List[Any] = []
         for lo in range(0, B, _CONFIGS_PER_DISPATCH):
             sl = slice(lo, lo + _CONFIGS_PER_DISPATCH)
-            models += fit(ests[sl], w_list[sl], base, ctx, Xt, yt, X_val, y_val,
-                          k, dev, telem)
+            slab_ests, slab_w = ests[sl], w_list[sl]
+            axis = _config_axis(mesh, len(slab_ests))
+            if axis is None:
+                models += fit(slab_ests, slab_w, base, ctx, Xt, yt, X_val, y_val,
+                              k, dev, telem)
+                continue
+            # this member rank's contiguous block of lanes, rows whole
+            per = len(slab_ests) // axis.size
+            mine = slice(axis.index * per, (axis.index + 1) * per)
+            own = fit(slab_ests[mine], slab_w[mine], base, ctx, Xt, yt, X_val,
+                      y_val, k, dev, telem)
+            for m, blobs in enumerate(gather_objects(
+                    [model_bytes(x) for x in own], axis)):
+                models += (own if m == axis.index
+                           else [model_from_bytes(b, dev) for b in blobs])
     except BaseException as e:  # a terminal telemetry record, then re-raise
         telem.abort(e, candidates=B)
         raise
@@ -367,6 +392,18 @@ def fit_sweep(
         model.fit_history_ = empty_history()
     telem.finish(candidates=B)
     return models
+
+
+def _config_axis(mesh, slab: int):
+    """The mesh's "member" axis when it shards a slab of ``slab`` lanes
+    (the JAX package's ``_config_sharder``), else None: no mesh, a member
+    axis of one rank, or one that does not divide the slab.  Each member
+    rank fits a contiguous block of the slab's lanes on the whole rows, so
+    every lane's reductions run as in the unsharded sweep."""
+    axis = None if mesh is None else mesh.member_axis
+    if axis is None or axis.size <= 1 or slab % axis.size != 0:
+        return None
+    return axis
 
 
 def _new_lanes(ests, w_list, n, d, dev):

@@ -19,6 +19,10 @@ drops a bad one (``skip_round``/``halve_step`` keep every finite member,
 trains on the kept members' meta-features, and predict reads the same
 member list.  A non-finite stacker is always fatal under the guard.
 
+With ``mesh`` member ``i`` is fitted on the rank at mesh position ``i mod
+W`` and sent to every rank; the stacker fits over the mesh's rows
+(``_fit_bases``).
+
 With telemetry each member fit is one round (``member_fit``: its fenced
 wall time, the round index being the member index; with ``parallelism >
 1`` the members' times overlap), and the stacker fit is the ``stacker``
@@ -43,7 +47,8 @@ from spark_ensemble_tpu_torch.models.base import (
     _with_guard_events,
     as_f32,
     infer_num_classes,
-    not_supported,
+    mesh_device,
+    mesh_fit_kwargs,
     resolve_device,
     resolve_weights,
 )
@@ -51,6 +56,11 @@ from spark_ensemble_tpu_torch.models.linear import LinearRegression, LogisticReg
 from spark_ensemble_tpu_torch.models.tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
+)
+from spark_ensemble_tpu_torch.ops.collective import (
+    gather_objects,
+    model_bytes,
+    model_from_bytes,
 )
 from spark_ensemble_tpu_torch.params import Param, in_array
 from spark_ensemble_tpu_torch.robustness.guards import tree_any_nan
@@ -81,16 +91,21 @@ class _StackingParams(Estimator):
     )
     seed = Param(0, doc="PRNG seed (member fits are deterministic)")
 
-    def _check_stacking_support(self, mesh):
-        if mesh is not None:
-            not_supported("mesh", mesh, "queue 1, item 29")
-
     def _fit_bases(self, bases, X, y, w, sample_weight, device, telem,
-                   num_classes=None):
+                   num_classes=None, mesh=None):
         """Fit the heterogeneous base learners, concurrently when
         ``parallelism > 1`` (order-preserving), each under the retry layer
         with its own chaos site, so one member's transient fault does not
-        kill the other fits."""
+        kill the other fits.
+
+        With ``mesh`` the member fits round-robin over its ranks (the JAX
+        package places member ``i`` on device ``i mod n``; the port runs one
+        process per device): member ``i`` is fitted on the rank at mesh
+        position ``i mod W`` only, on the full rows, and every fitted member
+        then travels from its owner to every rank (``ops/collective.
+        gather_objects``, bit for bit), so every rank ends with the whole
+        model -- the reference running member fits as concurrent cluster
+        jobs (`StackingClassifier.scala:174-186`)."""
         from spark_ensemble_tpu_torch.robustness.chaos import controller
         from spark_ensemble_tpu_torch.robustness.retry import retry_call
 
@@ -129,27 +144,44 @@ class _StackingParams(Estimator):
             return model
 
         jobs = list(enumerate(bases))
+        if mesh is not None:
+            W = len(mesh.ranks)
+            jobs = [(i, b) for i, b in jobs if i % W == mesh.rank]
         par = int(self.parallelism or 1)
-        if par > 1 and len(bases) > 1:
-            with ThreadPoolExecutor(max_workers=min(par, len(bases))) as ex:
-                return list(ex.map(fit_one, jobs))
-        return [fit_one(j) for j in jobs]
+        if par > 1 and len(jobs) > 1:
+            with ThreadPoolExecutor(max_workers=min(par, len(jobs))) as ex:
+                fitted = list(ex.map(fit_one, jobs))
+        else:
+            fitted = [fit_one(j) for j in jobs]
+        if mesh is None:
+            return fitted
+        mine = {i: model_bytes(m) for (i, _), m in zip(jobs, fitted)}
+        owned = dict(zip((i for i, _ in jobs), fitted))
+        for part in gather_objects(mine, mesh.all_axis):
+            for i, blob in part.items():
+                if i not in owned:
+                    owned[i] = model_from_bytes(blob, device)
+        return [owned[i] for i in range(len(bases))]
 
     def _fit_stacker(self, stacker, meta, y, w, device, telem,
-                     num_classes=None):
-        """The level-1 fit under the retry layer and its chaos site."""
+                     num_classes=None, mesh=None):
+        """The level-1 fit under the retry layer and its chaos site; under a
+        mesh the stacker fits over the mesh's rows when it takes one
+        (``mesh_fit_kwargs``)."""
         from spark_ensemble_tpu_torch.robustness.chaos import controller
         from spark_ensemble_tpu_torch.robustness.retry import retry_call
 
         ctl = controller()
         site = f"{type(self).__name__}:stacker"
 
+        kw = mesh_fit_kwargs(stacker, mesh)
+
         def attempt():
             ctl.transient(site)
             if num_classes is not None and stacker.is_classifier:
                 return stacker.fit(meta, y, sample_weight=w,
-                                   num_classes=num_classes, device=device)
-            return stacker.fit(meta, y, sample_weight=w, device=device)
+                                   num_classes=num_classes, device=device, **kw)
+            return stacker.fit(meta, y, sample_weight=w, device=device, **kw)
 
         stack_model = retry_call(attempt, self._retry_policy(),
                                  op=f"{type(self).__name__}.stacker_fit",
@@ -204,19 +236,21 @@ class StackingRegressor(_StackingParams):
     @instrumented_fit
     def fit(self, X, y, sample_weight=None, mesh=None,
             device="cuda") -> "StackingRegressionModel":
-        self._check_stacking_support(mesh)
-        dev = resolve_device(device)
+        """Fit; with ``mesh`` the member fits spread over its ranks (see
+        ``_fit_bases``) and every rank returns the same model."""
+        dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
         w = resolve_weights(y, sample_weight)
-        telem = FitTelemetry.start(self, n=X.shape[0], d=X.shape[1])
+        telem = FitTelemetry.start(self, n=X.shape[0], d=X.shape[1], mesh=mesh)
         telem.phase_mark("setup")
         guard = self._numeric_guard(telem)
         models = self._fit_bases(self._bases(), X, y, w, sample_weight, dev,
-                                 telem)
+                                 telem, mesh=mesh)
         models = self._drop_bad_base_models(models, guard)
         meta = torch.stack([m.predict(X) for m in models], dim=1)  # [n, bases]
-        stack_model = self._fit_stacker(self._stacker(), meta, y, w, dev, telem)
+        stack_model = self._fit_stacker(self._stacker(), meta, y, w, dev, telem,
+                                        mesh=mesh)
         self._check_stacker(stack_model, len(models), guard)
         model = _with_guard_events(guard, StackingRegressionModel(
             base_models=models, stack_model=stack_model,
@@ -270,22 +304,23 @@ class StackingClassifier(_StackingParams):
     @instrumented_fit
     def fit(self, X, y, sample_weight=None, num_classes=None, mesh=None,
             device="cuda") -> "StackingClassificationModel":
-        self._check_stacking_support(mesh)
-        dev = resolve_device(device)
+        """Fit; with ``mesh`` the member fits spread over its ranks (see
+        ``_fit_bases``) and every rank returns the same model."""
+        dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X, y = as_f32(X, dev), as_f32(y, dev)
         self._validate_fit_inputs(X, y)
         w = resolve_weights(y, sample_weight)
         num_classes = infer_num_classes(y, num_classes)
         telem = FitTelemetry.start(self, n=X.shape[0], d=X.shape[1],
-                                   num_classes=int(num_classes))
+                                   num_classes=int(num_classes), mesh=mesh)
         telem.phase_mark("setup")
         guard = self._numeric_guard(telem)
         models = self._fit_bases(self._bases(), X, y, w, sample_weight, dev,
-                                 telem, num_classes=num_classes)
+                                 telem, num_classes=num_classes, mesh=mesh)
         models = self._drop_bad_base_models(models, guard)
         meta = self._meta_features(models, X)
         stack_model = self._fit_stacker(self._stacker(), meta, y, w, dev, telem,
-                                        num_classes=num_classes)
+                                        num_classes=num_classes, mesh=mesh)
         self._check_stacker(stack_model, len(models), guard)
         model = _with_guard_events(guard, StackingClassificationModel(
             base_models=models, stack_model=stack_model,

@@ -20,6 +20,10 @@ where every helper is the identity.
   use ``all_reduce`` with MAX / MIN.
 - :func:`pgather` concatenates the ranks' blocks along a dimension (the
   class-dim blocks of the member axis).
+- :func:`psum_reduce` is one ``all_reduce`` (SUM), for the elastic shard
+  sweep's ``reduce="psum"`` mode, which trades bit-identity for bytes.
+- :func:`gather_objects` all-gathers picklable objects (fitted models as
+  :func:`model_bytes`: Stacking's members and a sharded sweep's lanes).
 
 The JAX package's ``pvary_like_shard`` and ``pzero_like_shard`` exist only
 for shard_map's varying-axes type tracking and have no counterpart here.
@@ -63,24 +67,25 @@ class Axis:
         return f"Axis({self.names}, ranks={self.ranks})"
 
 
-_STATS = {"gathers": 0, "bytes": 0}
+_STATS = {"gathers": 0, "reduces": 0, "bytes": 0}
 _TIMING = {"on": False, "events": [], "host_s": 0.0}
 
 
 def collective_stats() -> dict:
-    """``{"gathers", "bytes", "ms"}`` since the last reset; ``ms`` is the
-    timed gathers' total (0.0 unless timing is on).  Reading synchronizes
-    the timed CUDA events."""
+    """``{"gathers", "reduces", "bytes", "ms"}`` since the last reset;
+    ``ms`` is the timed collectives' total (0.0 unless timing is on).
+    Reading synchronizes the timed CUDA events."""
     ms = _TIMING["host_s"] * 1e3
     for a, b in _TIMING["events"]:
         b.synchronize()
         ms += a.elapsed_time(b)
-    return {"gathers": _STATS["gathers"], "bytes": _STATS["bytes"], "ms": ms}
+    return {"gathers": _STATS["gathers"], "reduces": _STATS["reduces"],
+            "bytes": _STATS["bytes"], "ms": ms}
 
 
 def reset_collective_stats() -> None:
-    _STATS["gathers"] = 0
-    _STATS["bytes"] = 0
+    for k in _STATS:
+        _STATS[k] = 0
     _TIMING["events"] = []
     _TIMING["host_s"] = 0.0
 
@@ -180,6 +185,46 @@ def _all_reduce(x, axis: Optional[Axis], op):
         return host.to(t.device)
     dist.all_reduce(t, op=op, group=axis.group)
     return t
+
+
+def psum_reduce(x, axis: Optional[Axis]):
+    """The sum of ``x`` over ``axis``'s ranks in ONE ``all_reduce`` (SUM):
+    the backend picks the order of the adds, so the result is allclose to
+    :func:`preduce`'s, not bit-equal (the elastic sweep's
+    ``reduce="psum"``); identity when unsharded.  Counted in
+    :func:`collective_stats` as ``reduces``."""
+    if axis is None:
+        return x
+    _STATS["reduces"] += 1
+    _STATS["bytes"] += x.numel() * x.element_size()
+    return _timed(lambda: _all_reduce(x, axis, dist.ReduceOp.SUM), x)
+
+
+def gather_objects(obj, axis: Optional[Axis]) -> list:
+    """Every rank's picklable ``obj`` over ``axis``, in rank order (a list
+    of one without an axis).  Fitted models travel as
+    :func:`model_bytes`."""
+    if axis is None:
+        return [obj]
+    out = [None] * axis.size
+    dist.all_gather_object(out, obj, group=axis.group)
+    return out
+
+
+def model_bytes(model) -> bytes:
+    """A fitted model as bytes (``torch.save``: tensors keep their bits)."""
+    import io
+
+    buf = io.BytesIO()
+    torch.save(model, buf)
+    return buf.getvalue()
+
+
+def model_from_bytes(blob: bytes, device):
+    """The model of :func:`model_bytes`, every tensor on ``device``."""
+    import io
+
+    return torch.load(io.BytesIO(blob), map_location=device, weights_only=False)
 
 
 def pmax_reduce(x, axis: Optional[Axis]):

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from spark_ensemble_tpu_torch.ops.collective import Axis
+from spark_ensemble_tpu_torch.ops.collective import Axis, pgather
 
 
 def _default_device(device):
@@ -44,42 +44,70 @@ def _default_device(device):
     return torch.device("cpu")
 
 
+def _require_group():
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "a mesh spans a torch.distributed process group: call "
+            "parallel.multihost.initialize(...) first"
+        )
+
+
 class Mesh:
-    """A mesh over every rank of the default process group: ``axis_names``,
-    ``shape`` (``{name: size}``), this rank's ``device`` and mesh
-    coordinates, the reduction axes ``row_axis`` / ``member_axis`` and the
-    torch ``device_mesh``.  Every rank builds it, collectively."""
+    """A mesh over the ranks of the default process group: ``axis_names``,
+    ``shape`` (``{name: size}``), this rank's ``device``, its ``rank``
+    within the mesh and mesh coordinates, the reduction axes ``row_axis``
+    / ``member_axis``, ``all_axis`` (every rank of the mesh) and ``ranks``
+    (the global ranks, in mesh order).  By default the mesh spans every
+    rank and every rank builds it, collectively (its groups are created on
+    the default group; ``device_mesh`` is the torch ``DeviceMesh``).
 
-    def __init__(self, axis_sizes: dict, device=None):
-        if not dist.is_initialized():
-            raise RuntimeError(
-                "a mesh spans a torch.distributed process group: call "
-                "parallel.multihost.initialize(...) first"
-            )
-        from torch.distributed.device_mesh import init_device_mesh
+    ``ranks=`` builds a mesh over a subset: the survivors of a lost rank
+    (``parallel/elastic.survivor_mesh``).  Only those ranks build it, and
+    each creates just the groups it belongs to with
+    ``use_local_synchronization=True``, so a rank outside the subset is
+    never waited for (``device_mesh`` is None there: torch's DeviceMesh
+    creates its groups on every rank of the world)."""
 
+    def __init__(self, axis_sizes: dict, device=None, ranks=None):
+        _require_group()
         self.axis_names = tuple(axis_sizes.keys())
         self.shape = {k: int(v) for k, v in axis_sizes.items()}
         dims = tuple(self.shape.values())
         world = dist.get_world_size()
-        if int(np.prod(dims)) != world:
+        local = ranks is not None
+        self.ranks = tuple(range(world)) if not local else tuple(int(r) for r in ranks)
+        if int(np.prod(dims)) != len(self.ranks):
             raise ValueError(
-                f"mesh {axis_sizes} needs {int(np.prod(dims))} devices, have {world}"
+                f"mesh {axis_sizes} needs {int(np.prod(dims))} devices, "
+                f"have {len(self.ranks)}"
             )
+        if len(set(self.ranks)) != len(self.ranks) or not all(
+                0 <= r < world for r in self.ranks):
+            raise ValueError(f"mesh ranks {self.ranks} are not distinct ranks of {world}")
+        if dist.get_rank() not in self.ranks:
+            raise ValueError(f"rank {dist.get_rank()} is not in the mesh's ranks {self.ranks}")
         self.device = _default_device(device)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        self.device_mesh = init_device_mesh(
-            self.device.type, dims, mesh_dim_names=self.axis_names
-        )
-        self.rank = dist.get_rank()
-        grid = np.arange(world).reshape(dims)
+        self.device_mesh = None
+        if not local:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            self.device_mesh = init_device_mesh(
+                self.device.type, dims, mesh_dim_names=self.axis_names
+            )
+        self._local = local
+        self.rank = self.ranks.index(dist.get_rank())
+        grid = np.asarray(self.ranks).reshape(dims)
         self.coords = dict(zip(self.axis_names,
                                (int(c) for c in np.unravel_index(self.rank, dims))))
+        group = (dist.new_group(list(self.ranks), use_local_synchronization=True)
+                 if local else dist.group.WORLD)
+        self.all_axis = Axis(group, self.ranks, self.axis_names, coords=self.coords)
         self.row_axis = self.member_axis = None
         rows = mesh_row_axes(self) if "data" in self.shape else ()
-        # every rank creates every group, in one order (new_group is
-        # collective over the default group)
+        # on a full mesh every rank creates every group, in one order
+        # (new_group is collective over the default group)
         if rows:
             self.row_axis = self._axis_groups(grid, rows)
         if "member" in self.shape:
@@ -90,38 +118,51 @@ class Mesh:
         self.member_index = self.coords.get("member", 0)
 
     def _axis_groups(self, grid, names):
-        """The groups along ``names`` (one per setting of the other axes),
-        created on every rank -> this rank's :class:`Axis`."""
+        """The groups along ``names`` (one per setting of the other axes)
+        -> this rank's :class:`Axis`.  A line that spans the whole mesh
+        reuses ``all_axis``'s group."""
         order = [self.axis_names.index(a) for a in names]
         rest = [i for i in range(grid.ndim) if i not in order]
         lines = np.transpose(grid, rest + order).reshape(-1, int(np.prod(
             [grid.shape[i] for i in order])))
+        me = dist.get_rank()
         mine = None
         for line in lines:
             ranks = [int(r) for r in line]
-            group = dist.new_group(ranks)
-            if self.rank in ranks:
+            if tuple(ranks) == self.ranks:
+                group = self.all_axis.group
+            elif self._local:
+                if me not in ranks:
+                    continue
+                group = dist.new_group(ranks, use_local_synchronization=True)
+            else:
+                group = dist.new_group(ranks)
+            if me in ranks:
                 mine = Axis(group, ranks, names,
                             coords={a: self.coords[a] for a in names})
         return mine
 
     def __repr__(self):
-        return f"Mesh({self.shape}, device={self.device})"
+        extra = "" if not self._local else f", ranks={self.ranks}"
+        return f"Mesh({self.shape}, device={self.device}{extra})"
 
 
-def create_mesh(axis_sizes: dict, device=None) -> Mesh:
-    """Mesh from ``{axis_name: size}``; sizes must multiply to the world."""
-    return Mesh(dict(axis_sizes), device=device)
+def create_mesh(axis_sizes: dict, device=None, ranks=None) -> Mesh:
+    """Mesh from ``{axis_name: size}``; sizes must multiply to the world
+    (to ``len(ranks)`` over a subset of ranks, see :class:`Mesh`)."""
+    return Mesh(dict(axis_sizes), device=device, ranks=ranks)
 
 
 def data_member_mesh(n_devices: Optional[int] = None, member: int = 1,
-                     device=None) -> Mesh:
+                     device=None, ranks=None) -> Mesh:
     """The standard ("data", "member") mesh; ``member`` divides the count,
-    which must be the world size."""
-    n = n_devices or dist.get_world_size()
+    which must be the world size (``len(ranks)`` over a subset of ranks)."""
+    _require_group()
+    n = n_devices or (dist.get_world_size() if ranks is None else len(ranks))
     if n % member != 0:
         raise ValueError(f"member axis {member} must divide device count {n}")
-    return create_mesh({"data": n // member, "member": member}, device=device)
+    return create_mesh({"data": n // member, "member": member}, device=device,
+                       ranks=ranks)
 
 
 def hybrid_data_member_mesh(dcn_data=1, member: int = 1, device=None) -> Mesh:
@@ -130,6 +171,7 @@ def hybrid_data_member_mesh(dcn_data=1, member: int = 1, device=None) -> Mesh:
     ``dcn_data="auto"`` takes the host count (``multihost.slice_count``).
     Ranks fill it in row-major order: torchrun numbers ranks host by host,
     so each ``dcn_data`` index is one host's ranks."""
+    _require_group()
     n = dist.get_world_size()
     if dcn_data == "auto":
         from spark_ensemble_tpu_torch.parallel.multihost import slice_count
@@ -238,6 +280,46 @@ def setup_row_sharding(mesh: Mesh, base, ctx, X, n: int, row_vectors=()):
     n_pad, _, _ = row_block(mesh, n)
     return (shard_ctx_rows(mesh, base, ctx, n), shard_rows(mesh, X, n),
             mesh.row_axis, n_pad, tuple(shard_rows(mesh, v, n) for v in row_vectors))
+
+
+class CheckpointBlocks:
+    """The per-row carry of a checkpoint under a mesh (GBM's ``pred`` and
+    ``pred_val``, Boosting's ``bw``).  A checkpoint holds the global,
+    zero-padded arrays ([n_pad, ...], [nv_pad, ...]): the save gathers every
+    rank's block over the row axis in rank order, and a resume takes this
+    rank's block back out.  ``n_pad``
+    and ``nv_pad`` enter the fingerprint, so a checkpoint padded for
+    another row count starts a fresh fit instead of a wrong-length carry;
+    without a mesh they are ``n`` and ``nv``, so a single-device checkpoint
+    resumes under a mesh whose padding matches.  ``axis`` (every rank of
+    the mesh, or of a distributed shard sweep's ``trees``) is where the
+    ranks agree on the resume; a streaming fit's carry is whole on every
+    rank, so its checkpoint has no mesh component at all and an elastic
+    rewind resumes at another width."""
+
+    def __init__(self, mesh, n, nv=0, trees=None):
+        self.mesh = mesh
+        self.n, self.nv = n, nv
+        self.n_pad, self.nv_pad = n, nv
+        self.axis = getattr(trees, "agree_axis", None)
+        if mesh is not None:
+            self.n_pad = row_block(mesh, n)[0]
+            self.nv_pad = row_block(mesh, nv)[0] if nv else 0
+            self.axis = mesh.all_axis
+
+    def whole(self, t):
+        """The global padded array of this rank's block (a collective over
+        the row axis; identity without a mesh)."""
+        if t is None or self.mesh is None:
+            return t
+        return pgather(t, self.mesh.row_axis, dim=0)
+
+    def own(self, t, val=False):
+        """This rank's block of a checkpoint's global padded array."""
+        if self.mesh is None:
+            return t
+        _, lo, hi = row_block(self.mesh, self.nv if val else self.n)
+        return t[lo:hi]
 
 
 def _map2(fn, tree, flags):

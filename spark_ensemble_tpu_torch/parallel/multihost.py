@@ -84,6 +84,18 @@ def initialize(
     )
 
 
+def store_host_rank() -> Optional[int]:
+    """The rank whose process hosts the group's rendezvous store (the
+    ``TCPStore`` that ``tcp://`` and ``env://`` start on rank 0), or None
+    when a process outside the group hosts it (torchrun's agent, which sets
+    ``TORCHELASTIC_USE_AGENT_STORE=True``).  Survivors of a lost rank build
+    their new groups on that store (``parallel/elastic.survivor_mesh``), so
+    losing its host ends the job instead of shrinking the mesh."""
+    if os.environ.get("TORCHELASTIC_USE_AGENT_STORE", "").lower() == "true":
+        return None
+    return 0
+
+
 def process_count() -> int:
     """Processes in the group (1 when not initialized)."""
     return dist.get_world_size() if dist.is_initialized() else 1

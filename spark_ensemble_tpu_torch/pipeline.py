@@ -18,7 +18,8 @@ from spark_ensemble_tpu_torch.models.base import (
     Estimator,
     Model,
     as_f32,
-    not_supported,
+    mesh_device,
+    mesh_fit_kwargs,
     resolve_device,
 )
 from spark_ensemble_tpu_torch.params import Param, Params
@@ -117,9 +118,10 @@ class Pipeline(Estimator):
 
     def fit(self, X, y=None, sample_weight=None, num_classes=None, mesh=None,
             device="cuda") -> "PipelineModel":
-        if mesh is not None:
-            not_supported("mesh", mesh, "queue 1, item 29")
-        dev = resolve_device(device)
+        """Fit; ``mesh`` goes to every estimator stage whose fit takes one
+        (``mesh_fit_kwargs``), so a scaler + GBM pipeline trains the GBM on
+        the mesh; the other stages fit on the whole rows on every rank."""
+        dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         fitted: List[Any] = []
         Xc = as_f32(X, dev)
         num_features = Xc.shape[1]
@@ -131,12 +133,13 @@ class Pipeline(Estimator):
                 if hasattr(stage, "transform"):
                     Xc = stage.transform(Xc)
             elif isinstance(stage, Estimator):
+                kw = mesh_fit_kwargs(stage, mesh)
                 if getattr(stage, "is_classifier", False):
                     model = stage.fit(Xc, y, sample_weight=sample_weight,
-                                      num_classes=num_classes, device=dev)
+                                      num_classes=num_classes, device=dev, **kw)
                 else:
                     model = stage.fit(Xc, y, sample_weight=sample_weight,
-                                      device=dev)
+                                      device=dev, **kw)
                 fitted.append(model)
                 if hasattr(model, "transform"):
                     Xc = model.transform(Xc)

@@ -28,8 +28,11 @@ Each scored candidate emits a ``tuning_candidate`` event (map, fold,
 metric, rounds, wall time, whether it was swept) to the tuner's
 ``telemetry_path`` or the other sinks; a swept group's wall time is the
 sweep's, shared evenly.  ``profile_dir`` captures the whole search.
-``mesh=`` raises until the port has distribution (ROADMAP queue 1, item
-18).
+``mesh=`` flows into every candidate fit that takes one (a warning, once
+per estimator type, names those that do not) and into the best map's
+refit; under ``megabatch="auto"`` mesh candidates fit one by one, and under
+``"on"`` the sweep shards its lanes over the mesh's "member" axis
+(``models/gbm_sweep.py``).
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ from spark_ensemble_tpu_torch.models.base import (
     Model,
     as_f32,
     infer_num_classes,
-    not_supported,
+    mesh_device,
+    mesh_fit_kwargs,
     resolve_device,
     shared_fit_context,
 )
@@ -104,11 +108,28 @@ def _full_num_classes(estimator, y):
     return infer_num_classes(y)
 
 
-def _fit(est, X, y, w, num_classes, device):
+_MESH_WARNED: set = set()
+
+
+def _mesh_kw(estimator, mesh):
+    """``mesh_fit_kwargs``, warning once per estimator type (not once per
+    candidate) when a mesh search fits it on one device."""
+    kw = mesh_fit_kwargs(estimator, mesh)
+    if mesh is not None and not kw:
+        name = type(estimator).__name__
+        if name not in _MESH_WARNED:
+            _MESH_WARNED.add(name)
+            logger.warning("%s.fit has no mesh support; tuning runs it "
+                           "single-device", name)
+    return kw
+
+
+def _fit(est, X, y, w, num_classes, device, mesh=None):
+    kw = _mesh_kw(est, mesh)
     if num_classes is not None:
         return est.fit(X, y, sample_weight=w, num_classes=num_classes,
-                       device=device)
-    return est.fit(X, y, sample_weight=w, device=device)
+                       device=device, **kw)
+    return est.fit(X, y, sample_weight=w, device=device, **kw)
 
 
 class _TuningParams(Estimator):
@@ -146,9 +167,7 @@ class _TuningParams(Estimator):
     def _prepare(self, X, y, sample_weight, mesh, device):
         """Validate, and move the data to the device once -> ``(dev, X, y,
         w)``; ``y`` and ``w`` stay on the host for the fold masks."""
-        if mesh is not None:
-            not_supported("mesh", mesh, "queue 1, item 29")
-        dev = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         X = as_f32(X, dev)  # one conversion: every fit reads this tensor
         y = y.detach().cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
         w = None
@@ -185,11 +204,13 @@ class _TuningParams(Estimator):
         )
 
     def _candidate_metrics(self, X, y, w, maps, eval_masks, evaluator, k,
-                           dev) -> np.ndarray:
+                           dev, mesh=None) -> np.ndarray:
         """Fit and score every (param-map, fold) candidate ->
         ``metrics[map, fold]``.  Under ``megabatch`` != 'off' the GBM
         candidates that share every structural param fit as one sweep;
-        the others (and every candidate at 'off') fit one by one."""
+        the others (and every candidate at 'off') fit one by one.  With
+        ``mesh`` every fit takes it; 'auto' then fits one by one (the
+        sharded sweep runs only under 'on')."""
         mode = self.megabatch.lower()
         base_w = w if w is not None else np.ones((X.shape[0],), np.float32)
         metrics = np.zeros((len(maps), len(eval_masks)))
@@ -226,7 +247,11 @@ class _TuningParams(Estimator):
 
             for cand in cands:
                 est = self.estimator.copy(**cand[2])
-                reason = sweep_unsupported_reason(est)
+                reason = sweep_unsupported_reason(est, mesh)
+                if reason is None and mode == "auto" and mesh is not None:
+                    reason = ("mesh sweeps stay sequential under "
+                              "megabatch='auto' (the sharded sweep runs under "
+                              "megabatch='on')")
                 if reason is not None:
                     if mode == "on":
                         raise ValueError(f"megabatch='on': {reason}")
@@ -243,8 +268,8 @@ class _TuningParams(Estimator):
             models = fit_sweep(
                 [est for _, est in items], X, y,
                 sample_weights=[train_w(cand[3]) for cand, _ in items],
-                num_classes=k, telemetry_path=self.telemetry_path or None,
-                device=dev,
+                num_classes=k, mesh=mesh,
+                telemetry_path=self.telemetry_path or None, device=dev,
             )
             # per-candidate wall is the sweep's amortized over the group;
             # per-round attribution is in the sweep_chunk events
@@ -258,7 +283,7 @@ class _TuningParams(Estimator):
         for mi, fi, pmap, eval_mask in seq:
             t0 = time.perf_counter()
             model = _fit(self.estimator.copy(**pmap), X, y, train_w(eval_mask),
-                         k, dev)
+                         k, dev, mesh)
             metrics[mi, fi] = score(model, eval_mask)
             self._emit_candidate(mi, fi, metrics[mi, fi], model,
                                  time.perf_counter() - t0, False)
@@ -283,11 +308,12 @@ class CrossValidator(_TuningParams):
         k = _full_num_classes(self.estimator, y)
         with self._binning_scope():
             metrics = self._candidate_metrics(X, y, w, maps, folds,
-                                              self.evaluator, k, dev)
+                                              self.evaluator, k, dev, mesh)
             avg = metrics.mean(axis=1)
             best_idx = self._best(avg)
-            best_model = self.estimator.copy(**maps[best_idx]).fit(
-                X, y, sample_weight=w, device=dev)
+            best_est = self.estimator.copy(**maps[best_idx])
+            best_model = best_est.fit(X, y, sample_weight=w, device=dev,
+                                      **_mesh_kw(best_est, mesh))
         return CrossValidatorModel(
             best_model=best_model,
             avg_metrics=avg.tolist(),
@@ -345,10 +371,11 @@ class TrainValidationSplit(_TuningParams):
         k = _full_num_classes(self.estimator, y)
         with self._binning_scope():
             metrics = self._candidate_metrics(X, y, w, maps, [~train_mask],
-                                              self.evaluator, k, dev)[:, 0]
+                                              self.evaluator, k, dev, mesh)[:, 0]
             best_idx = self._best(metrics)
-            best_model = self.estimator.copy(**maps[best_idx]).fit(
-                X, y, sample_weight=w, device=dev)
+            best_est = self.estimator.copy(**maps[best_idx])
+            best_model = best_est.fit(X, y, sample_weight=w, device=dev,
+                                      **_mesh_kw(best_est, mesh))
         return TrainValidationSplitModel(
             best_model=best_model,
             validation_metrics=metrics.tolist(),

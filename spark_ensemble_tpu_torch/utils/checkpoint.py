@@ -73,6 +73,56 @@ def run_fingerprint(*parts) -> str:
     return hashlib.sha256(blob).hexdigest()[:16]
 
 
+def check_rank_directories(directory: Optional[str], axis) -> None:
+    """Under a mesh every rank writes its own checkpoint: one collective
+    over ``axis`` (every rank of the mesh) gathers each rank's resolved
+    ``checkpoint_dir``.  Ranks that share a directory would write the same
+    files, and ranks without one would skip the gathers the others make at
+    a save: both raise ``ValueError`` on every rank alike, before any
+    round runs.  The paths are compared as strings, so one path on two
+    hosts' own disks counts as shared too: name each rank's directory
+    after its rank."""
+    import torch.distributed as dist
+
+    mine = None if not directory else os.path.realpath(str(directory))
+    dirs = [None] * axis.size
+    dist.all_gather_object(dirs, mine, group=axis.group)
+    if any(d is None for d in dirs) and any(d is not None for d in dirs):
+        raise ValueError(
+            "checkpoint_dir under a mesh: set it on every rank or on none "
+            f"(ranks {list(axis.ranks)} have {dirs})"
+        )
+    shared = sorted({d for d in dirs if d is not None and dirs.count(d) > 1})
+    if shared:
+        raise ValueError(
+            "checkpoint_dir under a mesh: each rank writes its own "
+            f"directory, but ranks share {shared}; give every rank its own "
+            "(e.g. a per-rank subdirectory)"
+        )
+
+
+def agree_resume(resumed, axis, telem=None):
+    """The resume every rank of a mesh takes: ``resumed`` when every rank
+    of ``axis`` loaded the same round, else None on every rank (a fresh
+    fit, logged and emitted as ``resume_disagreement``).  Ranks that
+    resumed at different rounds would pair different rounds' collectives.
+    Identity without a mesh (``axis`` None)."""
+    if axis is None:
+        return resumed
+    import torch.distributed as dist
+
+    mine = -1 if resumed is None else int(resumed[0])
+    rounds = [None] * axis.size
+    dist.all_gather_object(rounds, mine, group=axis.group)
+    if len(set(rounds)) == 1:
+        return resumed
+    logger.warning("mesh ranks loaded checkpoints of different rounds %s; "
+                   "every rank starts fresh", rounds)
+    if telem is not None:
+        telem.emit("resume_disagreement", rounds=[int(r) for r in rounds])
+    return None
+
+
 def _to_host(state):
     """``state`` with every tensor copied off the carry: CUDA tensors into
     pinned host buffers (``non_blocking``), CPU tensors cloned.  Returns

@@ -11,9 +11,11 @@ the same inputs.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -416,12 +418,469 @@ def run_mesh(rank, out_dir):
     np.savez(os.path.join(out_dir, f"mesh_r{rank}.npz"), **out)
 
 
+# -- the elastic shard sweep (tests/test_torch_elastic.py) -------------------
+
+
+def elastic_data(n=300, d=6, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    y = (X @ rng.randn(d) + 0.1 * rng.randn(n)).astype(np.float32)
+    return X, y
+
+
+def elastic_cls_labels(X):
+    return ((X[:, 0] + X[:, 1] > 0).astype(np.int32)
+            + (X[:, 2] > 0.5).astype(np.int32)).astype(np.float32)
+
+
+def mirrored_data(n=158, d=5, seed=11):
+    """Dyadic labels in mirrored pairs (mean exactly 0): round 0's sums are
+    exact in any order, so round 0's splits match the JAX package's."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    h = rng.randint(-16, 17, size=n // 2).astype(np.float32) / 8.0
+    y = np.concatenate([h, -h])[rng.permutation(n)]
+    return X, y
+
+
+#: the reference fit of the cross-package check: (rounds, GBMRegressor kw)
+XPKG_KW = dict(learning_rate=0.5, seed=0)
+#: the preemption of the elastic cases
+PREEMPT_SITE = "GBMRegressor:stream_round:2:level:1:dist_step:1"
+
+
+def stream_base(pkg, **kw):
+    kw.setdefault("max_depth", 3)
+    kw.setdefault("max_bins", 16)
+    kw.setdefault("hist", "stream")
+    return pkg.DecisionTreeRegressor(**kw)
+
+
+def _host_preempt_at(chaos, site, victim):
+    class HostPreemptAt(chaos.ChaosController):
+        """Fires ``host_preempt`` at one site only, with a pinned victim
+        (every other fault never fires)."""
+
+        def __init__(self):
+            super().__init__(seed=0, rate=0.0)
+            self.fired = []
+
+        def host_preempt(self, s):
+            if s == site and not self.fired:
+                self.fired.append(s)
+                return True
+            return False
+
+        def pick(self, fault, s, n):
+            return victim % n
+
+    return HostPreemptAt()
+
+
+def _save(out_dir, name, rank, **arrays):
+    np.savez(os.path.join(out_dir, f"{name}_r{rank}.npz"), **arrays)
+
+
+def run_elastic(rank, out_dir):
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    import spark_ensemble_tpu_torch as st
+    from spark_ensemble_tpu_torch.autotune.resolve import override
+    from spark_ensemble_tpu_torch.data import ShardStore, write_shards
+    from spark_ensemble_tpu_torch.parallel import elastic, mesh as pmesh
+    from spark_ensemble_tpu_torch.robustness import chaos
+    from spark_ensemble_tpu_torch.robustness.chaos import ChaosHostPreemption
+    from spark_ensemble_tpu_torch.telemetry import global_metrics, record_fits
+
+    digest = pmesh.params_digest
+    X, y = elastic_data()
+    Xm, ym = mirrored_data()
+    X157, y157 = elastic_data(n=157, d=5)
+    Xc = elastic_data(n=256, d=5, seed=3)[0]
+    yc = elastic_cls_labels(Xc)
+    stores = {"s32": (X, 32), "s16": (X[:160], 16), "m64": (Xm, 64),
+              "c32": (Xc, 32)}
+    if rank == 0:
+        for name, (Xs, sr) in stores.items():
+            write_shards(Xs, os.path.join(out_dir, name), max_bins=16, shard_rows=sr,
+                         device="cpu")
+        with override(stream_chunk_rows=64, shard_rows=64):
+            write_shards(X157, os.path.join(out_dir, "r64"), max_bins=16, shard_rows=64,
+                         device="cpu")
+    dist.barrier()
+    store = {name: ShardStore.open(os.path.join(out_dir, name))
+             for name in list(stores) + ["r64"]}
+    reg = lambda **kw: st.GBMRegressor(**{"base_learner": stream_base(st),
+                                          "num_base_learners": 4, "seed": 0, **kw})
+    single = reg().fit_streaming(store["s32"], y, device="cpu")
+    m4 = pmesh.data_member_mesh(4, device="cpu")
+
+    # 1. ordered bit-identity: W=4, the 2x2 hybrid mesh, W=2 (each half of
+    # the ranks), resident stream fits at matched chunk rows, a classifier,
+    # psum, the refusals, the events and the collectives
+    out = {"single": digest(single.params)}
+    out["w4"] = digest(reg().fit_streaming(store["s32"], y, mesh=m4, device="cpu").params)
+    hyb = pmesh.hybrid_data_member_mesh(dcn_data=2, device="cpu")
+    out["hybrid"] = digest(reg().fit_streaming(store["s32"], y, mesh=hyb,
+                                               device="cpu").params)
+    with override(stream_chunk_rows=64, shard_rows=64):
+        out["resident64"] = digest(reg().fit(X157, y157, device="cpu").params)
+        out["dist64"] = digest(reg().fit_streaming(store["r64"], y157, mesh=m4,
+                                                   device="cpu").params)
+    cls = lambda: st.GBMClassifier(base_learner=stream_base(st), num_base_learners=3, seed=3)
+    out["cls_single"] = digest(cls().fit_streaming(store["c32"], yc, device="cpu").params)
+    psum = reg().fit_streaming(store["s32"], y, mesh=m4, reduce="psum", device="cpu")
+    out["psum_pred"] = psum.predict(X).numpy()
+    out["single_pred"] = single.predict(X).numpy()
+    errors = []
+    for bad in (lambda: reg().fit_streaming(store["s32"], y, mesh=m4, reduce="mean",
+                                            device="cpu"),
+                lambda: reg().fit_streaming(
+                    store["s32"], y, device="cpu",
+                    mesh=pmesh.data_member_mesh(4, member=2, device="cpu"))):
+        try:
+            bad()
+            errors.append("")
+        except ValueError as e:
+            errors.append(str(e))
+    out["errors"] = np.array(errors)
+    # the port's 4-rank fit of the cross-package check (one and three rounds)
+    for r in (1, 3):
+        xm = st.GBMRegressor(base_learner=stream_base(st), num_base_learners=r,
+                             **XPKG_KW).fit_streaming(store["m64"], ym, mesh=m4,
+                                                      device="cpu")
+        members = xm.params["members"]
+        for f in members._fields:
+            out[f"xpkg{r}_{f}"] = getattr(members, f).numpy()
+        out[f"xpkg{r}_predict"] = xm.predict(Xm).numpy()
+    half = [0, 1] if rank < 2 else [2, 3]
+    m2 = pmesh.data_member_mesh(2, device="cpu", ranks=half)
+    out["w2"] = digest(reg().fit_streaming(store["s32"], y, mesh=m2, device="cpu").params)
+    out["cls_w2"] = digest(cls().fit_streaming(store["c32"], yc, mesh=m2,
+                                               device="cpu").params)
+    with record_fits() as rec:
+        reg(num_base_learners=2).fit_streaming(store["s32"], y, mesh=m2, device="cpu")
+    out["events"] = np.array([e["event"] for e in rec.events])
+    cfg = next(e for e in rec.events if e["event"] == "dist_config")
+    out["config"] = np.array([cfg["positions"], cfg["shards"], cfg["steps"]])
+    # the collectives of a fit: one gather a sweep step whatever the shard
+    # count and width, one node-id gather a tree, one digest agreement
+    calls = []
+    real = elastic._all_gather
+
+    def counted(x, axis):
+        calls.append(f"{x.dtype}:{x.dim()}")
+        return real(x, axis)
+
+    elastic._all_gather = counted
+    try:
+        for W, mesh in ((2, m2), (4, m4)):
+            for name in ("s32", "s16"):
+                calls.clear()
+                reg(base_learner=stream_base(st, max_depth=2), num_base_learners=3).fit_streaming(
+                    store[name], y[:store[name].n], mesh=mesh, device="cpu")
+                K = -(-store[name].num_shards // W)
+                out[f"calls_{W}_{name}"] = np.array([len(calls), 1 + 3 * (3 * K + 1)])
+                out[f"kinds_{W}_{name}"] = np.array(sorted(set(calls)))
+    finally:
+        elastic._all_gather = real
+    # 2. preempt -> repartition -> rewind -> resume.  Every rank has built
+    # the same groups so far, as the survivors' groups need (see Mesh)
+    tel = os.path.join(out_dir, f"tel_r{rank}")
+    os.makedirs(tel, exist_ok=True)
+    seen = {}
+
+    ctl = _host_preempt_at(chaos, PREEMPT_SITE, victim=1)
+    real_hook = ctl.host_preempt
+
+    def snooping(s):
+        if s == PREEMPT_SITE and not ctl.fired:
+            seen.update(global_metrics().snapshot())
+        return real_hook(s)
+
+    ctl.host_preempt = snooping
+    chaos.install(ctl)
+    coord = elastic.ElasticCoordinator(m4)
+    assert coord.statusz()["attempts"] == 0
+    res = {"victim": False}
+    try:
+        model = coord.fit_streaming(
+            reg(checkpoint_dir=os.path.join(out_dir, f"ck_r{rank}"), checkpoint_interval=1,
+                telemetry_path=os.path.join(tel, "t.jsonl")),
+            store["s32"], y, device="cpu")
+        sz = coord.statusz()
+        res.update(
+            digest=digest(model.params), losses=json.dumps(coord.losses),
+            width=pmesh.mesh_sizes(coord.mesh)[0], mesh_ranks=np.array(coord.mesh.ranks),
+            statusz=json.dumps({k: sz[k] for k in ("attempts", "width", "losses",
+                                                    "process_count", "ranks")}),
+            last_fit_steps=sz["last_fit"]["steps"],
+            mid_attempts=seen[coord._source_name]["value"]["attempts"],
+            unregistered=coord._source_name not in global_metrics().snapshot(),
+        )
+    except ChaosHostPreemption:
+        res["victim"] = True
+    finally:
+        chaos.install(None)
+    res["fired"] = ctl.fired
+    res["flight"] = os.path.exists(os.path.join(tel, f"flight_p{os.getpid()}.json"))
+    res["fid"] = elastic.preempt_flow_id(1, PREEMPT_SITE)
+    _save(out_dir, "elastic_resume", rank, single=digest(single.params), **res)
+
+    # 3. max_losses: a loss past it re-raises on the survivors (the victim,
+    # rank 1 again, leaves as before)
+    class Always(type(ctl)):
+        def host_preempt(self, s):
+            return s.endswith("level:0:dist_step:0")
+
+    res = {}
+    chaos.install(Always())
+    coord = elastic.ElasticCoordinator(m4, max_losses=0)
+    try:
+        coord.fit_streaming(reg(), store["s16"], y[:160], device="cpu")
+        res["raised"] = ""
+    except (elastic.HostLostError, ChaosHostPreemption) as e:
+        res["raised"] = type(e).__name__
+    finally:
+        chaos.install(None)
+    res["losses"] = len(coord.losses)
+    res["attempts"] = coord.attempts
+    _save(out_dir, "max_losses", rank, **res)
+
+    # 4. losing the rank that hosts the store: the survivors raise at once
+    chaos.install(_host_preempt_at(chaos, "GBMRegressor:stream_round:0:level:0:dist_step:0",
+                                   victim=0))
+    t0 = time.perf_counter()
+    try:
+        elastic.ElasticCoordinator(m4).fit_streaming(reg(), store["s16"], y[:160],
+                                                     device="cpu")
+        res = {"raised": ""}
+    except RuntimeError as e:
+        res = {"raised": str(e)}
+    except ChaosHostPreemption:
+        res = {"raised": "victim"}
+    finally:
+        chaos.install(None)
+    _save(out_dir, "store_host", rank, seconds=time.perf_counter() - t0, **res)
+
+    # 5. W=3 over the survivors of case 2 (their group histories match;
+    # rank 1, the victim there, sits out)
+    if rank != 1:
+        m3 = pmesh.data_member_mesh(3, device="cpu", ranks=[0, 2, 3])
+        out["w3"] = digest(reg().fit_streaming(store["s32"], y, mesh=m3, device="cpu").params)
+    _save(out_dir, "ordered", rank, **out)
+
+
+# -- checkpoints, Stacking, tuning, Pipeline and the sweep over a mesh ------
+# (tests/test_torch_mesh_planes.py)
+
+
+def stacking_data(n=500, d=6, k=3, seed=3):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    y = np.argmax(X[:, :3] @ rng.randn(3, k) + 0.5 * rng.randn(n, k), axis=1)
+    return X, y.astype(np.float32)
+
+
+def stacking_bases(pkg):
+    """bench.py's Stacking config: DT + LR + GaussianNB."""
+    return [pkg.DecisionTreeClassifier(max_depth=3, max_bins=16, hist="scatter"),
+            pkg.LogisticRegression(reg_param=1e-2), pkg.GaussianNaiveBayes()]
+
+
+def tuning_data(seed=6, n=640, d=6, k=3):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    centers = rng.randn(k, d).astype(np.float32)
+    y = np.argmax(X @ centers.T + 0.5 * rng.randn(n, k), axis=1).astype(np.float32)
+    return X, y
+
+
+def _preempted(chaos, fit, site):
+    """Run ``fit`` under a chaos preemption at ``site`` -> whether it fired."""
+    ctl = chaos.ChaosController(seed=0, rate=1.0, faults=("preempt",))
+    ctl._draw = lambda fault, s: 0.0 if s == site else 1.0
+    chaos.install(ctl)
+    try:
+        fit()
+    except chaos.ChaosPreemption:
+        return True
+    finally:
+        chaos.install(None)
+    return False
+
+
+def run_planes(rank, out_dir):
+    import torch
+
+    import spark_ensemble_tpu_torch as st
+    from spark_ensemble_tpu_torch.models.gbm_sweep import fit_sweep
+    from spark_ensemble_tpu_torch.parallel import mesh as pmesh
+    from spark_ensemble_tpu_torch.robustness import chaos
+    from spark_ensemble_tpu_torch.telemetry import record_fits
+    from spark_ensemble_tpu_torch.utils.checkpoint import TrainingCheckpointer
+
+    digest = pmesh.params_digest
+    m4 = pmesh.data_member_mesh(W, device="cpu")
+    m42 = pmesh.data_member_mesh(W, member=2, device="cpu")
+    tree = lambda: st.DecisionTreeRegressor(max_depth=3, max_bins=16)
+    ck = lambda name: os.path.join(out_dir, f"{name}_r{rank}")
+    out = {}
+
+    # checkpoints under a mesh: preempted after a save, then resumed, equal
+    # to the uninterrupted mesh fit (the class dims over member=2 too)
+    X, y = cls_data()
+    Xr, yr = reg_data(n=900)
+    vi = np.zeros(900, bool)
+    vi[700:] = True
+    cases = {
+        "gbm_cls": (lambda **kw: st.GBMClassifier(
+            num_base_learners=6, learning_rate=0.5, seed=5, base_learner=tree(), **kw),
+            m42, X, y, {}, "GBMClassifier:after_round:4"),
+        "gbm_reg_val": (lambda **kw: st.GBMRegressor(
+            num_base_learners=6, loss="huber", alpha=0.9, seed=1, base_learner=tree(),
+            num_rounds=10, **kw), m4, Xr, yr, {"validation_indicator": vi},
+            "GBMRegressor:after_round:4"),
+        "samme": (lambda **kw: st.BoostingClassifier(
+            num_base_learners=6, algorithm="discrete", seed=3,
+            base_learner=st.DecisionTreeClassifier(max_depth=3, max_bins=16), **kw),
+            m4, X, y, {}, "BoostingClassifier:after_round:4"),
+    }
+    for name, (make, mesh, Xc, yc, kw, site) in cases.items():
+        ref = make().fit(Xc, yc, mesh=mesh, device="cpu", **kw)
+        est = make(checkpoint_dir=ck(name), checkpoint_interval=2)
+        fired = _preempted(chaos, lambda: est.fit(Xc, yc, mesh=mesh, device="cpu", **kw),
+                           site)
+        with record_fits() as rec:
+            resumed = est.fit(Xc, yc, mesh=mesh, device="cpu", **kw)
+        out[f"{name}_fired"] = fired
+        out[f"{name}_equal"] = digest(resumed.params) == digest(ref.params)
+        out[f"{name}_digests"] = np.array(pmesh.replica_digests(resumed))
+        out[f"{name}_resumed_at"] = np.array(
+            [e["round"] for e in rec.events if e["event"] == "resume_from_checkpoint"])
+
+    # a single-device checkpoint whose validation padding differs (nv=101,
+    # nv_pad=104 on 4 ranks) starts the mesh fit fresh
+    Xv, yv = cls_data(n=901)
+    vi = np.zeros(901, bool)
+    vi[800:] = True
+    cfg = dict(num_base_learners=6, loss="logloss", num_rounds=3, seed=2,
+               base_learner=tree(), checkpoint_interval=2, scan_chunk=2)
+    keep = TrainingCheckpointer.delete
+    TrainingCheckpointer.delete = lambda self: None
+    try:
+        st.GBMClassifier(**dict(cfg, num_base_learners=4, checkpoint_dir=ck("stale"))).fit(
+            Xv, yv, validation_indicator=vi, device="cpu")
+    finally:
+        TrainingCheckpointer.delete = keep
+    with record_fits() as rec:
+        stale = st.GBMClassifier(**dict(cfg, checkpoint_dir=ck("stale"))).fit(
+            Xv, yv, validation_indicator=vi, mesh=m4, device="cpu")
+    fresh = st.GBMClassifier(**cfg).fit(Xv, yv, validation_indicator=vi, mesh=m4,
+                                        device="cpu")
+    out["stale_equal"] = digest(stale.params) == digest(fresh.params)
+    out["stale_resumed"] = sum(e["event"] == "resume_from_checkpoint" for e in rec.events)
+    out["stale_members"] = np.array([stale.num_members, fresh.num_members])
+
+    # one directory for every rank, or a directory on some ranks only
+    errors = []
+    for dirs in ([os.path.join(out_dir, "shared")] * W,
+                 [ck("some")] + [None] * (W - 1)):
+        try:
+            st.GBMRegressor(num_base_learners=2, checkpoint_dir=dirs[rank]).fit(
+                Xr, yr, mesh=m4, device="cpu")
+            errors.append("")
+        except ValueError as e:
+            errors.append(str(e))
+    out["dir_errors"] = np.array(errors)
+
+    # Stacking: member i on the rank at mesh position i mod W only
+    fits = []
+
+    def counting(base):
+        real = base.fit
+
+        def fit(*a, **k):
+            fits.append(type(base).__name__)
+            return real(*a, **k)
+
+        object.__setattr__(base, "fit", fit)
+        return base
+
+    Xs, ys = stacking_data()
+    stack = st.StackingClassifier(base_learners=[counting(b) for b in stacking_bases(st)],
+                                  stacker=st.LogisticRegression(reg_param=1e-2),
+                                  stack_method="proba").fit(Xs, ys, mesh=m4, device="cpu")
+    out["stack_fits"] = np.array(fits)
+    out["stack_digest"] = digest([m.params for m in stack.base_models]
+                                 + [stack.stack_model.params])
+    out["stack_proba"] = stack.predict_proba(Xs).numpy()
+
+    # the megabatch sweep: lanes over member=2 (6 lanes, 3 a rank), each
+    # equal to its lane of the unsharded sweep; member=1 runs it whole
+    Xt, yt = tuning_data()
+    lanes = [st.GBMClassifier(num_base_learners=3, learning_rate=lr, seed=s,
+                              base_learner=tree())
+             for lr in (0.3, 1.0) for s in (0, 1, 2)]
+    whole = fit_sweep(lanes, Xt, yt, device="cpu")
+    for name, mesh in (("m42", m42), ("m4", m4)):
+        got = fit_sweep(lanes, Xt, yt, mesh=mesh, device="cpu")
+        out[f"sweep_{name}_equal"] = np.array(
+            [digest(a.params) == digest(b.params) for a, b in zip(got, whole)])
+
+    # the tuners and Pipeline pass the mesh into every candidate fit
+    grid = st.ParamGridBuilder().add_grid("learning_rate", [0.3, 1.0]).build()
+    gbm = lambda: st.GBMClassifier(num_base_learners=2, loss="logloss")
+    ev = st.MulticlassClassificationEvaluator(metric="accuracy")
+    cv = st.CrossValidator(estimator=gbm(), evaluator=ev, estimator_param_maps=grid,
+                           num_folds=2, seed=0).fit(Xt, yt, mesh=m4, device="cpu")
+    out["cv_avg"] = np.array(cv.avg_metrics)
+    out["cv_digest"] = digest(cv.best_model.params)
+    cv_on = st.CrossValidator(estimator=gbm(), evaluator=ev, estimator_param_maps=grid,
+                              num_folds=2, seed=0, megabatch="on").fit(
+        Xt, yt, mesh=m42, device="cpu")
+    cv_off = st.CrossValidator(estimator=gbm(), evaluator=ev, estimator_param_maps=grid,
+                               num_folds=2, seed=0, megabatch="off").fit(Xt, yt, device="cpu")
+    out["cv_on_off"] = np.array([cv_on.avg_metrics, cv_off.avg_metrics])
+    tvs = st.TrainValidationSplit(estimator=gbm(), evaluator=ev,
+                                  estimator_param_maps=grid, seed=0).fit(
+        Xt, yt, mesh=m4, device="cpu")
+    out["tvs_metrics"] = np.array(tvs.validation_metrics)
+    pipe = st.Pipeline(stages=[st.StandardScaler(), gbm()]).fit(Xt, yt, mesh=m4,
+                                                                device="cpu")
+    out["pipe_accuracy"] = float(np.mean(pipe.predict(Xt).numpy() == yt))
+    out["pipe_digest"] = digest(pipe.stage_models[-1].params)
+    _save(out_dir, "planes", rank, **out)
+
+
 SUITES = {
     "fit": lambda rank, out_dir: run_fit(rank, out_dir, list(FIT_CASES)),
     "quantile": run_quantile,
     "collective": run_collective,
     "mesh": run_mesh,
+    "elastic": run_elastic,
+    "planes": run_planes,
 }
+
+
+@contextlib.contextmanager
+def one_rank_mesh(member=1):
+    """A one-rank gloo group in this process and its ``data_member_mesh``
+    (the mesh planes' single-process tests); the group is torn down on
+    exit."""
+    import torch.distributed as dist
+
+    from spark_ensemble_tpu_torch.parallel import mesh as pmesh, multihost
+
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cpu",
+                         timeout=datetime.timedelta(seconds=60))
+    try:
+        yield pmesh.data_member_mesh(1, member=member, device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def free_port() -> int:

@@ -17,6 +17,7 @@ its rows are permuted (another summation order)."""
 import numpy as np
 import pytest
 
+import _torch_mesh_worker as mw
 import spark_ensemble_tpu as se
 import spark_ensemble_tpu_torch as st
 
@@ -195,14 +196,17 @@ def test_boosting_params_have_the_reference_names_and_defaults(jcls, tcls):
 
 
 def test_unported_boosting_planes_raise(tmp_path):
-    """Checkpoints under a mesh still raise (queue 1, item 29); checkpoints
-    and fit_resume, which raised before persistence was ported, run."""
+    """Every plane that raised before runs now: checkpoints, checkpoints
+    under a mesh (a one-rank mesh's checkpointed fit equals the unmeshed
+    one), and fit_resume."""
     X, y = _cls_data(n=64)
     ck = st.BoostingClassifier(num_base_learners=2, checkpoint_dir=str(tmp_path / "ckpt"))
     assert ck.fit(X, y, device="cpu").num_members >= 1
-    with pytest.raises(NotImplementedError, match="queue 1, item 29"):
-        st.BoostingRegressor(checkpoint_dir=str(tmp_path / "m")).fit(
-            X, y, mesh=object(), device="cpu")
+    reg = st.BoostingRegressor(num_base_learners=2, checkpoint_dir=str(tmp_path / "m"))
+    with mw.one_rank_mesh() as mesh:
+        meshed = reg.fit(X, y, mesh=mesh, device="cpu")
+    plain = reg.copy(checkpoint_dir=None).fit(X, y, device="cpu")
+    np.testing.assert_array_equal(meshed.predict(X).numpy(), plain.predict(X).numpy())
     model = st.BoostingClassifier(num_base_learners=1).fit(X, y, device="cpu")
     resumed = model.fit_resume(X, y, 2)
     assert resumed.num_members >= model.num_members

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_mesh_worker as mw
 import spark_ensemble_tpu as se
 import spark_ensemble_tpu_torch as st
 
@@ -223,14 +224,19 @@ def test_formerly_unported_params_fit_as_the_reference(params):
                                atol=1e-4 * np.abs(y).max())
 
 
-def test_mesh_and_regressor_losses_raise():
-    """Checkpoints under a mesh raise (queue 1, item 29); every regression
-    loss of the JAX package is ported, and an unknown one is refused."""
+def test_mesh_and_regressor_losses_raise(tmp_path):
+    """Checkpoints under a mesh run (a one-rank mesh's checkpointed fit
+    equals the unmeshed one); every regression loss of the JAX package is
+    ported, and an unknown one is refused."""
     X, y = _reg_data(n=64)
     with pytest.raises(ValueError):
         st.GBMRegressor(loss="nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 29"):
-        st.GBMRegressor(checkpoint_dir="unused").fit(X, y, mesh=object(), device="cpu")
+    est = st.GBMRegressor(num_base_learners=3, checkpoint_dir=str(tmp_path / "ck"),
+                          checkpoint_interval=1)
+    with mw.one_rank_mesh() as mesh:
+        meshed = est.fit(X, y, mesh=mesh, device="cpu")
+    plain = est.copy(checkpoint_dir=None).fit(X, y, device="cpu")
+    np.testing.assert_array_equal(meshed.predict(X).numpy(), plain.predict(X).numpy())
 
 
 def test_cuda_is_the_default_and_raises_without_it(monkeypatch):

@@ -73,6 +73,7 @@ def test_every_port_module_imports_with_jax_blocked():
                 "spark_ensemble_tpu_torch.autotune.resolve",
                 "spark_ensemble_tpu_torch.ops.collective",
                 "spark_ensemble_tpu_torch.parallel.mesh",
+                "spark_ensemble_tpu_torch.parallel.elastic",
                 "spark_ensemble_tpu_torch.parallel.multihost", "chip_smoke"}
     assert expected <= set(report["names"])
 

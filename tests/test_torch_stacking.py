@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_mesh_worker as mw
 import spark_ensemble_tpu as se
 import spark_ensemble_tpu_torch as st
 from spark_ensemble_tpu_torch.ops import hist_kernels as hk
@@ -147,8 +148,12 @@ def test_numeric_guard_unported_planes_and_bases_raise():
         bad.set_params(on_nonfinite="off").fit(X, y, device="cpu")
     with pytest.raises(FloatingPointError, match="stacker"):
         st.StackingRegressor(stacker=_NaNRegression()).fit(X, y, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 29"):
-        st.StackingRegressor().fit(X, y, mesh=object(), device="cpu")
+    # Stacking takes a mesh: a one-rank mesh fits every member and the
+    # stacker as the unmeshed fit does
+    with mw.one_rank_mesh() as mesh:
+        meshed = st.StackingRegressor().fit(X, y, mesh=mesh, device="cpu")
+    np.testing.assert_array_equal(meshed.predict(X).numpy(),
+                                  st.StackingRegressor().fit(X, y, device="cpu").predict(X).numpy())
     # ensembles over non-tree learners are members like any other
     for family in (st.BaggingRegressor, st.BoostingRegressor, st.GBMRegressor):
         model = st.StackingRegressor(base_learners=[

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_mesh_worker as mw
 import spark_ensemble_tpu as se
 import spark_ensemble_tpu_torch as st
 from spark_ensemble_tpu.data import ShardStore as JaxShardStore
@@ -318,9 +319,13 @@ def test_fit_streaming_input_validation(tmp_path):
         kinds = [json.loads(line)["event"] for line in f]
     assert kinds[:2] == ["fit_start", "streaming_config"] and kinds[-1] == "fit_end"
     assert "shard_load" in kinds and "shard_wait_us" in kinds
-    for est in (st.GBMRegressor(base_learner=_base()), st.GBMClassifier(base_learner=_base())):
-        with pytest.raises(NotImplementedError, match="item 29"):
-            est.fit_streaming(store, _cls_labels(X), mesh=object(), device="cpu")
+    # fit_streaming takes a mesh: on a one-rank mesh the distributed sweep
+    # equals the single-process one bit for bit
+    for est in (st.GBMRegressor(base_learner=_base(), num_base_learners=2),
+                st.GBMClassifier(base_learner=_base(), num_base_learners=2)):
+        with mw.one_rank_mesh() as mesh:
+            meshed = est.fit_streaming(store, _cls_labels(X), mesh=mesh, device="cpu")
+        _assert_equal_models(meshed, est.fit_streaming(store, _cls_labels(X), device="cpu"))
 
 
 def test_fit_streaming_defaults_to_the_card(tmp_path):

@@ -26,7 +26,6 @@ QUEUED = {
     "spark_ensemble_tpu.telemetry.programz": 24,
     "spark_ensemble_tpu.telemetry.exporter": 25,
     "spark_ensemble_tpu.telemetry.podview": 26,
-    "spark_ensemble_tpu.parallel.elastic": 29,
     "spark_ensemble_tpu.autotune.space": 27,
     "spark_ensemble_tpu.autotune.cache": 27,
     "spark_ensemble_tpu.autotune.search": 27,
@@ -36,7 +35,8 @@ QUEUED = {
 }
 
 #: this slice's names
-SLICE = ("ModelRegistry", "FleetRouter", "FleetResponse", "FleetOverloadError",
+SLICE = ("ElasticCoordinator", "HostLostError", "DistributedSweep", "survivor_mesh",
+         "ModelRegistry", "FleetRouter", "FleetResponse", "FleetOverloadError",
          "Autopilot", "Watchdog", "ShadowScorer")
 
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_mesh_worker as mw
 import spark_ensemble_tpu as se
 import spark_ensemble_tpu_torch as st
 from spark_ensemble_tpu import tuning as jt
@@ -170,8 +171,11 @@ def test_config_keys_and_tuner_params_match_the_reference():
 def test_unported_planes_and_missing_cuda_raise(monkeypatch, tmp_path):
     X, y, _, _ = _data(n=60)
     kw = dict(estimator=st.LinearRegression(), evaluator=st.RegressionEvaluator())
-    with pytest.raises(NotImplementedError, match="item 29"):
-        st.CrossValidator(**kw).fit(X, y, mesh=object(), device="cpu")
+    # the tuners take a mesh: on a one-rank mesh every candidate fits as
+    # it does unmeshed
+    with mw.one_rank_mesh() as mesh:
+        meshed = st.CrossValidator(**kw).fit(X, y, mesh=mesh, device="cpu")
+    assert meshed.avg_metrics == st.CrossValidator(**kw).fit(X, y, device="cpu").avg_metrics
     # telemetry_path raised before the port had telemetry; each scored
     # candidate streams a tuning_candidate event now
     path = str(tmp_path / "t.jsonl")
