@@ -542,26 +542,37 @@ def elastic_rank(cfg):
     R = STREAM_FIT_ROUNDS
     out = {"rank": rank, "world": world, "job": job}
     if job == "sweep":
-        store = ShardStore.open(cfg["store"])
+        # manifest only: each rank hash-verifies just its own shards
+        store = ShardStore.open(cfg["store"], shards=[])
         y = np.load(cfg["labels"])
         loads = global_metrics().counter("data/shard_loads")
         loads0 = loads.value
         hk.reset_launch_counts()
         coll.reset_collective_stats()
         coll.set_collective_timing(True)
+        # the sweep's measure mode: a fence around every per-step reduce
+        os.environ["SE_TPU_DIST_MEASURE"] = "1"
+        est = _xl_stream_gbm(st, R)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model = _xl_stream_gbm(st, R).fit_streaming(store, y, mesh=mesh, device="cuda:0")
+        model = est.fit_streaming(store, y, mesh=mesh, device="cuda:0")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        del os.environ["SE_TPU_DIST_MEASURE"]
         coll.set_collective_timing(False)
         stats = coll.collective_stats()
+        sweep = elastic.last_fit_stats()
+        # a round's passes: one a level and the leaf pass, K steps each
+        passes = R * (int(est.base_learner.max_depth) + 1)
         out.update(digest=digest(model.params), fit_s=secs, iters_per_s=R / secs,
                    gathers_per_round=stats["gathers"] / R, bytes_per_round=stats["bytes"] / R,
                    gather_ms_per_round=stats["ms"] / R, loads=loads.value - loads0,
-                   launches=dict(hk.LAUNCHES))
+                   launches=dict(hk.LAUNCHES), steps=sweep["steps"],
+                   expected_steps=passes * -(-store.num_shards // world),
+                   sweep_ms_per_pass=1e3 * sweep["sweep_s"] / passes,
+                   reduce_ms_per_pass=1e3 * sweep["reduce_s"] / passes)
     elif job == "rewind":
-        store = ShardStore.open(cfg["store"])
+        store = ShardStore.open(cfg["store"], shards=[])
         y = np.load(cfg["labels"])[:store.n]
         tel = os.path.join(cfg["scratch"], f"elastic_tel_r{rank}")
         os.makedirs(tel, exist_ok=True)
@@ -694,11 +705,12 @@ def elastic_rank(cfg):
         t0 = time.perf_counter()
         cv_model = cv.fit(X_np, y_np, mesh=mesh, device="cuda:0")
         torch.cuda.synchronize()
+        unmeshed = cv.fit(X_np, y_np, device="cuda:0")
         out["cross_validator"] = {"fit_s": time.perf_counter() - t0,
                                   "avg_metrics": cv_model.avg_metrics,
-                                  "unmeshed_avg_metrics": cv.fit(X_np, y_np,
-                                                                 device="cuda:0").avg_metrics,
+                                  "unmeshed_avg_metrics": unmeshed.avg_metrics,
                                   "best_index": cv_model.best_index,
+                                  "unmeshed_best_index": unmeshed.best_index,
                                   "digests": pmesh.replica_digests(cv_model.best_model)}
     with open(cfg["out"], "w") as f:
         json.dump(out, f)
@@ -721,8 +733,8 @@ def elastic_phase(scratch, xl, card):
     uninterrupted mesh fits), stack with each member on one rank (proba
     within 2e-3 of one process), sweep the tuning phase's 12 candidates
     with the lanes over member=2 (each lane equal to the whole sweep's)
-    and cross-validate over the mesh (the best mean score within 0.02 of
-    the unmeshed search's)."""
+    and cross-validate over the mesh (each candidate's mean score within
+    0.01 of the unmeshed search's, and the same best candidate)."""
     t_phase = time.perf_counter()
     failures = []
 
@@ -742,11 +754,18 @@ def elastic_phase(scratch, xl, card):
            "gathers_per_round": res[0]["gathers_per_round"],
            "bytes_per_round": res[0]["bytes_per_round"],
            "gather_ms_per_round": [r["gather_ms_per_round"] for r in res],
+           "reduce_ms_per_pass": [r["reduce_ms_per_pass"] for r in res],
+           "sweep_ms_per_pass": [r["sweep_ms_per_pass"] for r in res],
+           "steps": [r["steps"] for r in res], "expected_steps": res[0]["expected_steps"],
            "loads": [r["loads"] for r in res], "launches_rank0": res[0]["launches"],
            "group_s": time.perf_counter() - t0}
     emit({"phase": "elastic", **row, **card})
     if not all(row["bit_identical_to_single"]):
         failures.append("sweep: a rank's params differ from the single-process fit")
+    if (any(s != row["expected_steps"] for s in row["steps"])
+            or not all(0 < r <= s for r, s in zip(row["reduce_ms_per_pass"],
+                                                  row["sweep_ms_per_pass"]))):
+        failures.append("sweep: the measure mode's steps or reduce times are off")
     t0 = time.perf_counter()
     res = group("rewind", 3, store=xl["rewind_store"], labels=xl["labels"])
     surv = [r for r in res if not r["victim"]]
@@ -804,11 +823,14 @@ def elastic_phase(scratch, xl, card):
             "fit_s": [x["fit_s"] for x in cvs], "avg_metrics": cvs[0]["avg_metrics"],
             "unmeshed_avg_metrics": cvs[0]["unmeshed_avg_metrics"],
             "best_index": cvs[0]["best_index"],
+            "unmeshed_best_index": cvs[0]["unmeshed_best_index"],
             "digests_equal": len({d for x in cvs for d in x["digests"]}) == 1,
             "group_s": time.perf_counter() - t0}
     emit({"phase": "elastic", **line, **card})
     if (not line["digests_equal"] or any(x["avg_metrics"] != cvs[0]["avg_metrics"] for x in cvs)
-            or abs(max(line["avg_metrics"]) - max(line["unmeshed_avg_metrics"])) > 0.02):
+            or line["best_index"] != line["unmeshed_best_index"]
+            or max(abs(a - b) for a, b in zip(line["avg_metrics"],
+                                              line["unmeshed_avg_metrics"])) > 0.01):
         failures.append("cross_validator: see the line above")
     emit({"phase": "elastic_summary", "failures": failures,
           "phase_s": time.perf_counter() - t_phase, **card})

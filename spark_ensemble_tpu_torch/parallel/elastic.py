@@ -4,8 +4,12 @@ of a mesh, and that survive losing a rank (PyTorch port of
 
 The shard manifest is partitioned round-robin over the mesh's row positions
 (``data/partition.py``): row position ``w`` (this rank's
-``mesh.row_index``) prefetches only shards ``w, w + W, w + 2W, ...`` and
-opens only those (``ShardStore.open(..., shards=...)``).  Everything else of
+``mesh.row_index``) prefetches only shards ``w, w + W, w + 2W, ...``.  A
+store handle that already covers them (a full open, or a subset that holds
+them) is read as it is; otherwise the rank opens and hash-verifies just
+those (``ShardStore.open(..., shards=...)``), so a caller that opens the
+store with ``shards=[]`` (manifest and thresholds only) has each rank hash
+only its own shards.  Everything else of
 the fit (labels, weights, carried predictions, the node ids of the finished
 trees) is whole on every rank, so each rank runs the resident round loop
 and only the sweeps are distributed.  At step ``k`` position ``w`` computes
@@ -229,9 +233,11 @@ class DistributedSweep:
         self.R = int(store.shard_rows)
         self.K = partition_steps(self.S, self.W)
         mine = partition_shards(self.S, self.W, self.position)
-        # this rank verifies and reads only its own shards
-        self.store = (ShardStore.open(store.directory, shards=mine) if mine
-                      else store)
+        # this rank reads only its own shards: through the caller's handle
+        # where it covers them, else through a handle that verifies just them
+        have = store.verified_shards
+        self.store = (store if have is None or set(mine) <= have
+                      else ShardStore.open(store.directory, shards=mine))
         self.rank = int(mesh.ranks[mesh.rank])
         #: "hosts" of the preemption fault: one per rank
         self.num_hosts = self.W

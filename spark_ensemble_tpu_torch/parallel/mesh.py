@@ -6,8 +6,8 @@ reduced with ``treeAggregate``) and ensemble members / class dims (driver
 thread pools).  The JAX package maps them onto a ``("data", "member")``
 ``jax.sharding.Mesh``, or ``("dcn_data", "data", "member")`` across
 slices; the port onto one process per device (``parallel/multihost.py``),
-a :class:`Mesh` over ``torch.distributed.device_mesh.init_device_mesh``
-with the same axis names.  Ranks fill the mesh in row-major order, as the
+a :class:`Mesh` of ``torch.distributed`` process groups with the same axis
+names.  Ranks fill the mesh in row-major order, as the
 JAX package reshapes its device list.
 
 Each rank keeps the contiguous block of rows that ``NamedSharding(mesh,
@@ -58,15 +58,14 @@ class Mesh:
     within the mesh and mesh coordinates, the reduction axes ``row_axis``
     / ``member_axis``, ``all_axis`` (every rank of the mesh) and ``ranks``
     (the global ranks, in mesh order).  By default the mesh spans every
-    rank and every rank builds it, collectively (its groups are created on
-    the default group; ``device_mesh`` is the torch ``DeviceMesh``).
+    rank and every rank builds it, collectively: ``all_axis`` is the
+    default group and each row / member group is created on it.
 
     ``ranks=`` builds a mesh over a subset: the survivors of a lost rank
     (``parallel/elastic.survivor_mesh``).  Only those ranks build it, and
     each creates just the groups it belongs to with
     ``use_local_synchronization=True``, so a rank outside the subset is
-    never waited for (``device_mesh`` is None there: torch's DeviceMesh
-    creates its groups on every rank of the world)."""
+    never waited for."""
 
     def __init__(self, axis_sizes: dict, device=None, ranks=None):
         _require_group()
@@ -89,13 +88,6 @@ class Mesh:
         self.device = _default_device(device)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        self.device_mesh = None
-        if not local:
-            from torch.distributed.device_mesh import init_device_mesh
-
-            self.device_mesh = init_device_mesh(
-                self.device.type, dims, mesh_dim_names=self.axis_names
-            )
         self._local = local
         self.rank = self.ranks.index(dist.get_rank())
         grid = np.asarray(self.ranks).reshape(dims)
@@ -154,15 +146,13 @@ def create_mesh(axis_sizes: dict, device=None, ranks=None) -> Mesh:
 
 
 def data_member_mesh(n_devices: Optional[int] = None, member: int = 1,
-                     device=None, ranks=None) -> Mesh:
+                     device=None) -> Mesh:
     """The standard ("data", "member") mesh; ``member`` divides the count,
-    which must be the world size (``len(ranks)`` over a subset of ranks)."""
-    _require_group()
-    n = n_devices or (dist.get_world_size() if ranks is None else len(ranks))
+    which must be the world size."""
+    n = n_devices or dist.get_world_size()
     if n % member != 0:
         raise ValueError(f"member axis {member} must divide device count {n}")
-    return create_mesh({"data": n // member, "member": member}, device=device,
-                       ranks=ranks)
+    return create_mesh({"data": n // member, "member": member}, device=device)
 
 
 def hybrid_data_member_mesh(dcn_data=1, member: int = 1, device=None) -> Mesh:

@@ -523,6 +523,18 @@ def run_elastic(rank, out_dir):
     # psum, the refusals, the events and the collectives
     out = {"single": digest(single.params)}
     out["w4"] = digest(reg().fit_streaming(store["s32"], y, mesh=m4, device="cpu").params)
+    plain = elastic.last_fit_stats()
+    # the measure mode fences every reduce and keeps the bits; a
+    # manifest-only handle (shards=[]) has each rank verify its own shards
+    os.environ[elastic._MEASURE_ENV] = "1"
+    try:
+        lean = ShardStore.open(os.path.join(out_dir, "s32"), shards=[])
+        out["measured"] = digest(reg().fit_streaming(lean, y, mesh=m4, device="cpu").params)
+        measured = elastic.last_fit_stats()
+    finally:
+        del os.environ[elastic._MEASURE_ENV]
+    out["stats"] = np.array([measured["reduce_s"], measured["sweep_s"], measured["steps"],
+                             plain["reduce_s"], plain["steps"]])
     hyb = pmesh.hybrid_data_member_mesh(dcn_data=2, device="cpu")
     out["hybrid"] = digest(reg().fit_streaming(store["s32"], y, mesh=hyb,
                                                device="cpu").params)
@@ -557,7 +569,7 @@ def run_elastic(rank, out_dir):
             out[f"xpkg{r}_{f}"] = getattr(members, f).numpy()
         out[f"xpkg{r}_predict"] = xm.predict(Xm).numpy()
     half = [0, 1] if rank < 2 else [2, 3]
-    m2 = pmesh.data_member_mesh(2, device="cpu", ranks=half)
+    m2 = pmesh.create_mesh({"data": 2, "member": 1}, device="cpu", ranks=half)
     out["w2"] = digest(reg().fit_streaming(store["s32"], y, mesh=m2, device="cpu").params)
     out["cls_w2"] = digest(cls().fit_streaming(store["c32"], yc, mesh=m2,
                                                device="cpu").params)
@@ -610,7 +622,7 @@ def run_elastic(rank, out_dir):
         model = coord.fit_streaming(
             reg(checkpoint_dir=os.path.join(out_dir, f"ck_r{rank}"), checkpoint_interval=1,
                 telemetry_path=os.path.join(tel, "t.jsonl")),
-            store["s32"], y, device="cpu")
+            ShardStore.open(os.path.join(out_dir, "s32"), shards=[]), y, device="cpu")
         sz = coord.statusz()
         res.update(
             digest=digest(model.params), losses=json.dumps(coord.losses),
@@ -669,7 +681,7 @@ def run_elastic(rank, out_dir):
     # 5. W=3 over the survivors of case 2 (their group histories match;
     # rank 1, the victim there, sits out)
     if rank != 1:
-        m3 = pmesh.data_member_mesh(3, device="cpu", ranks=[0, 2, 3])
+        m3 = pmesh.create_mesh({"data": 3, "member": 1}, device="cpu", ranks=[0, 2, 3])
         out["w3"] = digest(reg().fit_streaming(store["s32"], y, mesh=m3, device="cpu").params)
     _save(out_dir, "ordered", rank, **out)
 

@@ -11,8 +11,8 @@ Tolerances:
   rows: EQUAL (params digests).  The fold adds the shards in the global
   order of the single-process sweep.
 - ``reduce="psum"``: within rtol 1e-4, atol 1e-5 (one all_reduce a step).
-- A preempted, repartitioned and resumed fit: EQUAL to the uninterrupted
-  one.
+- A preempted, repartitioned and resumed fit, and a fit under the measure
+  mode (``SE_TPU_DIST_MEASURE=1``): EQUAL to the uninterrupted one.
 - The port's 4-rank fit vs the JAX package's single-device
   ``fit_streaming`` on the same store: tests/test_torch_streaming.py's
   cross-package tolerances (round 0's splits equal on the dyadic fixture,
@@ -106,6 +106,21 @@ def test_mean_reduce_and_member_axis_raise(runs):
         errs = runs("ordered", rank)["errors"]
         assert "reduce" in str(errs[0])
         assert "member=1" in str(errs[1])
+
+
+def test_measure_mode_times_the_reduces_and_keeps_the_bits(runs):
+    """``SE_TPU_DIST_MEASURE=1`` fences every per-step reduce and sums its
+    wall time; off, nothing is timed.  The measured fit reads a
+    manifest-only handle (``shards=[]``), so each rank opens and verifies
+    just its own shards, and it lands on the single-process bits."""
+    for rank in RANKS:
+        r = runs("ordered", rank)
+        assert str(r["measured"]) == str(r["single"])
+        reduce_s, sweep_s, steps, plain_reduce_s, plain_steps = r["stats"].tolist()
+        assert 0 < reduce_s <= sweep_s
+        # 4 rounds x (3 levels + the leaf pass) x 3 steps (10 shards over 4)
+        assert steps == plain_steps == 4 * 4 * 3
+        assert plain_reduce_s == 0.0
 
 
 def test_config_agreement_and_sweep_events(runs):
