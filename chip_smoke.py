@@ -552,7 +552,10 @@ def elastic_rank(cfg):
         coll.set_collective_timing(True)
         # the sweep's measure mode: a fence around every per-step reduce
         os.environ["SE_TPU_DIST_MEASURE"] = "1"
-        est = _xl_stream_gbm(st, R)
+        # each rank's telemetry stream: the operator phase's skew report
+        tel = os.path.join(cfg["scratch"], f"elastic_sweep_tel_r{rank}")
+        os.makedirs(tel, exist_ok=True)
+        est = _xl_stream_gbm(st, R, telemetry_path=os.path.join(tel, "t.jsonl"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model = est.fit_streaming(store, y, mesh=mesh, device="cuda:0")
@@ -719,6 +722,55 @@ def elastic_rank(cfg):
     return 0
 
 
+#: the stitched rewind's clock offsets: its ranks share one host clock
+POD_OFFSET_LIMIT_S = 0.010
+
+
+def pod_stitch(scratch, card, failures):
+    """The operator plane's pod view over the elastic phase's streams: the
+    rewind's three per-rank streams stitched into one pod trace (the
+    victim's ``host_preempt`` flow must resolve into both survivors'
+    ``rewind``, every estimated clock offset must lie within
+    ``POD_OFFSET_LIMIT_S`` of 0, no span may lose its parent, the manifest
+    digests must agree), and a skew report over the XL sweep's two ranks."""
+    from spark_ensemble_tpu_torch.telemetry import podview
+
+    t0 = time.perf_counter()
+    paths = [os.path.join(scratch, f"elastic_tel_r{r}", "t.jsonl") for r in range(3)]
+    merged, info = podview.stitch_files(paths)
+    spans = [e for e in merged if e.get("event") == "span"]
+    ids = {s["span_id"] for s in spans}
+    sources = {f for s in spans for f in (s.get("flow_out") or [])}
+    pre = [s for s in spans if s.get("name") == "host_preempt"]
+    rew = [s for s in spans if s.get("name") == "rewind"]
+    alone = [e for e in podview.load_stream(paths[0]) if e.get("event") == "span"]
+    alone_sources = {f for s in alone for f in (s.get("flow_out") or [])}
+    skew = podview.skew_report([podview.load_stream(
+        os.path.join(scratch, f"elastic_sweep_tel_r{r}", "t.jsonl")) for r in range(2)])
+    row = {"check": "pod_stitch", "streams": info["streams"], "hosts": info["hosts"],
+           "groups": info["groups"], "offsets_s": info["offsets"],
+           "digest_mismatches": info["digest_mismatches"], "spans": len(spans),
+           "preempt_hosts": [s["host"] for s in pre],
+           "rewind_hosts_resolved": sorted(s["host"] for s in rew if s.get("flow_in") in sources),
+           "resolved_in_one_stream": any(s.get("name") == "rewind" and s.get("flow_in") in alone_sources
+                                         for s in alone),
+           "orphans": [s["name"] for s in spans
+                       if s.get("parent_id") and s["parent_id"] not in ids][:5],
+           "sweep_skew": {k: skew[k] for k in ("hosts", "pod_skew_ratio", "persistent_offender",
+                                               "per_host")},
+           "sweep_skew_rounds": [{k: r[k] for k in ("round", "ratio", "offender")}
+                                 for r in skew["rounds"]],
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "operator", **row, **card})
+    survivors = [r for r in range(3) if r != ELASTIC_VICTIM]
+    if (row["preempt_hosts"] != [ELASTIC_VICTIM] or row["rewind_hosts_resolved"] != survivors
+            or row["resolved_in_one_stream"] or row["orphans"] or row["digest_mismatches"]
+            or info["hosts"] != [0, 1, 2]
+            or any(abs(o) > POD_OFFSET_LIMIT_S for o in info["offsets"])
+            or skew["hosts"] != [0, 1] or len(skew["rounds"]) != STREAM_FIT_ROUNDS):
+        failures.append("pod_stitch: see the operator line above")
+
+
 def elastic_phase(scratch, xl, card):
     """The elastic shard sweep and the rest of the mesh planes, each group
     of ranks of this script joining a gloo group on ``cuda:0`` (NCCL
@@ -783,6 +835,7 @@ def elastic_phase(scratch, xl, card):
             or any(lo[0][0] != ELASTIC_VICTIM for lo in row["losses"])
             or row["victim_flight_dump"] != [True]):
         failures.append("rewind: see the line above")
+    pod_stitch(scratch, card, failures)
     t0 = time.perf_counter()
     res = group("planes", 2)
     for key in ("gbm", "samme"):
@@ -1451,7 +1504,11 @@ def main():
         if not all(torch.equal(x, y) for x, y in pair):
             raise AssertionError(f"{rec.name}: two launches differ ({what})")
 
-    def bound(nbytes, nops):
+    def bound(kernel, **shapes):
+        """The least time of one launch of ``kernel`` at ``shapes``: its
+        bytes (``hk.kernel_work``, the program inventory's formula too)
+        at the memory rate or its ops at the f32 rate, the larger."""
+        nbytes, nops = hk.kernel_work(kernel, **shapes)
         t_bytes, t_ops = nbytes / bw * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1495,8 +1552,7 @@ def main():
         idx = hist_index(ids, node, n_nodes, B).reshape(-1)
         src = hk.split_terms(vals, nterms)[:, :, :, None].expand(n, M, C, d).reshape(-1)
         acc = torch.zeros(M * n_nodes * C * d * B, device=dev)
-        nbytes = 4 * (words.numel() + node.numel() + vals.numel() + acc.numel())
-        b_ms, b_by = bound(nbytes, n * M * C * d)
+        b_ms, b_by = bound(name, n=n, d=d, W=words.shape[1], M=M, C=C, B=B, n_nodes=n_nodes)
         ms = spread_ms(run)
         lib = spread_ms(lambda: acc.index_add_(0, idx, src))
         dev_ms = device_ms(run)
@@ -1580,8 +1636,7 @@ def main():
                 # time each launch of the main path's deepest level alone
                 r_rec = recs["route_packed"]
                 if not leaf:
-                    r_bytes = 4 * (packed.numel() + 2 * parent.numel() + 2 * bf.numel())
-                    r_ms, r_by = bound(r_bytes, n * M)
+                    r_ms, r_by = bound("route_packed", n=n, W=packed.shape[1], M=M, half=half)
                     r_spread = spread_ms(lambda: hk.route_packed(packed, parent, bf, bt, **kw))
                     r_rec.device_ms = device_ms(lambda: hk.route_packed(packed, parent, bf, bt, **kw))
                     r_rec.timing = (
@@ -1602,9 +1657,8 @@ def main():
                     # reads the packed words, parent ids, statistics and
                     # tables and writes the leaf ids and sums.  index_add_
                     # gets the routed cell ids for free
-                    lb = 4 * (packed.numel() + parent.numel() + node_out.numel() + vals.numel()
-                              + bf.numel() + bt.numel() + H.numel())
-                    l_ms, l_by = bound(lb, n * M * C)
+                    l_ms, l_by = bound("leaf_sums", n=n, M=M, C=C, leaves=n_nodes,
+                                       W=packed.shape[1], half=half)
                     lidx = (torch.arange(M, device=dev)[None, :] * n_nodes + node_out.long()).reshape(-1)
                     lsrc = vals.reshape(-1, C)
                     lacc = torch.zeros(M * n_nodes, C, device=dev)
@@ -1729,8 +1783,8 @@ def main():
             return (torch.as_tensor(bf.astype(np.int32), device=dev),
                     torch.as_tensor(bt.astype(np.int32), device=dev))
 
-        def shape_row(rec, run, nbytes, nops, plan, library, **row):
-            b_ms, b_by = bound(nbytes, nops)
+        def shape_row(rec, run, shapes, plan, library, **row):
+            b_ms, b_by = bound(rec.name, **shapes)
             rec.shapes.append({**row, "device_ms": device_ms(run), "bound_ms": b_ms,
                                "bound_by": b_by,
                                "library_device_ms": device_ms(library) if library else None,
@@ -1766,8 +1820,9 @@ def main():
                     what = f"{data} M={Mc} C={Cc} level {level}"
                     err = check_level(rec, run, hk.hist_plain(Xb, node, vals, n_nodes, MAX_BINS, nterms), what)
                     plan = hk.level_plan(n, d, Mc, Cc, MAX_BINS, n_nodes, bits)
-                    shape_row(rec, run, 4 * (words.numel() + node.numel() + vals.numel() + out_floats),
-                              n * Mc * Cc * d, plan, lib, **common, level=level, n_nodes=n_nodes)
+                    shape_row(rec, run, dict(n=n, d=d, W=words.shape[1], M=Mc, C=Cc, B=MAX_BINS,
+                                             n_nodes=n_nodes),
+                              plan, lib, **common, level=level, n_nodes=n_nodes)
                     checks.append({"kernel": rec.name, **common, "level": level, "n_nodes": n_nodes,
                                    "max_abs_err": err})
                 del cells, src, acc
@@ -1779,7 +1834,7 @@ def main():
             what = f"{data} M={Mc} C={Cc}"
             compare(rrec, run_r(), hk.route_plain(Xb, parent, bf, bt), what, exact=True)
             repeat_identical(rrec, run_r, what)
-            shape_row(rrec, run_r, 4 * (packed.numel() + 2 * parent.numel() + 2 * bf.numel()), n * Mc,
+            shape_row(rrec, run_r, dict(n=n, W=packed.shape[1], M=Mc, half=8),
                       hk.route_plan(n, Mc, 8, packed.shape[1]), None, **common, half=8)
             checks.append({"kernel": rrec.name, **common, "half": 8, "max_abs_err": 0.0})
             # the routed leaf pass of a depth-1 tree (1 parent) and of depth 5
@@ -1798,8 +1853,8 @@ def main():
                 lidx = (torch.arange(Mc, device=dev)[None, :] * (2 * half) + ref_node.long()).reshape(-1)
                 lsrc = vals.reshape(-1, Cc)
                 lacc = torch.zeros(Mc * 2 * half, Cc, device=dev)
-                nbytes = 4 * (packed.numel() + 2 * parent.numel() + vals.numel() + 2 * bf.numel() + L.numel())
-                shape_row(lrec, run_l, nbytes, n * Mc * Cc,
+                shape_row(lrec, run_l, dict(n=n, M=Mc, C=Cc, leaves=2 * half, W=packed.shape[1],
+                                            half=half),
                           hk.leaf_plan(n, Mc, Cc, 2 * half, half, packed.shape[1]),
                           lambda: lacc.index_add_(0, lidx, lsrc), **common, leaves=2 * half)
                 checks.append({"kernel": lrec.name, **common, "leaves": 2 * half, "routed": True,
@@ -2544,8 +2599,8 @@ def main():
                 raise AssertionError(f"{rec.name}: lane {s} of the M={Ml} launch differs from its "
                                      f"own M={N_CLASSES} launch ({what})")
 
-    def sweep_row(rec, run, nbytes, nops, plan, library_device_ms, **row):
-        b_ms, b_by = bound(nbytes, nops)
+    def sweep_row(rec, run, shapes, plan, library_device_ms, **row):
+        b_ms, b_by = bound(rec.name, **shapes)
         rec.shapes.append({**common, **row, "device_ms": device_ms(run), "bound_ms": b_ms,
                            "bound_by": b_by, "library_device_ms": library_device_ms,
                            "grid": plan.grid, "plan": plan._asdict()})
@@ -2575,8 +2630,9 @@ def main():
             lanes_equal(rec, lambda s: H[s * N_CLASSES:(s + 1) * N_CLASSES],
                         lambda s: fn(lane_cols(node, s), lane_cols(vals_w, s), 1), what)
             plan = hk.lane_level_plan(N_ROWS, N_FEATURES, Ml, C, MAX_BINS, n_nodes, bits, lanes)
-            sweep_row(rec, run, 4 * (words.numel() + node.numel() + vals_w.numel() + out_floats),
-                      N_ROWS * Ml * C * N_FEATURES, plan, lib_dev, level=level, n_nodes=n_nodes)
+            sweep_row(rec, run, dict(n=N_ROWS, d=N_FEATURES, W=words.shape[1], M=Ml, C=C, B=MAX_BINS,
+                                     n_nodes=n_nodes),
+                      plan, lib_dev, level=level, n_nodes=n_nodes)
             sweep_checks.append({"kernel": rec.name, **common, "level": level, "n_nodes": n_nodes,
                                  "max_abs_err": err, "lanes_equal_own_launch": True})
         del cells, src, acc
@@ -2589,7 +2645,7 @@ def main():
     ref_node = hk.route_plain(Xb64, parent, bf, bt)
     compare(rrec, run_r(), ref_node, f"sweep M={Ml}", exact=True)
     repeat_identical(rrec, run_r, f"sweep M={Ml}")
-    sweep_row(rrec, run_r, 4 * (packed64.numel() + 2 * parent.numel() + 2 * bf.numel()), N_ROWS * Ml,
+    sweep_row(rrec, run_r, dict(n=N_ROWS, W=packed64.shape[1], M=Ml, half=half),
               hk.route_plan(N_ROWS, Ml, half, packed64.shape[1]), None, half=half)
     sweep_checks.append({"kernel": rrec.name, **common, "half": half, "max_abs_err": 0.0})
     run_l = lambda: hk.fused_round_level(packed64, parent, vals_w, bf, bt, n_nodes=2 * half,
@@ -2607,8 +2663,8 @@ def main():
     lidx = (torch.arange(Ml, device=dev)[None, :] * (2 * half) + ref_node.long()).reshape(-1)
     lsrc = vals_w.reshape(-1, C)
     lacc = torch.zeros(Ml * 2 * half, C, device=dev)
-    sweep_row(lrec, run_l, 4 * (packed64.numel() + 2 * parent.numel() + vals_w.numel() + 2 * bf.numel()
-                                + L.numel()), N_ROWS * Ml * C,
+    sweep_row(lrec, run_l, dict(n=N_ROWS, M=Ml, C=C, leaves=2 * half, W=packed64.shape[1],
+                                half=half),
               hk.lane_leaf_plan(N_ROWS, Ml, C, 2 * half, half, packed64.shape[1], lanes),
               device_ms(lambda: lacc.index_add_(0, lidx, lsrc)), leaves=2 * half)
     sweep_checks.append({"kernel": lrec.name, **common, "leaves": 2 * half, "routed": True,
@@ -3354,6 +3410,204 @@ def main():
     if (counters["data/shard_loads"] != visits or len(loads) != visits
             or len(waits) != visits or problems or len(io) != 3 * stream_rounds):
         raise AssertionError(f"telemetry streaming: {counters}, {len(loads)} load spans")
+
+    # phase 25b (operator): the operator plane live around the main path.
+    # Quiet and scraped 20-round fused fits take turns (quiet, scraped,
+    # scraped, quiet, quiet, scraped; all under record_fits), each scraped
+    # one under start_operator_plane(port=0) with a thread sweeping
+    # /metrics, /programz?n=5, /healthz and /statusz four times a second
+    # and an engine over a warmed model answering requests beside it.
+    # Every exposition must pass the checker; each scraped fit must equal
+    # the quiet one bit for bit; each kernel row's calls must equal the
+    # launches counted and its bytes kernel_work at its shapes (at the
+    # kernel table's shapes: bound_ms times the memory rate); every
+    # round_end must carry the launch leg of the cost line; the hbm gauges
+    # must read above 0; no build and no capture while the scrapes run.
+    # Then a 5-round pallas-tier fit under the plane (hist_i32's row) and
+    # a snapshot whose files validate.
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from spark_ensemble_tpu_torch.telemetry import exporter as op_exporter, programz
+
+    def fetch(url):
+        try:
+            with urllib.request.urlopen(url, timeout=30) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    def kernel_calls(inv):
+        return {k: sum(r["calls"] for r in inv.kernel_rows(k)) for k in hk.LAUNCHES}
+
+    t_phase = time.perf_counter()
+    op_model = fit_counted(gbm("fused", "highest", PARITY_ROUNDS), X_np, y_np)[0]
+    op_engine = st.InferenceEngine(op_model, methods=("predict_proba",), min_bucket=256,
+                                   max_batch_size=1024)
+    op_requests = [X_np[:200], X_np[:900]]
+    op_problems, op_runs = [], {"quiet": [], "scraped": []}
+    sampler_ticks, scrape_loops, health_codes = [], [], set()
+    kernel_rows = {}
+    for way in ("quiet", "scraped", "scraped", "quiet", "quiet", "scraped"):
+        est = gbm("fused", "highest", PARITY_ROUNDS)
+        if way == "quiet":
+            with tel.record_fits() as rec:
+                model, secs, launches = fit_counted(est, X_np, y_np)
+            op_runs[way].append((model, secs, launches, rec.events))
+            continue
+        inv = programz.global_inventory()
+        inv.clear()
+        plane = op_exporter.start_operator_plane(port=0, sampler_interval_s=0.25,
+                                                 watchdog_interval_s=0.5)
+        stop, loops, codes = threading.Event(), [0], []
+
+        def scraper():
+            # any failure (a dropped connection, a body that is not JSON, a
+            # missing key) ends the sweep and is a problem of the phase
+            try:
+                while not stop.is_set():
+                    t_sweep = time.perf_counter()
+                    code, body = fetch(plane.url + "/metrics")
+                    codes.append(("/metrics", code))
+                    op_problems.extend(op_exporter.validate_openmetrics(body))
+                    code, body = fetch(plane.url + "/programz?n=5")
+                    codes.append(("/programz", code))
+                    if len(json.loads(body)["programs"]) > 5:
+                        op_problems.append("/programz?n=5 gave more than 5 rows")
+                    code, body = fetch(plane.url + "/healthz")
+                    health_codes.add(code)
+                    codes.append(("/healthz", 200 if "status" in json.loads(body) else code))
+                    code, body = fetch(plane.url + "/statusz")
+                    codes.append(("/statusz", code))
+                    if json.loads(body)["backend"] != "cuda":
+                        op_problems.append("/statusz backend is not cuda")
+                    loops[0] += 1
+                    stop.wait(max(0.0, 0.25 - (time.perf_counter() - t_sweep)))
+            except Exception as e:  # noqa: BLE001 - reported below
+                op_problems.append(f"scraper: {type(e).__name__}: {e}")
+
+        builds = tel.compile_snapshot()
+        served = op_engine.stats()["compiles_since_warmup"]
+        thread = threading.Thread(target=scraper, daemon=True)
+        thread.start()
+        try:
+            for Xq in op_requests:
+                op_engine.predict_proba(Xq)
+            with tel.record_fits() as rec:
+                model, secs, launches = fit_counted(est, X_np, y_np)
+            for Xq in op_requests:
+                op_engine.predict_proba(Xq)
+            deadline = time.perf_counter() + 5.0
+            while (plane.sampler.ticks < 1 or loops[0] < 2) and time.perf_counter() < deadline:
+                time.sleep(0.05)
+        finally:
+            stop.set()
+            thread.join(timeout=60)
+        built = tel.compile_snapshot()[0] - builds[0]
+        captured = op_engine.stats()["compiles_since_warmup"] - served
+        hbm = {k: v.get("value") for k, v in tel.global_metrics().snapshot().items()
+               if k.startswith("hbm/gpu:0/")}
+        calls = kernel_calls(inv)
+        rows = {k: inv.kernel_rows(k) for k in hk.LAUNCHES}
+        progs = [r for r in inv.rows() if r["tag"] == "gbm_cls_round"]
+        sampler_ticks.append(plane.sampler.ticks)
+        scrape_loops.append(loops[0])
+        plane.stop()  # raises if the sampler failed
+        bad_codes = [c for c in codes if c[1] != 200]
+        if (thread.is_alive() or bad_codes or built or captured or loops[0] < 2
+                or plane.sampler.ticks < 1 or not any(c[0] == "/metrics" for c in codes)):
+            op_problems.append(f"scraper alive {thread.is_alive()}, loops {loops[0]}, "
+                               f"sampler ticks {plane.sampler.ticks}, {len(codes)} codes, "
+                               f"bad {bad_codes[:3]}, builds {built}, captures {captured}")
+        if calls != launches or launches != per_fit(PARITY_ROUNDS):
+            op_problems.append(f"kernel calls {calls} against launches {launches}")
+        if not hbm or min(hbm.values()) <= 0:
+            op_problems.append(f"hbm gauges {hbm}")
+        if not progs or sum(r["calls"] for r in progs) < 1:
+            op_problems.append("no gbm_cls_round program row")
+        op_runs[way].append((model, secs, launches, rec.events))
+        kernel_rows, op_hbm = rows, hbm
+    quiet_model = op_runs["quiet"][0][0]
+    bit_identical = [same_params(r[0], quiet_model) for r in op_runs["scraped"] + op_runs["quiet"]]
+    # each kernel row at the kernel table's shapes: bytes a call equal to
+    # kernel_work there (the table's bound_ms is kernel_work over the
+    # memory rate, so the two agree by construction)
+    W8 = -(-N_FEATURES // (32 // binning.pack_width(MAX_BINS)))
+    table_shapes = {
+        "hist_packed": dict(n=N_ROWS, d=N_FEATURES, W=W8, M=N_CLASSES, C=2, B=MAX_BINS,
+                            n_nodes=2 ** (DEPTH - 1)),
+        "route_packed": dict(n=N_ROWS, W=W8, M=N_CLASSES, half=2 ** (DEPTH - 2)),
+        "leaf_sums": dict(n=N_ROWS, M=N_CLASSES, C=2, leaves=2 ** DEPTH, W=W8,
+                          half=2 ** (DEPTH - 1)),
+    }
+    bytes_rows = {}
+    for k, shapes in table_shapes.items():
+        row = next((r for r in kernel_rows[k] if dict(map(tuple, r["signature"])) == shapes), None)
+        want = hk.kernel_work(k, **shapes)[0]
+        bytes_rows[k] = {"row_bytes_per_call": None if row is None else row["bytes"] / row["calls"],
+                         "kernel_work": want, "calls": None if row is None else row["calls"]}
+        if row is None or row["bytes"] != want * row["calls"] or row["calls"] != PARITY_ROUNDS:
+            op_problems.append(f"{k}: row {bytes_rows[k]}")
+    scraped_events = op_runs["scraped"][-1][3]
+    ends = [e for e in scraped_events if e["event"] == "round_end"]
+    three_way = [e for e in ends if e.get("program_tag") == "gbm_cls_round"
+                 and e.get("xla_bytes_accessed") and e.get("xla_modeled_s")]
+    per_round_bytes = sum(hk.kernel_work(k, **dict(map(tuple, r["signature"])))[0] * r["calls"]
+                          for k in ("hist_packed", "route_packed", "leaf_sums")
+                          for r in kernel_rows[k]) / PARITY_ROUNDS
+    if len(three_way) != PARITY_ROUNDS or any(
+            abs(e["xla_bytes_accessed"] - per_round_bytes) > 1e-6 * per_round_bytes for e in ends):
+        op_problems.append(f"round_end: {len(three_way)} of {len(ends)} carry the launch leg")
+    # deep analysis: the next call's allocator peak, never resetting it
+    inv = programz.enable()
+    inv.clear()
+    fit_counted(gbm("fused", "highest", PARITY_ROUNDS), X_np, y_np)
+    inv.analyze_pending(deep=True)
+    deep_model = fit_counted(gbm("fused", "highest", PARITY_ROUNDS), X_np, y_np)[0]
+    deep_row = next(r for r in inv.rows() if r["tag"] == "gbm_cls_round")
+    # the pallas tier under the plane: hist_i32's row
+    inv.clear()
+    plane = op_exporter.start_operator_plane(port=0, watchdog_interval_s=3600.0)
+    try:
+        _, pallas_s, pallas_launches = fit_counted(gbm("matmul", "pallas", 5), X_np, y_np)
+        pallas_calls = kernel_calls(inv)
+        snap = op_exporter.write_snapshot(os.path.join(scratch, "operator_snapshot"),
+                                          inventory=inv)
+    finally:
+        plane.stop()
+    with open(snap["metrics"]) as f:
+        snapshot_problems = op_exporter.validate_openmetrics(f.read())
+    op_engine.release()
+    if pallas_calls != pallas_launches or pallas_launches["hist_i32"] != DEPTH * 5:
+        op_problems.append(f"pallas: kernel calls {pallas_calls} against {pallas_launches}")
+    if snapshot_problems or not all(bit_identical) or not same_params(deep_model, quiet_model):
+        op_problems.append(f"snapshot {snapshot_problems[:3]}, bit identical {bit_identical}")
+    quiet_s = [r[1] for r in op_runs["quiet"]]
+    scraped_s = [r[1] for r in op_runs["scraped"]]
+    emit({"phase": "operator", "rounds": PARITY_ROUNDS,
+          "exporter_overhead_pct": 100.0 * (sum(scraped_s) - sum(quiet_s)) / sum(quiet_s),
+          "quiet_iters_per_s": [PARITY_ROUNDS / x for x in quiet_s],
+          "scraped_iters_per_s": [PARITY_ROUNDS / x for x in scraped_s],
+          "scrape_loops": scrape_loops, "sampler_ticks": sampler_ticks,
+          "healthz_codes": sorted(health_codes), "bit_identical": bit_identical,
+          "kernel_calls": {k: sum(r["calls"] for r in v) for k, v in kernel_rows.items()},
+          "kernel_bytes_at_table_shapes": bytes_rows,
+          "per_round_launch_bytes": per_round_bytes,
+          "round_end_three_way": len(three_way),
+          "three_way_median": {k: statistics.median(e[k] for e in ends) for k in (
+              "duration_s", "modeled_s", "xla_modeled_s", "mfu_est", "mfu_xla")},
+          "three_way_last": {k: ends[-1].get(k) for k in (
+              "duration_s", "modeled_s", "xla_modeled_s", "xla_bytes_accessed", "xla_flops",
+              "mfu_est", "mfu_xla", "xla_vs_analytic_flops_ratio", "hbm_bytes_est")},
+          "hbm_gauges": op_hbm,
+          "deep": {k: deep_row.get(k) for k in ("peak_hbm_bytes", "peak_hbm_bytes_at_most",
+                                                 "flops", "bytes_accessed", "calls")},
+          "pallas_kernel_calls": pallas_calls, "pallas_fit_s": pallas_s,
+          "snapshot_files": sorted(os.path.basename(v) for v in snap.values()),
+          "problems": op_problems[:8], "phase_s": time.perf_counter() - t_phase, **card})
+    if op_problems:
+        raise AssertionError(f"operator: {op_problems[:5]}")
 
     # phase 26 (profile_dir): a 3-round fused fit with profile_dir; the
     # capture's device rows (utils/profiling.py) must name the three kernels

@@ -60,7 +60,13 @@ default) or on the CPU (``device="cpu"``):
 - telemetry: ``telemetry_path`` / ``SE_TPU_TELEMETRY`` / ``record_fits``
   event streams in the JAX package's schema, ``fit_history_``, trace
   spans, the metrics registry, ``DriftMonitor``, and ``profile_dir``
-  captures summarized by ``utils/profiling.py``.
+  captures summarized by ``utils/profiling.py``;
+- the operator plane: ``start_operator_plane`` / ``OperatorPlane``
+  (``/metrics``, ``/statusz``, ``/programz``, ``/healthz``, ``/qualityz``
+  over the program inventory ``ProgramInventory``, whose rows carry each
+  program's and each CUDA kernel's launch work, and ``HbmSampler``),
+  ``render_openmetrics`` / ``validate_openmetrics``, and pod-scope
+  stitching of per-rank streams (``stitch_files``, ``skew_report``).
 
 The level histograms, routes and leaf sums of the ``pallas`` and ``fused``
 tiers run as hand-written CUDA kernels (``csrc/hist.cu``) built with
@@ -218,7 +224,12 @@ from spark_ensemble_tpu_torch.telemetry import (
     DriftMonitor,
     FitTelemetry,
     FlightRecorder,
+    HbmSampler,
     MetricsRegistry,
+    OperatorPlane,
+    OperatorServer,
+    ProgramInventory,
+    ProgramRecord,
     ShadowScorer,
     Span,
     TelemetryRecorder,
@@ -226,9 +237,15 @@ from spark_ensemble_tpu_torch.telemetry import (
     Tracer,
     Watchdog,
     dump_flight,
+    global_inventory,
     record_fits,
+    render_openmetrics,
+    skew_report,
     staged_attribution,
+    start_operator_plane,
+    stitch_files,
     trace_annotations_enabled,
+    validate_openmetrics,
 )
 from spark_ensemble_tpu_torch import parallel
 from spark_ensemble_tpu_torch.parallel import (
@@ -335,6 +352,17 @@ __all__ = [
     "TrainValidationSplitModel",
     "TrainingCheckpointer",
     "Watchdog",
+    "ProgramInventory",
+    "ProgramRecord",
+    "HbmSampler",
+    "global_inventory",
+    "OperatorPlane",
+    "OperatorServer",
+    "render_openmetrics",
+    "start_operator_plane",
+    "validate_openmetrics",
+    "skew_report",
+    "stitch_files",
     "bagging_classifier_from_arrays",
     "bagging_regressor_from_arrays",
     "boosting_classifier_from_arrays",

@@ -50,6 +50,8 @@ from spark_ensemble_tpu_torch.models.base import (
     infer_num_classes,
     make_shared_fit_ctx,
     mesh_device,
+    predict_program,
+    program_call,
     resolve_device,
     resolve_weights,
     tree_map,
@@ -141,12 +143,18 @@ class _BaggingParams(Estimator):
         ctl = controller()
         site = f"{type(self).__name__}:fit_all"
 
+        # the one forest fit is one call of the JAX package's fit program
+        tag = "bagging_fit_cls" if self.is_classifier else "bagging_fit"
+        call = None
+
         def attempt():
+            nonlocal call
             ctl.transient(site)
-            out = base.fit_many_from_ctx(
-                ctx, y[:, None].expand(n, fit_w.shape[0]), fit_w.T.contiguous(),
-                fit_masks, keys=fit_keys, axis_name=ax,
-            )
+            with program_call(tag, y, fit_w, self) as call:
+                out = base.fit_many_from_ctx(
+                    ctx, y[:, None].expand(n, fit_w.shape[0]), fit_w.T.contiguous(),
+                    fit_masks, keys=fit_keys, axis_name=ax,
+                )
             if member_axis is None:
                 return out
             return tree_map(lambda a: pgather(a, member_axis, 0)[:m], out)
@@ -156,7 +164,7 @@ class _BaggingParams(Estimator):
         if telem.enabled:
             # every member fits in ONE forest fit: all m "rounds" share
             # its fenced wall time evenly
-            telem.round_chunk(0, m, t_fit, fence=members)
+            telem.round_chunk(0, m, t_fit, fence=members, program=call)
         members = ctl.poison_member_stack(site, members)
         guard = self._numeric_guard(telem)
         members, masks = self._drop_bad_members(members, masks, guard)
@@ -245,6 +253,7 @@ class BaggingRegressionModel(RegressionModel, BaggingRegressor):
         """Per-member predictions ``f32[m, n]``."""
         return self._base().predict_many_fn(self.params["members"], self._input(X))
 
+    @predict_program("members")
     def predict(self, X):
         # members summed by the fixed pairwise tree (batch-independent)
         preds = self.member_predictions(X)
@@ -288,6 +297,7 @@ class BaggingClassificationModel(ClassificationModel, BaggingClassifier):
         """Per-member class predictions ``f32[m, n]``."""
         return self._base().predict_many_fn(self.params["members"], self._input(X))
 
+    @predict_program("member_preds")
     def predict_raw(self, X):
         base, Xq = self._base(), self._input(X)
         if self.voting_strategy.lower() == "soft":

@@ -43,12 +43,30 @@ over a mesh's rows.
 Devices: every ``fit`` takes ``device`` (default ``"cuda"``); the fitted
 model keeps its tensors there and moves predict inputs to it.  Asking for
 CUDA where there is none raises — nothing falls back to the CPU.
+
+Programs: the port compiles no programs, so a "program" is one call of a
+chokepoint the JAX package runs as one cached program: a GBM, Boosting or
+Bagging round chunk, an elastic sweep step, an ensemble model's predict,
+an engine graph.  :func:`program_call` scopes one such call under the JAX
+package's tag; while a sink (:func:`set_program_sink`, the operator
+plane's program inventory) or an observer (:func:`observe_program_calls`)
+is installed, the scope keys the call by ``(tag, shape signature)``,
+collects the work the kernel wrappers report while it runs on this thread
+(:func:`open_programs`: a nested program's work counts in its own call
+and in every enclosing one, as a JAX program inlines what it calls), and
+hands the call to the sink when it returns.  A CUDA-graph capture
+(:func:`capture_program_work`) collects the work its launches would do
+and reports no call, nested ones included.  With neither sink nor
+observer installed the scope is a shared no-op.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import hashlib
 import threading
+import time
 from typing import Any, Callable, List, Optional
 
 import numpy as np
@@ -62,6 +80,175 @@ from spark_ensemble_tpu_torch.robustness.validate import (  # noqa: F401
 )
 from spark_ensemble_tpu_torch.utils.instrumentation import instrumented_fit
 from spark_ensemble_tpu_torch.utils.random import PRNGKey
+
+
+# ---------------------------------------------------------------------------
+# program calls (the operator plane's chokepoints)
+# ---------------------------------------------------------------------------
+
+# scoped program-call observers: ``callback(tag, signature)`` per call
+_PROGRAM_OBSERVERS: list = []
+
+# the operator plane's sink: ``sink(call) -> record``, one slot, so a
+# chokepoint with neither sink nor observer pays one global load
+_PROGRAM_SINK: list = [None]
+
+# each thread's open program calls, innermost last: stacking's member
+# threads, the autopilot's refresh fit and the fleet's replicas run
+# programs side by side
+_PROGRAM_TLS = threading.local()
+
+
+def set_program_sink(sink) -> None:
+    """Install (or, with ``None``, remove) the process-wide program-call
+    sink: ``sink(call)`` with a finished :class:`ProgramCall`, returning
+    the inventory record it went into; a sink with ``begin_call(call)`` is
+    also told of each call as it starts.  One slot only: the operator
+    plane owns it (``telemetry/programz.py``)."""
+    _PROGRAM_SINK[0] = sink
+
+
+def observe_program_calls(callback):
+    """Context manager registering ``callback(tag, signature)`` for every
+    program call in the enclosed scope; callbacks must be thread-safe."""
+
+    @contextlib.contextmanager
+    def _scope():
+        _PROGRAM_OBSERVERS.append(callback)
+        try:
+            yield
+        finally:
+            _PROGRAM_OBSERVERS.remove(callback)
+
+    return _scope()
+
+
+def program_signature(args) -> tuple:
+    """Shape signature of a call's arguments: ``(shape, dtype)`` of each
+    tensor or array, ``("config", digest)`` of an estimator's
+    ``config_key`` (the config a JAX program key holds), ``(type, repr)``
+    of anything else."""
+    sig = []
+    for a in args:
+        shape = getattr(a, "shape", None)
+        if shape is not None:
+            sig.append((tuple(shape), str(getattr(a, "dtype", ""))))
+        elif isinstance(a, Params):
+            digest = hashlib.sha1(repr(a.config_key()).encode()).hexdigest()
+            sig.append(("config", digest[:12]))
+        else:
+            sig.append((type(a).__name__, repr(a)[:48]))
+    return tuple(sig)
+
+
+class ProgramCall:
+    """One program call: its tag and signature, the kernel work reported
+    while it ran (``work[kernel] = [launches, bytes, ops]``), its host
+    wall, and the inventory record the sink put it in."""
+
+    __slots__ = ("tag", "signature", "work", "call_s", "record", "peak0",
+                 "report", "_t0")
+
+    def __init__(self, tag: str, signature: tuple, work=None, report=True):
+        self.tag = tag
+        self.report = report
+        self.signature = signature
+        self.work = {k: list(v) for k, v in (work or {}).items()}
+        self.call_s = 0.0
+        self.record = None
+        self.peak0 = None  # the allocator's peak before a deep-analyzed call
+
+    def add_work(self, kernel: str, nbytes: int, nops: int) -> None:
+        w = self.work.setdefault(kernel, [0, 0, 0])
+        w[0] += 1
+        w[1] += nbytes
+        w[2] += nops
+
+    def totals(self) -> tuple:
+        """``(launches, bytes, ops)`` over every kernel of the call."""
+        return tuple(sum(w[i] for w in self.work.values()) for i in range(3))
+
+    def __enter__(self) -> "ProgramCall":
+        stack = getattr(_PROGRAM_TLS, "stack", None)
+        if stack is None:
+            stack = _PROGRAM_TLS.stack = []
+        stack.append(self)
+        begin = getattr(_PROGRAM_SINK[0], "begin_call", None)
+        if begin is not None:
+            begin(self)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.call_s = time.perf_counter() - self._t0
+        _PROGRAM_TLS.stack.pop()
+        if exc_type is not None or not self.report:
+            return
+        for cb in list(_PROGRAM_OBSERVERS):
+            cb(self.tag, self.signature)
+        sink = _PROGRAM_SINK[0]
+        if sink is not None:
+            self.record = sink(self)
+
+
+class _NoProgram:
+    """The shared scope when nothing watches programs: yields None."""
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NO_PROGRAM = _NoProgram()
+
+
+def program_call(tag: str, *args, work=None):
+    """Scope of one call of the program ``tag`` over ``args`` (tensors or
+    static values: its signature).  ``work`` seeds the call's kernel work:
+    a CUDA-graph replay runs no wrapper, so the engine passes the work its
+    capture recorded.  A no-op, yielding None, unless a sink or an
+    observer is installed."""
+    if _PROGRAM_SINK[0] is None and not _PROGRAM_OBSERVERS:
+        return _NO_PROGRAM
+    stack = getattr(_PROGRAM_TLS, "stack", None)
+    if stack and not stack[-1].report:
+        return _NO_PROGRAM  # inside a capture: nothing runs
+    return ProgramCall(tag, program_signature(args), work)
+
+
+def capture_program_work(tag: str):
+    """Scope of a CUDA-graph capture: collects the work the launches it
+    records report, and reports no call (a replay reports one, seeded
+    with this work).  A no-op, yielding None, unless a sink or an observer
+    is installed."""
+    if _PROGRAM_SINK[0] is None and not _PROGRAM_OBSERVERS:
+        return _NO_PROGRAM
+    return ProgramCall(tag, (), report=False)
+
+
+def open_programs() -> List[ProgramCall]:
+    """This thread's open program calls, outermost first: each takes the
+    kernel work reported while it is open."""
+    return getattr(_PROGRAM_TLS, "stack", None) or []
+
+
+def predict_program(name: str):
+    """Decorator scoping a model's predict entry point as the program
+    ``predict:<name>`` (the JAX package's ``_predict_program`` tags)."""
+
+    def wrap(fn):
+        tag = f"predict:{name}"
+
+        @functools.wraps(fn)
+        def scoped(self, X, *args, **kwargs):
+            with program_call(tag, X):
+                return fn(self, X, *args, **kwargs)
+
+        return scoped
+
+    return wrap
 
 
 def resolve_device(device) -> torch.device:

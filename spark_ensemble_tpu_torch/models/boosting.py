@@ -77,6 +77,8 @@ from spark_ensemble_tpu_torch.models.base import (
     infer_num_classes,
     make_shared_fit_ctx,
     mesh_device,
+    predict_program,
+    program_call,
     resolve_device,
     resolve_weights,
     stack_members,
@@ -282,12 +284,20 @@ class _BoostingParams(CheckpointableParams, Estimator):
         depth = _execution.resolve_pipeline_depth()
         probe = ramp and self.ramp == "auto" and start_i == 0
 
+        # a chunk is one call of the JAX package's chunk program; a
+        # committed chunk's call joins its round_end events
+        tag = "boosting_cls_chunk" if self.is_classifier else "boosting_reg_chunk"
+        programs = {}  # chunk start -> its program call, until committed
+
         def dispatch(i0, c, bw_in):
             site = f"{label}:round:{i0}"
 
             def attempt():
                 ctl.transient(site)
-                return run_chunk(i0, c, bw_in)
+                with program_call(tag, bw_in, c, self) as call:
+                    out = run_chunk(i0, c, bw_in)
+                programs[i0] = call
+                return out
 
             params_c, est_ws, sum_bws, bw_out, extras = retry_call(
                 attempt, policy=retry_policy, op=f"{label}.round_chunk",
@@ -353,7 +363,7 @@ class _BoostingParams(CheckpointableParams, Estimator):
                         i, kept, t_chunk, fence=(params_c, est_ws),
                         losses=losses[:kept],
                         step_sizes=est_ws[:kept] if kept > 0 else None,
-                        divisor=c,
+                        divisor=c, program=programs.pop(i, None),
                     )
                 if not stop:
                     # the loop guard of the next round: weight mass after
@@ -553,6 +563,7 @@ class BoostingClassificationModel(ClassificationModel, BoostingClassifier):
         super().__init__(**kwargs)
         self.num_members = num_members
 
+    @predict_program("raw")
     def predict_raw(self, X):
         X = self._input(X)
         k = self.num_classes
@@ -718,6 +729,7 @@ class BoostingRegressionModel(RegressionModel, BoostingRegressor):
         """Per-member predictions ``f32[m, n]``."""
         return self._base().predict_many_fn(self.params["members"], self._input(X))
 
+    @predict_program("members")
     def predict(self, X):
         X = self._input(X)
         if self.num_members == 0:

@@ -108,6 +108,8 @@ from spark_ensemble_tpu_torch.models.base import (
     make_shared_fit_ctx,
     mesh_device,
     mesh_fit_kwargs,
+    predict_program,
+    program_call,
     resolve_device,
     resolve_weights,
     stack_members,
@@ -449,7 +451,7 @@ class _GBMParams(CheckpointableParams):
 
     def _drive_rounds(self, ckpt, chunks, run_chunk, save_state, label, i, v,
                       best, val_history, guard, snapshot, restore, telem,
-                      round_cost=None, span_fields=None):
+                      round_cost=None, span_fields=None, program_args=()):
         """The shared round loop of both GBM flavors, behind the
         port's :class:`RoundExecutor` (the JAX package's ``_drive_rounds``
         and its ``_Adapter``).
@@ -476,10 +478,17 @@ class _GBMParams(CheckpointableParams):
         ``host_blocked_us``, and its rounds become ``round_start`` /
         ``round_end`` events (``telem.round_chunk``) with the chunk's
         validation losses, step sizes and ``round_cost``; the executor
-        traces the chunks as spans."""
+        traces the chunks as spans.
+
+        Each chunk is one call of the program ``gbm_cls_round`` /
+        ``gbm_reg_round`` over ``program_args`` and its round count
+        (``models/base.program_call``); a committed chunk's call joins its
+        ``round_end`` events (``round_chunk(program=...)``)."""
         from spark_ensemble_tpu_torch.robustness.chaos import controller
         from spark_ensemble_tpu_torch.robustness.retry import retry_call
 
+        tag = "gbm_cls_round" if self.is_classifier else "gbm_reg_round"
+        programs = {}  # chunk start -> its program call, until committed
         chunk = int(self.scan_chunk)
         retry_policy = self._retry_policy()
         ctl = controller()
@@ -494,7 +503,10 @@ class _GBMParams(CheckpointableParams):
 
             def attempt():
                 ctl.transient(site)
-                return run_chunk(sl, step_scale)
+                with program_call(tag, *program_args, sl.stop - sl.start) as call:
+                    out = run_chunk(sl, step_scale)
+                programs[sl.start] = call
+                return out
 
             params_c, weights_c, errs, aux = retry_call(
                 attempt, retry_policy, op=f"{label}.round_chunk", telem=telem
@@ -525,6 +537,7 @@ class _GBMParams(CheckpointableParams):
                     i, c, t_chunk, fence=(params_c, weights_c, errs),
                     losses=errs_host if errs_host is not None else errs,
                     step_sizes=weights_c, round_cost=round_cost,
+                    program=programs.pop(i, None),
                 )
             chunks["members"].append(params_c)
             chunks["weights"].append(weights_c)
@@ -1374,6 +1387,7 @@ class GBMRegressor(_GBMParams, Estimator):
             round_cost=(_round_cost(base, n, d, 1, dev, plan)
                         if telem.enabled else None),
             span_fields=_sampling_span_fields(plan),
+            program_args=(X, y, self),
         )
         ckpt.delete()
         keep = i - v
@@ -1420,6 +1434,7 @@ class GBMRegressionModel(RegressionModel, GBMRegressor):
         self.init_model = init_model
         self.num_members = num_members
 
+    @predict_program("predict")
     def predict(self, X):
         X = self._input(X)
         out = self.init_model.predict(X)
@@ -1752,6 +1767,7 @@ class GBMClassifier(_GBMParams, Estimator):
             round_cost=(_round_cost(base, n, d, dim, dev, plan)
                         if telem.enabled else None),
             span_fields=_sampling_span_fields(plan),
+            program_args=(X, y_enc, self),
         )
         ckpt.delete()
         keep = i - v
@@ -1809,6 +1825,7 @@ class GBMClassificationModel(ClassificationModel, GBMClassifier):
         preds = self._base().predict_many_fn(flat, X).reshape(r, dim, -1)
         return out + _weighted_round_sum(weights, preds).T
 
+    @predict_program("raw")
     def predict_raw(self, X):
         f = self._raw_state(self._input(X))
         if self.dim == 1 and self.num_classes == 2:

@@ -26,6 +26,15 @@ falls back.  Each launch adds one to ``LAUNCHES[<kernel>]``, under a lock;
 the library loads once per process, under another.  The kernel source notes what bounds each kernel and
 what its design does about it.
 
+Work: :func:`kernel_work` is each kernel's byte and operation count at its
+shapes (inputs read once, outputs written once; one add per statistic
+cell a row touches), the one formula ``chip_smoke.py``'s bounds and the
+program inventory (``telemetry/programz.py``) read.  When a work hook is
+installed (:func:`set_work_hook`, the inventory's), every wrapper reports
+``(kernel, shape signature, bytes, ops)`` to it after its kernel launched
+on the card, or after its plain version ran on the CPU; ``LAUNCHES`` keeps
+counting card launches only.  With no hook a wrapper pays one global load.
+
 Precision: the kernel and its plain version split each row's statistic
 into exactly the same bf16 terms and sum them in f32; only the order of
 the sum differs.  Leaf sums are plain f32.
@@ -75,6 +84,65 @@ _LIB_LOCK = threading.Lock()
 def _count(kernel: str) -> None:
     with _COUNT_LOCK:
         LAUNCHES[kernel] += 1
+
+
+# the program inventory's hook: ``hook(kernel, signature, bytes, ops)``,
+# one slot, so a wrapper without one pays one global load
+_WORK_HOOK: list = [None]
+
+
+def set_work_hook(hook) -> None:
+    """Install (``None``: remove) the hook every wrapper reports its
+    kernel's work to (``telemetry/programz.py`` owns it)."""
+    _WORK_HOOK[0] = hook
+
+
+def kernel_work(kernel: str, **shapes) -> tuple:
+    """``(bytes, ops)`` of one launch of ``kernel`` at ``shapes``: every
+    input read once and every output written once (4-byte elements), and
+    one add per statistic cell a row touches.
+
+    - ``hist_i32`` (``n, d, M, C, B, n_nodes``) and ``hist_packed`` (the
+      same and ``W`` words a row): bins, node ids and statistics in, the
+      histogram ``[M, n_nodes, C, d, B]`` out; ``n*M*C*d`` adds.
+    - ``route_packed`` (``n, W, M, half``): packed words, parent ids and
+      the two split tables ``[M, half]`` in, child ids out; ``n*M``
+      compares.
+    - ``leaf_sums`` (``n, M, C, leaves``, and ``W, half`` when it routes):
+      packed words, parent ids and tables in, leaf ids out (when routed),
+      statistics in, sums ``[M, leaves, C]`` out; ``n*M*C`` adds.
+    - ``matmul`` (``m, k, n``, and ``batch``, default 1): ``batch``
+      products ``[m, k] @ [k, n]`` in f32, operands read and results
+      written once; ``2*batch*m*k*n`` flops (the matmul and stream tiers'
+      one-hot products, ``ops/tree.py``)."""
+    g = shapes.get
+    if kernel in ("hist_i32", "hist_packed"):
+        n, d, M, C = g("n"), g("d"), g("M"), g("C")
+        words = n * (d if kernel == "hist_i32" else g("W"))
+        out = M * g("n_nodes") * C * d * g("B")
+        return 4 * (words + n * M + n * M * C + out), n * M * C * d
+    if kernel == "route_packed":
+        n, M = g("n"), g("M")
+        return 4 * (n * g("W") + 2 * n * M + 2 * M * g("half")), n * M
+    if kernel == "leaf_sums":
+        n, M, C, half = g("n"), g("M"), g("C"), g("half", 0)
+        ids = n * M * (2 if half else 1)
+        return (4 * (n * g("W", 0) + ids + n * M * C + 2 * M * half + M * g("leaves") * C),
+                n * M * C)
+    if kernel == "matmul":
+        m, k, n, b = g("m"), g("k"), g("n"), g("batch", 1)
+        return 4 * b * (m * k + k * n + m * n), 2 * b * m * k * n
+    raise ValueError(f"no work model for kernel {kernel!r}")
+
+
+def report_work(kernel: str, **shapes) -> None:
+    """Report one call's work (:func:`kernel_work` at ``shapes``) to the
+    installed hook.  Every call site tests ``_WORK_HOOK[0]`` first, so a
+    call without a hook costs one global load; the hook is read again
+    here because another thread may remove it in between."""
+    hook = _WORK_HOOK[0]
+    if hook is not None:
+        hook(kernel, tuple(shapes.items()), *kernel_work(kernel, **shapes))
 
 # every plan depends on the shapes only, so the summation order, and with
 # it every bit of a result, is fixed by the shapes
@@ -595,14 +663,17 @@ def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int,
     if Xb.shape[0] != node.shape[0]:
         raise ValueError("Xb and node disagree on rows")
     dev = _device(Xb, node, vals)
-    if dev.type == "cpu":
-        return hist_plain(Xb, node, vals, n_nodes, max_bins, 2)
     n, d = Xb.shape
     _, M, C = vals.shape
-    out = torch.empty((M, n_nodes, C, d, max_bins), dtype=torch.float32, device=dev)
-    _launch_level(2, Xb, node, vals, out, d=d, B=max_bins, n_nodes=n_nodes,
-                  W=d, bits=32, lanes=lanes)
-    _count("hist_i32")
+    if dev.type == "cpu":
+        out = hist_plain(Xb, node, vals, n_nodes, max_bins, 2)
+    else:
+        out = torch.empty((M, n_nodes, C, d, max_bins), dtype=torch.float32, device=dev)
+        _launch_level(2, Xb, node, vals, out, d=d, B=max_bins, n_nodes=n_nodes,
+                      W=d, bits=32, lanes=lanes)
+        _count("hist_i32")
+    if _WORK_HOOK[0] is not None:
+        report_work("hist_i32", n=n, d=d, M=M, C=C, B=max_bins, n_nodes=n_nodes)
     return out
 
 
@@ -641,16 +712,19 @@ def route_packed(packed, node, best_f, best_t, *, bits: int,
     if packed.shape[0] != node.shape[0]:
         raise ValueError("packed and node disagree on rows")
     dev = _device(packed, node, best_f, best_t)
+    n, M = node.shape
+    W = packed.shape[1]
     if dev.type == "cpu":
         from spark_ensemble_tpu_torch.ops.binning import CompressedBins
 
         ids = unpack_bins(CompressedBins(packed, bits, num_features))
-        return route_plain(ids, node, best_f, best_t)
-    n, M = node.shape
+        out = route_plain(ids, node, best_f, best_t)
+        if _WORK_HOOK[0] is not None:
+            report_work("route_packed", n=n, W=W, M=M, half=best_f.shape[1])
+        return out
     out = torch.empty_like(node)
     if out.numel() == 0:
         return out
-    W = packed.shape[1]
     plan = _checked_route_plan(n, M, best_f.shape[1], W)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _on(dev):
@@ -662,6 +736,8 @@ def route_packed(packed, node, best_f, best_t, *, bits: int,
     if rc != 0:
         raise RuntimeError(f"route kernel launch failed: CUDA error {rc}")
     _count("route_packed")
+    if _WORK_HOOK[0] is not None:
+        report_work("route_packed", n=n, W=W, M=M, half=best_f.shape[1])
     return out
 
 
@@ -676,17 +752,21 @@ def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
     if packed.shape[0] != node.shape[0]:
         raise ValueError("packed and node disagree on rows")
     dev = _device(packed, node, vals)
+    n, M, C = vals.shape
     if dev.type == "cpu":
         from spark_ensemble_tpu_torch.ops.binning import CompressedBins
 
         ids = unpack_bins(CompressedBins(packed, bits, num_features))
-        return hist_plain(ids, node, vals, n_nodes, max_bins, 3)
-    _, M, C = vals.shape
-    out = torch.empty((M, n_nodes, C, num_features, max_bins),
-                      dtype=torch.float32, device=dev)
-    _launch_level(3, packed, node, vals, out, d=num_features, B=max_bins,
-                  n_nodes=n_nodes, W=packed.shape[1], bits=bits, lanes=lanes)
-    _count("hist_packed")
+        out = hist_plain(ids, node, vals, n_nodes, max_bins, 3)
+    else:
+        out = torch.empty((M, n_nodes, C, num_features, max_bins),
+                          dtype=torch.float32, device=dev)
+        _launch_level(3, packed, node, vals, out, d=num_features, B=max_bins,
+                      n_nodes=n_nodes, W=packed.shape[1], bits=bits, lanes=lanes)
+        _count("hist_packed")
+    if _WORK_HOOK[0] is not None:
+        report_work("hist_packed", n=n, d=num_features, W=packed.shape[1], M=M, C=C,
+                B=max_bins, n_nodes=n_nodes)
     return out
 
 
@@ -698,15 +778,18 @@ def leaf_sums(node, vals, *, n_nodes: int, lanes: int = 1):
     _check_stats(node, vals)
     _check_lanes(node.shape[1], lanes)
     dev = _device(node, vals)
+    n, M, C = vals.shape
     if dev.type == "cpu":
-        return leaf_plain(node, vals, n_nodes)
-    _, M, C = vals.shape
-    out = torch.empty((M, n_nodes, C), dtype=torch.float32, device=dev)
-    if node.shape[0] == 0 or out.numel() == 0:
-        return out.zero_()
-    _launch_leaf(None, node, vals, None, None, None, out, leaves=n_nodes,
-                 bits=0, d=0, lanes=lanes)
-    _count("leaf_sums")
+        out = leaf_plain(node, vals, n_nodes)
+    else:
+        out = torch.empty((M, n_nodes, C), dtype=torch.float32, device=dev)
+        if n == 0 or out.numel() == 0:
+            return out.zero_()
+        _launch_leaf(None, node, vals, None, None, None, out, leaves=n_nodes,
+                     bits=0, d=0, lanes=lanes)
+        _count("leaf_sums")
+    if _WORK_HOOK[0] is not None:
+        report_work("leaf_sums", n=n, M=M, C=C, leaves=n_nodes)
     return out
 
 
@@ -728,20 +811,24 @@ def _leaf_routed(packed, node, vals, best_f, best_t, *, n_nodes: int,
             f"{2 * best_f.shape[1]} leaves, not n_nodes={n_nodes}"
         )
     dev = _device(packed, node, vals, best_f, best_t)
+    n, M, C = vals.shape
     if dev.type == "cpu":
         from spark_ensemble_tpu_torch.ops.binning import CompressedBins
 
         ids = unpack_bins(CompressedBins(packed, bits, num_features))
-        leaf = route_plain(ids, node, best_f, best_t)
-        return leaf_plain(leaf, vals, n_nodes), leaf
-    _, M, C = vals.shape
-    out = torch.empty((M, n_nodes, C), dtype=torch.float32, device=dev)
-    node_out = torch.empty_like(node)
-    if node.shape[0] == 0 or out.numel() == 0:
-        return out.zero_(), node_out
-    _launch_leaf(packed, node, vals, best_f, best_t, node_out, out,
-                 leaves=n_nodes, bits=bits, d=num_features, lanes=lanes)
-    _count("leaf_sums")
+        node_out = route_plain(ids, node, best_f, best_t)
+        out = leaf_plain(node_out, vals, n_nodes)
+    else:
+        out = torch.empty((M, n_nodes, C), dtype=torch.float32, device=dev)
+        node_out = torch.empty_like(node)
+        if n == 0 or out.numel() == 0:
+            return out.zero_(), node_out
+        _launch_leaf(packed, node, vals, best_f, best_t, node_out, out,
+                     leaves=n_nodes, bits=bits, d=num_features, lanes=lanes)
+        _count("leaf_sums")
+    if _WORK_HOOK[0] is not None:
+        report_work("leaf_sums", n=n, M=M, C=C, leaves=n_nodes, W=packed.shape[1],
+                half=best_f.shape[1])
     return out, node_out
 
 

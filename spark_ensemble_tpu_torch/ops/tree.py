@@ -81,6 +81,10 @@ package's one-hot contraction.  :func:`leaf_one_hot` and
 to the JAX package's path-score one-hots (the linear-leaf learner's
 routing); :func:`feature_gains` sums split gains per feature for
 ``feature_importances_``.
+
+Work: the matmul and stream tiers report each one-hot product's operand
+bytes and ``2*m*k*n`` flops (``hist_kernels.report_work("matmul", ...)``)
+to the program inventory's hook, as the kernel wrappers report theirs.
 """
 
 from __future__ import annotations
@@ -97,6 +101,8 @@ from spark_ensemble_tpu_torch.ops.hist_kernels import (
     hist_level_pallas,
     hist_plain,
     leaf_plain,
+    report_work,
+    _WORK_HOOK,
 )
 
 
@@ -295,11 +301,15 @@ def _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B, prev_H=None,
     if prev_H is None:
         node_oh = torch.nn.functional.one_hot(node.long(), n_nodes).to(torch.float32)
         A = (node_oh[:, :, :, None] * vals[:, :, None, :]).reshape(n, M * n_nodes * C)
+        if _WORK_HOOK[0] is not None:
+            report_work("matmul", m=M * n_nodes * C, k=n, n=d * B)
         return red((A.T @ bin_oh).reshape(M, n_nodes, C, d, B))
     half = n_nodes // 2
     left_oh = torch.nn.functional.one_hot((node >> 1).long(), half).to(torch.float32)
     left_oh = left_oh * (1 - (node & 1)).to(torch.float32)[:, :, None]
     A = (left_oh[:, :, :, None] * vals[:, :, None, :]).reshape(n, M * half * C)
+    if _WORK_HOOK[0] is not None:
+        report_work("matmul", m=M * half * C, k=n, n=d * B)
     Hl = red((A.T @ bin_oh).reshape(M, half, C, d, B))
     # interleave: children 2p (left), 2p+1 (right)
     return torch.stack([Hl, prev_H - Hl], dim=2).reshape(M, n_nodes, C, d, B)
@@ -427,6 +437,9 @@ def _leaf_onehot_sums(node, vals, num_leaves, lanes=1):
             for nd, vl in zip(node.chunk(lanes, dim=1), vals.chunk(lanes, dim=1))
         ])
     leaf_oh = torch.nn.functional.one_hot(node.long(), num_leaves).to(torch.float32)
+    n, M, C = vals.shape
+    if _WORK_HOOK[0] is not None:
+        report_work("matmul", m=num_leaves, k=n, n=C, batch=M)
     return torch.einsum("nml,nmc->mlc", leaf_oh, vals)
 
 

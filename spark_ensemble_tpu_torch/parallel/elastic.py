@@ -87,6 +87,7 @@ from spark_ensemble_tpu_torch.data.partition import (
     partition_steps,
 )
 from spark_ensemble_tpu_torch.data.shards import ShardStore
+from spark_ensemble_tpu_torch.models.base import program_call
 from spark_ensemble_tpu_torch.ops.binning import CompressedBins, unpack_bins
 from spark_ensemble_tpu_torch.ops.collective import _all_gather, psum_reduce
 from spark_ensemble_tpu_torch.ops.tree import (
@@ -391,9 +392,11 @@ class DistributedSweep:
         thread = f"host{self.rank}"
         rnd = _site_round(site)
 
-        def steps(tag, zero, step):
+        def steps(tag, zero, step, program):
             """One pass: this position's shard of each step into a fresh
-            zero block, reduced into the pass's accumulator."""
+            zero block, reduced into the pass's accumulator.  Each step's
+            contribution is one call of the JAX package's mesh program
+            ``program`` (``models/base.program_call``)."""
             acc = torch.zeros_like(zero)
             it = prefetch.sweep()
             for k in range(K):
@@ -406,8 +409,9 @@ class DistributedSweep:
                 if s < S:  # past the manifest's end: an exact +0 block
                     r = rows[s]
                     xb = unpack_bins(CompressedBins(words[:r], bits, d))
-                    contrib, node_w[k, :r] = step(contrib, xb, node_w[k, :r],
-                                                  vals_all[s, :r])
+                    with program_call(program, xb, vals_all[s, :r], tag):
+                        contrib, node_w[k, :r] = step(contrib, xb, node_w[k, :r],
+                                                      vals_all[s, :r])
                 acc = self._reduce(acc, contrib)
             return acc
 
@@ -416,7 +420,8 @@ class DistributedSweep:
             n_nodes = 2**level
             zero = torch.zeros((M, n_nodes, C, d, B), dtype=torch.float32, device=dev)
             H = steps(f"level:{level}", zero, lambda acc, xb, nd, vl: stream_level_step(
-                acc, xb, nd, vl, n_nodes=n_nodes, tables=tables, max_bins=B))
+                acc, xb, nd, vl, n_nodes=n_nodes, tables=tables, max_bins=B),
+                "dist_level_contrib")
             t1 = time.perf_counter()
             tables, parent_value = stream_level_update(
                 H, feature_mask, min_info_gain, thresholds, B, triangular,
@@ -426,7 +431,8 @@ class DistributedSweep:
         t_lvl, t0 = time.time(), time.perf_counter()
         L = steps("leaf", torch.zeros((M, 2**max_depth, C), dtype=torch.float32, device=dev),
                   lambda acc, xb, nd, vl: stream_leaf_step(
-                      acc, xb, nd, vl, num_leaves=2**max_depth, tables=tables))
+                      acc, xb, nd, vl, num_leaves=2**max_depth, tables=tables),
+                  "dist_leaf_contrib")
         t1 = time.perf_counter()
         node_all = self._gather_nodes(node_w)
         tree = Tree(

@@ -60,6 +60,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_ensemble_tpu_torch.models.base import capture_program_work, program_call
 from spark_ensemble_tpu_torch.ops.binning import Bins, bin_occupancy
 from spark_ensemble_tpu_torch.serving.export import PackedModel, pack
 from spark_ensemble_tpu_torch.telemetry.events import (
@@ -135,15 +136,21 @@ class _Program:
     """One (method, bucket, tier) program: ``fn`` over a static padded
     input ``[bucket, d]``, captured as a CUDA graph on the card or run
     eagerly on the CPU.  ``run(X)`` copies the padded request in, runs,
-    and returns host numpy copies of the outputs, under ``lock``."""
+    and returns host numpy copies of the outputs, under ``lock``.  Each
+    run is one call of the program ``tag`` (``models/base.program_call``);
+    a replay passes through no kernel wrapper, so it reports the work its
+    capture recorded (``work``)."""
 
-    def __init__(self, fn: Callable, bucket: int, d: int, device: torch.device):
+    def __init__(self, fn: Callable, bucket: int, d: int, device: torch.device,
+                 tag: str):
         self.fn = fn
+        self.tag = tag
         self.device = device
         self.lock = threading.Lock()
         self.x = torch.zeros((bucket, d), dtype=torch.float32, device=device)
         self.graph = None
         self.out = None
+        self.work = None
         if device.type == "cuda":
             with _CAPTURE_LOCK:
                 side = capture_stream(device)
@@ -158,16 +165,19 @@ class _Program:
                 # stream of its own (side_stream) go on while this graph
                 # captures
                 with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
-                    self.out = fn(self.x)
+                    with capture_program_work(tag) as captured:
+                        self.out = fn(self.x)
+                self.work = None if captured is None else captured.work
 
     def run(self, Xp: np.ndarray) -> Tuple[np.ndarray, ...]:
         with self.lock:
             self.x.copy_(torch.from_numpy(Xp))
-            if self.graph is not None:
-                self.graph.replay()
-                out = self.out
-            else:
-                out = self.fn(self.x)
+            with program_call(self.tag, self.x, work=self.work):
+                if self.graph is not None:
+                    self.graph.replay()
+                    out = self.out
+                else:
+                    out = self.fn(self.x)
             # copied out before the lock is released: the next replay
             # overwrites the static outputs
             return tuple(t.cpu().numpy() for t in out)
@@ -387,7 +397,8 @@ class InferenceEngine:
 
         wall0 = time.time()
         t0 = time.perf_counter()
-        prog = _Program(fn, bucket, self._packed.num_features, self._device)
+        prog = _Program(fn, bucket, self._packed.num_features, self._device,
+                        tag=f"engine:{method}" + (f":tier{tier}" if tier else ""))
         compile_s = time.perf_counter() - t0
         with self._lock:
             won = self._compiled.setdefault(key, prog)

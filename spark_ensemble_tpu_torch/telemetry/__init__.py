@@ -12,8 +12,11 @@ The online :class:`Watchdog` (``watchdog.py``) applies the perf
 sentinel's thresholds to the live registry and drives ``slo_alert``
 events and the verdict the autopilot acts on; :class:`ShadowScorer`
 (``quality.py``) scores a registry candidate on sampled live traffic.
-The rest of the JAX package's operator plane (``programz``,
-``exporter``, ``podview``) is not ported yet (ROADMAP, Slice F).
+The operator plane serves it all: :class:`ProgramInventory`
+(``programz.py``: per program and per CUDA kernel, calls and launch work,
+joined into ``round_end`` as the three-way cost line), the OpenMetrics
+exporter and endpoints (``exporter.py``: :class:`OperatorPlane`) and
+pod-scope stitching of per-rank streams (``podview.py``).
 """
 
 from spark_ensemble_tpu_torch.telemetry.events import (
@@ -32,10 +35,31 @@ from spark_ensemble_tpu_torch.telemetry.events import (
     serving_stream_id,
     telemetry_sink_active,
 )
+from spark_ensemble_tpu_torch.telemetry.exporter import (
+    OperatorPlane,
+    OperatorServer,
+    render_openmetrics,
+    start_operator_plane,
+    validate_openmetrics,
+    write_snapshot,
+)
 from spark_ensemble_tpu_torch.telemetry.flight import (
     FlightRecorder,
     dump_flight,
     flight_dump_path,
+)
+from spark_ensemble_tpu_torch.telemetry.podview import (
+    estimate_offsets,
+    skew_report,
+    stitch,
+    stitch_files,
+)
+from spark_ensemble_tpu_torch.telemetry.programz import (
+    HbmSampler,
+    ProgramInventory,
+    ProgramRecord,
+    global_inventory,
+    xla_cost_fields,
 )
 from spark_ensemble_tpu_torch.telemetry.quality import (
     DriftMonitor,
@@ -88,9 +112,14 @@ __all__ = [
     "FitTelemetry",
     "FlightRecorder",
     "Gauge",
+    "HbmSampler",
     "MetricsRegistry",
     "NULL_SPAN",
     "NULL_TRACER",
+    "OperatorPlane",
+    "OperatorServer",
+    "ProgramInventory",
+    "ProgramRecord",
     "RoundTimer",
     "Rule",
     "ShadowScorer",
@@ -109,7 +138,9 @@ __all__ = [
     "drift_reference_from_ctx",
     "dump_flight",
     "emit_event",
+    "estimate_offsets",
     "flight_dump_path",
+    "global_inventory",
     "global_metrics",
     "histogram_distribution",
     "kl_divergence",
@@ -123,9 +154,17 @@ __all__ = [
     "probe_quality_max",
     "psi",
     "record_fits",
+    "render_openmetrics",
     "sentinel_thresholds",
     "serving_stream_id",
+    "skew_report",
     "staged_attribution",
+    "start_operator_plane",
+    "stitch",
+    "stitch_files",
     "telemetry_sink_active",
     "trace_annotations_enabled",
+    "validate_openmetrics",
+    "write_snapshot",
+    "xla_cost_fields",
 ]

@@ -507,7 +507,8 @@ class FitTelemetry:
                     learner_index: Optional[int] = None,
                     phase: str = "rounds",
                     divisor: Optional[int] = None,
-                    round_cost: Optional[Dict[str, Any]] = None) -> float:
+                    round_cost: Optional[Dict[str, Any]] = None,
+                    program: Any = None) -> float:
         """Record ``count`` rounds launched as one chunk: fence on the chunk
         outputs, then emit a ``round_start``/``round_end`` pair per round at
         chunk_duration/count each (a chunk's rounds run back to back on the
@@ -530,7 +531,13 @@ class FitTelemetry:
         ``chunk_compile_s`` / ``memory_delta``), and when the cost model
         supplies ``hbm_bw_est`` the roofline time ``modeled_s =
         max(flops/peak, hbm_bytes/bw)`` is compared against the measured
-        per-round duration as ``cost_model_error_pct``."""
+        per-round duration as ``cost_model_error_pct``.
+
+        Three-way cost line (``telemetry/programz.py``): while the program
+        inventory is enabled, the chunk's program call ``program`` (a
+        ``models/base.ProgramCall``) joins its launches' work: ``program_tag``, ``xla_flops``,
+        ``xla_bytes_accessed``, ``xla_modeled_s``, ``mfu_xla`` and
+        ``xla_vs_analytic_flops_ratio`` per round."""
         if fence is not None and fence != ():
             block_on_arrays(fence)
         now = time.perf_counter()
@@ -583,6 +590,17 @@ class FitTelemetry:
                 _GLOBAL.gauge("fit/cost_model_error_pct").set(
                     cost_fields["cost_model_error_pct"]
                 )
+        # three-way cost line: measured wall (duration_s) vs the analytic
+        # roofline (modeled_s) vs the chunk's own launches (xla_modeled_s)
+        from spark_ensemble_tpu_torch.telemetry import programz as _programz
+
+        if _programz.enabled():
+            cost_fields.update(
+                _programz.xla_cost_fields(
+                    round_cost, per_round, divisor if divisor else count,
+                    call=program,
+                )
+            )
         for j in range(count):
             rnd = start_round + j
             li = rnd if learner_index is None else learner_index

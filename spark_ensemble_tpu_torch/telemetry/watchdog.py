@@ -247,6 +247,8 @@ class Watchdog:
         self._stream = serving_stream_id("watchdog")
         self._lock = threading.Lock()
         self._ticks = 0
+        self.errors = 0
+        self.last_error: Optional[str] = None
         self._gauge_active = self._registry.gauge("watchdog/alerts_active")
         self._gauge_active.set(0)
         self._counter_total = self._registry.counter("watchdog/alerts_total")
@@ -349,8 +351,10 @@ class Watchdog:
         while not self._stop.wait(self.interval_s):
             try:
                 self.evaluate_once()
-            except Exception:  # noqa: BLE001 - the watchdog never crashes
-                pass  # the process it watches
+            except Exception as e:  # noqa: BLE001 - the watchdog never crashes
+                # the process it watches: its owner reads ``errors``
+                self.errors += 1
+                self.last_error = f"{type(e).__name__}: {e}"
 
     def start(self) -> "Watchdog":
         if self._thread is None or not self._thread.is_alive():

@@ -686,6 +686,51 @@ def run_elastic(rank, out_dir):
     _save(out_dir, "ordered", rank, **out)
 
 
+# -- per-rank telemetry streams of an elastic rewind (tests/test_torch_podview.py)
+
+#: ranks of the podview suite: a 3-wide mesh that loses rank 1
+PODVIEW_W = 3
+
+
+def run_podview(rank, out_dir):
+    """A 3-rank ``ElasticCoordinator`` fit that loses rank 1 at
+    ``PREEMPT_SITE``, each rank streaming its telemetry to
+    ``tel_r{rank}/t.jsonl`` (the survivors: the first attempt's spans, the
+    rewind, the resumed fit's; the victim: its spans up to the
+    ``host_preempt``), and each survivor's params digest."""
+    import torch.distributed as dist
+
+    import spark_ensemble_tpu_torch as st
+    from spark_ensemble_tpu_torch.data import ShardStore, write_shards
+    from spark_ensemble_tpu_torch.parallel import elastic, mesh as pmesh
+    from spark_ensemble_tpu_torch.robustness import chaos
+    from spark_ensemble_tpu_torch.robustness.chaos import ChaosHostPreemption
+
+    X, y = elastic_data()
+    if rank == 0:
+        write_shards(X, os.path.join(out_dir, "s32"), max_bins=16, shard_rows=32,
+                     device="cpu")
+    dist.barrier()
+    m3 = pmesh.data_member_mesh(PODVIEW_W, device="cpu")
+    tel = os.path.join(out_dir, f"tel_r{rank}")
+    os.makedirs(tel, exist_ok=True)
+    est = st.GBMRegressor(base_learner=stream_base(st), num_base_learners=4, seed=0,
+                          checkpoint_dir=os.path.join(out_dir, f"ck_r{rank}"),
+                          checkpoint_interval=1,
+                          telemetry_path=os.path.join(tel, "t.jsonl"))
+    chaos.install(_host_preempt_at(chaos, PREEMPT_SITE, victim=1))
+    res = {"victim": False, "fid": elastic.preempt_flow_id(1, PREEMPT_SITE)}
+    try:
+        model = elastic.ElasticCoordinator(m3).fit_streaming(
+            est, ShardStore.open(os.path.join(out_dir, "s32"), shards=[]), y, device="cpu")
+        res["digest"] = pmesh.params_digest(model.params)
+    except ChaosHostPreemption:
+        res["victim"] = True
+    finally:
+        chaos.install(None)
+    _save(out_dir, "podview", rank, **res)
+
+
 # -- checkpoints, Stacking, tuning, Pipeline and the sweep over a mesh ------
 # (tests/test_torch_mesh_planes.py)
 
@@ -872,6 +917,7 @@ SUITES = {
     "fit": lambda rank, out_dir: run_fit(rank, out_dir, list(FIT_CASES)),
     "quantile": run_quantile,
     "collective": run_collective,
+    "podview": run_podview,
     "mesh": run_mesh,
     "elastic": run_elastic,
     "planes": run_planes,
@@ -903,10 +949,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(suite, out_dir, timeout=600):
-    """Run ``suite`` on W rank processes -> each rank's output.  A rank that
-    fails or outlives ``timeout`` fails the run: the survivors are killed
-    and ``RuntimeError`` carries every rank's output tail."""
+def spawn(suite, out_dir, timeout=600, world=W):
+    """Run ``suite`` on ``world`` rank processes -> each rank's output.  A
+    rank that fails or outlives ``timeout`` fails the run: the survivors
+    are killed and ``RuntimeError`` carries every rank's output tail."""
     import subprocess
     import time
 
@@ -919,14 +965,14 @@ def spawn(suite, out_dir, timeout=600):
     env["OMP_NUM_THREADS"] = "1"
     procs = [
         subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(r), str(W), str(port),
+            [sys.executable, os.path.abspath(__file__), str(r), str(world), str(port),
              str(out_dir), suite],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        for r in range(W)
+        for r in range(world)
     ]
     deadline = time.time() + timeout
-    outs = [None] * W
+    outs = [None] * world
     failed = False
     while any(o is None for o in outs):
         for r, p in enumerate(procs):

@@ -23,9 +23,6 @@ from spark_ensemble_tpu_torch.utils.persist import params_to_json_dict
 
 #: JAX modules of ROADMAP queue 1 still to port, with their item numbers
 QUEUED = {
-    "spark_ensemble_tpu.telemetry.programz": 24,
-    "spark_ensemble_tpu.telemetry.exporter": 25,
-    "spark_ensemble_tpu.telemetry.podview": 26,
     "spark_ensemble_tpu.autotune.space": 27,
     "spark_ensemble_tpu.autotune.cache": 27,
     "spark_ensemble_tpu.autotune.search": 27,
@@ -37,7 +34,11 @@ QUEUED = {
 #: this slice's names
 SLICE = ("ElasticCoordinator", "HostLostError", "DistributedSweep", "survivor_mesh",
          "ModelRegistry", "FleetRouter", "FleetResponse", "FleetOverloadError",
-         "Autopilot", "Watchdog", "ShadowScorer")
+         "Autopilot", "Watchdog", "ShadowScorer",
+         "ProgramInventory", "ProgramRecord", "HbmSampler", "global_inventory",
+         "OperatorPlane", "OperatorServer", "render_openmetrics",
+         "start_operator_plane", "validate_openmetrics", "skew_report",
+         "stitch_files")
 
 
 def _home(name):
