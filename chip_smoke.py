@@ -64,7 +64,13 @@ ranks kill and resume checkpointed mesh fits of the main path and SAMME
 (equal to the uninterrupted mesh fits), stack with each member on one
 rank, sweep the tuning phase's 12 candidates with the lanes sharded over
 the member axis (each lane held to the whole sweep's) and cross-validate
-over the mesh.  It checks the results; each phase prints one JSON line; any failed check raises,
+over the mesh, and the autotune plane (``autotune``, after the operator
+plane): the smoke search published and hit, every candidate of the four
+kernel plan knobs at the main path's shapes timed and held to the plain
+version (each staged-row count bit for bit to the shipped one), the main
+path with autotuning off equal to an empty cache's, under the winners and
+under each staged-row count, mode ``search`` searching once, and the
+kernels' build cache cold and warm.  It checks the results; each phase prints one JSON line; any failed check raises,
 and so does a retry that no chaos fault injected, and the script exits
 non-zero.  Checkpoints and saves go to a scratch directory under
 ``build/``, removed at the end.
@@ -1387,6 +1393,270 @@ def fleet_phase(st, hk, chaos_mod, timed_model, X_np, y_np, make_gbm, scratch, e
     emit(out)
     if failures:
         raise AssertionError(f"fleet: {failures}")
+
+
+# the build cache's probe: a fresh process builds (or finds) the kernels in
+# SE_TPU_COMPILE_CACHE, launches one histogram and holds it to the plain
+# version; compile_count is the telemetry ledger's nvcc builds
+BUILD_PROBE = """
+import json, time
+t0 = time.perf_counter()
+import torch
+from spark_ensemble_tpu_torch.ops import hist_kernels as hk
+from spark_ensemble_tpu_torch.telemetry.events import global_metrics
+so = hk.build_kernels()
+hk._library()
+build_s = time.perf_counter() - t0
+g = torch.Generator().manual_seed(0)
+ids = torch.randint(0, 16, (4096, 8), generator=g, dtype=torch.int32)
+node = torch.randint(0, 4, (4096, 3), generator=g, dtype=torch.int32)
+vals = torch.randn(4096, 3, 2, generator=g)
+ref = hk.hist_plain(ids, node, vals, 4, 16, 2)
+got = hk.hist_level_pallas(ids.cuda(), node.cuda(), vals.cuda(), n_nodes=4, max_bins=16).cpu()
+ok = bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max())))
+print(json.dumps({"so": str(so), "build_dir": str(hk.build_dir()),
+                  "compile_count": global_metrics().counter("jit/compile_count").value,
+                  "build_s": build_s, "seconds": time.perf_counter() - t0,
+                  "launch_ok": ok}))
+"""
+
+# the autotune phase's kernel timings: fewer repeats than the kernels line
+AUTOTUNE_REPS, AUTOTUNE_RUNS = 20, 3
+
+
+def autotune_phase(st, hk, binning, X_np, y_np, scratch, device_ms, card):
+    """The autotune plane on the card.  (1) The smoke search, all five
+    groups, publishes under ``cuda/<card>/n11`` and ``*``; then
+    ``autotune_fit`` on the search's data must hit the cache with zero
+    measurements.  (2) Every fitting candidate of the four kernel knobs at
+    the main path's shapes (15000x16, M=26, C=2, B=64; levels 0 and 4; i32
+    bins for the pallas knobs, 8-bit words for the fused ones), timed
+    (``device_ms``), held to the plain version at the kernels' tolerance,
+    and each ``R`` equal bit for bit to the shipped ``R``.  (3) The main
+    path (fused, 20 rounds) with autotuning off and over an empty cache,
+    equal bit for bit with equal launches; under the published winners,
+    accuracy within 0.02; under each fitting ``fused_block_rows``, equal
+    bit for bit.  (4) Mode ``search`` over a fresh cache searches once,
+    on the first fit only.  (5) The build cache: a process with
+    ``SE_TPU_COMPILE_CACHE`` set builds the kernels, a second loads them
+    without nvcc.  The cache variables are pointed at scratch directories
+    and restored; one line, and any missed check fails the run."""
+    import torch
+
+    from spark_ensemble_tpu_torch.autotune import (
+        TUNABLES,
+        TuningCache,
+        autotune_fit,
+        run_search,
+    )
+    from spark_ensemble_tpu_torch.autotune import search as search_mod
+    from spark_ensemble_tpu_torch.autotune.cache import entry_key
+    from spark_ensemble_tpu_torch.autotune.resolve import override, reset
+    from spark_ensemble_tpu_torch.models.base import tree_leaves
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    problems, line = [], {"phase": "autotune"}
+    saved = {k: os.environ.get(k) for k in ("SE_TPU_AUTOTUNE_CACHE", "SE_TPU_AUTOTUNE")}
+
+    def use_cache(name, mode=None):
+        os.environ["SE_TPU_AUTOTUNE_CACHE"] = os.path.join(scratch, name)
+        if mode is None:
+            os.environ.pop("SE_TPU_AUTOTUNE", None)
+        else:
+            os.environ["SE_TPU_AUTOTUNE"] = mode
+        reset()
+
+    def fit(rounds):
+        hk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = _main_path_gbm(st, rounds).fit(X_np, y_np, device="cuda")
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0, dict(hk.LAUNCHES)
+
+    def same(a, b):
+        la, lb = tree_leaves(a.params), tree_leaves(b.params)
+        return len(la) == len(lb) and all(torch.equal(x, z) for x, z in zip(la, lb))
+
+    def accuracy(model):
+        return float((model.predict(X_np).cpu().numpy() == y_np).mean())
+
+    try:
+        # 1: the smoke search, then a cache hit
+        use_cache("autotune_searched")
+        t0 = time.perf_counter()
+        res = run_search("smoke")
+        search_s = time.perf_counter() - t0
+        keys = [entry_key("cuda", kind, res["shape_class"]), entry_key("cuda", kind, "*")]
+        entries = TuningCache.load(os.environ["SE_TPU_AUTOTUNE_CACHE"]).entries
+        timed = ["hist_tier", "scan_chunk", "predict_fused_max_cells", "stream_chunk_rows",
+                 "predict_bucket_pow2_exact", "predict_bucket_octave_steps",
+                 "pallas_block_rows", "fused_block_rows"]
+        if res["platform"] != "cuda" or list(res["timings"]) != timed:
+            problems.append(f"search: platform {res['platform']}, timed {list(res['timings'])}")
+        if not all(k in entries for k in keys):
+            problems.append(f"search: entries {sorted(entries)} lack {keys}")
+        cfg = search_mod.BUDGETS["smoke"]
+        Xs, ys = search_mod._synth_classification(cfg["n"], cfg["d"], cfg["k"])
+        measured = []
+        t0 = time.perf_counter()
+        hit = autotune_fit(_main_path_gbm(st, 3), Xs, ys, budget="smoke",
+                           measure=lambda *a: measured.append(a) or 1.0)
+        hit_s = time.perf_counter() - t0
+        if not hit.get("cached") or measured or hit.get("params") != res["winners"]:
+            problems.append(f"autotune_fit: {hit} after {len(measured)} measurements")
+        line.update(search_s=search_s, timings_ms={k: {c: t * 1e3 for c, t in v.items()}
+                                                   for k, v in res["timings"].items()},
+                    winners=res["winners"], entry_keys=keys, shape_class=res["shape_class"],
+                    autotune_fit_hit=bool(hit.get("cached")), autotune_fit_s=hit_s,
+                    autotune_fit_measurements=len(measured))
+
+        # 2: the kernel knobs at the main path's shapes
+        M, C, n, d = N_CLASSES, 2, N_ROWS, N_FEATURES
+        rng = np.random.RandomState(5)
+        Xt = torch.as_tensor(X_np, device=dev)
+        ids = binning.bin_features(Xt, binning.compute_bins(Xt, MAX_BINS))
+        packed = binning.pack_bins(ids, MAX_BINS, 8).packed
+        vals = torch.as_tensor(np.stack([rng.rand(n, M), rng.randn(n, M)], axis=2)
+                               .astype(np.float32), device=dev)
+        shipped = (hk._LEVEL_ROWS, hk._CTA_HIST_BYTES)
+        knob_rows = []
+        for level in (0, 4):
+            n_nodes = 2**level
+            node = torch.as_tensor(rng.randint(0, n_nodes, (n, M)).astype(np.int32), device=dev)
+            for kernel, nterms, bits in (("hist_i32", 2, 32), ("hist_packed", 3, 8)):
+                if nterms == 2:
+                    def run(kn, node=node, n_nodes=n_nodes):
+                        return hk.hist_level_pallas(ids, node, vals, n_nodes=n_nodes,
+                                                    max_bins=MAX_BINS, knobs=kn)
+                else:
+                    def run(kn, node=node, n_nodes=n_nodes):
+                        return hk.hist_level_packed(packed, node, vals, n_nodes=n_nodes,
+                                                    max_bins=MAX_BINS, bits=8, num_features=d,
+                                                    knobs=kn)
+                ref = hk.hist_plain(ids, node, vals, n_nodes, MAX_BINS, nterms)
+                scale = float(ref.abs().max())
+                base = run(shipped)
+                rows_name, bytes_name = hk._LEVEL_KNOBS[nterms]
+                cands = ([(rows_name, r, (r, shipped[1])) for r in TUNABLES[rows_name].candidates]
+                         + [(bytes_name, b, (shipped[0], b)) for b in TUNABLES[bytes_name].candidates])
+                for name, value, kn in cands:
+                    fits = hk._fits(hk._level_tiling(n, d, M, C, MAX_BINS, n_nodes, bits, *kn))
+                    plan = hk.level_plan(n, d, M, C, MAX_BINS, n_nodes, bits, kn)
+                    row = {"kernel": kernel, "level": level, "tunable": name, "value": value,
+                           "fits": fits, "plan": {k: getattr(plan, k) for k in (
+                               "rows", "g", "nf", "cs", "rows_per_chunk", "grid", "smem")}}
+                    if fits:
+                        got = run(kn)
+                        torch.cuda.synchronize()
+                        err = float((got - ref).abs().max())
+                        ok = bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * scale))
+                        row.update(max_abs_err=err, matches_plain=ok,
+                                   device_ms=device_ms(lambda kn=kn: run(kn), reps=AUTOTUNE_REPS,
+                                                       runs=AUTOTUNE_RUNS))
+                        if not ok:
+                            problems.append(f"{kernel} level {level} {name}={value}: err {err}")
+                        if name == rows_name:
+                            row["bit_identical_to_shipped"] = bool(torch.equal(got, base))
+                            if not row["bit_identical_to_shipped"]:
+                                problems.append(f"{kernel} level {level} {name}={value} != shipped R")
+                    knob_rows.append(row)
+        line["knobs"] = knob_rows
+
+        # 3: the main path four ways
+        os.environ["SE_TPU_AUTOTUNE"] = "off"
+        reset()
+        m_off, s_off, l_off = fit(PARITY_ROUNDS)
+        use_cache("autotune_empty")
+        m_cache, s_cache, l_cache = fit(PARITY_ROUNDS)
+        if not same(m_off, m_cache) or l_off != l_cache:
+            problems.append(f"off vs empty cache: launches {l_off} / {l_cache}")
+        os.environ["SE_TPU_AUTOTUNE"] = "off"
+        reset()
+        _, s_off2, _ = fit(PARITY_ROUNDS)
+        use_cache("autotune_empty")
+        _, s_cache2, _ = fit(PARITY_ROUNDS)
+        acc_default = accuracy(m_cache)
+        use_cache("autotune_searched")
+        m_win, s_win, l_win = fit(PARITY_ROUNDS)
+        acc_win = accuracy(m_win)
+        if abs(acc_win - acc_default) > 0.02:
+            problems.append(f"winners: accuracy {acc_win} vs {acc_default}")
+        use_cache("autotune_empty")
+        r_fits = {}
+        for R in TUNABLES["fused_block_rows"].candidates:
+            if R == shipped[0] or not all(
+                    hk._fits(hk._level_tiling(n, d, M, C, MAX_BINS, 2**lv, 8, R, shipped[1]))
+                    for lv in range(DEPTH)):
+                continue
+            with override(fused_block_rows=R):
+                m_r, s_r, l_r = fit(PARITY_ROUNDS)
+            r_fits[str(R)] = {"bit_identical": same(m_r, m_cache), "launches_equal": l_r == l_cache,
+                              "fit_s": s_r}
+            if not (r_fits[str(R)]["bit_identical"] and l_r == l_cache):
+                problems.append(f"main path at fused_block_rows={R} differs")
+        line.update(main_path={
+            "rounds": PARITY_ROUNDS, "off_vs_empty_bit_identical": same(m_off, m_cache),
+            "launches": l_cache, "launches_equal": l_off == l_cache,
+            "off_iters_per_s": [PARITY_ROUNDS / s_off, PARITY_ROUNDS / s_off2],
+            "empty_cache_iters_per_s": [PARITY_ROUNDS / s_cache, PARITY_ROUNDS / s_cache2],
+            "winners_accuracy": acc_win, "default_accuracy": acc_default,
+            "winners_iters_per_s": PARITY_ROUNDS / s_win, "winners_launches": l_win,
+            "fused_block_rows": r_fits})
+
+        # 4: mode "search" over a fresh cache: one search, on the first fit
+        use_cache("autotune_mode_search", mode="search")
+        searches = []
+        real_search = search_mod.run_search
+
+        def counted(*a, **kw):
+            searches.append(time.perf_counter())
+            return real_search(*a, **kw)
+
+        search_mod.run_search = counted
+        try:
+            _, first_s, _ = fit(3)
+            first = len(searches)
+            published = [k for k in TuningCache.load(os.environ["SE_TPU_AUTOTUNE_CACHE"]).entries
+                         if k.startswith("cuda/")]
+            _, second_s, _ = fit(3)
+        finally:
+            search_mod.run_search = real_search
+        if first != 1 or len(searches) != 1 or not published:
+            problems.append(f"mode search: {len(searches)} searches, published {published}")
+        line.update(mode_search={"searches_first_fit": first, "searches_total": len(searches),
+                                 "published": published, "first_fit_s": first_s,
+                                 "second_fit_s": second_s})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset()
+
+    # 5: the build cache, in two fresh processes
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "SE_TPU_COMPILE_CACHE": os.path.join(os.path.abspath(scratch), "kernel_cache")}
+    builds = []
+    for _ in range(2):
+        p = subprocess.run([sys.executable, "-c", BUILD_PROBE], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=600)
+        if p.returncode != 0:
+            problems.append(f"build probe failed: {p.stderr[-400:]}")
+            break
+        builds.append(json.loads(p.stdout.strip().splitlines()[-1]))
+    if ([b["compile_count"] for b in builds] != [1, 0] or not all(b["launch_ok"] for b in builds)
+            or len({b["so"] for b in builds}) != 1
+            or not all(b["build_dir"] == env["SE_TPU_COMPILE_CACHE"] for b in builds)):
+        problems.append(f"build cache: {builds}")
+    line.update(build_cache=builds, problems=problems[:8], phase_s=time.perf_counter() - t_phase,
+                **card)
+    emit(line)
+    if problems:
+        raise AssertionError(f"autotune: {problems[:5]}")
 
 
 def main():
@@ -3608,6 +3878,12 @@ def main():
           "problems": op_problems[:8], "phase_s": time.perf_counter() - t_phase, **card})
     if op_problems:
         raise AssertionError(f"operator: {op_problems[:5]}")
+
+    # phase 25c (autotune): the smoke search, the kernel knobs at the main
+    # path's shapes, the main path off / empty cache / winners / each R,
+    # mode "search" and the build cache (autotune_phase)
+    autotune_phase(st, hk, binning, X_np, y_np, scratch, device_ms, card)
+    no_stray_retries("autotune")
 
     # phase 26 (profile_dir): a 3-round fused fit with profile_dir; the
     # capture's device rows (utils/profiling.py) must name the three kernels

@@ -39,8 +39,13 @@ default) or on the CPU (``device="cpu"``):
 - the out-of-core data plane: ``write_shards`` / ``ShardStore`` (the JAX
   package's shard format, either way), ``ShardPrefetcher``, and
   ``fit_streaming`` on the GBM estimators, bit-identical to a resident
-  ``hist="stream"`` fit; the autotune resolution layer
-  (``autotune.resolve.override``);
+  ``hist="stream"`` fit;
+- autotuning: ``TUNABLES`` (the hot path's constants, the CUDA kernels'
+  plan sizes among them), a measured search (``run_search``,
+  ``autotune_fit``, ``tools/autotune_torch.py``) whose winners a
+  ``TuningCache`` keeps per card and shape class and every site reads
+  (``SE_TPU_AUTOTUNE=off|cache|search``), and the kernels' build cache
+  (``enable_compilation_cache``, ``SE_TPU_COMPILE_CACHE``);
 - packed export: ``pack`` / ``PackedModel`` / ``load_packed`` (the JAX
   package's artifact, either way) and ``serving.fit_resume``;
 - the serving engine ``InferenceEngine`` (one CUDA graph per bucket,
@@ -76,6 +81,13 @@ the JAX package.  ROADMAP.md's queues list what is still to port.
 
 __version__ = "0.1.0"
 
+from spark_ensemble_tpu_torch.autotune import (
+    TUNABLES,
+    TuningCache,
+    autotune_fit,
+    enable_compilation_cache,
+    run_search,
+)
 from spark_ensemble_tpu_torch.convert import (
     bagging_classifier_from_arrays,
     bagging_regressor_from_arrays,
@@ -345,12 +357,14 @@ __all__ = [
     "StackingRegressor",
     "StandardScaler",
     "StandardScalerModel",
+    "TUNABLES",
     "TelemetryRecorder",
     "TraceContext",
     "Tracer",
     "TrainValidationSplit",
     "TrainValidationSplitModel",
     "TrainingCheckpointer",
+    "TuningCache",
     "Watchdog",
     "ProgramInventory",
     "ProgramRecord",
@@ -363,6 +377,7 @@ __all__ = [
     "validate_openmetrics",
     "skew_report",
     "stitch_files",
+    "autotune_fit",
     "bagging_classifier_from_arrays",
     "bagging_regressor_from_arrays",
     "boosting_classifier_from_arrays",
@@ -370,6 +385,7 @@ __all__ = [
     "decision_tree_classifier_from_arrays",
     "device_patience_enabled",
     "dump_flight",
+    "enable_compilation_cache",
     "fit_resume",
     "fit_sweep",
     "gaussian_nb_from_arrays",
@@ -390,6 +406,7 @@ __all__ = [
     "record_fits",
     "resolve_pipeline_depth",
     "retry_call",
+    "run_search",
     "save",
     "shared_fit_context",
     "slice_count",

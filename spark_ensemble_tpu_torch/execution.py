@@ -21,8 +21,8 @@ Exactness holds because every round's keys and masks derive from its
 absolute round index: a mid-chunk validation stop or a guard recovery
 discards the speculative chunks and rewinds the carry, and a replay
 re-launches the same kernels over the same keys, bit for bit.
-``SE_TPU_PIPELINE=0`` pins the synchronous path; unset, the depth is
-:data:`DEFAULT_PIPELINE_DEPTH` (the port has no autotune).
+``SE_TPU_PIPELINE=0`` pins the synchronous path; unset, the depth is the
+autotuned ``pipeline_depth`` (default :data:`DEFAULT_PIPELINE_DEPTH`).
 
 ``SE_TPU_DEVICE_PATIENCE=1`` folds a chunk's validation losses through
 the patience recurrence on the device, in float32, and reads back four
@@ -35,7 +35,7 @@ from __future__ import annotations
 import math
 import os
 from collections import deque
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -52,18 +52,25 @@ MAX_PIPELINE_DEPTH = 2
 DEFAULT_PIPELINE_DEPTH = 1
 
 
-def resolve_pipeline_depth() -> int:
-    """Lookahead depth of a fit: ``SE_TPU_PIPELINE`` clamped to
-    ``[0, MAX_PIPELINE_DEPTH]`` (a value that is not an integer is
-    ignored), else :data:`DEFAULT_PIPELINE_DEPTH`.  Read per fit, so a
-    test can flip the env between fits."""
+def resolve_pipeline_depth(n_rows: Optional[int] = None) -> int:
+    """Lookahead depth of a fit over ``n_rows`` rows: ``SE_TPU_PIPELINE``
+    clamped to ``[0, MAX_PIPELINE_DEPTH]`` (a value that is not an integer
+    is ignored), else the autotuned ``pipeline_depth`` (clamped alike),
+    else :data:`DEFAULT_PIPELINE_DEPTH`.  Read per fit, so a test can flip
+    the env between fits."""
     raw = os.environ.get(PIPELINE_ENV)
     if raw is not None and raw.strip():
         try:
             return max(0, min(MAX_PIPELINE_DEPTH, int(raw)))
         except ValueError:
-            pass
-    return DEFAULT_PIPELINE_DEPTH
+            pass  # an unparsable env degrades to the tunable
+    from spark_ensemble_tpu_torch.autotune.resolve import resolve
+
+    depth = resolve("pipeline_depth", DEFAULT_PIPELINE_DEPTH, n=n_rows)
+    try:
+        return max(0, min(MAX_PIPELINE_DEPTH, int(depth)))
+    except (TypeError, ValueError):
+        return DEFAULT_PIPELINE_DEPTH
 
 
 def device_patience_enabled() -> bool:

@@ -251,6 +251,19 @@ def predict_program(name: str):
     return wrap
 
 
+def resolved_scan_chunk(est, n_rows=None) -> int:
+    """Rounds per chunk of an iterative estimator's round loop: a hand-set
+    ``scan_chunk`` always wins; left at its default, a measured winner for
+    this device and shape class (the ``scan_chunk`` tunable) replaces the
+    default literal."""
+    chunk = max(int(est.scan_chunk), 1)
+    if "scan_chunk" in est._param_values:
+        return chunk
+    from spark_ensemble_tpu_torch.autotune.resolve import resolve as _tuned
+
+    return max(int(_tuned("scan_chunk", chunk, n=n_rows)), 1)
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for and
     absent.  On CUDA, float32 matmuls are pinned to true fp32 (TF32 off):

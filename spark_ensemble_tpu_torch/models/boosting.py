@@ -81,6 +81,7 @@ from spark_ensemble_tpu_torch.models.base import (
     program_call,
     resolve_device,
     resolve_weights,
+    resolved_scan_chunk,
     stack_members,
     tree_map,
 )
@@ -251,7 +252,7 @@ class _BoostingParams(CheckpointableParams, Estimator):
 
     def _drive_boosting_rounds(self, ckpt, bw, chunks, run_chunk, replay,
                                start_i: int, ramp: bool, guard, telem,
-                               ax=None, *, blocks) -> int:
+                               ax=None, *, blocks, n_rows=None) -> int:
         """The chunked round loop of both Boosting flavors, behind the
         port's :class:`RoundExecutor` (the JAX package's
         ``_drive_boosting_rounds``).  ``run_chunk(i0, c, bw) -> (params
@@ -280,8 +281,8 @@ class _BoostingParams(CheckpointableParams, Estimator):
         retry_policy = self._retry_policy()
         label = type(self).__name__
         guard_on = guard.active
-        chunk = int(self.scan_chunk)
-        depth = _execution.resolve_pipeline_depth()
+        chunk = resolved_scan_chunk(self, n_rows)
+        depth = _execution.resolve_pipeline_depth(n_rows)
         probe = ramp and self.ramp == "auto" and start_i == 0
 
         # a chunk is one call of the JAX package's chunk program; a
@@ -539,7 +540,7 @@ class BoostingClassifier(_BoostingParams):
         telem.phase_mark("setup")
         self._drive_boosting_rounds(ckpt, bw, chunks, run_chunk, replay,
                                     start_i, ramp=not real, guard=guard,
-                                    telem=telem, ax=ax, blocks=blocks)
+                                    telem=telem, ax=ax, blocks=blocks, n_rows=n)
         ckpt.delete()
         params = self._model_params(chunks, dev)
         model = _with_guard_events(guard, BoostingClassificationModel(
@@ -708,7 +709,7 @@ class BoostingRegressor(_BoostingParams):
         self._drive_boosting_rounds(ckpt, bw, chunks, run_chunk,
                                     self._replay, start_i, ramp=True,
                                     guard=guard, telem=telem, ax=ax,
-                                    blocks=blocks)
+                                    blocks=blocks, n_rows=n)
         ckpt.delete()
         params = self._model_params(chunks, dev)
         model = _with_guard_events(guard, BoostingRegressionModel(

@@ -96,6 +96,7 @@ import numpy as np
 import torch
 
 from spark_ensemble_tpu_torch import execution as _execution
+from spark_ensemble_tpu_torch.autotune.resolve import resolve as _tuned
 from spark_ensemble_tpu_torch.models.base import (
     BaseLearner,
     CheckpointableParams,
@@ -112,6 +113,7 @@ from spark_ensemble_tpu_torch.models.base import (
     program_call,
     resolve_device,
     resolve_weights,
+    resolved_scan_chunk,
     stack_members,
     tree_leaves,
     tree_map,
@@ -147,8 +149,8 @@ from spark_ensemble_tpu_torch.utils.random import (
 
 logger = logging.getLogger(__name__)
 
-# smallest compaction bucket of gradient row sampling (the JAX package's
-# default ``sample_bucket_floor``; the port has no autotune)
+# smallest compaction bucket of gradient row sampling (the
+# ``sample_bucket_floor`` tunable's default)
 _SAMPLE_BUCKET_FLOOR = 256
 
 
@@ -345,13 +347,18 @@ class _GBMParams(CheckpointableParams):
         """The gradient row-sampling plan, fixed on the host at fit start,
         or None when ``sampling='none'``: the method, the counts ``k_top``
         and ``k_rand``, GOSS's amplifier, MVS's lambda and the pow2
-        ``bucket`` of gathered rows.  The port has no autotune, so the
-        rates are the Params."""
+        ``bucket`` of gathered rows.  GOSS rates left at their defaults, and
+        the bucket floor, are the autotuned values for ``n`` rows (hand-set
+        rates always win)."""
         method = str(self.sampling).lower()
         if method == "none":
             return None
         top, other = float(self.top_rate), float(self.other_rate)
         if method == "goss":
+            if "top_rate" not in self._param_values:
+                top = float(_tuned("goss_top_rate", top, n=n))
+            if "other_rate" not in self._param_values:
+                other = float(_tuned("goss_other_rate", other, n=n))
             k_top = int(np.ceil(top * n))
             k_rand = int(np.ceil(other * n))
             amp = max(1.0 - top, 0.0) / max(other, 1e-9)  # (1-a)/b
@@ -361,9 +368,10 @@ class _GBMParams(CheckpointableParams):
             k_rand = int(np.ceil(min(top + other, 1.0) * n))
             amp = 0.0
             lam = float(self.mvs_lambda)
+        floor = int(_tuned("sample_bucket_floor", _SAMPLE_BUCKET_FLOOR, n=n))
         return {
             "method": method,
-            "bucket": _sample_pow2_bucket(n, k_top + k_rand, _SAMPLE_BUCKET_FLOOR),
+            "bucket": _sample_pow2_bucket(n, k_top + k_rand, floor),
             "samp": (k_top, k_rand, amp, lam),
             "sampled_rows": min(k_top + k_rand, n),
             "top_rate": top,
@@ -451,7 +459,8 @@ class _GBMParams(CheckpointableParams):
 
     def _drive_rounds(self, ckpt, chunks, run_chunk, save_state, label, i, v,
                       best, val_history, guard, snapshot, restore, telem,
-                      round_cost=None, span_fields=None, program_args=()):
+                      round_cost=None, span_fields=None, program_args=(),
+                      n_rows=None):
         """The shared round loop of both GBM flavors, behind the
         port's :class:`RoundExecutor` (the JAX package's ``_drive_rounds``
         and its ``_Adapter``).
@@ -461,8 +470,8 @@ class _GBMParams(CheckpointableParams):
         carry and advances it (through its closure); ``snapshot()`` /
         ``restore(snap)`` copy and rewind the carry.  ``chunks`` holds the
         committed round-stacked ``members``, ``weights`` and ``aux`` lists.
-        A chunk is ``scan_chunk`` rounds, clamped to the next checkpoint
-        boundary.  Committing a chunk reads its finite flags and validation
+        A chunk is ``scan_chunk`` rounds (``resolved_scan_chunk`` over
+        ``n_rows``), clamped to the next checkpoint boundary.  Committing a chunk reads its finite flags and validation
         losses in one host transfer, steps the patience recurrence, and
         saves a checkpoint on a save round.
 
@@ -489,12 +498,12 @@ class _GBMParams(CheckpointableParams):
 
         tag = "gbm_cls_round" if self.is_classifier else "gbm_reg_round"
         programs = {}  # chunk start -> its program call, until committed
-        chunk = int(self.scan_chunk)
+        chunk = resolved_scan_chunk(self, n_rows)
         retry_policy = self._retry_policy()
         ctl = controller()
         refresh_fit = self._is_refresh_fit
         guard_on = guard.active
-        depth = _execution.resolve_pipeline_depth()
+        depth = _execution.resolve_pipeline_depth(n_rows)
         dp_on = _execution.device_patience_enabled()
         drv = self
 
@@ -1387,7 +1396,7 @@ class GBMRegressor(_GBMParams, Estimator):
             round_cost=(_round_cost(base, n, d, 1, dev, plan)
                         if telem.enabled else None),
             span_fields=_sampling_span_fields(plan),
-            program_args=(X, y, self),
+            program_args=(X, y, self), n_rows=n,
         )
         ckpt.delete()
         keep = i - v
@@ -1767,7 +1776,7 @@ class GBMClassifier(_GBMParams, Estimator):
             round_cost=(_round_cost(base, n, d, dim, dev, plan)
                         if telem.enabled else None),
             span_fields=_sampling_span_fields(plan),
-            program_args=(X, y_enc, self),
+            program_args=(X, y_enc, self), n_rows=n,
         )
         ckpt.delete()
         keep = i - v

@@ -31,7 +31,8 @@ the sequential fit's ``keep = i - v`` rule.  Base learners other than the
 histogram trees fit lane by lane inside the lockstep round.  Gradient
 sampling (``sampling`` goss/mvs) and linear leaves have no swept round and
 stay sequential, as in the JAX package (``sweep_unsupported_reason``).
-Slabs hold at most ``_CONFIGS_PER_DISPATCH`` lanes; a short last slab is
+Slabs hold at most ``configs_per_dispatch`` lanes (the tunable; 32,
+``_CONFIGS_PER_DISPATCH``, unless tuned); a short last slab is
 not padded (the JAX package pads it to keep one compiled program shape,
 which eager launches do not need).
 
@@ -58,6 +59,7 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 
+from spark_ensemble_tpu_torch.autotune.resolve import resolve as _tuned
 from spark_ensemble_tpu_torch.models.base import (
     as_f32,
     infer_num_classes,
@@ -90,8 +92,7 @@ from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry, empty_histor
 from spark_ensemble_tpu_torch.telemetry.quality import drift_reference_from_ctx
 from spark_ensemble_tpu_torch.utils.quantile import weighted_quantile
 
-#: lanes per slab (the JAX package's default ``configs_per_dispatch``; the
-#: port has no autotune)
+#: lanes per slab (the ``configs_per_dispatch`` tunable's default)
 _CONFIGS_PER_DISPATCH = 32
 
 #: params that may differ within one swept group: per-lane values the
@@ -364,8 +365,10 @@ def fit_sweep(
         drift_ref = drift_reference_from_ctx(ctx)
         telem.phase_mark("setup")
         models: List[Any] = []
-        for lo in range(0, B, _CONFIGS_PER_DISPATCH):
-            sl = slice(lo, lo + _CONFIGS_PER_DISPATCH)
+        cpd = max(1, int(_tuned("configs_per_dispatch", _CONFIGS_PER_DISPATCH,
+                                n=Xt.shape[0])))
+        for lo in range(0, B, cpd):
+            sl = slice(lo, lo + cpd)
             slab_ests, slab_w = ests[sl], w_list[sl]
             axis = _config_axis(mesh, len(slab_ests))
             if axis is None:

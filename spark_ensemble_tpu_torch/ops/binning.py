@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from spark_ensemble_tpu_torch.autotune.resolve import resolve as _tuned
+
 
 class Bins(NamedTuple):
     """Per-feature split thresholds; ``thresholds[f, i]`` ascending in i."""
@@ -113,8 +115,13 @@ class CompressedBins(NamedTuple):
 def pack_width(max_bins: int) -> int:
     """Lane width (bits) for ``max_bins`` bin ids: the narrowest of {4, 8}
     that holds ``max_bins`` values, or 32 (no packing) past 256 — the JAX
-    package's static rule with autotune off."""
-    return 4 if max_bins <= 16 else (8 if max_bins <= 256 else 32)
+    package's static rule.  A measured winner (the ``pack_bits`` tunable;
+    0 = auto) overrides it, but never below what ``max_bins`` needs."""
+    auto = 4 if max_bins <= 16 else (8 if max_bins <= 256 else 32)
+    tuned = int(_tuned("pack_bits", 0))
+    if tuned in (4, 8, 32) and tuned >= auto:
+        return tuned
+    return auto
 
 
 def pack_bins(Xb: torch.Tensor, max_bins: int, bits: int = 0) -> CompressedBins:

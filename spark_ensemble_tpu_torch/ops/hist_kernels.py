@@ -16,7 +16,13 @@ Two TPU kernels are replaced, both by ``csrc/hist.cu`` (CUDA C++ for
   tables it only sums, :func:`leaf_sums`).
 
 Both level histograms launch one kernel, ``level_hist`` (i32 bins are
-32-bit words), tiled by :func:`level_plan`.
+32-bit words), tiled by :func:`level_plan`.  Its plan reads two autotuned
+knobs per tier (``autotune/space.py``): the rows staged per step
+(``pallas_block_rows`` / ``fused_block_rows``, bit-neutral) and the bytes
+of a CTA's histogram tile (``pallas_vmem_budget`` / ``fused_vmem_budget``).
+A forest fit resolves them once (:func:`level_knobs`) and passes them to
+each launch (a wrapper called without them takes the shipped ones); the
+plan caches key on them.
 
 Every wrapper checks device, dtype, shape and contiguity, and raises on
 anything the kernel does not take.  On CPU tensors it runs the plain
@@ -54,6 +60,7 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import logging
 import math
 import os
 import shutil
@@ -66,7 +73,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from spark_ensemble_tpu_torch.autotune.compilation_cache import (
+    compilation_cache_dir,
+    ensure_compilation_cache,
+)
+from spark_ensemble_tpu_torch.autotune.resolve import resolve as _tuned
 from spark_ensemble_tpu_torch.ops.binning import unpack_bins
+
+logger = logging.getLogger("spark_ensemble_tpu_torch")
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "hist.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -144,8 +158,9 @@ def report_work(kernel: str, **shapes) -> None:
     if hook is not None:
         hook(kernel, tuple(shapes.items()), *kernel_work(kernel, **shapes))
 
-# every plan depends on the shapes only, so the summation order, and with
-# it every bit of a result, is fixed by the shapes
+# every plan depends on the shapes only (the level plan on its two knobs
+# too, but its row chunking on the shipped block rows), so the summation
+# order, and with it every bit of a result, is fixed by the shapes
 _MAX_SMEM = 227 * 1024
 
 # the level histogram's plan (csrc/hist.cu, level_hist): rows per staged
@@ -199,20 +214,32 @@ def _nvcc() -> str:
     return path
 
 
+def build_dir() -> Path:
+    """Where the kernels' library is built and found: the build cache's
+    directory when one is enabled (``SE_TPU_COMPILE_CACHE``,
+    ``autotune/compilation_cache.py``), else ``build/kernels`` under the
+    checkout."""
+    ensure_compilation_cache()
+    enabled = compilation_cache_dir()
+    return Path(enabled) if enabled else _BUILD_DIR
+
+
 def build_kernels() -> Path:
     """Compile ``csrc/hist.cu`` (if not built yet) into
-    ``build/kernels/libse_hist_<sha256>.so`` and return its path.  The
-    name is keyed on the source's hash, so an edit rebuilds.  A build is
-    one compile on the telemetry ledger (``telemetry/events.note_compile``:
-    a fit's ``compile_count``)."""
+    ``<build_dir()>/libse_hist_<sha256>.so`` and return its path.  The
+    name is keyed on the source's hash, so an edit rebuilds and a library
+    of the same source, built by any process, loads without ``nvcc``.  A
+    build is one compile on the telemetry ledger
+    (``telemetry/events.note_compile``: a fit's ``compile_count``)."""
     from spark_ensemble_tpu_torch.telemetry.events import note_compile
 
     src = _SOURCE.read_bytes()
-    so = _BUILD_DIR / f"libse_hist_{hashlib.sha256(src).hexdigest()[:16]}.so"
+    out_dir = build_dir()
+    so = out_dir / f"libse_hist_{hashlib.sha256(src).hexdigest()[:16]}.so"
     if so.exists():
         return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
         t0 = time.perf_counter()
@@ -297,43 +324,31 @@ class LevelPlan(NamedTuple):
     smem: int  # dynamic shared-memory bytes per CTA
 
 
-def _level_rows_smem(g, nf, np_, C, B, W, bits):
+def _level_rows_smem(g, nf, np_, C, B, W, bits, block_rows=None):
     """Rows per stage, and the bytes of the histogram tile, the row stages
     and one conflict-tag byte per (warp, node, bin): the layout of
     ``csrc/hist.cu::level_hist``.  A stage holds one word per feature (i32
     bins, or packed rows wider than the tile), or else every word of a
-    row."""
+    row; ``block_rows`` (default ``_LEVEL_ROWS``) is halved when a staged
+    row holds more than ``_LEVEL_WIDE`` words."""
+    block_rows = _LEVEL_ROWS if block_rows is None else block_rows
     words = (nf if bits >= 32 or W > nf else W) + g + g * C  # per staged row
-    rows = _LEVEL_ROWS if words <= _LEVEL_WIDE else _LEVEL_ROWS // 2
+    rows = block_rows if words <= _LEVEL_WIDE else block_rows // 2
     tags = g * nf * (-(-(np_ * B) // 4) * 4)
     return rows, 4 * (g * nf * np_ * C * B + _LEVEL_STAGES * rows * words) + tags
 
 
-@functools.lru_cache(maxsize=1024)
-def level_plan(n, d, M, C, B, n_nodes, bits=32) -> LevelPlan:
-    """CTA tiling of one level histogram (``level_hist``) over bins of
-    ``bits`` bits (32: i32 bins); a function of the shapes only, so the
-    summation order is too.  A warp owns one (member, feature)'s cells of a
-    node tile: every node unless that passes ``_WARP_HIST_BYTES``.  A CTA
-    then takes as many features, and for narrow ``d`` members, as fit
-    ``_CTA_HIST_BYTES``.  Each tile's row chunks form one cluster, as large
-    as lets every tile's cluster run in one wave, and at most 8.  Raises when
-    one warp's cells and the staged rows do not fit one CTA's shared
-    memory."""
+def _level_tiling(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes) -> LevelPlan:
+    """``level_plan`` at explicit knobs, fitting or not (:func:`_fits`)."""
     W = d if bits >= 32 else -(-d // (32 // bits))  # words per row
     cell = 4 * C * B  # bytes of one (member, node, feature) histogram row
     np_ = n_nodes if n_nodes * cell <= _WARP_HIST_BYTES else max(1, _WARP_HIST_BYTES // cell)
     warp = np_ * cell
-    nf = max(1, min(d, _MAX_WARPS, _CTA_HIST_BYTES // warp))
-    g = max(1, min(M, _MAX_WARPS // nf, _CTA_HIST_BYTES // (nf * warp)))
-    while g > 1 and _level_rows_smem(g, nf, np_, C, B, W, bits)[1] > _MAX_SMEM:
+    nf = max(1, min(d, _MAX_WARPS, hist_bytes // warp))
+    g = max(1, min(M, _MAX_WARPS // nf, hist_bytes // (nf * warp)))
+    while g > 1 and _level_rows_smem(g, nf, np_, C, B, W, bits, block_rows)[1] > _MAX_SMEM:
         g -= 1
-    rows, smem = _level_rows_smem(g, nf, np_, C, B, W, bits)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"histogram tile needs {smem} bytes of shared memory "
-            f"(C={C}, B={B}); the card has {_MAX_SMEM}"
-        )
+    rows, smem = _level_rows_smem(g, nf, np_, C, B, W, bits, block_rows)
     threads = 32 * g * nf
     tiles = math.ceil(M / g) * math.ceil(d / nf) * math.ceil(n_nodes / np_)
     per_sm = max(1, min(_SM_SMEM // (smem + 1024), _SM_THREADS // threads))
@@ -343,6 +358,71 @@ def level_plan(n, d, M, C, B, n_nodes, bits=32) -> LevelPlan:
     return LevelPlan(g, nf, np_, cs, math.ceil(n / cs), rows, tiles * cs, threads, smem)
 
 
+def _fits(plan: LevelPlan) -> bool:
+    """Whether one CTA of ``plan`` fits the card's shared memory and stages
+    whole 32-row steps of the kernel."""
+    return plan.smem <= _MAX_SMEM and plan.rows >= 32 and plan.rows % 32 == 0
+
+
+_LEVEL_KNOBS = {2: ("pallas_block_rows", "pallas_vmem_budget"),
+                3: ("fused_block_rows", "fused_vmem_budget")}
+
+
+def level_knobs(nterms: int, n: Optional[int] = None) -> tuple:
+    """``(block_rows, hist_bytes)`` of ``level_hist<nterms>`` (2: the pallas
+    tier, 3: the fused tier) as the autotune layer resolves them for ``n``
+    rows: its tuned values, or ``_LEVEL_ROWS`` and ``_CTA_HIST_BYTES``.  A
+    forest fit resolves them once and hands them to every launch."""
+    rows, hist_bytes = _LEVEL_KNOBS[nterms]
+    return (int(_tuned(rows, _LEVEL_ROWS, n=n)),
+            int(_tuned(hist_bytes, _CTA_HIST_BYTES, n=n)))
+
+
+def level_plan(n, d, M, C, B, n_nodes, bits=32, knobs=None) -> LevelPlan:
+    """CTA tiling of one level histogram (``level_hist``) over bins of
+    ``bits`` bits (32: i32 bins), at ``knobs = (block_rows, hist_bytes)``
+    (None: :func:`level_knobs` of the pallas tier for 32-bit words, of the
+    fused tier otherwise).  A warp owns one (member, feature)'s cells of a
+    node tile: every node unless that passes ``_WARP_HIST_BYTES``.  A CTA
+    then takes as many features, and for narrow ``d`` members, as fit
+    ``hist_bytes``.  Each tile's row chunks form one cluster, as large as
+    lets every tile's cluster run in one wave, and at most 8.
+
+    The row chunking (``cs``, ``rows_per_chunk``), which alone fixes a
+    cell's summation order, is always that of the shipped ``_LEVEL_ROWS``
+    at the same ``hist_bytes``: ``block_rows`` moves only the rows staged
+    per step and the tiling, never a bit of the result.  Knobs whose tile
+    does not fit one CTA's shared memory fall back to the shipped ones
+    (a debug log); raises when the shipped ones do not fit either."""
+    if knobs is None:
+        knobs = level_knobs(2 if bits >= 32 else 3, n)
+    return _level_plan(n, d, M, C, B, n_nodes, bits, int(knobs[0]), int(knobs[1]))
+
+
+@functools.lru_cache(maxsize=1024)
+def _level_plan(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes) -> LevelPlan:
+    base = _level_tiling(n, d, M, C, B, n_nodes, bits, _LEVEL_ROWS, hist_bytes)
+    if not _fits(base) and hist_bytes != _CTA_HIST_BYTES:
+        logger.debug("level plan: hist_bytes=%d does not fit; using %d",
+                     hist_bytes, _CTA_HIST_BYTES)
+        hist_bytes = _CTA_HIST_BYTES
+        base = _level_tiling(n, d, M, C, B, n_nodes, bits, _LEVEL_ROWS, hist_bytes)
+    if not _fits(base):
+        raise ValueError(
+            f"histogram tile needs {base.smem} bytes of shared memory "
+            f"(C={C}, B={B}); the card has {_MAX_SMEM}"
+        )
+    if block_rows == _LEVEL_ROWS:
+        return base
+    plan = _level_tiling(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes)
+    if not _fits(plan):
+        logger.debug("level plan: block_rows=%d does not fit; using %d",
+                     block_rows, _LEVEL_ROWS)
+        return base
+    return plan._replace(cs=base.cs, rows_per_chunk=base.rows_per_chunk,
+                         grid=plan.grid // plan.cs * base.cs)
+
+
 def _check_lanes(M: int, lanes: int) -> int:
     """The members of one lane; raises unless ``lanes`` divides M."""
     if lanes < 1 or M % lanes:
@@ -350,8 +430,7 @@ def _check_lanes(M: int, lanes: int) -> int:
     return M // lanes
 
 
-@functools.lru_cache(maxsize=1024)
-def lane_level_plan(n, d, M, C, B, n_nodes, bits=32, lanes=1) -> LevelPlan:
+def lane_level_plan(n, d, M, C, B, n_nodes, bits=32, lanes=1, knobs=None) -> LevelPlan:
     """``level_plan`` of M = lanes * K members that sums each member's rows
     as a launch of K members does.  A cell's sum runs over its CTA's row
     chunk in 32-row steps from the chunk's start, whatever the member,
@@ -359,11 +438,21 @@ def lane_level_plan(n, d, M, C, B, n_nodes, bits=32, lanes=1) -> LevelPlan:
     are added in rank order: so the row chunking (``cs``,
     ``rows_per_chunk``) alone fixes its bits.  The wide plan keeps its own
     tiling and takes the K-member launch's chunking; its grid grows by the
-    lanes instead of its chunks shrinking."""
-    plan = level_plan(n, d, M, C, B, n_nodes, bits)
+    lanes instead of its chunks shrinking.  ``knobs``: as ``level_plan``'s,
+    resolved once for both plans."""
+    if knobs is None:
+        knobs = level_knobs(2 if bits >= 32 else 3, n)
+    return _lane_level_plan(n, d, M, C, B, n_nodes, bits, lanes, int(knobs[0]),
+                            int(knobs[1]))
+
+
+@functools.lru_cache(maxsize=1024)
+def _lane_level_plan(n, d, M, C, B, n_nodes, bits, lanes, block_rows, hist_bytes):
+    knobs = (block_rows, hist_bytes)
+    plan = level_plan(n, d, M, C, B, n_nodes, bits, knobs)
     if lanes == 1:
         return plan
-    lane = level_plan(n, d, _check_lanes(M, lanes), C, B, n_nodes, bits)
+    lane = level_plan(n, d, _check_lanes(M, lanes), C, B, n_nodes, bits, knobs)
     return plan._replace(cs=lane.cs, rows_per_chunk=lane.rows_per_chunk,
                          grid=plan.grid // plan.cs * lane.cs)
 
@@ -472,21 +561,23 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 @functools.lru_cache(maxsize=1024)
-def _checked_level_plan(n, d, M, C, B, n_nodes, W, bits, lanes) -> LevelPlan:
-    """``lane_level_plan``, held once per shape against the kernel's own
-    shared-memory layout."""
-    plan = lane_level_plan(n, d, M, C, B, n_nodes, bits, lanes)
+def _checked_level_plan(n, d, M, C, B, n_nodes, W, bits, lanes, knobs) -> LevelPlan:
+    """``lane_level_plan``, held once per shape and knobs against the
+    kernel's own shared-memory layout."""
+    plan = lane_level_plan(n, d, M, C, B, n_nodes, bits, lanes, knobs)
     if _library().se_level_smem_bytes(plan.g, plan.nf, plan.np, C, B, plan.rows, W, bits) != plan.smem:
         raise RuntimeError("level_plan and csrc/hist.cu disagree on the shared-memory layout")
     return plan
 
 
 def _launch_level(nterms, words, node, vals, out, *, d, B, n_nodes, W, bits,
-                  lanes):
+                  lanes, knobs):
     n, M, C = vals.shape
     if n == 0:
         return out.zero_()
-    plan = _checked_level_plan(n, d, M, C, B, n_nodes, W, bits, lanes)
+    if knobs is None:
+        knobs = (_LEVEL_ROWS, _CTA_HIST_BYTES)
+    plan = _checked_level_plan(n, d, M, C, B, n_nodes, W, bits, lanes, tuple(knobs))
     lib = _library()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -649,14 +740,16 @@ def _check_stats(node, vals):
 
 
 def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int,
-                      lanes: int = 1):
+                      lanes: int = 1, knobs=None):
     """Level histogram ``H f32[M, n_nodes, C, d, B]`` for all members —
     the pallas tier (replaces ``ops/pallas_hist.py::_hist_kernel``).
 
     ``Xb i32[n, d]`` binned features; ``node i32[n, M]`` each row's node at
     this level per member; ``vals f32[n, M, C]`` statistic channels, split
     into bf16 hi + lo.  Zero rows contribute exactly 0.  ``lanes``: see
-    the module docstring."""
+    the module docstring.  ``knobs``: the launch's ``(block_rows,
+    hist_bytes)``; None takes the shipped ones, with no resolution in the
+    call (a forest fit passes the ones :func:`level_knobs` resolved)."""
     _check("Xb", Xb, torch.int32, 2)
     _check_stats(node, vals)
     _check_lanes(node.shape[1], lanes)
@@ -670,7 +763,7 @@ def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int,
     else:
         out = torch.empty((M, n_nodes, C, d, max_bins), dtype=torch.float32, device=dev)
         _launch_level(2, Xb, node, vals, out, d=d, B=max_bins, n_nodes=n_nodes,
-                      W=d, bits=32, lanes=lanes)
+                      W=d, bits=32, lanes=lanes, knobs=knobs)
         _count("hist_i32")
     if _WORK_HOOK[0] is not None:
         report_work("hist_i32", n=n, d=d, M=M, C=C, B=max_bins, n_nodes=n_nodes)
@@ -742,10 +835,12 @@ def route_packed(packed, node, best_f, best_t, *, bits: int,
 
 
 def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
-                      bits: int, num_features: int, lanes: int = 1):
+                      bits: int, num_features: int, lanes: int = 1,
+                      knobs=None):
     """Level histogram over packed bins with the fused tier's 3-term bf16
     split (the histogram half of ``ops/pallas_hist.py::_fused_kernel``);
-    ``lanes``: see the module docstring."""
+    ``lanes``: see the module docstring; ``knobs``: as
+    :func:`hist_level_pallas`'s, of the fused tier."""
     _check_packed(packed, bits, num_features)
     _check_stats(node, vals)
     _check_lanes(node.shape[1], lanes)
@@ -762,7 +857,8 @@ def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
         out = torch.empty((M, n_nodes, C, num_features, max_bins),
                           dtype=torch.float32, device=dev)
         _launch_level(3, packed, node, vals, out, d=num_features, B=max_bins,
-                      n_nodes=n_nodes, W=packed.shape[1], bits=bits, lanes=lanes)
+                      n_nodes=n_nodes, W=packed.shape[1], bits=bits, lanes=lanes,
+                      knobs=knobs)
         _count("hist_packed")
     if _WORK_HOOK[0] is not None:
         report_work("hist_packed", n=n, d=num_features, W=packed.shape[1], M=M, C=C,
@@ -834,14 +930,17 @@ def _leaf_routed(packed, node, vals, best_f, best_t, *, n_nodes: int,
 
 def fused_round_level(packed, node, vals, best_f=None, best_t=None, *,
                       n_nodes: int, max_bins: int, bits: int,
-                      num_features: int, leaf: bool = False, lanes: int = 1):
+                      num_features: int, leaf: bool = False, lanes: int = 1,
+                      knobs=None):
     """One fused level -> ``(H, node_out)``, the counterpart of
     ``ops/pallas_hist.py::fused_round_level``: with split tables
     ``best_f/best_t i32[M, half]`` the PARENT-level ``node`` ids are routed
     first; then the level histogram ``H f32[M, n_nodes, C, d, B]`` (a route
     launch, then a histogram launch), or, when ``leaf``, the leaf sums
     ``[M, n_nodes, C]`` (one launch routes and sums).  ``lanes``: see the
-    module docstring."""
+    module docstring; ``knobs``: the histogram launch's, as
+    :func:`hist_level_packed`'s (the route's and the leaf pass's plans are
+    not tunable)."""
     if (best_f is None) != (best_t is None):
         raise ValueError("best_f and best_t come together")
     if leaf:
@@ -855,5 +954,5 @@ def fused_round_level(packed, node, vals, best_f=None, best_t=None, *,
                             num_features=num_features)
     H = hist_level_packed(packed, node, vals, n_nodes=n_nodes,
                           max_bins=max_bins, bits=bits,
-                          num_features=num_features, lanes=lanes)
+                          num_features=num_features, lanes=lanes, knobs=knobs)
     return H, node

@@ -89,6 +89,7 @@ to the program inventory's hook, as the kernel wrappers report theirs.
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -101,6 +102,7 @@ from spark_ensemble_tpu_torch.ops.hist_kernels import (
     hist_level_pallas,
     hist_plain,
     leaf_plain,
+    level_knobs,
     report_work,
     _WORK_HOOK,
 )
@@ -139,7 +141,8 @@ _ROUTING_EXACT_MAX_BINS = 256
 # clamp for non-finite features at predict: NaN/+inf go right at every
 # real split, -inf goes left (the JAX package's rule)
 _F32_MAX = 3.0e38
-# rows x trees per predict chunk (bounds the [rows, trees] id tensors)
+# rows x trees per predict chunk (bounds the [rows, trees] id tensors; the
+# "predict_fused_max_cells" tunable's default)
 _PREDICT_MAX_CELLS = 2**22
 
 
@@ -167,7 +170,13 @@ def resolve_forest_tier(hist: str, hist_precision: str, device, n: int,
     ``pallas`` or ``fused``.  Mirrors the JAX package's resolution, minus
     the VMEM gates, which do not carry over: a CUDA kernel tiles its output
     across CTAs.  ``auto`` past the one-hot budget is ``stream``, at
-    ``hist_precision="pallas"`` too (the stream tier wins)."""
+    ``hist_precision="pallas"`` too (the stream tier wins).
+
+    Under ``hist="auto"`` a measured winner for this device and shape class
+    (the ``hist_tier`` tunable) replaces the heuristic; an explicit
+    ``hist`` never reads it.  A tuned ``"fused"`` past 256 bins falls back
+    to the heuristic with a warning, as the JAX package's fused gate does;
+    an explicit ``hist="fused"`` there raises."""
     hp, h = hist_precision.lower(), hist.lower()
     if h == "fused":
         if B > _ROUTING_EXACT_MAX_BINS:
@@ -176,6 +185,17 @@ def resolve_forest_tier(hist: str, hist_precision: str, device, n: int,
                 "exceeds the packable range (256)"
             )
         return "fused"
+    if h == "auto":
+        tuned = _tuned("hist_tier", "auto", n=n)
+        if tuned == "fused" and B <= _ROUTING_EXACT_MAX_BINS:
+            return "fused"
+        if tuned == "fused":
+            warnings.warn(
+                f"tuned hist_tier 'fused' falls back to the heuristic tier: "
+                f"max_bins={B} exceeds the packable range (256)", stacklevel=2,
+            )
+        elif tuned in ("scatter", "matmul", "stream"):
+            h = tuned
     if h == "auto":
         if torch.device(device).type == "cpu" and hp != "pallas":
             h = "scatter"
@@ -272,7 +292,7 @@ def _bin_one_hot(Xb: torch.Tensor, B: int) -> torch.Tensor:
 
 
 def _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B, prev_H=None,
-                lanes=1, reduce=None):
+                lanes=1, reduce=None, knobs=None):
     """Level histogram ``H f32[M, n_nodes, C, d, B]`` of the non-fused
     tiers.  With ``prev_H`` (the parents' histograms, fast precisions on
     the matmul tier) only the left children are computed and the right
@@ -281,13 +301,14 @@ def _level_hist(tier, Xb, bin_oh, node, vals, n_nodes, B, prev_H=None,
     in another order than the lane's own).  ``reduce`` (a mesh fit's
     cross-rank sum) applies to what this rank computed, before the
     subtraction: right siblings are reduced parents minus reduced left
-    children, as in the JAX package."""
+    children, as in the JAX package.  ``knobs``: the pallas kernel's plan
+    knobs (``hist_kernels.level_knobs``)."""
     red = reduce if reduce is not None else (lambda t: t)
     if tier == "scatter":
         return red(hist_plain(Xb, node, vals, n_nodes, B, 1, ordered=True))
     if tier == "pallas":
         return red(hist_level_pallas(Xb, node, vals, n_nodes=n_nodes, max_bins=B,
-                                     lanes=lanes))
+                                     lanes=lanes, knobs=knobs))
     if lanes > 1:
         parts = zip(node.chunk(lanes, dim=1), vals.chunk(lanes, dim=1),
                     prev_H.chunk(lanes) if prev_H is not None else [None] * lanes)
@@ -669,6 +690,9 @@ def fit_forest(
     node = torch.zeros((n, M), dtype=torch.int32, device=dev)
     parent_value = y_mean[:, None, :]  # [M, 1, k]
     bin_oh = _bin_one_hot(Xb, B) if tier == "matmul" else None
+    # the kernels' plan knobs, resolved once a fit (not once a launch)
+    knobs = (level_knobs(3 if tier == "fused" else 2, n)
+             if tier in ("pallas", "fused") and dev.type == "cuda" else None)
     if tier == "fused":
         bits = pack_width(B)
         # loop-invariant: packed once, read by every level's kernels
@@ -683,12 +707,13 @@ def fit_forest(
         if tier == "fused":
             H, node = fused_round_level(
                 packed, node, vals, tables[0], tables[1], n_nodes=n_nodes,
-                max_bins=B, bits=bits, num_features=d, lanes=lanes,
+                max_bins=B, bits=bits, num_features=d, lanes=lanes, knobs=knobs,
             )
             H = preduce(H, axis_name)
         else:
             H = _level_hist(tier, Xb, bin_oh, node, stat_vals, n_nodes, B,
-                            prev_H if derived else None, lanes, reduce=red)
+                            prev_H if derived else None, lanes, reduce=red,
+                            knobs=knobs)
         if derived:
             # left children are direct (an empty one reads exactly 0.0);
             # right children accumulate their parents' floors plus this
@@ -833,7 +858,8 @@ def predict_forest(trees: Tree, X: torch.Tensor) -> torch.Tensor:
     M = trees.split_feature.shape[0]
     Xc = _clamp_features(X)
     m = torch.arange(M, device=Xc.device)[None, :]
-    chunk = max(1, _PREDICT_MAX_CELLS // max(M, 1))
+    cells = int(_tuned("predict_fused_max_cells", _PREDICT_MAX_CELLS, n=Xc.shape[0]))
+    chunk = max(1, cells // max(M, 1))
     outs = [trees.leaf_value[m, _walk(trees, Xc[r0:r0 + chunk], trees.split_threshold)]
             for r0 in range(0, Xc.shape[0], chunk)]  # each [rows, M, k]
     return torch.cat(outs, dim=0).permute(1, 0, 2) if outs else (

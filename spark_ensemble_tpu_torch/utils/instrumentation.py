@@ -27,6 +27,8 @@ from typing import Any, Dict, Iterator, Optional
 
 import torch
 
+from spark_ensemble_tpu_torch.autotune.resolve import pinned
+
 logger = logging.getLogger("spark_ensemble_tpu_torch")
 
 
@@ -88,7 +90,8 @@ def profile_trace(log_dir: Optional[str]) -> Iterator[None]:
 
 def instrumented_fit(fit):
     """Decorator for estimator ``fit`` methods: runs the body inside the
-    ``instrumented`` logging scope and, when the estimator's
+    ``instrumented`` logging scope, with each autotuned site resolved once
+    (``autotune.resolve.pinned``), and, when the estimator's
     ``profile_dir`` param is set, inside a ``torch.profiler`` capture of
     the whole fit, fenced on the result before the capture stops."""
 
@@ -101,7 +104,7 @@ def instrumented_fit(fit):
         depth0 = _events.active_fit_depth()
         with instrumented(f"{type(self).__name__}.fit"), profile_trace(
             profile_dir
-        ):
+        ), pinned():
             try:
                 result = fit(self, *args, **kwargs)
             except BaseException as e:

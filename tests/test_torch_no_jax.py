@@ -71,6 +71,10 @@ def test_every_port_module_imports_with_jax_blocked():
                 "spark_ensemble_tpu_torch.utils.instrumentation",
                 "spark_ensemble_tpu_torch.utils.profiling",
                 "spark_ensemble_tpu_torch.autotune.resolve",
+                "spark_ensemble_tpu_torch.autotune.space",
+                "spark_ensemble_tpu_torch.autotune.cache",
+                "spark_ensemble_tpu_torch.autotune.search",
+                "spark_ensemble_tpu_torch.autotune.compilation_cache",
                 "spark_ensemble_tpu_torch.ops.collective",
                 "spark_ensemble_tpu_torch.parallel.mesh",
                 "spark_ensemble_tpu_torch.parallel.elastic",

@@ -338,8 +338,9 @@ def test_partition_rejects_bad_arguments(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_resolve_order_and_modes(monkeypatch):
-    assert sorted(TUNABLES) == sorted(t.name for t in JAX_TUNABLES)
+def test_resolve_order_and_modes(monkeypatch, tmp_path):
+    monkeypatch.setenv("SE_TPU_AUTOTUNE_CACHE", str(tmp_path / "atc"))
+    assert TUNABLES.names() == tuple(t.name for t in JAX_TUNABLES)
     monkeypatch.delenv(MODE_ENV, raising=False)
     assert autotune_mode() == "cache"
     assert resolve("stream_chunk_rows", 123, n=10) == 123
@@ -357,11 +358,17 @@ def test_resolve_order_and_modes(monkeypatch):
             pass
     monkeypatch.setenv(MODE_ENV, "bogus")
     assert autotune_mode() == "off"
+    # mode "search" with nothing cached runs the smoke search once (stubbed
+    # here: tests/test_torch_autotune.py runs it), and search() runs it too
+    from spark_ensemble_tpu_torch.autotune import search as search_mod
+
+    calls = []
+    monkeypatch.setattr(search_mod, "run_search",
+                        lambda budget="smoke", **kw: calls.append(budget) or {})
     monkeypatch.setenv(MODE_ENV, "search")
-    with pytest.warns(RuntimeWarning, match="Slice F"):
-        assert resolve("prefetch_depth", 2) == 2
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        search()
+    assert resolve("prefetch_depth", 2) == 2
+    assert calls == ["smoke"]
+    assert search() == {} and calls == ["smoke", "smoke"]
 
 
 def test_stream_chunk_rows_resolve_at_the_stream_tier(monkeypatch):

@@ -23,10 +23,6 @@ from spark_ensemble_tpu_torch.utils.persist import params_to_json_dict
 
 #: JAX modules of ROADMAP queue 1 still to port, with their item numbers
 QUEUED = {
-    "spark_ensemble_tpu.autotune.space": 27,
-    "spark_ensemble_tpu.autotune.cache": 27,
-    "spark_ensemble_tpu.autotune.search": 27,
-    "spark_ensemble_tpu.autotune.compilation_cache": 27,
     "spark_ensemble_tpu.analysis.lint": 28,
     "spark_ensemble_tpu.analysis.contracts": 28,
 }
@@ -38,7 +34,9 @@ SLICE = ("ElasticCoordinator", "HostLostError", "DistributedSweep", "survivor_me
          "ProgramInventory", "ProgramRecord", "HbmSampler", "global_inventory",
          "OperatorPlane", "OperatorServer", "render_openmetrics",
          "start_operator_plane", "validate_openmetrics", "skew_report",
-         "stitch_files")
+         "stitch_files",
+         "TUNABLES", "TuningCache", "autotune_fit", "enable_compilation_cache",
+         "run_search")
 
 
 def _home(name):
