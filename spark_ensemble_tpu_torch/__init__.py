@@ -71,12 +71,20 @@ default) or on the CPU (``device="cpu"``):
   over the program inventory ``ProgramInventory``, whose rows carry each
   program's and each CUDA kernel's launch work, and ``HbmSampler``),
   ``render_openmetrics`` / ``validate_openmetrics``, and pod-scope
-  stitching of per-rank streams (``stitch_files``, ``skew_report``).
+  stitching of per-rank streams (``stitch_files``, ``skew_report``);
+- static and program analysis (``analysis``): the port's lint rules
+  (``lint_paths``) and its program contracts (``trace_contracts``,
+  ``check_contracts``, ``ContractReport``) held against the committed
+  ``analysis/contracts.json`` (``tools/graftlint_torch.py``);
+- dataset loading: ``utils.datasets`` (``parse_libsvm`` over a native C++
+  parser built with g++ at first use, ``load_dataset``,
+  ``train_test_split``).
 
 The level histograms, routes and leaf sums of the ``pallas`` and ``fused``
 tiers run as hand-written CUDA kernels (``csrc/hist.cu``) built with
 ``nvcc`` at first use.  The package imports torch and numpy, never jax or
-the JAX package.  ROADMAP.md's queues list what is still to port.
+the JAX package, and does everything the JAX package does but its
+JAX-version seam (``compat.py``).
 """
 
 __version__ = "0.1.0"
@@ -259,6 +267,13 @@ from spark_ensemble_tpu_torch.telemetry import (
     trace_annotations_enabled,
     validate_openmetrics,
 )
+from spark_ensemble_tpu_torch import analysis
+from spark_ensemble_tpu_torch.analysis import (
+    ContractReport,
+    check_contracts,
+    lint_paths,
+    trace_contracts,
+)
 from spark_ensemble_tpu_torch import parallel
 from spark_ensemble_tpu_torch.parallel import (
     DistributedSweep,
@@ -378,6 +393,10 @@ __all__ = [
     "skew_report",
     "stitch_files",
     "autotune_fit",
+    "lint_paths",
+    "ContractReport",
+    "check_contracts",
+    "trace_contracts",
     "bagging_classifier_from_arrays",
     "bagging_regressor_from_arrays",
     "boosting_classifier_from_arrays",

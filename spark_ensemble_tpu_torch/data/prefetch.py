@@ -34,8 +34,10 @@ the process-wide registry (``data/shard_*`` counters and histograms of
 consumer's wait is charged to ``host_blocked_us`` and both sides become
 spans: the worker's load, rebuilt from its measured wall window on the
 ``se-tpu-shard`` track, and the consumer's wait, with a flow arrow from
-load to wait when the wait was a prefetch miss.  ``take_stats`` keeps
-the per-fit ledger the per-round events read.
+load to wait when the wait was a prefetch miss.  The wait for a pinned
+staging buffer's previous copy before it is refilled is timed apart, as
+``reuse_wait_s``.  ``take_stats`` keeps the per-fit ledger the per-round
+events read.
 """
 
 from __future__ import annotations
@@ -122,7 +124,7 @@ class ShardPrefetcher:
     def _zero_stats():
         return {
             "loads": 0, "hits": 0, "misses": 0, "bytes": 0,
-            "load_s": 0.0, "wait_s": 0.0,
+            "load_s": 0.0, "wait_s": 0.0, "reuse_wait_s": 0.0,
             "errors": 0, "last_error": None,
         }
 
@@ -156,7 +158,11 @@ class ShardPrefetcher:
         self._slot ^= 1
         buf, done = slot
         if done is not None:
-            done.synchronize()  # the buffer's previous copy has landed
+            # the buffer's previous copy must land before it is refilled: a
+            # wait on the round path, kept apart from the shard wait
+            t0 = time.perf_counter()
+            done.synchronize()
+            self._stats["reuse_wait_s"] += time.perf_counter() - t0
         buf.copy_(host)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._side):
@@ -220,7 +226,8 @@ class ShardPrefetcher:
 
     def take_stats(self) -> Dict[str, float]:
         """Counters accumulated since the last take (loads / hits / misses
-        / bytes / load_s / wait_s / errors / last_error), then reset."""
+        / bytes / load_s / wait_s / reuse_wait_s / errors / last_error),
+        then reset."""
         out, self._stats = self._stats, self._zero_stats()
         return out
 
@@ -234,6 +241,7 @@ class ShardPrefetcher:
         self._ex.shutdown(wait=True)
         for _, done in self._staging:
             if done is not None:
+                # graftlint: ignore[unfenced-blocking-read] -- close(): the last copies land before their pinned buffers are freed, off the round path
                 done.synchronize()
         self._staging = []
 

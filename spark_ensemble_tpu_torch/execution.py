@@ -102,8 +102,8 @@ def device_patience_step(errs: torch.Tensor, best: float, v: int, tol: float,
         v_t = torch.where(done, v_t, new_v)
         kept = torch.where(done, kept, kept + 1)
         done = done | stop_now
-    out = torch.stack([best_t.double(), v_t.double(), done.double(),
-                       kept.double()])
+    # graftlint: ignore[f64-upcast] -- one 4-scalar readback: float64 carries the f32 loss and the int32 counts exactly
+    out = torch.stack([t.double() for t in (best_t, v_t, done, kept)])
     if telem is not None:
         telem.blocking_read(out)
     host = out.tolist()

@@ -65,6 +65,7 @@ from spark_ensemble_tpu_torch.models.base import (
     infer_num_classes,
     make_shared_fit_ctx,
     mesh_device,
+    program_call,
     resolve_device,
     resolve_weights,
     stack_members,
@@ -467,7 +468,10 @@ def _fit_reg_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev, telem):
             masks.append(mask)
             keys.append(bag_key)
             losses.append(loss)
-        params, dirs = _swept_forest(base, ctx, labels, fit_ws, masks, Xt, keys, 1)
+        # one call of the JAX package's swept round program; the lanes'
+        # shared base learner keys it (a lane's own rate is an operand)
+        with program_call("gbm_reg_sweep", Xt, len(lanes), base):
+            params, dirs = _swept_forest(base, ctx, labels, fit_ws, masks, Xt, keys, 1)
         weights = []
         for s, lane in enumerate(lanes):
             alpha = round_core.step(losses[s], yt, preds[s], bag_ws[s], dirs[s])
@@ -533,7 +537,8 @@ def _fit_cls_slab(ests, w_list, base, ctx, Xt, yt, X_val, y_val, k, dev, telem):
             bag_ws.append(bw)
             masks.append(mask)
             keys.append(bag_key)
-        params, dirs = _swept_forest(base, ctx, labels, fit_ws, masks, Xt, keys, dim)
+        with program_call("gbm_cls_sweep", Xt, len(lanes), base):
+            params, dirs = _swept_forest(base, ctx, labels, fit_ws, masks, Xt, keys, dim)
         if optimized:
             problems = [round_core.step_problem(y_enc, preds[s], bag_ws[s], dirs[s])
                         for s in range(len(lanes))]

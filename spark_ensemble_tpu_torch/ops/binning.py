@@ -55,6 +55,7 @@ def compute_bins(X: torch.Tensor, max_bins: int = 64) -> Bins:
     S = torch.sort(X, dim=0).values  # [n, d]
     lv, hv = S[low_i], S[high_i]  # [B-1, d]
     hh = hv * high_w[:, None]  # rounded to f32, as XLA's fused form does
+    # graftlint: ignore[f64-upcast] -- emulates XLA's fused multiply-add in jnp.quantile: one float64 rounding, so thresholds equal the JAX package's bit for bit
     thr = (lv.double() * low_w.double()[:, None] + hh.double()).to(torch.float32)
     # a column holding NaN quantiles to all-NaN, like jnp.quantile
     thr[:, torch.isnan(X).any(dim=0)] = float("nan")

@@ -36,10 +36,13 @@ fallback from NCCL.
 Every gather adds to :func:`collective_stats` (``gathers``, ``bytes`` sent
 by this rank); :func:`set_collective_timing` also times each one (CUDA
 events on the card, the host clock on the CPU) into ``ms``.
+:func:`observe_axes` hands every collective's :class:`Axis` to a callback
+(the contracts' check that a mesh fit reduces only over its mesh's axes).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional, Sequence
 
@@ -68,6 +71,23 @@ class Axis:
 
 
 _STATS = {"gathers": 0, "reduces": 0, "bytes": 0}
+_AXIS_OBSERVERS: list = []
+
+
+@contextlib.contextmanager
+def observe_axes(callback):
+    """Call ``callback(axis)`` with the :class:`Axis` of every collective
+    this process runs in the scope."""
+    _AXIS_OBSERVERS.append(callback)
+    try:
+        yield
+    finally:
+        _AXIS_OBSERVERS.remove(callback)
+
+
+def _observe(axis: Axis) -> None:
+    for cb in list(_AXIS_OBSERVERS):
+        cb(axis)
 _TIMING = {"on": False, "events": [], "host_s": 0.0}
 
 
@@ -77,7 +97,7 @@ def collective_stats() -> dict:
     Reading synchronizes the timed CUDA events."""
     ms = _TIMING["host_s"] * 1e3
     for a, b in _TIMING["events"]:
-        b.synchronize()
+        b.synchronize()  # graftlint: ignore[unfenced-blocking-read] -- the stats read is the measurement: it waits for the timed gathers' end events, after the fit
         ms += a.elapsed_time(b)
     return {"gathers": _STATS["gathers"], "reduces": _STATS["reduces"],
             "bytes": _STATS["bytes"], "ms": ms}
@@ -137,6 +157,7 @@ def _timed(fn, x: torch.Tensor):
 def _all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """The ranks' copies of ``x`` stacked in rank order -> ``[W, *x.shape]``."""
     src = x.contiguous()
+    _observe(axis)
     _STATS["gathers"] += 1
     _STATS["bytes"] += src.numel() * src.element_size()
 
@@ -178,6 +199,7 @@ def preduce(x, axis: Optional[Axis]):
 def _all_reduce(x, axis: Optional[Axis], op):
     if axis is None:
         return x
+    _observe(axis)
     t = x.detach().clone().contiguous()
     if _staged(t, axis):
         host = t.cpu()
@@ -206,6 +228,7 @@ def gather_objects(obj, axis: Optional[Axis]) -> list:
     :func:`model_bytes`."""
     if axis is None:
         return [obj]
+    _observe(axis)
     out = [None] * axis.size
     dist.all_gather_object(out, obj, group=axis.group)
     return out

@@ -288,6 +288,7 @@ class DistributedSweep:
 
     def _sync(self):
         if self.device.type == "cuda":
+            # graftlint: ignore[unfenced-blocking-read] -- the measure mode's fence edges (reduce_s is timed around it) and the preemption drain of an abandoned fit
             torch.cuda.synchronize(self.device)
 
     def _reduce(self, acc, contrib):

@@ -68,6 +68,7 @@ def _on_stream(stream, device: torch.device, fn: Callable[[], Any]):
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(stream):
         out = fn()
+    # graftlint: ignore[unfenced-blocking-read] -- the refresh's result crosses threads, so its stream must finish; on the refresh thread, off the serving path
     stream.synchronize()
     return out
 

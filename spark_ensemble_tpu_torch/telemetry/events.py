@@ -304,9 +304,9 @@ def empty_history() -> Dict[str, np.ndarray]:
 def _host(x) -> np.ndarray:
     """A tensor, list or array of per-round values as a host array."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", torch.float64).numpy()
+        return x.detach().cpu().numpy().astype(np.float64)
     if isinstance(x, (list, tuple)) and x and isinstance(x[0], torch.Tensor):
-        return torch.stack([t.detach().cpu().double() for t in x]).numpy()
+        return np.stack([t.detach().cpu().numpy() for t in x]).astype(np.float64)
     return np.asarray(x, dtype=np.float64)
 
 

@@ -86,6 +86,7 @@ class ParamGridBuilder:
 
 
 def _permutation(n: int, seed: int) -> np.ndarray:
+    # graftlint: ignore[unfenced-blocking-read] -- the fold plan's draw runs on the CPU (PRNGKey with no device), before any fit
     return permutation(PRNGKey(seed), n).numpy()
 
 

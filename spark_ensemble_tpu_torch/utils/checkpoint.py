@@ -205,7 +205,7 @@ class TrainingCheckpointer:
         """Join the in-flight save, re-raising its failure."""
         if self._pending is not None:
             pending, self._pending = self._pending, None
-            pending.result()
+            pending.result()  # graftlint: ignore[unfenced-blocking-read] -- async-save join at the save boundary, not the dispatch window; kept bare so the save thread's failure re-raises here
 
     def abandon(self) -> None:
         """A fit is leaving on an exception: join the in-flight save (its
@@ -231,6 +231,7 @@ class TrainingCheckpointer:
             event.record()
         if not self.async_save:
             if event is not None:
+                # graftlint: ignore[unfenced-blocking-read] -- synchronous save (async_save=False): the save boundary waits for its own device-to-host copies by design
                 event.synchronize()
             self._save_sync(round_idx, host)
             return
@@ -250,7 +251,8 @@ class TrainingCheckpointer:
 
     def _save_after(self, event, round_idx: int, state, parent) -> None:
         if event is not None:
-            event.synchronize()  # the device-to-host copies have landed
+            # the device-to-host copies have landed
+            event.synchronize()  # graftlint: ignore[unfenced-blocking-read] -- on the writer thread, off the fit's thread
         self._save_sync(round_idx, state, parent)
 
     def _save_sync(self, round_idx: int, state: Dict[str, Any],

@@ -122,7 +122,9 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     # jax's f32 ``floats * (hi - lo) + lo`` compiles to one fused
     # multiply-add: the product is exact in float64, and the sum is
     # rounded to float32 once (up to a double rounding of ~2^-29 odds)
+    # graftlint: ignore[f64-upcast] -- emulates jax.random.uniform's fused multiply-add: the product exact in float64, one rounding to float32
     span = (hi - lo).to(torch.float64)
+    # graftlint: ignore[f64-upcast] -- the same fused multiply-add emulation
     out = (floats.to(torch.float64) * span + lo.to(torch.float64)).to(torch.float32)
     return torch.maximum(lo, out)
 

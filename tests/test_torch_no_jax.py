@@ -45,6 +45,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     # the mesh tests' rank processes import only the port
     yield os.path.join(ROOT, "tests", "_torch_mesh_worker.py")
+    yield os.path.join(ROOT, "tools", "graftlint_torch.py")
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -78,7 +79,13 @@ def test_every_port_module_imports_with_jax_blocked():
                 "spark_ensemble_tpu_torch.ops.collective",
                 "spark_ensemble_tpu_torch.parallel.mesh",
                 "spark_ensemble_tpu_torch.parallel.elastic",
-                "spark_ensemble_tpu_torch.parallel.multihost", "chip_smoke"}
+                "spark_ensemble_tpu_torch.parallel.multihost",
+                "spark_ensemble_tpu_torch.analysis.lint",
+                "spark_ensemble_tpu_torch.analysis.rules",
+                "spark_ensemble_tpu_torch.analysis.contracts",
+                "spark_ensemble_tpu_torch.analysis.cli",
+                "spark_ensemble_tpu_torch.utils.datasets",
+                "spark_ensemble_tpu_torch.utils._libsvm_native", "chip_smoke"}
     assert expected <= set(report["names"])
 
 

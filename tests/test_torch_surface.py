@@ -1,8 +1,8 @@
 """The port's public surface against the JAX package's.
 
 Every name in ``spark_ensemble_tpu.__all__`` is exported by
-``spark_ensemble_tpu_torch`` or belongs to a module still waiting in
-ROADMAP.md's queue 1 (``QUEUED`` below; each later slice shrinks it).
+``spark_ensemble_tpu_torch``: ROADMAP.md's queue 1 holds no module to port
+(``QUEUED`` below is empty).
 Every port model has ``.pack()`` and every port ``Params`` has
 ``.params_to_json_dict()``, as the JAX package's do, each equal to the
 function it delegates to.
@@ -22,10 +22,7 @@ from spark_ensemble_tpu_torch.serving.export import pack
 from spark_ensemble_tpu_torch.utils.persist import params_to_json_dict
 
 #: JAX modules of ROADMAP queue 1 still to port, with their item numbers
-QUEUED = {
-    "spark_ensemble_tpu.analysis.lint": 28,
-    "spark_ensemble_tpu.analysis.contracts": 28,
-}
+QUEUED = {}
 
 #: this slice's names
 SLICE = ("ElasticCoordinator", "HostLostError", "DistributedSweep", "survivor_mesh",
@@ -36,7 +33,8 @@ SLICE = ("ElasticCoordinator", "HostLostError", "DistributedSweep", "survivor_me
          "start_operator_plane", "validate_openmetrics", "skew_report",
          "stitch_files",
          "TUNABLES", "TuningCache", "autotune_fit", "enable_compilation_cache",
-         "run_search")
+         "run_search",
+         "lint_paths", "ContractReport", "check_contracts", "trace_contracts")
 
 
 def _home(name):
@@ -58,10 +56,14 @@ def test_every_exported_name_resolves():
 
 
 def test_queued_modules_are_not_ported_yet():
-    """A queued module that lands must leave ``QUEUED`` (and its names
-    enter ``__all__``)."""
-    queued_names = [n for n in se.__all__ if _home(n) in QUEUED]
-    assert queued_names and not set(queued_names) & set(st.__all__)
+    """Nothing is queued: every name of the JAX package's ``__all__`` is
+    exported by the port, and the analysis names resolve to the port's own
+    ``analysis`` package."""
+    assert QUEUED == {}
+    assert [n for n in se.__all__ if n not in st.__all__] == []
+    for name in ("lint_paths", "ContractReport", "check_contracts", "trace_contracts"):
+        assert getattr(st, name).__module__.startswith("spark_ensemble_tpu_torch.analysis")
+    assert sorted(st.analysis.__all__) == sorted(se.analysis.__all__)
 
 
 def test_subpackages_export_the_chaos_faults_and_annotations():

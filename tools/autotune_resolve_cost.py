@@ -57,7 +57,7 @@ def main(argv=None):
     X, y = cs.letter_data()
 
     def rate():
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # graftlint: ignore[unfenced-blocking-read] -- drains the card so the timed window opens idle
         t0 = time.perf_counter()
         cs._main_path_gbm(st, 100).fit(X, y, device="cuda")
         torch.cuda.synchronize()
