@@ -2359,6 +2359,45 @@ def main():
           "per_round_ms": per_round_ms, "per_round_wrapper_ms": per_round_wrapper_ms,
           "predict_rows_per_s": N_ROWS / pred_s, "predict_s": pred_s, "train_accuracy": acc})
 
+    # gbm_members: member(i, dim) of the timed 26-class model.  A member's
+    # predict takes the same leaf lookup (ops/tree.predict_forest) as the
+    # model's stacked forest predict, so it must equal that tree's row bit
+    # for bit.  Over every round, init_raw[0] + sum_i w[i, 0] * member(i, 0)
+    # summed in f64 must match predict_raw's column 0 (an f32 pairwise sum
+    # of the same rounded products) within 1e-6 of the row's sum of
+    # |terms|: a pairwise f32 sum of 100 terms errs by at most about
+    # 7 * 2^-24 of it.  Every member lives on the card.
+    t0 = time.perf_counter()
+    Xm = Xd[:4096]
+    members, weights = model.params["members"], model.params["weights"]
+    r, dim = weights.shape
+    flat = type(members)(*(a.reshape((r * dim,) + a.shape[2:]) for a in members))
+    forest = model._base().predict_many_fn(flat, Xm).reshape(r, dim, -1)
+    exact = {}
+    on_card = True
+    for i, d in ((0, 0), (r - 1, dim - 1), (r // 2, 13)):
+        m_ = model.member(i, dim=d)
+        on_card &= all(t.is_cuda for t in m_.params)
+        exact[f"{i},{d}"] = bool(torch.equal(m_.predict(Xm), forest[i, d]))
+    terms = []
+    for i in range(r):
+        m_ = model.member(i, 0)
+        on_card &= all(t.is_cuda for t in m_.params)
+        terms.append(weights[i, 0] * m_.predict(Xm))
+    # the f64 reference is summed on the host: the f32 policy (the lint's
+    # f64-upcast rule) keeps float64 off the card
+    terms = torch.stack(terms).cpu().numpy().astype(np.float64)
+    init0 = float(model.params["init_raw"][0])
+    ref = init0 + terms.sum(axis=0)
+    scale = abs(init0) + np.abs(terms).sum(axis=0)
+    raw0 = model.predict_raw(Xm)[:, 0].cpu().numpy().astype(np.float64)
+    sum_err = float((np.abs(raw0 - ref) / scale).max())
+    emit({"phase": "gbm_members", "rounds": r, "class_dims": dim, "rows": int(Xm.shape[0]),
+          "member_equals_forest_row": exact, "sum_rel_err_d0": sum_err, "sum_tol": 1e-6,
+          "members_on_cuda": on_card, "check_s": time.perf_counter() - t0, "card": smi})
+    if not all(exact.values()) or sum_err > 1e-6 or not on_card:
+        raise AssertionError(f"gbm_members: exact {exact}, sum {sum_err}, on card {on_card}")
+
     # where a fused fit's time goes: device time by kernel over a fit
     # (setup included), counting device-side events only (the CPU ops
     # that launched them carry the same time again)

@@ -11,7 +11,9 @@ never imports the JAX package):
   Boosting ``[members, ...]``; a single tree none);
 - ``weights``: GBM step sizes (classifier ``[rounds, dim]``, regressor
   ``[rounds]``) or Boosting estimator weights ``[members]``;
-- ``masks``: Bagging's per-member feature subspaces ``bool[members, d]``;
+- ``masks``: Bagging's per-member feature subspaces ``bool[members, d]``,
+  and a GBM's per-round ones ``bool[rounds, d]`` (optional there: without
+  them every round keeps every feature, as a fit without a subspace does);
 - ``init_raw`` (GBM classifier ``[dim]``) or ``init`` (GBM regressor: the
   init model's constant prediction, whatever its strategy: mean, median or
   quantile); a GBM's loss and its ``alpha`` travel in the params dict;
@@ -183,6 +185,13 @@ def _members(arrays: dict, device):
     return {"tree": trees, **_tensors(arrays, _LINEAR_LEAF_KEYS, device)}
 
 
+def _round_masks(arrays: dict, rounds: int, num_features: int, device):
+    """A GBM's per-round feature masks, all True when ``arrays`` has none."""
+    if "masks" in arrays:
+        return torch.as_tensor(np.array(arrays["masks"], bool), device=device)
+    return torch.ones((rounds, num_features), dtype=torch.bool, device=device)
+
+
 def gbm_classifier_from_arrays(params: dict, arrays: dict, *, num_features: int,
                                num_classes: int, device="cuda"):
     """Port model of a fitted JAX ``GBMClassificationModel``."""
@@ -193,6 +202,7 @@ def gbm_classifier_from_arrays(params: dict, arrays: dict, *, num_features: int,
         params={
             "members": _members(arrays, dev) if rounds > 0 else None,
             "weights": weights,
+            "masks": _round_masks(arrays, rounds, num_features, dev),
             "init_raw": torch.as_tensor(
                 np.array(arrays["init_raw"], np.float32), device=dev
             ),
@@ -224,6 +234,7 @@ def gbm_regressor_from_arrays(params: dict, arrays: dict, *, num_features: int,
         params={
             "members": _members(arrays, dev) if rounds > 0 else None,
             "weights": weights,
+            "masks": _round_masks(arrays, rounds, num_features, dev),
             "init": init_params,
             "val_hist": None,
         },

@@ -98,8 +98,8 @@ class ShardPrefetcher:
     packed words as an int32 tensor on ``device`` (the port's bit patterns
     of the stored uint32 words), else the host ``u32`` numpy array."""
 
-    def __init__(self, store, depth: Optional[int] = None,
-                 to_device: bool = True, device="cuda", telem=None):
+    def __init__(self, store, depth: Optional[int] = None, telem=None,
+                 to_device: bool = True, device="cuda"):
         self.store = store
         self.telem = telem
         if depth is None:

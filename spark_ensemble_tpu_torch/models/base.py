@@ -873,18 +873,20 @@ class BaseLearner(Estimator):
         return ctx[idx]
 
     def fit_gathered_and_direction(self, ctx_s, y_s, w_s, feature_mask, X,
-                                   key=None):
+                                   key=None, axis_name=None):
         """Member fit on a compacted ctx (``ctx_gather_rows``) PLUS the
         fitted member's predictions on ALL rows ``X`` -> (params, pred[n])."""
-        params = self.fit_from_ctx(ctx_s, y_s, w_s, feature_mask, key=key)
+        params = self.fit_from_ctx(ctx_s, y_s, w_s, feature_mask, key=key,
+                                   axis_name=axis_name)
         return params, self.predict_fn(params, X)
 
     def fit_gathered_many_and_directions(self, ctx_s, ys_s, ws_s,
-                                         feature_masks, X, keys=None):
+                                         feature_masks, X, keys=None,
+                                         axis_name=None):
         """Fused-member analogue of ``fit_gathered_and_direction`` ->
         (stacked params, preds[n, M])."""
         params = self.fit_many_from_ctx(ctx_s, ys_s, ws_s, feature_masks,
-                                        keys=keys)
+                                        keys=keys, axis_name=axis_name)
         return params, self.predict_many_fn(params, X).T
 
     def predict_fn(self, params, X: torch.Tensor) -> torch.Tensor:

@@ -1847,6 +1847,22 @@ class GBMClassificationModel(ClassificationModel, GBMClassifier):
     def predict(self, X):
         return torch.argmax(self.predict_raw(X), dim=-1).to(torch.float32)
 
+    def member(self, i: int, dim: int = 0):
+        """Round ``i``'s regressor for class dimension ``dim`` (the member
+        grid is [round, class-dim], `GBMClassifier.scala:377-411`)."""
+        members = self.params["members"]
+        if members is None:
+            raise IndexError("model kept zero members")
+        rounds, dims = tree_leaves(members)[0].shape[:2]
+        if not 0 <= i < rounds:
+            raise IndexError(f"round index {i} out of range [0, {rounds})")
+        if not 0 <= dim < dims:
+            raise IndexError(f"class-dim index {dim} out of range [0, {dims})")
+        params_i = tree_map(lambda a: a[i, dim], members)
+        return self._base().model_from_params(
+            params_i, self.num_features, None, self.device
+        )
+
     def take(self, k: int) -> "GBMClassificationModel":
         """The model of the first ``k`` rounds."""
         k = min(k, self.num_members)

@@ -126,6 +126,14 @@ class Tree(NamedTuple):
             fields["split_gain"] = torch.zeros_like(fields["split_threshold"])
         return fields
 
+    @property
+    def depth(self) -> int:
+        return self.leaf_value.shape[-2].bit_length() - 1
+
+    @property
+    def num_outputs(self) -> int:
+        return self.leaf_value.shape[-1]
+
 
 # bin-one-hot budget of the matmul tier under hist="auto": past it the
 # row-chunked stream tier runs (the JAX package's rule)

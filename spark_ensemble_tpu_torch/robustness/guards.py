@@ -102,8 +102,8 @@ class NumericGuard:
     and replay); the guard owns detection (:meth:`first_nonfinite`,
     :meth:`member_flags`) and the ``events`` record."""
 
-    def __init__(self, policy: str, family: str = "", max_halvings: int = 4,
-                 telem=None):
+    def __init__(self, policy: str, family: str = "", telem=None,
+                 max_halvings: int = 4):
         if policy not in NONFINITE_POLICIES:
             raise ValueError(
                 f"on_nonfinite must be one of {NONFINITE_POLICIES}, "
