@@ -399,17 +399,22 @@ def make_shared_fit_ctx(learner, X, num_classes: Optional[int] = None):
     and learner config), or computed directly when no scope is active.
     Keyed by ``id(X)`` with its shape, dtype and device and the learner's
     ``config_key()``; the entry pins ``X``, so a recycled ``id`` cannot
-    alias another matrix within a scope."""
-    cache = getattr(_FIT_CTX_SCOPE, "cache", None)
-    if cache is None:
-        return learner.make_fit_ctx(X, num_classes)
-    key = (id(X), tuple(X.shape), str(X.dtype), str(X.device),
-           learner.config_key(), num_classes)
-    hit = cache.get(key)
-    if hit is None:
-        hit = (X, learner.make_fit_ctx(X, num_classes))
-        cache[key] = hit
-    return hit[1]
+    alias another matrix within a scope.  The work is the ``fit.bin`` span
+    (``telemetry/trace.py``)."""
+    # lazy import: the telemetry package imports this module
+    from spark_ensemble_tpu_torch.telemetry.trace import span
+
+    with span("fit.bin"):
+        cache = getattr(_FIT_CTX_SCOPE, "cache", None)
+        if cache is None:
+            return learner.make_fit_ctx(X, num_classes)
+        key = (id(X), tuple(X.shape), str(X.dtype), str(X.device),
+               learner.config_key(), num_classes)
+        hit = cache.get(key)
+        if hit is None:
+            hit = (X, learner.make_fit_ctx(X, num_classes))
+            cache[key] = hit
+        return hit[1]
 
 
 def resolve_weights(y: torch.Tensor, sample_weight) -> torch.Tensor:
@@ -931,13 +936,17 @@ class BaseLearner(Estimator):
         padding included, reducing its statistics over the mesh's row
         axis, and every rank returns the same model."""
         dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
-        X = as_f32(X, dev)
-        y = as_f32(y, dev)
-        self._validate_fit_inputs(X, y)
-        w = resolve_weights(y, sample_weight)
-        num_classes = (
-            infer_num_classes(y, num_classes) if self.is_classifier else None
-        )
+        # lazy import: the telemetry package imports this module
+        from spark_ensemble_tpu_torch.telemetry.trace import span
+
+        with span("fit.validate"):
+            X = as_f32(X, dev)
+            y = as_f32(y, dev)
+            self._validate_fit_inputs(X, y)
+            w = resolve_weights(y, sample_weight)
+            num_classes = (
+                infer_num_classes(y, num_classes) if self.is_classifier else None
+            )
         ctx = make_shared_fit_ctx(self, X, num_classes)
         key = PRNGKey(getattr(self, "seed", 0) or 0, dev)
         if mesh is None:

@@ -133,6 +133,7 @@ from spark_ensemble_tpu_torch.parallel.mesh import (
 from spark_ensemble_tpu_torch.params import Param, gt, gt_eq, in_array, in_range
 from spark_ensemble_tpu_torch.telemetry.events import FitTelemetry
 from spark_ensemble_tpu_torch.telemetry.quality import drift_reference_from_ctx
+from spark_ensemble_tpu_torch.telemetry.trace import span
 from spark_ensemble_tpu_torch.utils.instrumentation import (
     Instrumentation,
     instrumented_fit,
@@ -956,10 +957,12 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
         loss = _make_reg_loss(loss_name, alpha_q, delta)
         if sampling is None:
             labels, fit_w, bag_w = targets(loss, y, pred, bag_w, w, samp_key)
-            params, direction = base.fit_and_direction(
-                ctx, labels, fit_w, mask, X, key=base_key, axis_name=ax
-            )
-            alpha = step(loss, y, pred, bag_w, direction)
+            with span("round.tree"):
+                params, direction = base.fit_and_direction(
+                    ctx, labels, fit_w, mask, X, key=base_key, axis_name=ax
+                )
+            with span("round.step"):
+                alpha = step(loss, y, pred, bag_w, direction)
         else:
             y_enc = loss.encode_label(y)
             idx, mult = _sample_compact(
@@ -973,11 +976,13 @@ def make_reg_round_core(base, loss_name, alpha_q, updates, optimized, goss,
                 loss, updates, loss.encode_label(y_s), pred_s[:, None],
                 bag_w[idx] * mult, w_s,
             )
-            params, direction = base.fit_gathered_and_direction(
-                base.ctx_gather_rows(ctx, idx), labels[:, 0].contiguous(),
-                fit_w[:, 0].contiguous(), mask, X, key=base_key,
-            )
-            alpha = step(loss, y_s, pred_s, bag_s, direction[idx])
+            with span("round.tree"):
+                params, direction = base.fit_gathered_and_direction(
+                    base.ctx_gather_rows(ctx, idx), labels[:, 0].contiguous(),
+                    fit_w[:, 0].contiguous(), mask, X, key=base_key,
+                )
+            with span("round.step"):
+                alpha = step(loss, y_s, pred_s, bag_s, direction[idx])
         weight = _scaled_step(lr * alpha, step_scale)
         return params, weight, _advance(pred, weight, direction, step_scale)
 
@@ -1064,11 +1069,14 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
         base_key, samp_key = keys
         if sampling is None:
             labels, fit_w, bag_w = targets(y_enc, pred, bag_w, w, samp_key)
-            if member is None:
-                params, directions = fit_dims(ctx, labels, fit_w, mask, X, base_key)
-            else:
-                params, directions = member, base.predict_many_fn(member, X).T
-            alpha = step(y_enc, pred, bag_w, directions, alpha_ws)
+            with span("round.tree"):
+                if member is None:
+                    params, directions = fit_dims(ctx, labels, fit_w, mask, X,
+                                                  base_key)
+                else:
+                    params, directions = member, base.predict_many_fn(member, X).T
+            with span("round.step"):
+                alpha = step(y_enc, pred, bag_w, directions, alpha_ws)
         else:
             idx, mult = _sample_compact(
                 sampling["method"], loss.sampling_scores(y_enc, pred),
@@ -1078,14 +1086,16 @@ def make_cls_round_core(base, loss, dim, updates, optimized, goss, tol,
             labels, fit_w, bag_s = _pseudo_residuals_and_weights(
                 loss, updates, y_enc_s, pred_s, bag_w[idx] * mult, w[idx]
             )
-            if member is None:
-                params, directions = base.fit_gathered_many_and_directions(
-                    base.ctx_gather_rows(ctx, idx), labels.contiguous(),
-                    fit_w.contiguous(), mask, X, keys=base_key,
-                )
-            else:
-                params, directions = member, base.predict_many_fn(member, X).T
-            alpha = step(y_enc_s, pred_s, bag_s, directions[idx], alpha_ws)
+            with span("round.tree"):
+                if member is None:
+                    params, directions = base.fit_gathered_many_and_directions(
+                        base.ctx_gather_rows(ctx, idx), labels.contiguous(),
+                        fit_w.contiguous(), mask, X, keys=base_key,
+                    )
+                else:
+                    params, directions = member, base.predict_many_fn(member, X).T
+            with span("round.step"):
+                alpha = step(y_enc_s, pred_s, bag_s, directions[idx], alpha_ws)
         weight = _scaled_step(lr * alpha, step_scale)
         new_pred = _advance(pred, weight[None, :], directions, step_scale)
         return params, weight, new_pred, alpha_carry(alpha)
@@ -1212,10 +1222,12 @@ class GBMRegressor(_GBMParams, Estimator):
         the same arrays) the rows shard over the mesh's row axes and every
         rank returns the same model."""
         dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
-        X, y = as_f32(X, dev), as_f32(y, dev)
-        self._validate_fit_inputs(X, y)
-        w_all = resolve_weights(y, sample_weight)
-        X, y, w, X_val, y_val = _split_validation(X, y, w_all, validation_indicator)
+        with span("fit.validate"):
+            X, y = as_f32(X, dev), as_f32(y, dev)
+            self._validate_fit_inputs(X, y)
+            w_all = resolve_weights(y, sample_weight)
+            X, y, w, X_val, y_val = _split_validation(X, y, w_all,
+                                                      validation_indicator)
         n, d = X.shape
         instr = Instrumentation("GBMRegressor.fit")
         instr.log_params(self.get_params())
@@ -1267,7 +1279,8 @@ class GBMRegressor(_GBMParams, Estimator):
         alpha_q = float(self.alpha)
         huber = loss_name == "huber"
         n, d = X.shape
-        init_model = self._fit_init(X, y, w, dev, mesh)
+        with span("fit.prior"):
+            init_model = self._fit_init(X, y, w, dev, mesh)
         # initial huber delta: the alpha-quantile of the label over the
         # full input, validation rows included
         delta = (weighted_quantile(torch.cat([y, y_val]) if y_val is not None else y,
@@ -1353,27 +1366,29 @@ class GBMRegressor(_GBMParams, Estimator):
             p, pv, dl = pred, pred_val, delta
             params_l, weights_l, errs_l, deltas_l = [], [], [], []
             for r in range(sl.start, sl.stop):
-                if trees is not None:
-                    trees.begin_round(r)
-                bag_w, mask = sample(r)
-                if huber:
-                    dl = weighted_quantile(torch.abs(y - p), alpha_q, weights=ones,
-                                           axis_name=ax)
-                    deltas_l.append(dl)
-                params, weight, p = round_core(
-                    ctx, X, bag_w, (bag_keys[r], samp_keys[r]), mask, p, dl,
-                    y, w, lr, step_scale,
-                )
-                if with_validation:
-                    pv = _advance(pv, weight, base.predict_fn(params, X_val),
-                                  step_scale)
-                    le = _make_reg_loss(loss_name, alpha_q, dl).loss(y_val_enc, pv[:, None])
-                    errs_l.append(torch.mean(le) if ax is None
-                                  else _sharded_mean(le.reshape(-1), valid_val, ax))
-                params_l.append(params)
-                weights_l.append(weight)
-                if trees is not None:
-                    trees.end_round(r)
+                with span("fit.round"):
+                    if trees is not None:
+                        trees.begin_round(r)
+                    bag_w, mask = sample(r)
+                    if huber:
+                        dl = weighted_quantile(torch.abs(y - p), alpha_q,
+                                               weights=ones, axis_name=ax)
+                        deltas_l.append(dl)
+                    params, weight, p = round_core(
+                        ctx, X, bag_w, (bag_keys[r], samp_keys[r]), mask, p, dl,
+                        y, w, lr, step_scale,
+                    )
+                    if with_validation:
+                        pv = _advance(pv, weight, base.predict_fn(params, X_val),
+                                      step_scale)
+                        le = _make_reg_loss(loss_name, alpha_q, dl).loss(
+                            y_val_enc, pv[:, None])
+                        errs_l.append(torch.mean(le) if ax is None else
+                                      _sharded_mean(le.reshape(-1), valid_val, ax))
+                    params_l.append(params)
+                    weights_l.append(weight)
+                    if trees is not None:
+                        trees.end_round(r)
             # the carry moves only once the whole chunk ran, so a retried
             # chunk starts from the same state
             pred, pred_val, delta = p, pv, dl
@@ -1390,14 +1405,15 @@ class GBMRegressor(_GBMParams, Estimator):
 
         guard = self._numeric_guard(telem)
         telem.phase_mark("setup")
-        i, v, best = self._drive_rounds(
-            ckpt, chunks, run_chunk, save_state, "GBMRegressor", i, v, best,
-            val_history, guard, snapshot, restore, telem,
-            round_cost=(_round_cost(base, n, d, 1, dev, plan)
-                        if telem.enabled else None),
-            span_fields=_sampling_span_fields(plan),
-            program_args=(X, y, self), n_rows=n,
-        )
+        with span("fit.rounds"):
+            i, v, best = self._drive_rounds(
+                ckpt, chunks, run_chunk, save_state, "GBMRegressor", i, v, best,
+                val_history, guard, snapshot, restore, telem,
+                round_cost=(_round_cost(base, n, d, 1, dev, plan)
+                            if telem.enabled else None),
+                span_fields=_sampling_span_fields(plan),
+                program_args=(X, y, self), n_rows=n,
+            )
         ckpt.delete()
         keep = i - v
         model = _with_guard_events(guard, self._model(_concat(chunks["members"]),
@@ -1609,13 +1625,15 @@ class GBMClassifier(_GBMParams, Estimator):
         the class dims over its "member" axis, and every rank returns the
         same model (module docstring)."""
         dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
-        X, y = as_f32(X, dev), as_f32(y, dev)
-        self._validate_fit_inputs(X, y)
-        w_all = resolve_weights(y, sample_weight)
-        # over the FULL label set, so a validation split missing the top
-        # class cannot shrink the model
-        num_classes = infer_num_classes(y, num_classes)
-        X, y, w, X_val, y_val = _split_validation(X, y, w_all, validation_indicator)
+        with span("fit.validate"):
+            X, y = as_f32(X, dev), as_f32(y, dev)
+            self._validate_fit_inputs(X, y)
+            w_all = resolve_weights(y, sample_weight)
+            # over the FULL label set, so a validation split missing the
+            # top class cannot shrink the model
+            num_classes = infer_num_classes(y, num_classes)
+            X, y, w, X_val, y_val = _split_validation(X, y, w_all,
+                                                      validation_indicator)
         n, d = X.shape
         instr = Instrumentation("GBMClassifier.fit")
         instr.log_params(self.get_params())
@@ -1656,8 +1674,9 @@ class GBMClassifier(_GBMParams, Estimator):
         loss = self._make_loss(num_classes)
         dim = loss.dim
         n, d = X.shape
-        init_model, init_raw = self._init_raw_scores(X, y, w, num_classes, dim, dev,
-                                                     mesh)
+        with span("fit.prior"):
+            init_model, init_raw = self._init_raw_scores(X, y, w, num_classes,
+                                                         dim, dev, mesh)
         sample = self._sampling_plan(n, d, dev)
         ax = member_axis = None
         if mesh is not None:
@@ -1732,23 +1751,24 @@ class GBMClassifier(_GBMParams, Estimator):
             p, pv, aw = pred, pred_val, alpha_ws
             params_l, weights_l, errs_l = [], [], []
             for r in range(sl.start, sl.stop):
-                if trees is not None:
-                    trees.begin_round(r)
-                bag_w, mask = sample(r)
-                params, weight, p, aw = round_core(
-                    ctx, X, y_enc, w, bag_w, (bag_keys[r], samp_keys[r]), mask,
-                    p, aw, lr, step_scale,
-                )
-                if with_validation:
-                    dirs_val = base.predict_many_fn(params, X_val).T
-                    pv = _advance(pv, weight[None, :], dirs_val, step_scale)
-                    le = loss.loss(y_enc_val, pv)
-                    errs_l.append(torch.mean(le) if ax is None
-                                  else _sharded_mean(le.reshape(-1), valid_val, ax))
-                params_l.append(params)
-                weights_l.append(weight)
-                if trees is not None:
-                    trees.end_round(r)
+                with span("fit.round"):
+                    if trees is not None:
+                        trees.begin_round(r)
+                    bag_w, mask = sample(r)
+                    params, weight, p, aw = round_core(
+                        ctx, X, y_enc, w, bag_w, (bag_keys[r], samp_keys[r]),
+                        mask, p, aw, lr, step_scale,
+                    )
+                    if with_validation:
+                        dirs_val = base.predict_many_fn(params, X_val).T
+                        pv = _advance(pv, weight[None, :], dirs_val, step_scale)
+                        le = loss.loss(y_enc_val, pv)
+                        errs_l.append(torch.mean(le) if ax is None else
+                                      _sharded_mean(le.reshape(-1), valid_val, ax))
+                    params_l.append(params)
+                    weights_l.append(weight)
+                    if trees is not None:
+                        trees.end_round(r)
             pred, pred_val, alpha_ws = p, pv, aw
             return (stack_members(params_l), torch.stack(weights_l),
                     torch.stack(errs_l) if with_validation else None, None)
@@ -1770,14 +1790,15 @@ class GBMClassifier(_GBMParams, Estimator):
                 (bag_keys[0], samp_keys[0]), mask0, pred, alpha_ws,
             )
             telem.phase_mark("probe")
-        i, v, best = self._drive_rounds(
-            ckpt, chunks, run_chunk, save_state, "GBMClassifier", i, v, best,
-            val_history, guard, snapshot, restore, telem,
-            round_cost=(_round_cost(base, n, d, dim, dev, plan)
-                        if telem.enabled else None),
-            span_fields=_sampling_span_fields(plan),
-            program_args=(X, y_enc, self), n_rows=n,
-        )
+        with span("fit.rounds"):
+            i, v, best = self._drive_rounds(
+                ckpt, chunks, run_chunk, save_state, "GBMClassifier", i, v, best,
+                val_history, guard, snapshot, restore, telem,
+                round_cost=(_round_cost(base, n, d, dim, dev, plan)
+                            if telem.enabled else None),
+                span_fields=_sampling_span_fields(plan),
+                program_args=(X, y_enc, self), n_rows=n,
+            )
         ckpt.delete()
         keep = i - v
         model = _with_guard_events(guard, self._model(_concat(chunks["members"]),

@@ -106,6 +106,7 @@ from spark_ensemble_tpu_torch.ops.hist_kernels import (
     report_work,
     _WORK_HOOK,
 )
+from spark_ensemble_tpu_torch.telemetry.trace import span
 
 
 class Tree(NamedTuple):
@@ -573,18 +574,20 @@ def stream_forest(sweep, y_mean, thresholds, feature_mask, *, d, max_depth,
     parent_value = y_mean[:, None, :]
     tables = None
     for level in range(max_depth):
-        n_nodes = 2**level
-        H = torch.zeros((M, n_nodes, C, d, B), dtype=torch.float32, device=dev)
-        for xb, nd, vl in sweep(f"level:{level}"):
-            H, nd[...] = stream_level_step(
-                H, xb, nd, vl, n_nodes=n_nodes, tables=tables, max_bins=B,
-                lanes=lanes,
-            )
-        H = preduce(H, axis_name)
-        tables, parent_value = stream_level_update(
-            H, feature_mask, min_info_gain, thresholds, B, triangular,
-            round_bf16, level, parent_value, out, lanes,
-        )
+        with span("tree.level"):
+            n_nodes = 2**level
+            H = torch.zeros((M, n_nodes, C, d, B), dtype=torch.float32, device=dev)
+            for xb, nd, vl in sweep(f"level:{level}"):
+                H, nd[...] = stream_level_step(
+                    H, xb, nd, vl, n_nodes=n_nodes, tables=tables, max_bins=B,
+                    lanes=lanes,
+                )
+            H = preduce(H, axis_name)
+            with span("tree.split"):
+                tables, parent_value = stream_level_update(
+                    H, feature_mask, min_info_gain, thresholds, B, triangular,
+                    round_bf16, level, parent_value, out, lanes,
+                )
     L = torch.zeros((M, 2**max_depth, C), dtype=torch.float32, device=dev)
     for xb, nd, vl in sweep("leaf"):
         L, nd[...] = stream_leaf_step(
@@ -710,38 +713,43 @@ def fit_forest(
     prev_H = prev_W = prev_floor = None
 
     for level in range(max_depth):
-        n_nodes = 2**level
-        derived = subtract and level >= 1
-        if tier == "fused":
-            H, node = fused_round_level(
-                packed, node, vals, tables[0], tables[1], n_nodes=n_nodes,
-                max_bins=B, bits=bits, num_features=d, lanes=lanes, knobs=knobs,
-            )
-            H = preduce(H, axis_name)
-        else:
-            H = _level_hist(tier, Xb, bin_oh, node, stat_vals, n_nodes, B,
-                            prev_H if derived else None, lanes, reduce=red,
-                            knobs=knobs)
-        if derived:
-            # left children are direct (an empty one reads exactly 0.0);
-            # right children accumulate their parents' floors plus this
-            # level's rounding at the parent's weight: the sum, not a max
-            right_floor = prev_floor + _derived_hist_weight_floor(hp, prev_W)
-            node_floor = torch.stack(
-                [torch.full_like(right_floor, 1e-12), right_floor], dim=-1
-            ).reshape(M, n_nodes)
-        else:
-            node_floor = torch.full((M, n_nodes), 1e-12, dtype=torch.float32, device=dev)
-        best_f, best_t, node_w, next_parent = _write_level(
-            H, node_floor, feature_mask, min_info_gain, thresholds, B,
-            triangular, round_bf16, level, parent_value, out, lanes,
-        )
-        if tier == "fused":
-            tables = (best_f.contiguous(), best_t.contiguous())  # routed in-kernel
-        else:
-            node = _route_members(Xb, node, best_f, best_t)
-        parent_value = next_parent
-        prev_H, prev_W, prev_floor = H, node_w, node_floor
+        with span("tree.level"):
+            n_nodes = 2**level
+            derived = subtract and level >= 1
+            if tier == "fused":
+                H, node = fused_round_level(
+                    packed, node, vals, tables[0], tables[1], n_nodes=n_nodes,
+                    max_bins=B, bits=bits, num_features=d, lanes=lanes,
+                    knobs=knobs,
+                )
+                H = preduce(H, axis_name)
+            else:
+                H = _level_hist(tier, Xb, bin_oh, node, stat_vals, n_nodes, B,
+                                prev_H if derived else None, lanes, reduce=red,
+                                knobs=knobs)
+            with span("tree.split"):
+                if derived:
+                    # left children are direct (an empty one reads exactly
+                    # 0.0); right children accumulate their parents' floors
+                    # plus this level's rounding at the parent's weight: the
+                    # sum, not a max
+                    right_floor = prev_floor + _derived_hist_weight_floor(hp, prev_W)
+                    node_floor = torch.stack(
+                        [torch.full_like(right_floor, 1e-12), right_floor], dim=-1
+                    ).reshape(M, n_nodes)
+                else:
+                    node_floor = torch.full((M, n_nodes), 1e-12,
+                                            dtype=torch.float32, device=dev)
+                best_f, best_t, node_w, next_parent = _write_level(
+                    H, node_floor, feature_mask, min_info_gain, thresholds, B,
+                    triangular, round_bf16, level, parent_value, out, lanes,
+                )
+            if tier == "fused":
+                tables = (best_f.contiguous(), best_t.contiguous())  # routed in-kernel
+            else:
+                node = _route_members(Xb, node, best_f, best_t)
+            parent_value = next_parent
+            prev_H, prev_W, prev_floor = H, node_w, node_floor
 
     num_leaves = 2**max_depth
     if tier == "fused":

@@ -82,7 +82,6 @@ from spark_ensemble_tpu_torch.telemetry.registry import (
 from spark_ensemble_tpu_torch.telemetry.trace import (
     NULL_SPAN,
     NULL_TRACER,
-    TRACE_ANNOTATIONS_ENV,
     Span,
     TraceContext,
     Tracer,
@@ -106,7 +105,6 @@ __all__ = [
     "FALLBACK_THRESHOLDS",
     "PHASES_ENV",
     "TELEMETRY_ENV",
-    "TRACE_ANNOTATIONS_ENV",
     "Counter",
     "DriftMonitor",
     "FitTelemetry",

@@ -34,24 +34,39 @@ prefetcher's contract) don't begin spans at all: the consumer
 reconstructs the worker's span after the fact from measured wall-clock
 timings via :meth:`Tracer.emit_span`.
 
-``SE_TPU_TRACE_ANNOTATIONS=1`` additionally wraps every span begun and
-ended on one thread in a ``torch.profiler.record_function`` scope, so
-host spans line up with the kernels they launched inside a
-``torch.profiler`` capture (``profile_dir``).  Off by default: a scope
-costs a host call per span even outside a capture.
+While a ``torch.profiler`` capture is live on the thread (``profile_dir``,
+or any caller's own profiler), every span begun and ended on that thread
+is also a profiler scope: a ``RecordFunction`` at operator scope, listed
+by the profiler beside the aten operators on the same clock, so the
+kernels a span's operators launch link to it by correlation id.  It is
+not a user annotation: those also get a device-side copy on the CUDA
+timeline, which a reader of device activity would count as a kernel.
+Outside a capture no scope is entered.
+
+:func:`span` is the fit path's one entry point (docs/tracing.md has the
+catalogue: ``fit``, ``fit.bin``, ``fit.round``, ``round.step``,
+``tree.level``, ...).  It is a profiler scope and nothing else: a fit's
+stream already has its rounds (``round_end``), its chunks
+(``round_chunk``) and its phases (``fit_end``'s phase map).
 
 Overhead discipline: with no telemetry sink the disabled ``FitTelemetry``
 singleton hands out :data:`NULL_SPAN` / :data:`NULL_TRACER`, whose
 methods are empty — the traced hot paths pay one attribute lookup and
 one no-op call (<1% of fit wall, bench-pinned ``trace_overhead_pct``).
+Outside a profiler, :func:`span` costs one profiler check and returns
+:data:`NULL_SPAN`; it never fences, synchronizes or launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
+import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
+
+import torch
 
 __all__ = [
     "Span",
@@ -63,12 +78,20 @@ __all__ = [
     "new_span_id",
     "new_flow_id",
     "trace_annotations_enabled",
-    "TRACE_ANNOTATIONS_ENV",
+    "span",
+    "fit_span",
 ]
 
-#: opt-in gate for torch.profiler.record_function wrapping (off by default:
-#: annotations cost a host call per span even outside a profiler capture)
-TRACE_ANNOTATIONS_ENV = "SE_TPU_TRACE_ANNOTATIONS"
+#: whether a torch.profiler capture is live on this thread (a C call that
+#: reads a thread-local; no allocation)
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+#: a profiler scope at operator level (``torch.profiler.record_function``
+#: would open a user annotation, which gets a device-side copy)
+_ProfilerScope = torch._C._profiler._RecordFunctionFast
+
+#: per-thread state: ``depth``, the instrumented fits running on the thread
+_TLS = threading.local()
 
 # one process-wide monotone counter feeds every id family; ids embed the
 # pid so streams appended by multiple processes never collide
@@ -93,16 +116,15 @@ def new_flow_id() -> int:
 
 
 def trace_annotations_enabled() -> bool:
-    """Whether spans also enter ``torch.profiler.record_function`` scopes."""
-    return os.environ.get(TRACE_ANNOTATIONS_ENV, "") not in ("", "0")
+    """Whether spans also enter profiler scopes: exactly while a
+    ``torch.profiler`` capture is live on this thread."""
+    return bool(_profiler_enabled())
 
 
 def _enter_annotation(name: str):
-    if not trace_annotations_enabled():
+    if not _profiler_enabled():
         return None
-    from torch.profiler import record_function
-
-    ann = record_function(name)
+    ann = _ProfilerScope(name)
     ann.__enter__()
     return ann
 
@@ -168,7 +190,7 @@ class Span:
         self._t0 = time.perf_counter()
         self._done = False
         # annotate=False for spans that END on a different thread (queued
-        # request spans resolve on a worker): record_function is
+        # request spans resolve on a worker): a profiler scope is
         # same-thread scoped
         self._ann = _enter_annotation(name) if annotate else None
 
@@ -356,3 +378,32 @@ class _NullTracer:
 
 
 NULL_TRACER = _NullTracer()
+
+
+# ---------------------------------------------------------------------------
+# the fit path's span entry point
+# ---------------------------------------------------------------------------
+
+
+def span(name: str):
+    """The fit path's span: ``with span("fit.bin"): ...``.  A profiler
+    scope named ``name`` while a ``torch.profiler`` capture is live on this
+    thread, on the profiler's clock and in its event list; otherwise
+    :data:`NULL_SPAN`, after one profiler check: no object, no record,
+    nothing fenced or launched."""
+    return _ProfilerScope(name) if _profiler_enabled() else NULL_SPAN
+
+
+@contextlib.contextmanager
+def fit_span() -> Iterator[None]:
+    """:func:`span` over a whole fit: ``fit`` for a fit that starts on a
+    thread with no fit running, ``fit.nested`` for one inside another (a
+    GBM's prior, a Stacking member), so ``fit`` counts once per top-level
+    fit."""
+    depth = getattr(_TLS, "depth", 0)
+    _TLS.depth = depth + 1
+    try:
+        with span("fit.nested" if depth else "fit"):
+            yield
+    finally:
+        _TLS.depth = depth

@@ -93,18 +93,21 @@ def instrumented_fit(fit):
     ``instrumented`` logging scope, with each autotuned site resolved once
     (``autotune.resolve.pinned``), and, when the estimator's
     ``profile_dir`` param is set, inside a ``torch.profiler`` capture of
-    the whole fit, fenced on the result before the capture stops."""
+    the whole fit, fenced on the result before the capture stops.  The
+    body is the ``fit`` span (``fit.nested`` inside another fit on the
+    thread; ``telemetry/trace.py::fit_span``)."""
 
     @functools.wraps(fit)
     def wrapper(self, *args, **kwargs):
         # lazy import: events imports block_on_arrays from this module
         from spark_ensemble_tpu_torch.telemetry import events as _events
+        from spark_ensemble_tpu_torch.telemetry.trace import fit_span
 
         profile_dir = getattr(self, "profile_dir", None)
         depth0 = _events.active_fit_depth()
         with instrumented(f"{type(self).__name__}.fit"), profile_trace(
             profile_dir
-        ), pinned():
+        ), pinned(), fit_span():
             try:
                 result = fit(self, *args, **kwargs)
             except BaseException as e:

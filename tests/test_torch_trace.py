@@ -4,8 +4,9 @@ case exists in the port: span primitives and propagation, the round
 executor's chunk fates and invalidation flows, rooted ``round_chunk``
 spans of a fit, the ``checkpoint_save`` span on the writer thread, the
 shard prefetcher's rebuilt worker spans, and ``tools/trace_viewer.py``'s
-checks on a port stream (no orphan spans, no dangling flows), with spans
-annotated for ``torch.profiler`` on request.
+checks on a port stream (no orphan spans, no dangling flows); spans are
+profiler scopes while a ``torch.profiler`` capture is live, and the fit
+path's :func:`span` catalogue nests as ``docs/tracing.md`` lists it.
 
 Everything here is exact: ids, parents, fates and flows are discrete.
 """
@@ -29,11 +30,13 @@ from spark_ensemble_tpu_torch.telemetry import (
     telemetry_sink_active,
 )
 from spark_ensemble_tpu_torch.telemetry.events import _DISABLED, FitTelemetry
+from spark_ensemble_tpu_torch.telemetry import trace as trace_mod
 from spark_ensemble_tpu_torch.telemetry.trace import (
     NULL_CONTEXT,
     new_flow_id,
     new_span_id,
     new_trace_id,
+    span,
     trace_annotations_enabled,
 )
 
@@ -152,21 +155,134 @@ def test_telemetry_sink_active(monkeypatch, tmp_path):
         assert telemetry_sink_active()
 
 
-def test_annotations_land_in_a_torch_profiler_capture(monkeypatch):
-    """With ``SE_TPU_TRACE_ANNOTATIONS`` set, a span is a
-    ``record_function`` scope, so it names a slice of a profiler trace."""
+def test_annotations_land_in_a_torch_profiler_capture():
+    """While a ``torch.profiler`` capture is live, a span is a profiler
+    scope, so it names a slice of the profiler's trace; outside one it is
+    not."""
     from torch.profiler import ProfilerActivity, profile
 
-    monkeypatch.delenv("SE_TPU_TRACE_ANNOTATIONS", raising=False)
     assert not trace_annotations_enabled()
-    monkeypatch.setenv("SE_TPU_TRACE_ANNOTATIONS", "1")
-    assert trace_annotations_enabled()
     sink = []
     with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert trace_annotations_enabled()
         with Tracer(sink.append).begin_span("annotated_chunk"):
             pass
+    assert not trace_annotations_enabled()
     assert len(sink) == 1
     assert "annotated_chunk" in {e.key for e in prof.key_averages()}
+
+
+class _CountingScope:
+    """Stands in for the profiler scope and counts the scopes entered."""
+
+    entered = []
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        _CountingScope.entered.append(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_span_is_a_profiler_scope_only_inside_a_capture(monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(trace_mod, "_ProfilerScope", _CountingScope)
+    _CountingScope.entered = []
+    with span("round.step"):
+        pass
+    assert _CountingScope.entered == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("round.step"):
+            pass
+    assert _CountingScope.entered == ["round.step"]
+
+
+def test_span_outside_a_profiler_is_the_null_span(monkeypatch):
+    monkeypatch.setattr(trace_mod, "_ProfilerScope", _CountingScope)
+    _CountingScope.entered = []
+    for name in ("fit", "fit.round", "round.step", "tree.level"):
+        sp = span(name)
+        assert sp is NULL_SPAN
+        with sp:
+            pass
+    assert _CountingScope.entered == []
+
+
+def test_span_with_a_sink_emits_no_records():
+    """A fit's stream gets no record from :func:`span`: its rounds, chunks
+    and phases are already there (``round_end``, ``round_chunk``,
+    ``fit_end``)."""
+    X, y = _data(n=200)
+    est = st.GBMRegressor(num_base_learners=2, base_learner=_tree())
+    with record_fits() as rec:
+        est.fit(X, y, device="cpu")
+    names = sorted(s["name"] for s in _spans(rec.events))
+    assert names == ["fit", "round_chunk"]  # the fit's root and its one chunk
+    from torch.profiler import ProfilerActivity, profile
+
+    with record_fits() as rec_p, profile(activities=[ProfilerActivity.CPU]):
+        est.fit(X, y, device="cpu")
+    assert sorted(s["name"] for s in _spans(rec_p.events)) == names
+
+
+def _profiled_spans(fit):
+    """Run ``fit()`` under a CPU profiler -> ``[(name, start, end)]`` of
+    the program's spans on the fit's thread, and each one's innermost
+    enclosing span's name (``""`` for none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fit()
+    spans = sorted(
+        (e.start_ns(), -(e.start_ns() + e.duration_ns()), e.name())
+        for e in prof.profiler.kineto_results.events()
+        if e.name().startswith(("fit", "round.", "tree."))
+    )
+    out, stack = [], []
+    for s, neg_end, name in spans:
+        while stack and stack[-1][1] <= s:
+            stack.pop()
+        out.append((name, stack[-1][2] if stack else ""))
+        stack.append((s, -neg_end, name))
+    return out
+
+
+@pytest.mark.parametrize("family", ["classifier", "regressor"])
+def test_a_profiled_fit_shows_the_span_catalogue_nested(family):
+    """A depth-3, 2-round fit: one ``fit``, two rounds, three levels and
+    three split searches a round, one step search a round, each inside
+    the span the catalogue puts it in."""
+    X, y = _data(n=200)
+    if family == "classifier":
+        y = (y > np.median(y)).astype(np.float32)
+        est = st.GBMClassifier(num_base_learners=2, base_learner=_tree())
+    else:
+        est = st.GBMRegressor(num_base_learners=2, base_learner=_tree())
+    est.fit(X, y, device="cpu")  # a first fit, so the profiled one is warm
+    nested = _profiled_spans(lambda: est.fit(X, y, device="cpu"))
+    counts = Counter(name for name, _ in nested)
+    assert counts["fit"] == 1 and counts["fit.nested"] == 1  # the prior's fit
+    assert counts["fit.round"] == 2 and counts["round.step"] == 2
+    assert counts["tree.level"] == 6 and counts["tree.split"] == 6
+    parents = {}
+    for name, parent in nested:
+        parents.setdefault(name, set()).add(parent)
+    assert parents["fit"] == {""}
+    for name in ("fit.prior", "fit.rounds"):
+        assert parents[name] == {"fit"}, name
+    assert parents["fit.nested"] == {"fit.prior"}
+    # the prior's fit validates its inputs and bins too
+    assert parents["fit.validate"] == parents["fit.bin"] == {"fit", "fit.nested"}
+    assert parents["fit.round"] == {"fit.rounds"}
+    for name in ("round.tree", "round.step"):
+        assert parents[name] == {"fit.round"}, name
+    assert parents["tree.level"] == {"round.tree"}
+    assert parents["tree.split"] == {"tree.level"}
 
 
 # ---------------------------------------------------------------------------
