@@ -8,7 +8,9 @@ the port's CUDA kernels from ``spark_ensemble_tpu_torch/csrc`` with nvcc,
 holds every kernel against its plain PyTorch version at the main path's
 shapes and beside them (the GBM path's C=2 statistics, and the forests'
 at M=10 and M=1 with Poisson weights: the classifiers' C=27 on letter, the
-regressors' C=2 on 8192x12 data), times each kernel
+regressors' C=2 on 8192x12 data; and the level histograms on 2.1M tall
+rows of HIGGS's width, whose shallow levels split a tile's rows over
+several clusters: ``tall_rows``), times each kernel
 (``ms``: one call through its wrapper, host issue time included;
 ``device_ms``: the kernels' own time on the card from torch.profiler),
 drives the GBM main path through the public estimators on three histogram
@@ -84,7 +86,8 @@ The last two lines are the card's name and power limit as nvidia-smi
 reports them, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result when CUDA is unavailable or when the
-port's package is not beside it.
+port's package is not beside it.  ``python3 chip_smoke.py --tall-rows``
+builds the kernels and runs the ``tall_rows`` check alone.
 """
 
 import json
@@ -233,6 +236,131 @@ SHADOW_THRESHOLD = 1e-4
 #: the distributed phase: rounds of the mesh fits, and the time a rank group
 #: may take before its processes are killed and the phase fails
 DIST_ROUNDS, DIST_TIMEOUT_S = 20, 300
+
+#: the tall-row level histograms: HIGGS's shape (28 features, 63 bins in
+#: 8-bit lanes, one tree, C = 2) on fewer rows, depth 8, and the lanes of
+#: the sweep check
+TALL_ROWS, TALL_FEATURES, TALL_BINS, TALL_DEPTH, TALL_LANES = 2_100_000, 28, 63, 8, 4
+
+
+def tall_rows_phase(torch, hk, binning, dev):
+    """The level histograms where a tile's rows split over several clusters
+    (``LevelPlan.clusters``): TALL_ROWS x 28 at M = 1, levels 0-7, both
+    tiers (``level_hist<2>`` over i32 bins, ``level_hist<3>`` over 8-bit
+    lanes).  Each launch is held against its plain version: on dyadic
+    statistics (every sum exact in any order) to 1e-5, on random ones at
+    rtol 1e-5 and 1e-6 of the largest cell (tests/test_torch_hist_kernels.py's
+    tolerances), with the plain version taken over blocks of rows and the
+    blocks added in order, so that its own f32 error stays far below them.
+    Two launches must give the same bits; a wide launch of TALL_LANES
+    one-member lanes must equal each lane's own launch bit for bit;
+    ``LEVEL_SPLITS`` must count exactly the launches whose plan has more
+    than one cluster, levels 0-5 of the packed tier among them.  Each
+    launch is timed (CUDA events, median of 5 runs of 10 calls) beside its
+    plan -> the phase's JSON row; raises on a failed check."""
+    rng = np.random.RandomState(21)
+    n, d, B = TALL_ROWS, TALL_FEATURES, TALL_BINS
+    bits = binning.pack_width(B)
+    ids = torch.as_tensor(rng.randint(0, B, size=(n, d)).astype(np.int32), device=dev)
+    packed = binning.pack_bins(ids, B, bits).packed
+
+    def values(M, dyadic):
+        if dyadic:
+            v = rng.randint(-8, 9, size=(n, M, 2)) / 4.0
+        else:
+            v = np.concatenate([rng.rand(n, M, 1), rng.randn(n, M, 1)], axis=2)
+        v = v.astype(np.float32)
+        v[: n // 8] = 0.0  # zero-weight rows
+        return torch.as_tensor(v, device=dev)
+
+    def plain_blocked(node, vals, n_nodes, nterms, block=1 << 17):
+        """hist_plain over blocks of rows, the blocks' histograms added in
+        order: one launch of index_add_ adds a cell's ~3e4 rows (level 0)
+        one after another, which alone could drift past rtol 1e-5."""
+        return sum(hk.hist_plain(ids[i:i + block], node[i:i + block], vals[i:i + block],
+                                 n_nodes, B, nterms) for i in range(0, n, block))
+
+    reps, runs = 10, 5  # a timing's calls: one warm, then runs of reps
+
+    def events_ms(fn):
+        fn()
+        times = []
+        for _ in range(runs):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(reps):
+                fn()
+            e1.record()
+            torch.cuda.synchronize()  # graftlint: ignore[unfenced-blocking-read] -- closes a CUDA-event run: elapsed_time needs the end event done
+            times.append(e0.elapsed_time(e1) / reps)
+        return statistics.median(times)
+
+    tiers = {
+        "hist_i32": (2, 32, lambda node, vals, n_nodes, lanes=1: hk.hist_level_pallas(
+            ids, node, vals, n_nodes=n_nodes, max_bins=B, lanes=lanes)),
+        "hist_packed": (3, bits, lambda node, vals, n_nodes, lanes=1: hk.hist_level_packed(
+            packed, node, vals, n_nodes=n_nodes, max_bins=B, bits=bits, num_features=d,
+            lanes=lanes)),
+    }
+    shipped = (hk._LEVEL_ROWS, hk._CTA_HIST_BYTES)  # the wrappers' knobs when given none
+    rows, problems = [], []
+    want_splits = {k: 0 for k in tiers}
+    hk.reset_launch_counts()
+    for lv in range(TALL_DEPTH):
+        n_nodes = 2**lv
+        node = torch.as_tensor(rng.randint(0, n_nodes, size=(n, 1)).astype(np.int32), device=dev)
+        for kernel, (nterms, kbits, run) in tiers.items():
+            plan = hk.level_plan(n, d, 1, 2, B, n_nodes, kbits, shipped)
+            row = {"kernel": kernel, "level": lv, "plan": plan._asdict()}
+            for dyadic in (True, False):
+                vals = values(1, dyadic)
+                got = run(node, vals, n_nodes)
+                if dyadic:
+                    ref = hk.hist_plain(ids, node, vals, n_nodes, B, nterms)
+                    ok = torch.allclose(got, ref, rtol=0, atol=1e-5)
+                else:
+                    ref = plain_blocked(node, vals, n_nodes, nterms)
+                    ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-6 * float(ref.abs().max()))
+                err = float((got - ref).abs().max())
+                row["max_abs_err_dyadic" if dyadic else "max_abs_err"] = err
+                if not ok:
+                    problems.append(f"{kernel} level {lv} dyadic={dyadic}: max abs err {err}")
+                if not torch.equal(got, run(node, vals, n_nodes)):
+                    problems.append(f"{kernel} level {lv} dyadic={dyadic}: two launches differ")
+                want_splits[kernel] += 2 * (plan.clusters > 1)
+            row["ms"] = events_ms(lambda: run(node, vals, n_nodes))
+            want_splits[kernel] += (1 + reps * runs) * (plan.clusters > 1)
+            rows.append(row)
+    # each one-member lane of a wide launch sums its rows as its own launch
+    lanes_ok = {}
+    for lv in (0, 4, 5):
+        n_nodes = 2**lv
+        node = torch.as_tensor(rng.randint(0, n_nodes, size=(n, TALL_LANES)).astype(np.int32),
+                               device=dev)
+        vals = values(TALL_LANES, False)
+        for kernel, (nterms, kbits, run) in tiers.items():
+            wide = run(node, vals, n_nodes, TALL_LANES)
+            plan = hk.lane_level_plan(n, d, TALL_LANES, 2, B, n_nodes, kbits, TALL_LANES, shipped)
+            same = all(torch.equal(wide[s], run(node[:, s:s + 1].contiguous(),
+                                                vals[:, s:s + 1].contiguous(), n_nodes)[0])
+                       for s in range(TALL_LANES))
+            lanes_ok[f"{kernel}@{lv}"] = {"equal": same, "clusters": plan.clusters}
+            want_splits[kernel] += (1 + TALL_LANES) * (plan.clusters > 1)
+            if not same or plan.clusters < 2:
+                problems.append(f"{kernel} level {lv}: lanes {lanes_ok[f'{kernel}@{lv}']}")
+    torch.cuda.synchronize()  # graftlint: ignore[unfenced-blocking-read] -- a check reads the counters after every launch ran
+    splits = dict(hk.LEVEL_SPLITS)
+    packed_split = [r["level"] for r in rows
+                    if r["kernel"] == "hist_packed" and r["plan"]["clusters"] > 1]
+    if splits != want_splits or packed_split != list(range(6)):
+        problems.append(f"LEVEL_SPLITS {splits}, expected {want_splits}; "
+                        f"packed levels split {packed_split}")
+    out = {"phase": "tall_rows", "n": n, "d": d, "B": B, "bits": bits, "levels": rows,
+           "lanes": lanes_ok, "level_splits": splits, "problems": problems}
+    emit(out)
+    if problems:
+        raise AssertionError(f"tall_rows: {problems}")
+    return out
 
 
 def _free_port():
@@ -2227,6 +2355,9 @@ def main():
 
     for row in checks:
         emit({"phase": "kernel_check", **row})
+    # the level histograms on tall rows, where a tile's rows take several
+    # clusters (tall_rows_phase)
+    tall_rows_phase(torch, hk, binning, dev)
 
     # phase 4: the main path through the public estimators
     def gbm(hist, hist_precision, rounds):
@@ -3931,7 +4062,10 @@ def main():
     }
     bytes_rows = {}
     for k, shapes in table_shapes.items():
-        row = next((r for r in kernel_rows[k] if dict(map(tuple, r["signature"])) == shapes), None)
+        # a level histogram's signature on the card also holds its plan's clusters
+        row = next((r for r in kernel_rows[k]
+                    if {a: v for a, v in map(tuple, r["signature"]) if a != "clusters"} == shapes),
+                   None)
         want = hk.kernel_work(k, **shapes)[0]
         bytes_rows[k] = {"row_bytes_per_call": None if row is None else row["bytes"] / row["calls"],
                          "kernel_work": want, "calls": None if row is None else row["calls"]}
@@ -4205,7 +4339,28 @@ def main():
     return 0
 
 
+def tall_rows_main():
+    """``python3 chip_smoke.py --tall-rows``: the build and the tall-row
+    level histograms alone (tall_rows_phase), then the card's name and
+    power limit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    from spark_ensemble_tpu_torch.ops import binning, hist_kernels as hk
+
+    t0 = time.perf_counter()
+    emit({"phase": "build", "library": hk.build_kernels().name,
+          "seconds": time.perf_counter() - t0})
+    tall_rows_phase(torch, hk, binning, torch.device("cuda"))
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 2 and sys.argv[1] == "--tall-rows":
+        sys.exit(tall_rows_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--distributed-rank":
         sys.exit(distributed_rank(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--elastic-rank":

@@ -37,16 +37,22 @@
 //   (__match_any_sync finds the same groups, but its cost grows with the
 //   number of distinct keys in the warp, and on this card it took most of
 //   a step.)
-// - The row chunks of one output tile are the CTAs of one thread-block
-//   cluster (at most 8).  At the end, CTA rank k reads its 1/size slice of
-//   the tile from every peer's shared memory in rank order (distributed
-//   shared memory) and writes it to the output once: no scratch buffer and
-//   no second launch.  Two launches give the same bits.
+// - The row chunks of one output tile are the CTAs of one or more
+//   thread-block clusters (at most 8 CTAs each), chunk = cluster * size +
+//   rank.  At the end, CTA rank k reads its 1/size slice of the tile from
+//   every peer's shared memory in rank order (distributed shared memory)
+//   and writes it once: to the output when the tile has one cluster, else
+//   to the cluster's partial in a workspace.  There the last cluster of
+//   the tile to finish, found by an integer ticket per tile that it
+//   resets, adds the clusters' partials in cluster order and writes the
+//   output.  No float atomics and no second launch: two launches give the
+//   same bits.
 // - The plan (ops/hist_kernels.py::level_plan, a function of the shapes)
 //   gives a warp every node of the level unless its cells pass 16 KB (then
 //   it tiles nodes), gives a CTA as many features (and, for narrow d,
-//   members) as fit 128 KB, and picks the largest cluster size that lets every
-//   tile's cluster run in one wave.
+//   members) as fit 128 KB, picks the largest cluster size that lets every
+//   tile's cluster run in one wave, and then as many clusters a tile as
+//   fill the wave's CTA slots that one cluster a tile leaves empty.
 //
 // What bounds it.  At letter scale one level reads ~5.6 MB and writes at
 // most 3.4 MB: ~3 us at 3.35 TB/s.  The kernel is bound instead by the SM's
@@ -55,7 +61,12 @@
 // two cells read and written, shuffles on conflicts), and random cells and
 // tags conflict on banks about 3-way, so it takes ~30 wavefronts (a count
 // from the access pattern); staging gathers node ids and statistics at a
-// stride of M (one wavefront per value).
+// stride of M (one wavefront per value).  That bound holds per SM, so the
+// card delivers it only where the grid takes every SM: tall rows with few
+// members and nodes make few tiles (2 a shallow level of a 28-feature
+// tree at M = 1), and one cluster a tile would leave all but 16 SMs idle
+// on 10.5M rows.  Such a tile's rows go to as many clusters as fill the
+// slots; the cross-cluster sum reads and writes a few MB at most.
 //
 // Why not the tensor cores: the one-hot product the TPU runs on its matrix
 // unit costs 2 * n * M * (nodes * C * terms) * (d * B) flops, ~77 GFLOP at
@@ -127,7 +138,7 @@ constexpr int kRouteThreads = 256;
 constexpr int kMaxLeafThreads = 512;
 constexpr int kLeafSteps = 8;  // rows a lane loads before it adds them
 constexpr int kLeafPre = 2;    // channels of a row loaded ahead; more are loaded as added
-constexpr int kLeafBatch = 16;  // cluster partials a thread of the last cluster loads at once
+constexpr int kPartialBatch = 16;  // cluster partials a thread of the last cluster loads at once
 
 // The TPU kernels' per-row statistic split into NTERMS bf16 terms, summed
 // in f32.
@@ -515,14 +526,14 @@ __global__ void __launch_bounds__(kMaxLeafThreads)
   const long long lo = E * rank / cs, hi = E * (rank + 1) / cs;
   for (long long e = lo + tid; e < hi; e += nthreads) {
     float s = 0.f;
-    for (int k0 = 0; k0 < n_cl; k0 += kLeafBatch) {  // kLeafBatch loads in flight
-      float pv[kLeafBatch];
+    for (int k0 = 0; k0 < n_cl; k0 += kPartialBatch) {  // kPartialBatch loads in flight
+      float pv[kPartialBatch];
 #pragma unroll
-      for (int j = 0; j < kLeafBatch; ++j) {
+      for (int j = 0; j < kPartialBatch; ++j) {
         pv[j] = k0 + j < n_cl ? __ldcg(partials + (k0 + j) * E + e) : 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < kLeafBatch; ++j) {
+      for (int j = 0; j < kPartialBatch; ++j) {
         if (k0 + j < n_cl) s += pv[j];
       }
     }
@@ -532,8 +543,10 @@ __global__ void __launch_bounds__(kMaxLeafThreads)
 }
 
 // Level histogram over words [n, W] (packed bins, or i32 bins as W = d words
-// of 32 bits).  Grid: (member group, feature tile, node tile) x cluster of
-// row chunks.  Shared layout: hist [g][nf][np][C][B] | kLevelStages x stage
+// of 32 bits).  Grid: (member group, feature tile, node tile) x n_cl
+// clusters of row chunks, chunk = cluster * size + rank; with n_cl > 1 a
+// workspace of n_cl partials of the output and a ticket per tile (0 between
+// launches).  Shared layout: hist [g][nf][np][C][B] | kLevelStages x stage
 // | tags, a stage being words [S][R] | node [g][R] | terms [g][C][R] for R
 // rows and S word slots, tags one byte per (warp, node, bin), rounded up to
 // 4 bytes per warp.  At most 64 registers a thread, so that two CTAs of 512
@@ -542,9 +555,10 @@ template <int NTERMS>
 __global__ void __launch_bounds__(kMaxLevelThreads, 2)
     level_hist(const int32_t* __restrict__ words,
                const int32_t* __restrict__ node,
-               const float* __restrict__ vals, float* __restrict__ out, int n,
-               int d, int M, int C, int B, int n_nodes, int W, int bits, int g,
-               int nf, int np, int R, int rows_per_chunk) {
+               const float* __restrict__ vals, float* __restrict__ out,
+               float* __restrict__ partials, unsigned* __restrict__ tickets,
+               int n, int d, int M, int C, int B, int n_nodes, int W, int bits,
+               int g, int nf, int np, int n_cl, int R, int rows_per_chunk) {
   extern __shared__ __align__(16) float lsmem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
@@ -552,6 +566,9 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
   const int n_pt = (n_nodes + np - 1) / np;
   const int n_ft = (d + nf - 1) / nf;
   int t = blockIdx.x / cs;
+  const int cl = t % n_cl;
+  t /= n_cl;
+  const int tile = t;
   const int pt = t % n_pt;
   t /= n_pt;
   const int ft = t % n_ft;
@@ -559,8 +576,11 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
   const int m0 = mt * g, f0 = ft * nf, p0 = pt * np;
   const int g_t = min(g, M - m0), nf_t = min(nf, d - f0);
   const int np_t = min(np, n_nodes - p0);
-  const int r_begin = min(n, rank * rows_per_chunk);
-  const int r_end = min(n, r_begin + rows_per_chunk);
+  const int r_begin = static_cast<int>(
+      min(static_cast<long long>(n),
+          (static_cast<long long>(cl) * cs + rank) * rows_per_chunk));
+  const int r_end = static_cast<int>(
+      min(static_cast<long long>(n), static_cast<long long>(r_begin) + rows_per_chunk));
   const int tid = threadIdx.x, nthreads = blockDim.x;
 
   // Which words a stage holds: one per feature of the tile (i32 bins, or
@@ -714,17 +734,15 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
 
   // Sum the cluster's chunks: rank k owns lines [k, k + 1) * lines / cs of
   // the tile (a line being the B bins of one member, node, channel and
-  // feature), in output order, and adds the peers' copies in rank order.
+  // feature), in output order, and adds the peers' copies in rank order,
+  // into the output (one cluster a tile) or the cluster's partial.
   cluster.sync();
   const int lines = g_t * np_t * C * nf_t;
   const int l_lo = static_cast<int>(static_cast<long long>(lines) * rank / cs);
   const int l_hi =
       static_cast<int>(static_cast<long long>(lines) * (rank + 1) / cs);
-  const int vec = (B & 3) == 0 ? 4 : 1;
-  const int bv = B / vec;
-  for (int i = tid; i < (l_hi - l_lo) * bv; i += nthreads) {
-    const int li = i / bv;
-    const int b = (i - li * bv) * vec;
+  // where line l_lo + li of the tile starts in the output
+  auto line_at = [&](int li, int* cell_at) {
     int l = l_lo + li;
     const int fo = l % nf_t;
     l /= nf_t;
@@ -732,9 +750,21 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
     l /= C;
     const int p = l % np_t;
     const int mo = l / np_t;
-    float* cell = hist + (((mo * nf + fo) * np + p) * C + c) * B + b;
-    float* dst = out + (((static_cast<long long>(m0 + mo) * n_nodes + p0 + p) *
-                             C + c) * d + f0 + fo) * B + b;
+    *cell_at = (((mo * nf + fo) * np + p) * C + c) * B;
+    return (((static_cast<long long>(m0 + mo) * n_nodes + p0 + p) * C + c) *
+                d + f0 + fo) * B;
+  };
+  const long long out_cells = static_cast<long long>(M) * n_nodes * C * d * B;
+  float* dst0 = n_cl == 1 ? out : partials + cl * out_cells;
+  const int vec = (B & 3) == 0 ? 4 : 1;
+  const int bv = B / vec;
+  for (int i = tid; i < (l_hi - l_lo) * bv; i += nthreads) {
+    const int li = i / bv;
+    const int b = (i - li * bv) * vec;
+    int cell_at;
+    const long long o = line_at(li, &cell_at) + b;
+    float* cell = hist + cell_at + b;
+    float* dst = dst0 + o;
     if (vec == 4) {
       float4 v[kMaxCluster];
 #pragma unroll
@@ -768,13 +798,51 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
       *dst = s;
     }
   }
+  // with more than one cluster, this thread's writes to the workspace are
+  // visible device-wide before rank 0 takes the tile's ticket
+  if (n_cl > 1) __threadfence();
   cluster.sync();  // no CTA leaves while a peer still reads its tile
+  if (n_cl == 1) return;
+  // The tile's last cluster to take a ticket adds the clusters' partials
+  // in cluster order.  Its flag sits in the first stage: no copy is in
+  // flight there any more (past the last row tile the groups are empty),
+  // and no peer reads it.
+  cp_async_wait<0>();
+  int* flag = stages;
+  if (rank == 0 && tid == 0) {
+    const int last =
+        atomicAdd(tickets + tile, 1u) == static_cast<unsigned>(n_cl - 1);
+    for (int j = 0; j < cs; ++j) *cluster.map_shared_rank(flag, j) = last;
+  }
+  cluster.sync();
+  if (!*flag) return;
+  __threadfence();
+  for (int i = tid; i < (l_hi - l_lo) * B; i += nthreads) {
+    const int li = i / B;
+    int cell_at;
+    const long long o = line_at(li, &cell_at) + (i - li * B);
+    float s = 0.f;
+    for (int k0 = 0; k0 < n_cl; k0 += kPartialBatch) {  // kPartialBatch loads in flight
+      float pv[kPartialBatch];
+#pragma unroll
+      for (int j = 0; j < kPartialBatch; ++j) {
+        pv[j] = k0 + j < n_cl ? __ldcg(partials + (k0 + j) * out_cells + o) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kPartialBatch; ++j) {
+        if (k0 + j < n_cl) s += pv[j];
+      }
+    }
+    out[o] = s;
+  }
+  if (rank == 0 && tid == 0) tickets[tile] = 0u;  // every cluster has taken its ticket
 }
 template <int NTERMS>
 cudaError_t launch_level(const int32_t* words, const int32_t* node,
-                         const float* vals, float* out, int n, int d, int M,
-                         int C, int B, int n_nodes, int W, int bits, int g,
-                         int nf, int np, int cs, int R, int rows_per_chunk,
+                         const float* vals, float* out, float* partials,
+                         unsigned* tickets, int n, int d, int M, int C, int B,
+                         int n_nodes, int W, int bits, int g, int nf, int np,
+                         int cs, int n_cl, int R, int rows_per_chunk,
                          long long smem, cudaStream_t stream) {
   auto kern = level_hist<NTERMS>;
   static long long smem_set = 48 * 1024;  // the largest allowed so far
@@ -799,14 +867,15 @@ cudaError_t launch_level(const int32_t* words, const int32_t* node,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(tiles * cs));
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * n_cl * cs));
   cfg.blockDim = dim3(32 * g * nf);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, words, node, vals, out, n, d, M, C, B,
-                            n_nodes, W, bits, g, nf, np, R, rows_per_chunk);
+  return cudaLaunchKernelEx(&cfg, kern, words, node, vals, out, partials,
+                            tickets, n, d, M, C, B, n_nodes, W, bits, g, nf,
+                            np, n_cl, R, rows_per_chunk);
 }
 
 template <bool ROUTE>
@@ -860,27 +929,34 @@ long long se_level_smem_bytes(int g, int nf, int np, int C, int B, int R,
 // One level histogram H [M, n_nodes, C, d, B] from words [n, W] of `bits`
 // bits (i32 bins: W = d, bits = 32), with the statistics split into nterms
 // (2: pallas tier, 3: fused tier) bf16 terms.  g members, nf features and np
-// nodes per CTA; cs row chunks of rows_per_chunk rows, one cluster, staged
-// R rows at a time.
+// nodes per CTA; clusters x cs row chunks of rows_per_chunk rows, clusters
+// of cs CTAs, staged R rows at a time.  More than one cluster needs the
+// workspace: a ticket per (member group, feature tile, node tile), 0
+// between launches, and clusters * M * n_nodes * C * d * B floats of
+// partials.
 int se_level_hist(int nterms, const int32_t* words, const int32_t* node,
                   const float* vals, float* out, int n, int d, int M, int C,
                   int B, int n_nodes, int W, int bits, int g, int nf, int np,
-                  int cs, int R, int rows_per_chunk, void* stream) {
+                  int cs, int clusters, int R, int rows_per_chunk,
+                  float* partials, unsigned* tickets, void* stream) {
   const long long smem = se_level_smem_bytes(g, nf, np, C, B, R, W, bits);
   const bool ok = (bits == 4 || bits == 8 || bits == 32) && g >= 1 &&
                   nf >= 1 && np >= 1 && cs >= 1 && cs <= kMaxCluster &&
-                  R >= 32 && R % 32 == 0 &&
+                  clusters >= 1 && R >= 32 && R % 32 == 0 &&
                   32 * g * nf <= kMaxLevelThreads && smem <= kMaxSmem &&
-                  static_cast<long long>(rows_per_chunk) * cs >= n;
+                  static_cast<long long>(rows_per_chunk) * cs * clusters >= n &&
+                  (clusters == 1 || (partials != nullptr && tickets != nullptr));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (nterms == 2) {
-    e = launch_level<2>(words, node, vals, out, n, d, M, C, B, n_nodes, W,
-                        bits, g, nf, np, cs, R, rows_per_chunk, smem, s);
+    e = launch_level<2>(words, node, vals, out, partials, tickets, n, d, M, C,
+                        B, n_nodes, W, bits, g, nf, np, cs, clusters, R,
+                        rows_per_chunk, smem, s);
   } else if (nterms == 3) {
-    e = launch_level<3>(words, node, vals, out, n, d, M, C, B, n_nodes, W,
-                        bits, g, nf, np, cs, R, rows_per_chunk, smem, s);
+    e = launch_level<3>(words, node, vals, out, partials, tickets, n, d, M, C,
+                        B, n_nodes, W, bits, g, nf, np, cs, clusters, R,
+                        rows_per_chunk, smem, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -38,8 +38,12 @@ cell a row touches), the one formula ``chip_smoke.py``'s bounds and the
 program inventory (``telemetry/programz.py``) read.  When a work hook is
 installed (:func:`set_work_hook`, the inventory's), every wrapper reports
 ``(kernel, shape signature, bytes, ops)`` to it after its kernel launched
-on the card, or after its plain version ran on the CPU; ``LAUNCHES`` keeps
-counting card launches only.  With no hook a wrapper pays one global load.
+on the card, or after its plain version ran on the CPU (on the card a
+level histogram's signature also holds its plan's ``clusters``, which the
+work ignores); ``LAUNCHES`` keeps counting card launches only, and
+``LEVEL_SPLITS`` those level-histogram launches among them that split a
+tile's rows over more than one cluster.  With no hook a wrapper pays one
+global load.
 
 Precision: the kernel and its plain version split each row's statistic
 into exactly the same bf16 terms and sum them in f32; only the order of
@@ -91,13 +95,18 @@ _NVCC_FLAGS = (
 
 # launches on the card, by kernel; the CPU plain versions never count
 LAUNCHES = {"hist_i32": 0, "route_packed": 0, "hist_packed": 0, "leaf_sums": 0}
+# the level histograms' launches among them whose plan split a tile's rows
+# over more than one cluster (``LevelPlan.clusters``)
+LEVEL_SPLITS = {"hist_i32": 0, "hist_packed": 0}
 _COUNT_LOCK = threading.Lock()
 _LIB_LOCK = threading.Lock()
 
 
-def _count(kernel: str) -> None:
+def _count(kernel: str, split: bool = False) -> None:
     with _COUNT_LOCK:
         LAUNCHES[kernel] += 1
+        if split:
+            LEVEL_SPLITS[kernel] += 1
 
 
 # the program inventory's hook: ``hook(kernel, signature, bytes, ops)``,
@@ -197,8 +206,9 @@ _LEAF_CTAS_PER_SM = 2
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, LEVEL_SPLITS):
+            for k in counts:
+                counts[k] = 0
 
 
 _lib = None
@@ -276,7 +286,7 @@ def _load_library():
     lib.se_route_packed.restype = I
     lib.se_route_smem_bytes.argtypes = [I] * 4
     lib.se_route_smem_bytes.restype = ctypes.c_longlong
-    lib.se_level_hist.argtypes = [I, P, P, P, P] + [I] * 14 + [P]
+    lib.se_level_hist.argtypes = [I, P, P, P, P] + [I] * 15 + [P] * 3
     lib.se_level_hist.restype = I
     lib.se_level_smem_bytes.argtypes = [I] * 8
     lib.se_level_smem_bytes.restype = ctypes.c_longlong
@@ -316,10 +326,11 @@ class LevelPlan(NamedTuple):
     g: int  # members per CTA
     nf: int  # features per CTA; one warp per (member, feature)
     np: int  # nodes per CTA
-    cs: int  # row chunks: the CTAs of one cluster, summed in rank order
+    cs: int  # CTAs per cluster, each one row chunk, summed in rank order
+    clusters: int  # clusters per tile, summed in cluster order
     rows_per_chunk: int
     rows: int  # rows staged per step
-    grid: int  # CTAs: member groups x feature tiles x node tiles x cs
+    grid: int  # CTAs: member groups x feature tiles x node tiles x clusters x cs
     threads: int  # per CTA
     smem: int  # dynamic shared-memory bytes per CTA
 
@@ -353,9 +364,25 @@ def _level_tiling(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes) -> Level
     tiles = math.ceil(M / g) * math.ceil(d / nf) * math.ceil(n_nodes / np_)
     per_sm = max(1, min(_SM_SMEM // (smem + 1024), _SM_THREADS // threads))
     slots = int(_CLUSTER_PACKING * _SMS * per_sm)
-    cs = next((c for c in range(min(_MAX_CLUSTER, math.ceil(n / rows)), 1, -1)
+    row_tiles = math.ceil(n / rows)
+    cs = next((c for c in range(min(_MAX_CLUSTER, row_tiles), 1, -1)
                if slots // c >= tiles), 1)
-    return LevelPlan(g, nf, np_, cs, math.ceil(n / cs), rows, tiles * cs, threads, smem)
+    # the slots one cluster per tile leaves empty take more clusters, each
+    # with at least a row tile a CTA, and none past the rows
+    clusters = max(1, min(slots // (tiles * cs), row_tiles // cs))
+    while clusters > 1 and (cs * clusters - 1) * math.ceil(n / (cs * clusters)) >= n:
+        clusters -= 1
+    chunks = cs * clusters
+    return LevelPlan(g, nf, np_, cs, clusters, math.ceil(n / chunks), rows, tiles * chunks,
+                     threads, smem)
+
+
+def _chunked_as(plan: LevelPlan, src: LevelPlan) -> LevelPlan:
+    """``plan``'s tiling with ``src``'s row chunking (``cs``, ``clusters``,
+    ``rows_per_chunk``), which alone fixes a cell's summation order."""
+    tiles = plan.grid // (plan.cs * plan.clusters)
+    return plan._replace(cs=src.cs, clusters=src.clusters, rows_per_chunk=src.rows_per_chunk,
+                         grid=tiles * src.cs * src.clusters)
 
 
 def _fits(plan: LevelPlan) -> bool:
@@ -385,15 +412,24 @@ def level_plan(n, d, M, C, B, n_nodes, bits=32, knobs=None) -> LevelPlan:
     fused tier otherwise).  A warp owns one (member, feature)'s cells of a
     node tile: every node unless that passes ``_WARP_HIST_BYTES``.  A CTA
     then takes as many features, and for narrow ``d`` members, as fit
-    ``hist_bytes``.  Each tile's row chunks form one cluster, as large as
-    lets every tile's cluster run in one wave, and at most 8.
+    ``hist_bytes``.  A tile's rows are cut into chunks, one a CTA.  The
+    CTAs of one cluster (``cs``, at most 8, as many as let every tile's
+    cluster run in one wave) sum their chunks in rank order through
+    distributed shared memory.  Where one cluster per tile leaves the
+    wave's CTA slots empty (tall rows, few members), a tile takes as many
+    clusters as fill them (``clusters``), each CTA keeping at least a row
+    tile; each cluster writes its sum to a workspace, and the tile's last
+    cluster to finish adds them in cluster order, in the same launch.  So
+    a cell's sum runs over the chunks in order whatever the clusters, and
+    two launches give the same bits.
 
-    The row chunking (``cs``, ``rows_per_chunk``), which alone fixes a
-    cell's summation order, is always that of the shipped ``_LEVEL_ROWS``
-    at the same ``hist_bytes``: ``block_rows`` moves only the rows staged
-    per step and the tiling, never a bit of the result.  Knobs whose tile
-    does not fit one CTA's shared memory fall back to the shipped ones
-    (a debug log); raises when the shipped ones do not fit either."""
+    The row chunking (``cs``, ``clusters``, ``rows_per_chunk``), which
+    alone fixes a cell's summation order, is always that of the shipped
+    ``_LEVEL_ROWS`` at the same ``hist_bytes``: ``block_rows`` moves only
+    the rows staged per step and the tiling, never a bit of the result.
+    Knobs whose tile does not fit one CTA's shared memory fall back to the
+    shipped ones (a debug log); raises when the shipped ones do not fit
+    either."""
     if knobs is None:
         knobs = level_knobs(2 if bits >= 32 else 3, n)
     return _level_plan(n, d, M, C, B, n_nodes, bits, int(knobs[0]), int(knobs[1]))
@@ -419,8 +455,7 @@ def _level_plan(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes) -> LevelPl
         logger.debug("level plan: block_rows=%d does not fit; using %d",
                      block_rows, _LEVEL_ROWS)
         return base
-    return plan._replace(cs=base.cs, rows_per_chunk=base.rows_per_chunk,
-                         grid=plan.grid // plan.cs * base.cs)
+    return _chunked_as(plan, base)
 
 
 def _check_lanes(M: int, lanes: int) -> int:
@@ -435,10 +470,10 @@ def lane_level_plan(n, d, M, C, B, n_nodes, bits=32, lanes=1, knobs=None) -> Lev
     as a launch of K members does.  A cell's sum runs over its CTA's row
     chunk in 32-row steps from the chunk's start, whatever the member,
     feature and node tiling and the rows staged per step, and its chunks
-    are added in rank order: so the row chunking (``cs``,
-    ``rows_per_chunk``) alone fixes its bits.  The wide plan keeps its own
-    tiling and takes the K-member launch's chunking; its grid grows by the
-    lanes instead of its chunks shrinking.  ``knobs``: as ``level_plan``'s,
+    are added in rank order, then cluster order: so the row chunking
+    (``cs``, ``clusters``, ``rows_per_chunk``) alone fixes its bits.  The
+    wide plan keeps its own tiling and takes the K-member launch's
+    chunking; its grid grows by the lanes instead of its chunks shrinking.  ``knobs``: as ``level_plan``'s,
     resolved once for both plans."""
     if knobs is None:
         knobs = level_knobs(2 if bits >= 32 else 3, n)
@@ -453,8 +488,7 @@ def _lane_level_plan(n, d, M, C, B, n_nodes, bits, lanes, block_rows, hist_bytes
     if lanes == 1:
         return plan
     lane = level_plan(n, d, _check_lanes(M, lanes), C, B, n_nodes, bits, knobs)
-    return plan._replace(cs=lane.cs, rows_per_chunk=lane.rows_per_chunk,
-                         grid=plan.grid // plan.cs * lane.cs)
+    return _chunked_as(plan, lane)
 
 
 class RoutePlan(NamedTuple):
@@ -570,25 +604,53 @@ def _checked_level_plan(n, d, M, C, B, n_nodes, W, bits, lanes, knobs) -> LevelP
     return plan
 
 
+# the level histograms' workspace per (device, stream), apart from the
+# leaf pass's: one integer ticket per output tile, and the clusters'
+# partials of every tile.  Each grows when a shape needs more; a tile's last
+# cluster resets its ticket, and every cluster writes its whole partial
+# before the last reads it, so the partials need no zeroing.
+_LEVEL_WORKSPACES: dict = {}
+
+
+def _level_workspace(dev: torch.device, stream: int, tiles: int, floats: int) -> tuple:
+    tickets, partials = _LEVEL_WORKSPACES.get((dev.index, stream), (None, None))
+    if tickets is None or tickets.numel() < tiles:
+        tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    if partials is None or partials.numel() < floats:
+        partials = torch.empty(floats, dtype=torch.float32, device=dev)
+    _LEVEL_WORKSPACES[(dev.index, stream)] = (tickets, partials)
+    return tickets, partials
+
+
 def _launch_level(nterms, words, node, vals, out, *, d, B, n_nodes, W, bits,
-                  lanes, knobs):
+                  lanes, knobs) -> int:
+    """One level-histogram launch into ``out`` -> its plan's clusters per
+    tile (1 for no rows)."""
     n, M, C = vals.shape
     if n == 0:
-        return out.zero_()
+        out.zero_()
+        return 1
     if knobs is None:
         knobs = (_LEVEL_ROWS, _CTA_HIST_BYTES)
     plan = _checked_level_plan(n, d, M, C, B, n_nodes, W, bits, lanes, tuple(knobs))
     lib = _library()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
+        tickets = partials = None
+        if plan.clusters > 1:
+            # held until the launch is enqueued, as the leaf pass's workspace
+            tickets, partials = _level_workspace(
+                out.device, stream, plan.grid // (plan.cs * plan.clusters),
+                plan.clusters * out.numel())
         rc = lib.se_level_hist(
             nterms, _ptr(words), _ptr(node), _ptr(vals), _ptr(out), n, d, M,
             C, B, n_nodes, W, bits, plan.g, plan.nf, plan.np, plan.cs,
-            plan.rows, plan.rows_per_chunk, stream,
+            plan.clusters, plan.rows, plan.rows_per_chunk, _ptr(partials),
+            _ptr(tickets), stream,
         )
     if rc != 0:
         raise RuntimeError(f"hist kernel launch failed: CUDA error {rc}")
-    return out
+    return plan.clusters
 
 
 @functools.lru_cache(maxsize=1024)
@@ -758,15 +820,17 @@ def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int,
     dev = _device(Xb, node, vals)
     n, d = Xb.shape
     _, M, C = vals.shape
+    split = {}  # the card's plan: clusters per tile, for the work hook
     if dev.type == "cpu":
         out = hist_plain(Xb, node, vals, n_nodes, max_bins, 2)
     else:
         out = torch.empty((M, n_nodes, C, d, max_bins), dtype=torch.float32, device=dev)
-        _launch_level(2, Xb, node, vals, out, d=d, B=max_bins, n_nodes=n_nodes,
-                      W=d, bits=32, lanes=lanes, knobs=knobs)
-        _count("hist_i32")
+        split["clusters"] = _launch_level(2, Xb, node, vals, out, d=d, B=max_bins,
+                                          n_nodes=n_nodes, W=d, bits=32, lanes=lanes,
+                                          knobs=knobs)
+        _count("hist_i32", split["clusters"] > 1)
     if _WORK_HOOK[0] is not None:
-        report_work("hist_i32", n=n, d=d, M=M, C=C, B=max_bins, n_nodes=n_nodes)
+        report_work("hist_i32", n=n, d=d, M=M, C=C, B=max_bins, n_nodes=n_nodes, **split)
     return out
 
 
@@ -848,6 +912,7 @@ def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
         raise ValueError("packed and node disagree on rows")
     dev = _device(packed, node, vals)
     n, M, C = vals.shape
+    split = {}  # as hist_level_pallas's
     if dev.type == "cpu":
         from spark_ensemble_tpu_torch.ops.binning import CompressedBins
 
@@ -856,13 +921,13 @@ def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
     else:
         out = torch.empty((M, n_nodes, C, num_features, max_bins),
                           dtype=torch.float32, device=dev)
-        _launch_level(3, packed, node, vals, out, d=num_features, B=max_bins,
-                      n_nodes=n_nodes, W=packed.shape[1], bits=bits, lanes=lanes,
-                      knobs=knobs)
-        _count("hist_packed")
+        split["clusters"] = _launch_level(3, packed, node, vals, out, d=num_features,
+                                          B=max_bins, n_nodes=n_nodes, W=packed.shape[1],
+                                          bits=bits, lanes=lanes, knobs=knobs)
+        _count("hist_packed", split["clusters"] > 1)
     if _WORK_HOOK[0] is not None:
         report_work("hist_packed", n=n, d=num_features, W=packed.shape[1], M=M, C=C,
-                B=max_bins, n_nodes=n_nodes)
+                B=max_bins, n_nodes=n_nodes, **split)
     return out
 
 

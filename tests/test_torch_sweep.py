@@ -227,8 +227,9 @@ def test_lane_plans_keep_the_lane_summation_order(n, d, K, C, B, nodes, bits, la
     wide = hk.lane_level_plan(n, d, lanes * K, C, B, nodes, bits, lanes)
     lane = hk.level_plan(n, d, K, C, B, nodes, bits)
     alone = hk.level_plan(n, d, lanes * K, C, B, nodes, bits)
-    assert (wide.cs, wide.rows_per_chunk) == (lane.cs, lane.rows_per_chunk)
-    assert wide.grid == alone.grid // alone.cs * lane.cs
+    assert (wide.cs, wide.clusters, wide.rows_per_chunk) == (
+        lane.cs, lane.clusters, lane.rows_per_chunk)
+    assert wide.grid == alone.grid // (alone.cs * alone.clusters) * lane.cs * lane.clusters
     assert (wide.g, wide.nf, wide.np, wide.smem) == (alone.g, alone.nf, alone.np, alone.smem)
     W = -(-d // (32 // bits)) if bits < 32 else d
     assert hk.lane_leaf_plan(n, lanes * K, C, 2 * nodes, nodes, W, lanes) == hk.leaf_plan(
