@@ -87,7 +87,8 @@ reports them, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result when CUDA is unavailable or when the
 port's package is not beside it.  ``python3 chip_smoke.py --tall-rows``
-builds the kernels and runs the ``tall_rows`` check alone.
+(``--wide-rows``) builds the kernels and runs the ``tall_rows``
+(``wide_rows``) check alone.
 """
 
 import json
@@ -282,19 +283,6 @@ def tall_rows_phase(torch, hk, binning, dev):
 
     reps, runs = 10, 5  # a timing's calls: one warm, then runs of reps
 
-    def events_ms(fn):
-        fn()
-        times = []
-        for _ in range(runs):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(reps):
-                fn()
-            e1.record()
-            torch.cuda.synchronize()  # graftlint: ignore[unfenced-blocking-read] -- closes a CUDA-event run: elapsed_time needs the end event done
-            times.append(e0.elapsed_time(e1) / reps)
-        return statistics.median(times)
-
     tiers = {
         "hist_i32": (2, 32, lambda node, vals, n_nodes, lanes=1: hk.hist_level_pallas(
             ids, node, vals, n_nodes=n_nodes, max_bins=B, lanes=lanes)),
@@ -328,7 +316,7 @@ def tall_rows_phase(torch, hk, binning, dev):
                 if not torch.equal(got, run(node, vals, n_nodes)):
                     problems.append(f"{kernel} level {lv} dyadic={dyadic}: two launches differ")
                 want_splits[kernel] += 2 * (plan.clusters > 1)
-            row["ms"] = events_ms(lambda: run(node, vals, n_nodes))
+            row["ms"] = _events_ms(torch, lambda: run(node, vals, n_nodes), reps, runs)
             want_splits[kernel] += (1 + reps * runs) * (plan.clusters > 1)
             rows.append(row)
     # each one-member lane of a wide launch sums its rows as its own launch
@@ -361,6 +349,153 @@ def tall_rows_phase(torch, hk, binning, dev):
     if problems:
         raise AssertionError(f"tall_rows: {problems}")
     return out
+
+
+#: the wide-row kernels: Epsilon's shape (2,000 features, 63 bins in 8-bit
+#: lanes, so 500 words a row; one tree, C = 2, 256 leaves from 128
+#: parents), and the leaf pass's other widths: 31 words (adult's) and
+#: 112-113 (the widest rows the pass took while it staged whole rows, and
+#: one word past them)
+WIDE_ROWS, WIDE_FEATURES, WIDE_BINS, WIDE_LEAF_WORDS = 400_000, 2_000, 63, (31, 112, 113)
+
+
+def wide_rows_phase(torch, hk, binning, dev):
+    """The kernels on wide packed rows: the routed leaf pass at 500 words a
+    row and at WIDE_LEAF_WORDS, ``route_packed`` and ``level_hist<3>``
+    (levels 0 and 7) at WIDE_ROWS x WIDE_FEATURES.  Each launch is held
+    against its plain version on the card: routes and leaf ids exactly;
+    sums on dyadic statistics (exact in any order) to 1e-5, on random ones
+    at rtol 1e-5 and 1e-5 (leaf) or 1e-6 (histogram) of the largest cell.
+    Two launches must give the same bits, and ``LEAF_GATHERS`` must count
+    exactly the routed leaf launches (each gathers one word a row).
+    Each launch is timed (CUDA events, median of 5 runs of 10 calls)
+    beside its plan -> the phase's JSON row; raises on a failed check."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    n, B, leaves = WIDE_ROWS, WIDE_BINS, 256
+    half = leaves // 2
+    bits = binning.pack_width(B)
+    per_word = 32 // bits
+
+    def randint(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    def values(dyadic):
+        if dyadic:
+            v = (torch.randint(-8, 9, (n, 1, 2), generator=gen, device=dev) / 4.0).float()
+        else:
+            v = torch.stack([torch.rand((n, 1), generator=gen, device=dev),
+                             torch.randn((n, 1), generator=gen, device=dev)], dim=2)
+        v[: n // 8] = 0.0  # zero-weight rows
+        return v.contiguous()
+
+    problems, rows = [], []
+    gathered = 0
+    hk.reset_launch_counts()
+
+    def held(kernel, what, got, ref, rtol, exact=False):
+        if exact:
+            ok = torch.equal(got, ref)
+            err = 0.0 if ok else float((got.long() - ref.long()).abs().max())
+        else:
+            err = float((got - ref).abs().max())
+            ok = bool(torch.allclose(got, ref, rtol=rtol, atol=rtol * float(ref.abs().max())))
+        if not ok:
+            problems.append(f"{kernel} {what}: max abs err {err}")
+        return err
+
+    def twice(kernel, what, fn):
+        a, b = fn(), fn()
+        pair = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+        if not all(torch.equal(x, y) for x, y in pair):
+            problems.append(f"{kernel} {what}: two launches differ")
+
+    for W in (WIDE_FEATURES // per_word,) + WIDE_LEAF_WORDS:
+        d = WIDE_FEATURES if W == WIDE_FEATURES // per_word else W * per_word
+        ids = randint(B, (n, d))
+        packed = binning.pack_bins(ids, B, bits).packed
+        parent = randint(half, (n, 1))
+        bf, bt = randint(d, (1, half)), randint(B, (1, half))
+        ref_node = hk.route_plain(ids, parent, bf, bt)
+        plan = hk.leaf_plan(n, 1, 2, leaves, half)
+        row = {"kernel": "leaf_sums", "W": W, "d": d, "plan": plan._asdict()}
+        for dyadic in (True, False):
+            vals = values(dyadic)
+
+            def leaf():
+                return hk.fused_round_level(packed, parent, vals, bf, bt, n_nodes=leaves,
+                                            max_bins=B, bits=bits, num_features=d, leaf=True)
+
+            L, node_out = leaf()
+            what = f"W={W} dyadic={dyadic}"
+            held("leaf_sums", what, node_out, ref_node, 0, exact=True)
+            row["max_abs_err_dyadic" if dyadic else "max_abs_err"] = held(
+                "leaf_sums", what, L, hk.leaf_plain(ref_node, vals, leaves), 0 if dyadic else 1e-5)
+            twice("leaf_sums", what, leaf)
+            gathered += 3
+        row["ms"] = _events_ms(torch, leaf)
+        gathered += 1 + 10 * 5
+        rows.append(row)
+        if d != WIDE_FEATURES:
+            continue
+
+        def route():
+            return hk.route_packed(packed, parent, bf, bt, bits=bits, num_features=d)
+
+        held("route_packed", f"W={W}", route(), ref_node, 0, exact=True)
+        twice("route_packed", f"W={W}", route)
+        rows.append({"kernel": "route_packed", "W": W, "d": d,
+                     "plan": hk.route_plan(n, 1, half, W)._asdict(), "ms": _events_ms(torch, route)})
+        for lv in (0, 7):
+            n_nodes = 2**lv
+            node = randint(n_nodes, (n, 1))
+            row = {"kernel": "hist_packed", "W": W, "d": d, "level": lv,
+                   "plan": hk.level_plan(n, d, 1, 2, B, n_nodes, bits,
+                                         (hk._LEVEL_ROWS, hk._CTA_HIST_BYTES))._asdict()}
+            for dyadic in (True, False):
+                vals = values(dyadic)
+
+                def hist():
+                    return hk.hist_level_packed(packed, node, vals, n_nodes=n_nodes, max_bins=B,
+                                                bits=bits, num_features=d)
+
+                block = 1 << 14  # the plain version's index tensor: 0.5 GB a block
+                ref = sum(hk.hist_plain(ids[i:i + block], node[i:i + block], vals[i:i + block],
+                                        n_nodes, B, 3) for i in range(0, n, block))
+                what = f"level {lv} dyadic={dyadic}"
+                row["max_abs_err_dyadic" if dyadic else "max_abs_err"] = held(
+                    "hist_packed", what, hist(), ref, 0 if dyadic else 1e-5)
+                del ref
+                twice("hist_packed", what, hist)
+            row["ms"] = _events_ms(torch, hist)
+            rows.append(row)
+        del ids
+    torch.cuda.synchronize()  # graftlint: ignore[unfenced-blocking-read] -- a check reads the counters after every launch ran
+    counted = dict(hk.LEAF_GATHERS)
+    if counted != {"leaf_sums": gathered}:
+        problems.append(f"LEAF_GATHERS {counted}, expected {gathered}")
+    out = {"phase": "wide_rows", "n": n, "B": B, "bits": bits, "kernels": rows,
+           "leaf_gathers": counted, "problems": problems}
+    emit(out)
+    if problems:
+        raise AssertionError(f"wide_rows: {problems}")
+    return out
+
+
+def _events_ms(torch, fn, reps=10, runs=5):
+    """``fn``'s time a call in ms: one warm call, then the median of
+    ``runs`` runs of ``reps`` calls between CUDA events."""
+    fn()
+    times = []
+    for _ in range(runs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()  # graftlint: ignore[unfenced-blocking-read] -- closes a CUDA-event run: elapsed_time needs the end event done
+        times.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(times)
 
 
 def _free_port():
@@ -2226,7 +2361,7 @@ def main():
         compare(recs["leaf_sums"], leaf_ids, ref_node, what, exact=True)
         err = compare(recs["leaf_sums"], L, hk.leaf_plain(ref_node, vals, n_nodes), what)
         repeat_identical(recs["leaf_sums"], run_l, what)
-        plan = hk.leaf_plan(n, Mc, Cc, n_nodes, half, packed.shape[1] if half else 0)
+        plan = hk.leaf_plan(n, Mc, Cc, n_nodes, half)
         checks.append({"kernel": "leaf_sums", **row, "n_nodes": n_nodes, "routed": bool(half),
                        "max_abs_err": err, "plan": plan._asdict()})
     # the forests' shapes (Bagging, Boosting): the classifiers on letter,
@@ -2331,7 +2466,7 @@ def main():
                 lacc = torch.zeros(Mc * 2 * half, Cc, device=dev)
                 shape_row(lrec, run_l, dict(n=n, M=Mc, C=Cc, leaves=2 * half, W=packed.shape[1],
                                             half=half),
-                          hk.leaf_plan(n, Mc, Cc, 2 * half, half, packed.shape[1]),
+                          hk.leaf_plan(n, Mc, Cc, 2 * half, half),
                           lambda: lacc.index_add_(0, lidx, lsrc), **common, leaves=2 * half)
                 checks.append({"kernel": lrec.name, **common, "leaves": 2 * half, "routed": True,
                                "max_abs_err": err})
@@ -2358,6 +2493,9 @@ def main():
     # the level histograms on tall rows, where a tile's rows take several
     # clusters (tall_rows_phase)
     tall_rows_phase(torch, hk, binning, dev)
+    # the kernels on Epsilon's 500-word rows, the leaf pass gathering
+    # (wide_rows_phase)
+    wide_rows_phase(torch, hk, binning, dev)
 
     # phase 4: the main path through the public estimators
     def gbm(hist, hist_precision, rounds):
@@ -3183,7 +3321,7 @@ def main():
     lacc = torch.zeros(Ml * 2 * half, C, device=dev)
     sweep_row(lrec, run_l, dict(n=N_ROWS, M=Ml, C=C, leaves=2 * half, W=packed64.shape[1],
                                 half=half),
-              hk.lane_leaf_plan(N_ROWS, Ml, C, 2 * half, half, packed64.shape[1], lanes),
+              hk.lane_leaf_plan(N_ROWS, Ml, C, 2 * half, half, lanes),
               device_ms(lambda: lacc.index_add_(0, lidx, lsrc)), leaves=2 * half)
     sweep_checks.append({"kernel": lrec.name, **common, "leaves": 2 * half, "routed": True,
                          "max_abs_err": err, "lanes_equal_own_launch": True})
@@ -4339,10 +4477,11 @@ def main():
     return 0
 
 
-def tall_rows_main():
-    """``python3 chip_smoke.py --tall-rows``: the build and the tall-row
-    level histograms alone (tall_rows_phase), then the card's name and
-    power limit."""
+def rows_main(phase):
+    """``python3 chip_smoke.py --tall-rows`` or ``--wide-rows``: the build
+    and the tall-row level histograms (tall_rows_phase) or the wide-row
+    kernels (wide_rows_phase) alone, then the card's name and power
+    limit."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4353,14 +4492,14 @@ def tall_rows_main():
     t0 = time.perf_counter()
     emit({"phase": "build", "library": hk.build_kernels().name,
           "seconds": time.perf_counter() - t0})
-    tall_rows_phase(torch, hk, binning, torch.device("cuda"))
+    phase(torch, hk, binning, torch.device("cuda"))
     print(nvidia_smi(), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 2 and sys.argv[1] == "--tall-rows":
-        sys.exit(tall_rows_main())
+    if len(sys.argv) == 2 and sys.argv[1] in ("--tall-rows", "--wide-rows"):
+        sys.exit(rows_main(tall_rows_phase if sys.argv[1] == "--tall-rows" else wide_rows_phase))
     if len(sys.argv) == 3 and sys.argv[1] == "--distributed-rank":
         sys.exit(distributed_rank(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--elastic-rank":

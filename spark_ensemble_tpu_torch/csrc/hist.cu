@@ -97,9 +97,15 @@
 //   leaf, and no lane waits on another.  The plan tiles leaves when a
 //   warp's columns pass 16 KB, and members when they pass a CTA.
 // - The CTA stages its members' split tables once per tile as
-//   (word << 5 | lane shift, best_t), and each chunk of its rows' packed
-//   words with cp.async, one chunk ahead: a row's words are read once for
-//   all of its members, and a route costs two shared-memory loads.
+//   (word << 5 | lane shift, best_t), and no packed rows: each (row,
+//   member) loads the one word that holds its parent's split feature, the
+//   loads of all of a lane's rows of a chunk in flight at once.  A route
+//   reads one lane of a row, so the pass reads a sector a (row, member)
+//   however wide the row, and its plan (warps, leaves a tile) does not
+//   depend on the width.  (Staging two chunks of whole rows instead read
+//   each row once for all its members, but left fewer warps room beside
+//   the columns: on HIGGS's 7-word rows it ran half the warps and took
+//   2.4x as long, and past 112 words it did not fit at all.)
 // - The combine is in a fixed order: a member's columns in warp order (four
 //   lanes a thread, as float4), then row-slot order into the CTA's
 //   partial, with no division and no bank conflict; the CTAs of a thread-block
@@ -228,6 +234,14 @@ struct SplitStage {
   }
 };
 
+// The child of parent p through split entry e (e.x >= 0), given the word
+// of the row that e names.
+__device__ __forceinline__ int route_word(int p, int2 e, int word,
+                                          unsigned mask) {
+  const int b = static_cast<int>((static_cast<unsigned>(word) >> (e.x & 31)) & mask);
+  return 2 * p + 1 - (b <= e.y ? 1 : 0);
+}
+
 // The child of parent p of one (row, member), from the member's staged
 // table row and the row's staged words; -1 for a parent outside [0, half)
 // or a feature outside [0, d).
@@ -235,10 +249,7 @@ __device__ __forceinline__ int route_one(int p, const int2* tab_m, int half,
                                          const int* words_r, unsigned mask) {
   if (static_cast<unsigned>(p) >= static_cast<unsigned>(half)) return -1;
   const int2 e = tab_m[p];
-  if (e.x < 0) return -1;
-  const int b = static_cast<int>(
-      (static_cast<unsigned>(words_r[e.x >> 5]) >> (e.x & 31)) & mask);
-  return 2 * p + 1 - (b <= e.y ? 1 : 0);
+  return e.x < 0 ? -1 : route_word(p, e, words_r[e.x >> 5], mask);
 }
 
 __device__ __forceinline__ int4 load4(const int32_t* __restrict__ p, int e,
@@ -326,8 +337,8 @@ __global__ void __launch_bounds__(kRouteThreads)
 // rows_per_cta.  A CTA has n_mg x n_rw warps: warp w serves member group
 // w % n_mg (g members, S = 32 / g row slots) of the member tile and row warp
 // w / n_mg.  Shared layout: columns [warps][LT][C][32] | partial
-// [n_mg][LT][C][32] | tables int2 [MT][half] | words [2][RC][W] | flag, for MT =
-// n_mg * g members per tile and RC = kLeafSteps * n_rw * S rows per chunk.
+// [n_mg][LT][C][32] | tables int2 [MT][half] | flag, for MT = n_mg * g
+// members per tile and RC = kLeafSteps * n_rw * S rows per chunk.
 template <bool ROUTE>
 __global__ void __launch_bounds__(kMaxLeafThreads)
     leaf_sums(const int32_t* __restrict__ packed,
@@ -351,8 +362,7 @@ __global__ void __launch_bounds__(kMaxLeafThreads)
   float* cols = fsmem;
   float* part = cols + nw * col_words;
   int2* tab = reinterpret_cast<int2*>(part + n_mg * col_words);
-  int* words = reinterpret_cast<int*>(tab + MT * half);
-  int* flag = words + 2 * RC * W;
+  int* flag = reinterpret_cast<int*>(tab + MT * half);
 
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -374,16 +384,6 @@ __global__ void __launch_bounds__(kMaxLeafThreads)
     const long long m = m0 + mm;
     for (int l0 = 0; l0 < leaves; l0 += LT) {
       const int lt = min(LT, leaves - l0);
-      // chunk k's packed words into buffer k % 2, as one copy group (empty
-      // past the last chunk, so that every thread counts the same groups)
-      auto issue = [&](int k) {
-        const int r0 = r_begin + k * RC;
-        const int rows = k < n_chunks ? min(RC, r_end - r0) : 0;
-        int* buf = words + (k & 1) * RC * W;
-        const int32_t* src = packed + static_cast<long long>(r0) * W;
-        for (int i = tid; i < rows * W; i += nthreads) cp_async4(buf + i, src + i);
-        cp_async_commit();
-      };
       // this lane's rows of chunk k, row (u * n_rw + rw) * S + slot at step
       // u: their ids and statistics, in registers
       int id[kLeafSteps];
@@ -403,11 +403,10 @@ __global__ void __launch_bounds__(kMaxLeafThreads)
           }
         }
       };
-      // the tables' loads go out first, then the first chunk's words and
-      // rows; the columns are zeroed while they land
+      // the tables' loads go out first, then the first chunk's rows; the
+      // columns are zeroed while they land
       SplitStage st;
       if (ROUTE) st.load(best_f + m0 * half, best_t + m0 * half, mt * half);
-      if (ROUTE) issue(0);
       load_rows(0);
       if (ROUTE) {
         st.store(tab, best_f + m0 * half, best_t + m0 * half, mt * half, W,
@@ -417,20 +416,28 @@ __global__ void __launch_bounds__(kMaxLeafThreads)
         reinterpret_cast<float4*>(colw)[k] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
       __syncwarp();  // a lane adds into cells its neighbours zeroed
+      if (ROUTE) __syncthreads();  // the tables are in place
       for (int k = 0; k < n_chunks; ++k) {
-        if (ROUTE) {
-          issue(k + 1);
-          cp_async_wait<1>();
-          __syncthreads();  // chunk k's words and the tables are in place
-        }
         if (k > 0) load_rows(k);
-        const int* wk = words + (k & 1) * RC * W;
+        // ROUTE: each step's split entry, and the one word of its row that
+        // the entry names, all loads in flight before the first route
+        int2 ent[ROUTE ? kLeafSteps : 1];
+        int word[ROUTE ? kLeafSteps : 1];
+        if constexpr (ROUTE) {
+          const long long rc0 = r_begin + static_cast<long long>(k) * RC;
+#pragma unroll
+          for (int u = 0; u < kLeafSteps; ++u) {
+            const bool in = rm[u] >= 0 && static_cast<unsigned>(id[u]) < static_cast<unsigned>(half);
+            ent[u] = in ? tab[mm * half + id[u]] : make_int2(-1, 0);
+            const long long r = rc0 + (u * n_rw + rw) * S + slot;
+            word[u] = ent[u].x >= 0 ? __ldg(packed + r * W + (ent[u].x >> 5)) : 0;
+          }
+        }
 #pragma unroll
         for (int u = 0; u < kLeafSteps; ++u) {
           if (rm[u] < 0) continue;
-          if (ROUTE) {
-            const int i = (u * n_rw + rw) * S + slot;  // the row within the chunk
-            id[u] = route_one(id[u], tab + mm * half, half, wk + i * W, mask);
+          if constexpr (ROUTE) {
+            id[u] = ent[u].x < 0 ? -1 : route_word(id[u], ent[u], word[u], mask);
             if (l0 == 0) node_out[rm[u]] = id[u];
           }
           const int l = id[u] - l0;
@@ -445,9 +452,7 @@ __global__ void __launch_bounds__(kMaxLeafThreads)
             }
           }
         }
-        if (ROUTE) __syncthreads();  // buffer k % 2 is free for chunk k + 2
       }
-      if (ROUTE) cp_async_wait<0>();
       __syncthreads();  // every warp's columns are complete
       // The CTA's partial P [n_mg][LT * C][32 lanes]: each lane's columns
       // summed over its member group's warps in warp order, four lanes a
@@ -964,19 +969,19 @@ int se_level_hist(int nterms, const int32_t* words, const int32_t* node,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bytes of dynamic shared memory one CTA of se_leaf_sums uses (half = W = 0
+// Bytes of dynamic shared memory one CTA of se_leaf_sums uses (half = 0
 // without split tables).
 long long se_leaf_smem_bytes(int C, int g, int n_mg, int n_rw, int LT,
-                             int half, int W) {
+                             int half) {
   const long long MT = static_cast<long long>(n_mg) * g;
-  const long long RC = static_cast<long long>(kLeafSteps) * n_rw * (32 / g);
   return 4LL * (static_cast<long long>(n_mg) * (n_rw + 1) * LT * C * 32 +
-                2 * MT * half + 2 * RC * W + 1);
+                2 * MT * half + 1);
 }
 
 // Leaf sums L [M, leaves, C] of vals [n, M, C] by the ids in node [n, M];
 // with split tables best_f / best_t [M, half] (non-null), node holds parent
-// ids, which are routed through them into node_out first.  More than one
+// ids, which are routed through them into node_out first, each (row, member)
+// from its one word of packed [n, W].  More than one
 // cluster (grid > cs) needs the workspace: a ticket (0 between launches) and
 // grid / cs * M * leaves * C floats of partials.
 int se_leaf_sums(const int32_t* packed, const int32_t* node, const float* vals,
@@ -987,7 +992,7 @@ int se_leaf_sums(const int32_t* packed, const int32_t* node, const float* vals,
                  int cs, int grid, int rows_per_cta, void* stream) {
   const bool route = best_f != nullptr;
   const long long smem =
-      se_leaf_smem_bytes(C, g, n_mg, n_rw, LT, route ? half : 0, route ? W : 0);
+      se_leaf_smem_bytes(C, g, n_mg, n_rw, LT, route ? half : 0);
   const bool ok =
       n >= 1 && M >= 1 && C >= 1 && leaves >= 1 && g >= 1 && g <= 32 &&
       n_mg >= 1 && n_rw >= 1 && 32 * n_mg * n_rw <= kMaxLeafThreads &&

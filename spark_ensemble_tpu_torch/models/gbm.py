@@ -506,7 +506,6 @@ class _GBMParams(CheckpointableParams):
         guard_on = guard.active
         depth = _execution.resolve_pipeline_depth(n_rows)
         dp_on = _execution.device_patience_enabled()
-        drv = self
 
         def dispatch(sl, step_scale=1.0):
             site = f"{label}:round:{sl.start}"
@@ -649,86 +648,14 @@ class _GBMParams(CheckpointableParams):
             i, v, best, _ = process(i, 1, p1, w1, e1, eh1, a1, v, best, t1)
             return i, v, best, False
 
-        class _Adapter(_execution.RoundAdapter):
-            """Each launched entry carries two carry snapshots: the chunk
-            start (the guard's rewind point) and the chunk end (the state a
-            checkpoint must see, so a speculative chunk is never saved
-            before its predecessor commits)."""
-
-            def __init__(self):
-                self.depth = depth
-                self.telem = telem  # the executor traces chunk spans
-                self.span_fields = span_fields
-                self.i, self.v, self.best = i, v, best
-                self.halt = False
-                self.i_disp = i  # launch frontier (absolute round index)
-
-            def should_continue(self):
-                return (not self.halt and self.i < drv.num_base_learners
-                        and self.v < drv.num_rounds)
-
-            def can_launch(self):
-                return self.i_disp < drv.num_base_learners
-
-            def launch(self):
-                c = min(chunk, drv.num_base_learners - self.i_disp)
-                if ckpt.enabled:
-                    c = min(c, ckpt.rounds_until_save(self.i_disp))
-                snap_pre = snapshot()
-                t0 = time.perf_counter()
-                out = dispatch(slice(self.i_disp, self.i_disp + c))
-                entry = (self.i_disp, c, snap_pre, snapshot(), t0) + out
-                self.i_disp += c
-                return entry
-
-            def commit(self, entry, speculated):
-                i0, c, snap_pre, snap_post, t0, params_c, weights_c, errs, aux = entry
-                if telem.enabled:
-                    # host-blocked accounting (a pure fence): the wait the
-                    # lookahead exists to overlap
-                    telem.blocking_read((params_c, weights_c, errs))
-                bad, errs_host = read(params_c, weights_c, errs)
-                if speculated:
-                    # commit under this chunk's own end state: a save must
-                    # persist committed arrays, not the speculative frontier
-                    frontier = snapshot()
-                    restore(snap_post)
-                if bad is None:
-                    self.i, self.v, self.best, stopped = process(
-                        i0, c, params_c, weights_c, errs, errs_host, aux,
-                        self.v, self.best, t0,
-                    )
-                    # a mid-chunk validation stop: chunks in flight were
-                    # launched for rounds that no longer exist
-                    invalidate = stopped
-                    if speculated and not stopped:
-                        restore(frontier)
-                else:
-                    self.i, self.v, self.best, self.halt = recover(
-                        i0, bad, snap_pre, params_c, weights_c, errs,
-                        errs_host, aux, self.v, self.best, t0,
-                    )
-                    invalidate = True
-                # chaos: a preemption lands here, after the chunk's
-                # periodic save, so kill-and-resume runs cross a real
-                # checkpoint boundary
-                ctl.preempt(f"{label}:after_round:{self.i}")
-                if refresh_fit:
-                    # refresh-only kill site: a warm-start refresh fit dies
-                    # mid-fit, and the served model must stay untouched
-                    ctl.refresh_crash(f"{label}:refresh_round:{self.i}")
-                return invalidate
-
-            def reset_frontier(self):
-                self.i_disp = self.i
-
-            def finish(self):
-                # join the in-flight save (and surface its failure) before
-                # the model is assembled
-                ckpt.wait()
-
+        adapter = _ChunkAdapter(
+            drv=self, ckpt=ckpt, ctl=ctl, label=label, refresh_fit=refresh_fit, chunk=chunk,
+            depth=depth, telem=telem, span_fields=span_fields, i=i, v=v, best=best,
+            snapshot=snapshot, restore=restore, dispatch=dispatch, read=read,
+            process=process, recover=recover,
+        )
         try:
-            ad = _execution.RoundExecutor(_Adapter()).run()
+            ad = _execution.RoundExecutor(adapter).run()
         except BaseException:
             ckpt.abandon()
             raise
@@ -747,6 +674,96 @@ class _GBMParams(CheckpointableParams):
         if isinstance(vh, torch.Tensor):  # as a loaded model holds it
             return vh.detach().cpu().numpy()
         return np.asarray(vh)
+
+
+class _ChunkAdapter(_execution.RoundAdapter):
+    """``_GBMParams._drive_rounds``'s adapter to the :class:`RoundExecutor`
+    (the JAX package's ``_Adapter``), over the round loop's closures.  Each
+    launched entry carries two carry snapshots: the chunk start (the
+    guard's rewind point) and the chunk end (the state a checkpoint must
+    see, so a speculative chunk is never saved before its predecessor
+    commits).  A module-level class, not one made per fit: a class object
+    sits in reference cycles of its own, and one made inside the fit kept
+    every tensor its methods' closures reach (the carry, the binned
+    features) alive until the cycle collector ran."""
+
+    def __init__(self, *, drv, ckpt, ctl, label, refresh_fit, chunk, depth, telem,
+                 span_fields, i, v, best, snapshot, restore, dispatch, read, process,
+                 recover):
+        self.drv, self.ckpt, self.ctl, self.label = drv, ckpt, ctl, label
+        self.refresh_fit, self.chunk = refresh_fit, chunk
+        self.depth = depth
+        self.telem = telem  # the executor traces chunk spans
+        self.span_fields = span_fields
+        self.snapshot, self.restore, self.dispatch = snapshot, restore, dispatch
+        self.read, self.process, self.recover = read, process, recover
+        self.i, self.v, self.best = i, v, best
+        self.halt = False
+        self.i_disp = i  # launch frontier (absolute round index)
+
+    def should_continue(self):
+        return (not self.halt and self.i < self.drv.num_base_learners
+                and self.v < self.drv.num_rounds)
+
+    def can_launch(self):
+        return self.i_disp < self.drv.num_base_learners
+
+    def launch(self):
+        c = min(self.chunk, self.drv.num_base_learners - self.i_disp)
+        if self.ckpt.enabled:
+            c = min(c, self.ckpt.rounds_until_save(self.i_disp))
+        snap_pre = self.snapshot()
+        t0 = time.perf_counter()
+        out = self.dispatch(slice(self.i_disp, self.i_disp + c))
+        entry = (self.i_disp, c, snap_pre, self.snapshot(), t0) + out
+        self.i_disp += c
+        return entry
+
+    def commit(self, entry, speculated):
+        i0, c, snap_pre, snap_post, t0, params_c, weights_c, errs, aux = entry
+        if self.telem.enabled:
+            # host-blocked accounting (a pure fence): the wait the
+            # lookahead exists to overlap
+            self.telem.blocking_read((params_c, weights_c, errs))
+        bad, errs_host = self.read(params_c, weights_c, errs)
+        if speculated:
+            # commit under this chunk's own end state: a save must
+            # persist committed arrays, not the speculative frontier
+            frontier = self.snapshot()
+            self.restore(snap_post)
+        if bad is None:
+            self.i, self.v, self.best, stopped = self.process(
+                i0, c, params_c, weights_c, errs, errs_host, aux,
+                self.v, self.best, t0,
+            )
+            # a mid-chunk validation stop: chunks in flight were
+            # launched for rounds that no longer exist
+            invalidate = stopped
+            if speculated and not stopped:
+                self.restore(frontier)
+        else:
+            self.i, self.v, self.best, self.halt = self.recover(
+                i0, bad, snap_pre, params_c, weights_c, errs,
+                errs_host, aux, self.v, self.best, t0,
+            )
+            invalidate = True
+        # chaos: a preemption lands here, after the chunk's
+        # periodic save, so kill-and-resume runs cross a real
+        # checkpoint boundary
+        self.ctl.preempt(f"{self.label}:after_round:{self.i}")
+        if self.refresh_fit:
+            # refresh-only kill site: a warm-start refresh fit dies
+            # mid-fit, and the served model must stay untouched
+            self.ctl.refresh_crash(f"{self.label}:refresh_round:{self.i}")
+        return invalidate
+
+    def reset_frontier(self):
+        self.i_disp = self.i
+
+    def finish(self):
+        # join the in-flight save (and surface its failure) before
+        # the model is assembled
+        self.ckpt.wait()
 
 
 def _row_sharded_sample(sample, mesh, n):

@@ -13,7 +13,9 @@ Two TPU kernels are replaced, both by ``csrc/hist.cu`` (CUDA C++ for
   3-term bf16 split (:func:`hist_level_packed`); in leaf mode one launch
   that routes and takes the exact f32 leaf sums, as the TPU kernel's leaf
   mode does (kernel ``leaf_sums``, tiled by :func:`leaf_plan`; without split
-  tables it only sums, :func:`leaf_sums`).
+  tables it only sums, :func:`leaf_sums`).  The routed leaf pass reads
+  each (row, member)'s one packed word, never whole rows, so it takes rows
+  of any width.
 
 Both level histograms launch one kernel, ``level_hist`` (i32 bins are
 32-bit words), tiled by :func:`level_plan`.  Its plan reads two autotuned
@@ -40,10 +42,11 @@ installed (:func:`set_work_hook`, the inventory's), every wrapper reports
 ``(kernel, shape signature, bytes, ops)`` to it after its kernel launched
 on the card, or after its plain version ran on the CPU (on the card a
 level histogram's signature also holds its plan's ``clusters``, which the
-work ignores); ``LAUNCHES`` keeps counting card launches only, and
+work ignores); ``LAUNCHES`` keeps counting card launches only,
 ``LEVEL_SPLITS`` those level-histogram launches among them that split a
-tile's rows over more than one cluster.  With no hook a wrapper pays one
-global load.
+tile's rows over more than one cluster, and ``LEAF_GATHERS`` the leaf
+launches that route, each gathering one packed word a (row, member).
+With no hook a wrapper pays one global load.
 
 Precision: the kernel and its plain version split each row's statistic
 into exactly the same bf16 terms and sum them in f32; only the order of
@@ -98,15 +101,20 @@ LAUNCHES = {"hist_i32": 0, "route_packed": 0, "hist_packed": 0, "leaf_sums": 0}
 # the level histograms' launches among them whose plan split a tile's rows
 # over more than one cluster (``LevelPlan.clusters``)
 LEVEL_SPLITS = {"hist_i32": 0, "hist_packed": 0}
+# the leaf launches among them that route, gathering each (row, member)'s
+# one packed word
+LEAF_GATHERS = {"leaf_sums": 0}
 _COUNT_LOCK = threading.Lock()
 _LIB_LOCK = threading.Lock()
 
 
-def _count(kernel: str, split: bool = False) -> None:
+def _count(kernel: str, split: bool = False, gather: bool = False) -> None:
     with _COUNT_LOCK:
         LAUNCHES[kernel] += 1
         if split:
             LEVEL_SPLITS[kernel] += 1
+        if gather:
+            LEAF_GATHERS[kernel] += 1
 
 
 # the program inventory's hook: ``hook(kernel, signature, bytes, ops)``,
@@ -206,7 +214,7 @@ _LEAF_CTAS_PER_SM = 2
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
-        for counts in (LAUNCHES, LEVEL_SPLITS):
+        for counts in (LAUNCHES, LEVEL_SPLITS, LEAF_GATHERS):
             for k in counts:
                 counts[k] = 0
 
@@ -280,7 +288,7 @@ def _load_library():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.se_leaf_sums.argtypes = [P] * 9 + [I] * 15 + [P]
     lib.se_leaf_sums.restype = I
-    lib.se_leaf_smem_bytes.argtypes = [I] * 7
+    lib.se_leaf_smem_bytes.argtypes = [I] * 6
     lib.se_leaf_smem_bytes.restype = ctypes.c_longlong
     lib.se_route_packed.argtypes = [P] * 5 + [I] * 8 + [P]
     lib.se_route_packed.restype = I
@@ -528,22 +536,22 @@ class LeafPlan(NamedTuple):
     smem: int  # dynamic shared-memory bytes per CTA
 
 
-def _leaf_smem(C, g, n_mg, n_rw, LT, half, W):
+def _leaf_smem(C, g, n_mg, n_rw, LT, half):
     """Bytes of the warps' columns, the CTA's partial (one more set of
-    columns per member group), the split tables, two chunks of packed
-    words and a flag: the layout of ``csrc/hist.cu::leaf_sums``."""
-    MT = n_mg * g
-    RC = _LEAF_STEPS * n_rw * (32 // g)
-    return 4 * (n_mg * (n_rw + 1) * LT * C * 32 + 2 * MT * half + 2 * RC * W + 1)
+    columns per member group), the split tables and a flag: the layout of
+    ``csrc/hist.cu::leaf_sums``."""
+    return 4 * (n_mg * (n_rw + 1) * LT * C * 32 + 2 * n_mg * g * half + 1)
 
 
 @functools.lru_cache(maxsize=1024)
-def leaf_plan(n, M, C, leaves, half=0, W=0) -> LeafPlan:
+def leaf_plan(n, M, C, leaves, half=0) -> LeafPlan:
     """CTA tiling of the leaf pass (``leaf_sums``) over ``leaves`` leaves,
-    routed through split tables ``[M, half]`` over packed rows of ``W``
-    words (``half = W = 0``: the ids are given); a function of the shapes
-    only, so the summation order is too.  Lanes map to members (groups of
-    32), and a warp takes ``32 // g`` rows at once when M is small.  A
+    routed through split tables ``[M, half]`` (``half = 0``: the ids are
+    given); a function of the shapes only, so the summation order is too.
+    A routed pass reads one packed word a (row, member) and stages no rows,
+    so the plan does not depend on the rows' width.  Lanes map to members
+    (groups of 32), and a warp takes ``32 // g`` rows at once when M is
+    small.  A
     lane's column holds every leaf unless a warp's columns pass
     ``_LEAF_WARP_BYTES`` (then leaves are tiled); a CTA has ``_LEAF_WARPS``
     warps; members are tiled past 8 groups.  Warps, member groups and then
@@ -556,7 +564,7 @@ def leaf_plan(n, M, C, leaves, half=0, W=0) -> LeafPlan:
     n_mg = min(-(-M // g), _LEAF_WARPS)
     n_rw = max(1, _LEAF_WARPS // n_mg)
     LT = min(leaves, max(1, _LEAF_WARP_BYTES // (128 * C)))
-    while (smem := _leaf_smem(C, g, n_mg, n_rw, LT, half, W)) > _MAX_SMEM:
+    while (smem := _leaf_smem(C, g, n_mg, n_rw, LT, half)) > _MAX_SMEM:
         if n_rw > 1:
             n_rw //= 2
         elif n_mg > 1:
@@ -566,7 +574,7 @@ def leaf_plan(n, M, C, leaves, half=0, W=0) -> LeafPlan:
         else:
             raise ValueError(
                 f"leaf pass needs {smem} bytes of shared memory (M={M}, "
-                f"C={C}, leaves={leaves}, half={half}, W={W}); the card has "
+                f"C={C}, leaves={leaves}, half={half}); the card has "
                 f"{_MAX_SMEM}"
             )
     threads = 32 * n_mg * n_rw
@@ -579,7 +587,7 @@ def leaf_plan(n, M, C, leaves, half=0, W=0) -> LeafPlan:
     return LeafPlan(g, n_mg, n_rw, LT, cs, grid, per_cta * RC, threads, smem)
 
 
-def lane_leaf_plan(n, M, C, leaves, half=0, W=0, lanes=1) -> LeafPlan:
+def lane_leaf_plan(n, M, C, leaves, half=0, lanes=1) -> LeafPlan:
     """``leaf_plan`` of M = lanes * K members that sums each member's rows
     as a launch of K members does: the K-member plan itself.  A member's
     sum depends on its lane's row slots (``g``), the row warps
@@ -587,7 +595,7 @@ def lane_leaf_plan(n, M, C, leaves, half=0, W=0, lanes=1) -> LeafPlan:
     in the member tile, and a CTA loops over member tiles of
     ``n_mg * g`` members; so the wide launch runs the K-member grid with
     each CTA taking every lane's members in turn."""
-    return leaf_plan(n, _check_lanes(M, lanes), C, leaves, half, W)
+    return leaf_plan(n, _check_lanes(M, lanes), C, leaves, half)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -664,11 +672,11 @@ def _checked_route_plan(n, M, half, W) -> RoutePlan:
 
 
 @functools.lru_cache(maxsize=1024)
-def _checked_leaf_plan(n, M, C, leaves, half, W, lanes) -> LeafPlan:
+def _checked_leaf_plan(n, M, C, leaves, half, lanes) -> LeafPlan:
     """``lane_leaf_plan``, held once per shape against the kernel's own
     shared-memory layout."""
-    plan = lane_leaf_plan(n, M, C, leaves, half, W, lanes)
-    if _library().se_leaf_smem_bytes(C, plan.g, plan.n_mg, plan.n_rw, plan.LT, half, W) != plan.smem:
+    plan = lane_leaf_plan(n, M, C, leaves, half, lanes)
+    if _library().se_leaf_smem_bytes(C, plan.g, plan.n_mg, plan.n_rw, plan.LT, half) != plan.smem:
         raise RuntimeError("leaf_plan and csrc/hist.cu disagree on the shared-memory layout")
     return plan
 
@@ -702,7 +710,7 @@ def _launch_leaf(packed, node, vals, best_f, best_t, node_out, out, *,
     n, M, C = vals.shape
     route = best_f is not None
     half, W = (best_f.shape[1], packed.shape[1]) if route else (0, 0)
-    plan = _checked_leaf_plan(n, M, C, leaves, half, W, lanes)
+    plan = _checked_leaf_plan(n, M, C, leaves, half, lanes)
     dev = out.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     ticket = partials = None
@@ -986,7 +994,7 @@ def _leaf_routed(packed, node, vals, best_f, best_t, *, n_nodes: int,
             return out.zero_(), node_out
         _launch_leaf(packed, node, vals, best_f, best_t, node_out, out,
                      leaves=n_nodes, bits=bits, d=num_features, lanes=lanes)
-        _count("leaf_sums")
+        _count("leaf_sums", gather=True)
     if _WORK_HOOK[0] is not None:
         report_work("leaf_sums", n=n, M=M, C=C, leaves=n_nodes, W=packed.shape[1],
                 half=best_f.shape[1])

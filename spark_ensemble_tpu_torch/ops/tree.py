@@ -753,10 +753,11 @@ def fit_forest(
 
     num_leaves = 2**max_depth
     if tier == "fused":
-        L, node = fused_round_level(
-            packed, node, vals, tables[0], tables[1], n_nodes=num_leaves,
-            max_bins=B, bits=bits, num_features=d, leaf=True, lanes=lanes,
-        )
+        with span("tree.leaf"):
+            L, node = fused_round_level(
+                packed, node, vals, tables[0], tables[1], n_nodes=num_leaves,
+                max_bins=B, bits=bits, num_features=d, leaf=True, lanes=lanes,
+            )
     elif tier == "scatter":
         L = leaf_plain(node, vals, num_leaves, ordered=True)
     else:

@@ -171,14 +171,14 @@ def test_hist_plan_at_the_main_path_shapes(n_nodes, leaf):
     """The CTA tiling is a function of the shapes alone (so is the
     summation order), fits the card's shared memory, and covers every
     row, node and feature: the leaf pass's plan (``leaf_plan``, routed
-    through 16 parents' tables over 4 packed words a row;
+    through 16 parents' tables;
     tests/test_torch_leaf_route.py has more) and the level histograms'
     (``level_plan``, tests/test_torch_hist_plan.py has more)."""
     n, d, M, C, B = 15000, 16, 26, 2, 64
     if leaf:
-        plan = hk.leaf_plan(n, M, C, n_nodes, n_nodes // 2, 4)
+        plan = hk.leaf_plan(n, M, C, n_nodes, n_nodes // 2)
         hk.leaf_plan.cache_clear()
-        assert plan == hk.leaf_plan(n, M, C, n_nodes, n_nodes // 2, 4)
+        assert plan == hk.leaf_plan(n, M, C, n_nodes, n_nodes // 2)
         assert plan.smem <= 227 * 1024
         assert plan.grid * plan.rows_per_cta >= n
         assert (plan.grid - plan.cs) * plan.rows_per_cta < n  # no cluster without rows

@@ -115,19 +115,19 @@ def test_routed_leaf_rejects_malformed_tables():
 # the plans
 # ---------------------------------------------------------------------------
 
-# (n, M, C, leaves, half, W): the main path (15000 rows, 26 members, 32
-# leaves, 16 features in 8-bit lanes), the regressor (one member), 256
-# leaves, more members than lanes, more members than one tile holds, a
-# prime n with C = 3, and the unrouted pass (max_depth = 0: one leaf, no
-# tables)
+# (n, M, C, leaves, half): the main path (15000 rows, 26 members, 32
+# leaves), the regressor (one member), 256 leaves, more members than lanes,
+# more members than one tile holds, a prime n with C = 3, and the unrouted
+# pass (max_depth = 0: one leaf, no tables).  The routed pass gathers one
+# packed word a (row, member), so the rows' width is not a shape of the plan.
 LEAF_SHAPES = [
-    (15000, 26, 2, 32, 16, 4),
-    (8192, 1, 2, 32, 16, 2),
-    (15000, 26, 2, 256, 128, 4),
-    (15000, 40, 2, 32, 16, 4),
-    (2000, 300, 2, 32, 16, 4),
-    (14983, 26, 3, 64, 32, 4),
-    (15000, 26, 2, 1, 0, 0),
+    (15000, 26, 2, 32, 16),
+    (8192, 1, 2, 32, 16),
+    (15000, 26, 2, 256, 128),
+    (15000, 40, 2, 32, 16),
+    (2000, 300, 2, 32, 16),
+    (14983, 26, 3, 64, 32),
+    (15000, 26, 2, 1, 0),
 ]
 
 
@@ -161,18 +161,17 @@ def _leaf_cover(plan, n, M, leaves):
     return rows, members, tiles
 
 
-@pytest.mark.parametrize("n,M,C,leaves,half,W", LEAF_SHAPES)
-def test_leaf_plan_fits_the_card_and_covers_every_row_member_and_leaf(n, M, C, leaves, half, W):
-    plan = hk.leaf_plan(n, M, C, leaves, half, W)
+@pytest.mark.parametrize("n,M,C,leaves,half", LEAF_SHAPES)
+def test_leaf_plan_fits_the_card_and_covers_every_row_member_and_leaf(n, M, C, leaves, half):
+    plan = hk.leaf_plan(n, M, C, leaves, half)
     hk.leaf_plan.cache_clear()
-    assert plan == hk.leaf_plan(n, M, C, leaves, half, W)  # the shapes alone
+    assert plan == hk.leaf_plan(n, M, C, leaves, half)  # the shapes alone
     assert plan.smem <= 227 * 1024
     MT = plan.n_mg * plan.g
-    RC = hk._LEAF_STEPS * plan.n_rw * (32 // plan.g)
     # the kernel's layout: the warps' columns, the partial (one more set of
-    # columns per member group), tables, two chunks of packed words, a flag
+    # columns per member group), tables, a flag
     cols = plan.LT * C * 32
-    assert plan.smem == 4 * (plan.n_mg * (plan.n_rw + 1) * cols + 2 * MT * half + 2 * RC * W + 1)
+    assert plan.smem == 4 * (plan.n_mg * (plan.n_rw + 1) * cols + 2 * MT * half + 1)
     assert plan.threads == 32 * plan.n_mg * plan.n_rw <= 512
     assert 1 <= plan.g <= 32 and 1 <= plan.cs <= 8 and plan.grid % plan.cs == 0
     assert plan.LT * C * 128 <= 16 * 1024 or plan.LT == 1
@@ -183,7 +182,7 @@ def test_leaf_plan_fits_the_card_and_covers_every_row_member_and_leaf(n, M, C, l
 def test_leaf_plan_at_the_main_path_fills_the_card_in_clusters():
     """26 lanes a warp, one row a warp-step, all 32 leaves in one tile, and
     about 2 CTAs an SM in clusters of 8 (the card has 132 SMs)."""
-    plan = hk.leaf_plan(15000, 26, 2, 32, 16, 4)
+    plan = hk.leaf_plan(15000, 26, 2, 32, 16)
     assert (plan.g, plan.n_mg, plan.LT, plan.cs) == (26, 1, 32, 8)
     assert 132 <= plan.grid <= 2 * 132
 
@@ -191,8 +190,8 @@ def test_leaf_plan_at_the_main_path_fills_the_card_in_clusters():
 @pytest.mark.parametrize(
     "args",
     [
-        (100, 2, 2048, 1, 0, 0),  # one warp's column of one leaf: 256 KB
-        (100, 26, 2, 2**16, 2**15, 4),  # one member group's tables: 6.8 MB
+        (100, 2, 2048, 1, 0),  # one warp's column of one leaf: 256 KB
+        (100, 26, 2, 2**16, 2**15),  # one member group's tables: 6.8 MB
     ],
 )
 def test_leaf_plan_raises_where_no_tiling_fits(args):

@@ -220,3 +220,29 @@ def test_device_patience_step_matches_the_host_recurrence():
     best, v, stopped, kept = execution.device_patience_step(errs, 2.0, 0, 0.01, 2)
     assert (stopped, kept, v) == (True, 4, 2)
     assert best == pytest.approx(0.9)
+
+
+@pytest.mark.parametrize("family", ["classifier", "regressor"])
+def test_a_gbm_fit_leaves_no_row_sized_tensor_in_reference_cycles(family):
+    """The round loop's adapter is a module-level class: one made inside
+    each fit is a reference cycle of its own that held its methods'
+    closures (the carry, the binned table) until the cycle collector ran,
+    so every fit's row-sized tensors outlived it on the device."""
+    import gc
+
+    X, y = _clf_data() if family == "classifier" else _reg_data()
+    cls = st.GBMClassifier if family == "classifier" else st.GBMRegressor
+    est = cls(num_base_learners=3, base_learner=_tree())
+    est.fit(X, y, device="cpu")  # a first fit, so nothing of the import is new
+    gc.collect()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        model = est.fit(X, y, device="cpu")
+        gc.collect()
+        rows = [tuple(o.shape) for o in gc.garbage
+                if isinstance(o, torch.Tensor) and o.dim() and o.shape[0] == X.shape[0]]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+    assert model.num_members == 3
+    assert rows == []

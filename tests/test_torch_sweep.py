@@ -231,9 +231,8 @@ def test_lane_plans_keep_the_lane_summation_order(n, d, K, C, B, nodes, bits, la
         lane.cs, lane.clusters, lane.rows_per_chunk)
     assert wide.grid == alone.grid // (alone.cs * alone.clusters) * lane.cs * lane.clusters
     assert (wide.g, wide.nf, wide.np, wide.smem) == (alone.g, alone.nf, alone.np, alone.smem)
-    W = -(-d // (32 // bits)) if bits < 32 else d
-    assert hk.lane_leaf_plan(n, lanes * K, C, 2 * nodes, nodes, W, lanes) == hk.leaf_plan(
-        n, K, C, 2 * nodes, nodes, W)
+    assert hk.lane_leaf_plan(n, lanes * K, C, 2 * nodes, nodes, lanes) == hk.leaf_plan(
+        n, K, C, 2 * nodes, nodes)
     with pytest.raises(ValueError, match="lanes"):
         hk.lane_level_plan(n, d, lanes * K + 1, C, B, nodes, bits, lanes)
 

@@ -285,6 +285,23 @@ def test_a_profiled_fit_shows_the_span_catalogue_nested(family):
     assert parents["tree.split"] == {"tree.level"}
 
 
+def test_a_fused_fit_opens_tree_leaf_once_a_tree():
+    """The fused tier's leaf pass, one ``tree.leaf`` a tree inside its
+    ``round.tree``, after the tree's levels; no span of the fit holds a
+    kernel's name (readers of a capture match kernels by substring)."""
+    X, y = _data(n=200)
+    y = (y > np.median(y)).astype(np.float32)
+    est = st.GBMClassifier(num_base_learners=2, base_learner=st.DecisionTreeRegressor(
+        max_depth=3, max_bins=16, hist="fused"))
+    est.fit(X, y, device="cpu")
+    nested = _profiled_spans(lambda: est.fit(X, y, device="cpu"))
+    counts = Counter(name for name, _ in nested)
+    assert counts["tree.leaf"] == 2 and counts["tree.level"] == 6
+    assert {parent for name, parent in nested if name == "tree.leaf"} == {"round.tree"}
+    for name in counts:
+        assert not any(k in name for k in ("level_hist", "route_packed", "leaf_sums")), name
+
+
 # ---------------------------------------------------------------------------
 # RoundExecutor chunk fates
 # ---------------------------------------------------------------------------

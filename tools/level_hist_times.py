@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Device time of each level of the level histogram in ``higgs.fit``'s
-fits, one checkout against another, on one CUDA card.
+"""Device time of each level of the level histogram in a fit cell's fits
+(``--workload``, default ``higgs.fit``), one checkout against another, on
+one CUDA card.
 
     python3 tools/level_hist_times.py --seed 2236067977 PARENT_DIR CHANGE_DIR
+    python3 tools/level_hist_times.py --workload epsilon.fit --seed 5 .
 
 Each positional argument is the root of a checkout (a directory holding
 ``spark_ensemble_tpu_torch/`` and ``benchmark/``).  For each, in the order
@@ -33,6 +35,7 @@ import json, statistics, sys, time
 from pathlib import Path
 
 root, seed, fits = Path(sys.argv[1]).resolve(), int(sys.argv[2]), int(sys.argv[3])
+workload = sys.argv[4]
 sys.path.insert(0, str(root))
 from benchmark.harness import env
 
@@ -45,7 +48,7 @@ from benchmark.harness import spec
 from benchmark.harness.data import make_table
 from spark_ensemble_tpu_torch.ops import hist_kernels as hk
 
-cell = spec.load_cell("higgs.fit", root)
+cell = spec.load_cell(workload, root)
 drv = spec.driver_module(cell.driver, root)
 dev = torch.device("cuda")
 data, tree = cell.config["data"], cell.config["base_learner"]
@@ -85,7 +88,7 @@ for lv, ms in enumerate(per_level):
         "rows_per_chunk": plan.rows_per_chunk})
 splits = getattr(hk, "LEVEL_SPLITS", None)
 print(json.dumps({
-    "root": str(root), "seed": seed, "fits": fits, "lost_fits": lost, "walls_s": walls,
+    "root": str(root), "workload": workload, "seed": seed, "fits": fits, "lost_fits": lost, "walls_s": walls,
     "levels": levels,
     "sum_ms": sum(r["ms"] for r in levels if r["ms"] is not None),
     "level_splits": None if splits is None else dict(splits),
@@ -98,11 +101,12 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--fits", type=int, default=2)
+    ap.add_argument("--workload", default="higgs.fit")
     args = ap.parse_args(argv)
     rc = 0
     for root in args.roots:
         rc |= subprocess.run([sys.executable, "-c", ONE, root, str(args.seed),
-                              str(args.fits)]).returncode
+                              str(args.fits), args.workload]).returncode
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
