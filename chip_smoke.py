@@ -87,8 +87,8 @@ reports them, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result when CUDA is unavailable or when the
 port's package is not beside it.  ``python3 chip_smoke.py --tall-rows``
-(``--wide-rows``) builds the kernels and runs the ``tall_rows``
-(``wide_rows``) check alone.
+(``--wide-rows``, ``--row-lists``) builds the kernels and runs the
+``tall_rows`` (``wide_rows``, ``row_lists``) check alone.
 """
 
 import json
@@ -479,6 +479,146 @@ def wide_rows_phase(torch, hk, binning, dev):
     emit(out)
     if problems:
         raise AssertionError(f"wide_rows: {problems}")
+    return out
+
+
+#: the row-list check: HIGGS's and Epsilon's full tables at level 7 (128
+#: nodes, four node tiles of 32, one member, 63 bins in 8-bit lanes, C = 2),
+#: and a skewed level 6 on HIGGS's width (90% of the rows in one node tile,
+#: 5% routed to -1)
+LIST_CASES = {"higgs_l7": (10_500_000, 28, 7), "epsilon_l7": (400_000, 2_000, 7),
+              "skewed_l6": (2_100_000, 28, 6)}
+LIST_BINS = 63
+#: the lanes of the row-list lane check, at level 7 on LIST_LANE_ROWS rows,
+#: each member with 10% of its rows out of the bag (-1): 28 features, where
+#: the wide launch holds one member a CTA anyway, and 4, where it would hold
+#: two unless its lanes walk lists
+LIST_LANES, LIST_LANE_ROWS, LIST_LANE_FEATURES = 4, 1_000_003, (28, 4)
+
+
+def row_lists_phase(torch, hk, binning, dev):
+    """The compact level histograms (``LevelPlan.compact``): each node tile
+    walks a list of its own rows, made on the card (``level_rows``).  For
+    each of LIST_CASES: the card's lists and offsets equal the plain
+    version's exactly (stable: every list in ascending row order); the
+    packed tier's launch (``level_hist<3>``, and ``level_hist<2>`` over
+    i32 bins in the skewed case) is held against ``hist_plain``, on dyadic
+    statistics (exact in any order) to 1e-5 and on random ones at rtol
+    1e-5 and 1e-6 of the largest cell, the plain version taken over blocks
+    of rows added in order, with -1 rows given zero statistics at node 0
+    there; two launches give the same bits; ``LEVEL_COMPACT`` counts
+    exactly the compact launches.  A wide launch of LIST_LANES one-member
+    lanes with out-of-bag rows equals each lane's own launch bit for bit
+    (and ``hist_plain`` to the random tolerance), at LIST_LANE_FEATURES.
+    The lists' two launches and the whole level (lists and histogram) are
+    timed (CUDA events, median of 5 runs of 10 calls) -> the phase's JSON
+    row; raises on a failed check."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    B = LIST_BINS
+    bits = binning.pack_width(B)
+    problems, rows = [], []
+    want = {"hist_i32": 0, "hist_packed": 0}
+    hk.reset_launch_counts()
+    reps, runs = 10, 5
+    for case, (n, d, lv) in LIST_CASES.items():
+        n_nodes = 2**lv
+        ids = torch.randint(0, B, (n, d), generator=gen, device=dev, dtype=torch.int32)
+        packed = binning.pack_bins(ids, B, bits).packed
+        node = torch.randint(0, n_nodes, (n, 1), generator=gen, device=dev, dtype=torch.int32)
+        if case.startswith("skewed"):
+            u = torch.rand((n, 1), generator=gen, device=dev)
+            node = torch.where(u < 0.9, node % 32 + 32, node)  # tile 1 of 2
+            node = torch.where(u > 0.95, torch.full_like(node, -1), node).contiguous()
+        tiers = {"hist_packed": (3, bits, lambda vals: hk.hist_level_packed(
+            packed, node, vals, n_nodes=n_nodes, max_bins=B, bits=bits, num_features=d))}
+        if case.startswith("skewed"):
+            tiers["hist_i32"] = (2, 32, lambda vals: hk.hist_level_pallas(
+                ids, node, vals, n_nodes=n_nodes, max_bins=B))
+        plan = hk.level_plan(n, d, 1, 2, B, n_nodes, bits, (hk._LEVEL_ROWS, hk._CTA_HIST_BYTES))
+        row = {"case": case, "n": n, "d": d, "level": lv, "plan": plan._asdict()}
+        if not plan.compact:
+            problems.append(f"{case}: plan not compact")
+        got_rows, got_offs = hk.level_rows(node, n_nodes=n_nodes, nodes_per_tile=plan.np)
+        ref_rows, ref_offs = hk.level_rows_plain(node, n_nodes, plan.np)
+        if not (torch.equal(got_rows, ref_rows) and torch.equal(got_offs, ref_offs)):
+            problems.append(f"{case}: row lists differ from the plain version")
+        row["list_counts"] = torch.diff(got_offs).tolist()
+        row["lists_ms"] = _events_ms(torch, lambda: hk.level_rows(
+            node, n_nodes=n_nodes, nodes_per_tile=plan.np), reps, runs)
+        keep = (node >= 0)[:, :, None]  # the plain version takes nodes in range only
+        ref_node = node.clamp(min=0)
+        block = max(1 << 12, (1 << 24) // d)  # the plain version's index tensor, ~0.5 GB a block
+        for kernel, (nterms, kbits, run) in tiers.items():
+            kplan = hk.level_plan(n, d, 1, 2, B, n_nodes, kbits, (hk._LEVEL_ROWS, hk._CTA_HIST_BYTES))
+            for dyadic in (True, False):
+                if dyadic:
+                    v = (torch.randint(-8, 9, (n, 1, 2), generator=gen, device=dev) / 4.0).float()
+                else:
+                    v = torch.stack([torch.rand((n, 1), generator=gen, device=dev),
+                                     torch.randn((n, 1), generator=gen, device=dev)], dim=2)
+                v[: n // 8] = 0.0  # zero-weight rows
+                vals = v.contiguous()
+                got = run(vals)
+                kept = vals * keep
+                ref = sum(hk.hist_plain(ids[i:i + block], ref_node[i:i + block],
+                                        kept[i:i + block], n_nodes, B, nterms)
+                          for i in range(0, n, block))
+                err = float((got - ref).abs().max())
+                tol = dict(rtol=0, atol=1e-5) if dyadic else dict(
+                    rtol=1e-5, atol=1e-6 * float(ref.abs().max()))
+                if not torch.allclose(got, ref, **tol):
+                    problems.append(f"{case} {kernel} dyadic={dyadic}: max abs err {err}")
+                row[f"{kernel}_max_abs_err" + ("_dyadic" if dyadic else "")] = err
+                if not torch.equal(got, run(vals)):
+                    problems.append(f"{case} {kernel} dyadic={dyadic}: two launches differ")
+                want[kernel] += 2 * kplan.compact
+                del ref, kept
+            row[f"{kernel}_ms"] = _events_ms(torch, lambda: run(vals), reps, runs)
+            want[kernel] += (1 + reps * runs) * kplan.compact
+        rows.append(row)
+        del ids, packed
+    # one-member lanes with out-of-bag rows: a wide launch of the lanes
+    # equals each lane's own launch bit for bit, both walking lists
+    lanes_ok = {}
+    n, n_nodes = LIST_LANE_ROWS, 128
+    for d in LIST_LANE_FEATURES:
+        ids = torch.randint(0, B, (n, d), generator=gen, device=dev, dtype=torch.int32)
+        packed = binning.pack_bins(ids, B, bits).packed
+        node = torch.randint(0, n_nodes, (n, LIST_LANES), generator=gen, device=dev,
+                             dtype=torch.int32)
+        out_of_bag = torch.rand((n, LIST_LANES), generator=gen, device=dev) < 0.1
+        node = node.masked_fill(out_of_bag, -1).contiguous()
+        vals = torch.randn((n, LIST_LANES, 2), generator=gen, device=dev)
+
+        def hist(nd, v, lanes=1):
+            return hk.hist_level_packed(packed, nd, v, n_nodes=n_nodes, max_bins=B, bits=bits,
+                                        num_features=d, lanes=lanes)
+
+        wide = hist(node, vals, LIST_LANES)
+        plan = hk.lane_level_plan(n, d, LIST_LANES, 2, B, n_nodes, bits, LIST_LANES,
+                                  (hk._LEVEL_ROWS, hk._CTA_HIST_BYTES))
+        same = all(torch.equal(wide[s], hist(node[:, s:s + 1].contiguous(),
+                                             vals[:, s:s + 1].contiguous())[0])
+                   for s in range(LIST_LANES))
+        ref = hk.hist_plain(ids, node.clamp(min=0), vals * (node >= 0)[:, :, None], n_nodes, B, 3)
+        err = float((wide - ref).abs().max())
+        close = bool(torch.allclose(wide, ref, rtol=1e-5, atol=1e-6 * float(ref.abs().max())))
+        lanes_ok[f"d={d}"] = {"equal": same, "max_abs_err": err, "compact": plan.compact,
+                              "g": plan.g}
+        want["hist_packed"] += (1 + LIST_LANES) * plan.compact
+        if not (same and close and plan.compact):
+            problems.append(f"lanes d={d}: {lanes_ok[f'd={d}']}")
+        del ids, packed, ref
+    torch.cuda.synchronize()  # graftlint: ignore[unfenced-blocking-read] -- a check reads the counters after every launch ran
+    counted = dict(hk.LEVEL_COMPACT)
+    if counted != want:
+        problems.append(f"LEVEL_COMPACT {counted}, expected {want}")
+    out = {"phase": "row_lists", "B": B, "bits": bits, "cases": rows, "lanes": lanes_ok,
+           "level_compact": counted, "problems": problems}
+    emit(out)
+    if problems:
+        raise AssertionError(f"row_lists: {problems}")
     return out
 
 
@@ -2496,6 +2636,8 @@ def main():
     # the kernels on Epsilon's 500-word rows, the leaf pass gathering
     # (wide_rows_phase)
     wide_rows_phase(torch, hk, binning, dev)
+    # the compact level histograms over row lists (row_lists_phase)
+    row_lists_phase(torch, hk, binning, dev)
 
     # phase 4: the main path through the public estimators
     def gbm(hist, hist_precision, rounds):
@@ -4477,11 +4619,16 @@ def main():
     return 0
 
 
+ROW_PHASES = {"--tall-rows": tall_rows_phase, "--wide-rows": wide_rows_phase,
+              "--row-lists": row_lists_phase}
+
+
 def rows_main(phase):
-    """``python3 chip_smoke.py --tall-rows`` or ``--wide-rows``: the build
-    and the tall-row level histograms (tall_rows_phase) or the wide-row
-    kernels (wide_rows_phase) alone, then the card's name and power
-    limit."""
+    """``python3 chip_smoke.py --tall-rows``, ``--wide-rows`` or
+    ``--row-lists``: the build and the tall-row level histograms
+    (tall_rows_phase), the wide-row kernels (wide_rows_phase) or the
+    compact level histograms (row_lists_phase) alone, then the card's name
+    and power limit."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4498,8 +4645,8 @@ def rows_main(phase):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 2 and sys.argv[1] in ("--tall-rows", "--wide-rows"):
-        sys.exit(rows_main(tall_rows_phase if sys.argv[1] == "--tall-rows" else wide_rows_phase))
+    if len(sys.argv) == 2 and sys.argv[1] in ROW_PHASES:
+        sys.exit(rows_main(ROW_PHASES[sys.argv[1]]))
     if len(sys.argv) == 3 and sys.argv[1] == "--distributed-rank":
         sys.exit(distributed_rank(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--elastic-rank":

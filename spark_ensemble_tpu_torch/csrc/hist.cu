@@ -53,6 +53,30 @@
 //   members) as fit 128 KB, picks the largest cluster size that lets every
 //   tile's cluster run in one wave, and then as many clusters a tile as
 //   fill the wave's CTA slots that one cluster a tile leaves empty.
+// - Row lists (level_hist_count, level_hist_rows).  Where the plan tiles
+//   nodes (a warp's cells of every node would pass 16 KB) and a CTA holds
+//   one member, every node tile's CTAs used to stage and step through
+//   every row of the table and drop the rows of other tiles: at depth 8 a
+//   level of 4 node tiles did 4x the row steps it needed.  Such a level
+//   (LevelPlan.compact) first writes, for every (member, node tile), the
+//   rows whose node lies in the tile, in ascending order, and each tile's
+//   CTAs split its own count evenly over their chunks and gather their
+//   rows' words, node ids and statistics by index (the ids staged two
+//   tiles ahead, with cp.async, in a ring beside the stages).  A cell's
+//   sum still runs over its rows in ascending order, chunk by chunk.  The
+//   lists cost two launches, bound by bytes (node ids read twice and the
+//   lists written once: ~130 MB, ~40 us at 10.5M rows) and in practice by
+//   the latency of each warp's walk of its segment (0.17-0.24 ms at 10.5M
+//   rows on an H100 against 10-40 ms saved a level), and a scan of a few
+//   thousand counts.  Their order is fixed by counts, a scan in block
+//   order and in-warp ballot ranks: each warp takes a fixed segment of
+//   rows, counts its rows per tile, and the grid's last CTA to finish
+//   (found by a ticket, which decides only who scans) scans the counts in
+//   (member, tile, segment) order; then each warp writes its rows at its
+//   segment's start plus their rank among the warp's earlier lanes of the
+//   same tile.  No atomic decides where a row goes, so the lists, and with
+//   them the histogram's bits, are the same on every launch.  Counts and
+//   starts stay on the card: the host never waits on them.
 //
 // What bounds it.  At letter scale one level reads ~5.6 MB and writes at
 // most 3.4 MB: ~3 us at 3.35 TB/s.  The kernel is bound instead by the SM's
@@ -145,6 +169,8 @@ constexpr int kMaxLeafThreads = 512;
 constexpr int kLeafSteps = 8;  // rows a lane loads before it adds them
 constexpr int kLeafPre = 2;    // channels of a row loaded ahead; more are loaded as added
 constexpr int kPartialBatch = 16;  // cluster partials a thread of the last cluster loads at once
+constexpr int kRowWarps = 8;  // warps of a row-list CTA, one row segment each
+constexpr int kRowSteps = 4;  // 32-row steps whose node ids a lane loads at once
 
 // The TPU kernels' per-row statistic split into NTERMS bf16 terms, summed
 // in f32.
@@ -547,23 +573,168 @@ __global__ void __launch_bounds__(kMaxLeafThreads)
   if (rank == 0 && tid == 0) *ticket = 0u;  // every cluster has taken its ticket
 }
 
+// The node tile of element i of node [n, M] at np nodes a tile, or -1 for a
+// node outside [0, n_nodes).
+__device__ __forceinline__ int node_tile(const int32_t* __restrict__ node,
+                                         long long i, int n_nodes, int np) {
+  const int p = __ldg(node + i);
+  return static_cast<unsigned>(p) < static_cast<unsigned>(n_nodes) ? p / np
+                                                                   : -1;
+}
+
+// Row lists, pass 1.  Grid (ceil(n_ws / kRowWarps), M): warp w of CTA x
+// takes segment s = x * kRowWarps + w (rows [s, s + 1) * seg) of member
+// blockIdx.y, kRowSteps 32-row steps' node ids in flight at once, and
+// counts its rows in each of the n_pt node tiles into
+// starts, laid out [M][n_pt][n_ws].  The grid's last CTA to finish then
+// scans those counts in that order, in place, into the lists' starts, and
+// writes the total at starts[M * n_pt * n_ws].  Shared: [kRowWarps][n_pt]
+// counts, each written by its warp's lane 0 alone.
+__global__ void __launch_bounds__(32 * kRowWarps)
+    level_hist_count(const int32_t* __restrict__ node,
+                     int32_t* __restrict__ starts, unsigned* __restrict__ ticket,
+                     int n, int M, int n_nodes, int np, int seg, int n_ws) {
+  extern __shared__ int rsm[];
+  __shared__ int last;
+  const int n_pt = (n_nodes + np - 1) / np;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = blockIdx.x * kRowWarps + warp, m = blockIdx.y;
+  int* wc = rsm + warp * n_pt;
+  for (int i = lane; i < n_pt; i += 32) wc[i] = 0;
+  __syncwarp();
+  if (s < n_ws) {
+    const int r1 = static_cast<int>(min(static_cast<long long>(n),
+                                        static_cast<long long>(s + 1) * seg));
+    for (int r0 = s * seg; r0 < r1; r0 += 32 * kRowSteps) {
+      int t[kRowSteps];
+#pragma unroll
+      for (int u = 0; u < kRowSteps; ++u) {
+        const int r = r0 + u * 32 + lane;
+        t[u] = r < r1 ? node_tile(node, static_cast<long long>(r) * M + m, n_nodes, np) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kRowSteps; ++u) {
+        unsigned todo = __ballot_sync(kFull, t[u] >= 0);
+        while (todo) {
+          const int tt = __shfl_sync(kFull, t[u], __ffs(todo) - 1);
+          const unsigned peers = __ballot_sync(kFull, t[u] == tt);
+          todo &= ~peers;
+          if (lane == 0) wc[tt] += __popc(peers);
+        }
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < n_pt; i += 32) {
+      starts[(static_cast<long long>(m) * n_pt + i) * n_ws + s] = wc[i];
+    }
+  }
+  // this CTA's counts are visible device-wide before it takes its ticket
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // The exclusive scan of the E counts in order: thread k sums a run of
+  // them, a block scan in thread order gives each run its start, and the
+  // run is rewritten from there.
+  const long long E = static_cast<long long>(M) * n_pt * n_ws;
+  const int T = blockDim.x;
+  const long long per = (E + T - 1) / T;
+  const long long lo = min(E, tid * per), hi = min(E, lo + per);
+  int own = 0;
+#pragma unroll 8
+  for (long long e = lo; e < hi; ++e) own += __ldcg(starts + e);
+  int x = own;  // inclusive scan over the warp's lanes
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) rsm[warp] = x;  // the counts in rsm are read already
+  __syncthreads();
+  int run = x - own;
+  for (int w = 0; w < warp; ++w) run += rsm[w];
+  for (long long e = lo; e < hi; ++e) {
+    const int c = __ldcg(starts + e);
+    starts[e] = run;
+    run += c;
+  }
+  if (tid == T - 1) {
+    starts[E] = run;
+    *ticket = 0u;  // every CTA has taken its ticket
+  }
+}
+
+// Row lists, pass 2: the same grid and segments; each warp writes its rows
+// of each node tile at its segment's start in that tile's list, a step's
+// rows of one tile at their rank among its lanes (a ballot), so each list
+// holds its rows in ascending order.  Shared: [kRowWarps][n_pt] next
+// positions, each written by its warp's lane 0 alone.
+__global__ void __launch_bounds__(32 * kRowWarps)
+    level_hist_rows(const int32_t* __restrict__ node,
+                    const int32_t* __restrict__ starts,
+                    int32_t* __restrict__ rows, int n, int M, int n_nodes,
+                    int np, int seg, int n_ws) {
+  extern __shared__ int rsm[];
+  const int n_pt = (n_nodes + np - 1) / np;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = blockIdx.x * kRowWarps + warp, m = blockIdx.y;
+  if (s >= n_ws) return;
+  int* wb = rsm + warp * n_pt;
+  for (int i = lane; i < n_pt; i += 32) {
+    wb[i] = __ldg(starts + (static_cast<long long>(m) * n_pt + i) * n_ws + s);
+  }
+  __syncwarp();
+  const unsigned below = (1u << lane) - 1u;
+  const int r1 = static_cast<int>(min(static_cast<long long>(n),
+                                      static_cast<long long>(s + 1) * seg));
+  for (int r0 = s * seg; r0 < r1; r0 += 32 * kRowSteps) {
+    int t[kRowSteps];
+#pragma unroll
+    for (int u = 0; u < kRowSteps; ++u) {
+      const int r = r0 + u * 32 + lane;
+      t[u] = r < r1 ? node_tile(node, static_cast<long long>(r) * M + m, n_nodes, np) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowSteps; ++u) {
+      unsigned todo = __ballot_sync(kFull, t[u] >= 0);
+      while (todo) {
+        const int tt = __shfl_sync(kFull, t[u], __ffs(todo) - 1);
+        const unsigned peers = __ballot_sync(kFull, t[u] == tt);
+        todo &= ~peers;
+        const int at = wb[tt];
+        if (t[u] == tt) rows[at + __popc(peers & below)] = r0 + u * 32 + lane;
+        __syncwarp();  // every lane has read wb[tt]
+        if (lane == 0) wb[tt] = at + __popc(peers);
+        __syncwarp();
+      }
+    }
+  }
+}
+
 // Level histogram over words [n, W] (packed bins, or i32 bins as W = d words
 // of 32 bits).  Grid: (member group, feature tile, node tile) x n_cl
 // clusters of row chunks, chunk = cluster * size + rank; with n_cl > 1 a
 // workspace of n_cl partials of the output and a ticket per tile (0 between
-// launches).  Shared layout: hist [g][nf][np][C][B] | kLevelStages x stage
-// | tags, a stage being words [S][R] | node [g][R] | terms [g][C][R] for R
-// rows and S word slots, tags one byte per (warp, node, bin), rounded up to
-// 4 bytes per warp.  At most 64 registers a thread, so that two CTAs of 512
-// threads share an SM.
-template <int NTERMS>
+// launches).  With row lists (LISTS: list non-null, g == 1), tile (m, pt) walks
+// list[starts[l * n_ws], starts[(l + 1) * n_ws]) for l = m * n_pt + pt
+// instead of the rows, its count split evenly over its chunks.  Shared
+// layout: hist [g][nf][np][C][B] | kLevelStages x stage | tags | ids, a
+// stage being words [S][R] | node [g][R] | terms [g][C][R] for R rows and S
+// word slots, tags one byte per (warp, node, bin), rounded up to 4 bytes per
+// warp, and ids (row lists only) kLevelStages x R listed rows.  At most 64
+// registers a thread, so that two CTAs of 512 threads share an SM.
+template <int NTERMS, bool LISTS>
 __global__ void __launch_bounds__(kMaxLevelThreads, 2)
     level_hist(const int32_t* __restrict__ words,
                const int32_t* __restrict__ node,
                const float* __restrict__ vals, float* __restrict__ out,
                float* __restrict__ partials, unsigned* __restrict__ tickets,
                int n, int d, int M, int C, int B, int n_nodes, int W, int bits,
-               int g, int nf, int np, int n_cl, int R, int rows_per_chunk) {
+               int g, int nf, int np, int n_cl, int R, int rows_per_chunk,
+               const int32_t* __restrict__ list,
+               const int32_t* __restrict__ starts, int n_ws) {
   extern __shared__ __align__(16) float lsmem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
@@ -581,11 +752,20 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
   const int m0 = mt * g, f0 = ft * nf, p0 = pt * np;
   const int g_t = min(g, M - m0), nf_t = min(nf, d - f0);
   const int np_t = min(np, n_nodes - p0);
+  // this CTA's chunk [r_begin, r_end) of the rows, or of its tile's list
+  int count = n, per = rows_per_chunk;
+  if constexpr (LISTS) {
+    const long long l = (static_cast<long long>(m0) * n_pt + pt) * n_ws;
+    const int lo = __ldg(starts + l);
+    count = __ldg(starts + l + n_ws) - lo;
+    per = (count + n_cl * cs - 1) / (n_cl * cs);
+    list += lo;
+  }
   const int r_begin = static_cast<int>(
-      min(static_cast<long long>(n),
-          (static_cast<long long>(cl) * cs + rank) * rows_per_chunk));
+      min(static_cast<long long>(count),
+          (static_cast<long long>(cl) * cs + rank) * per));
   const int r_end = static_cast<int>(
-      min(static_cast<long long>(n), static_cast<long long>(r_begin) + rows_per_chunk));
+      min(static_cast<long long>(count), static_cast<long long>(r_begin) + per));
   const int tid = threadIdx.x, nthreads = blockDim.x;
 
   // Which words a stage holds: one per feature of the tile (i32 bins, or
@@ -602,6 +782,7 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
   const int tag_bytes = (np * B + 3) & ~3;
   unsigned char* tags =
       reinterpret_cast<unsigned char*>(stages + kLevelStages * stage_words);
+  int* ids = reinterpret_cast<int*>(tags + g * nf * tag_bytes);
   for (int i = tid; i < hist_cells / 4; i += nthreads) {
     reinterpret_cast<float4*>(hist)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -615,35 +796,53 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
     *sn = *sw + R * slot_cap;
     *sv = reinterpret_cast<float*>(*sn + R * g);
   };
+  // With row lists, copies the listed rows of row tile `tile` into its ring
+  // slot of ids, into the copy group open at the call.
+  const int n_tiles = (r_end - r_begin + R - 1) / R;
+  auto copy_ids = [&](int tile) {
+    const int r0 = r_begin + tile * R;
+    const int rows = tile < n_tiles ? min(R, r_end - r0) : 0;
+    int* si = ids + (tile % kLevelStages) * R;
+    for (int i = tid; i < rows; i += nthreads) cp_async4(si + i, list + r0 + i);
+  };
   // Copies row tile `tile` into its stage as one copy group, each element by
   // the same thread on every tile, so that the thread that copied a value
   // also splits it, after its own wait.  Past the last tile the group is
-  // empty, which keeps the group count the same on every thread.
-  const int n_tiles = (r_end - r_begin + R - 1) / R;
+  // empty, which keeps the group count the same on every thread.  With row
+  // lists the rows come from the tile's ring slot of ids (landed and
+  // visible: copied two tiles ahead, by the group waited on before the
+  // barrier that precedes this call), and the group also copies the ids
+  // of the tile two ahead, into the slot of the tile before this one.
   auto issue = [&](int tile) {
     const int r0 = r_begin + tile * R;
     const int rows = tile < n_tiles ? min(R, r_end - r0) : 0;
     int *sw, *sn;
     float* sv;
     stage_at(tile % kLevelStages, &sw, &sn, &sv);
+    const int* si = ids + (tile % kLevelStages) * R;
+    auto row_at = [&](int r) {
+      if constexpr (LISTS) {
+        return static_cast<long long>(si[r]);
+      } else {
+        return static_cast<long long>(r0 + r);
+      }
+    };
     for (Walk w = w0; rows > 0 && w.q < n_slots; walk_next(w, R)) {
       if (w.r >= rows) continue;
       const int wd = !word_per_feature ? w.q
                      : bits >= 32      ? f0 + w.q
                                        : (f0 + w.q) % W;
-      cp_async4(sw + w.q * R + w.r,
-                words + static_cast<long long>(r0 + w.r) * W + wd);
+      cp_async4(sw + w.q * R + w.r, words + row_at(w.r) * W + wd);
     }
     for (Walk w = w0; rows > 0 && w.q < g_t; walk_next(w, R)) {
       if (w.r >= rows) continue;
-      cp_async4(sn + w.q * R + w.r,
-                node + static_cast<long long>(r0 + w.r) * M + m0 + w.q);
+      cp_async4(sn + w.q * R + w.r, node + row_at(w.r) * M + m0 + w.q);
     }
     for (Walk w = w0; rows > 0 && w.q < gc; walk_next(w, R)) {
       if (w.r >= rows) continue;
-      cp_async4(sv + w.q * R + w.r,
-                vals + (static_cast<long long>(r0 + w.r) * M + m0) * C + w.q);
+      cp_async4(sv + w.q * R + w.r, vals + (row_at(w.r) * M + m0) * C + w.q);
     }
+    if constexpr (LISTS) copy_ids(tile + kLevelStages - 1);
     cp_async_commit();
   };
 
@@ -658,7 +857,17 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
   float* hw = hist + (mg * nf + fl) * np * C * B;
   unsigned char* tw = tags + warp * tag_bytes;
 
-  for (int tile = 0; tile < kLevelStages - 1; ++tile) issue(tile);
+  if constexpr (LISTS) {  // the first tiles' ids, in place before their issue
+    for (int tile = 0; tile < kLevelStages - 1; ++tile) copy_ids(tile);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  for (int tile = 0; tile < kLevelStages - 1; ++tile) {
+    // issue(tile) refills the ids slot that issue(tile - 1) read
+    if (LISTS && tile > 0) __syncthreads();
+    issue(tile);
+  }
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int rows = min(R, r_end - r_begin - tile * R);
     int *sw, *sn;
@@ -842,14 +1051,16 @@ __global__ void __launch_bounds__(kMaxLevelThreads, 2)
   }
   if (rank == 0 && tid == 0) tickets[tile] = 0u;  // every cluster has taken its ticket
 }
-template <int NTERMS>
+template <int NTERMS, bool LISTS>
 cudaError_t launch_level(const int32_t* words, const int32_t* node,
                          const float* vals, float* out, float* partials,
-                         unsigned* tickets, int n, int d, int M, int C, int B,
+                         unsigned* tickets, const int32_t* list,
+                         const int32_t* starts, int n_ws, int n, int d, int M,
+                         int C, int B,
                          int n_nodes, int W, int bits, int g, int nf, int np,
                          int cs, int n_cl, int R, int rows_per_chunk,
                          long long smem, cudaStream_t stream) {
-  auto kern = level_hist<NTERMS>;
+  auto kern = level_hist<NTERMS, LISTS>;
   static long long smem_set = 48 * 1024;  // the largest allowed so far
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -880,7 +1091,7 @@ cudaError_t launch_level(const int32_t* words, const int32_t* node,
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kern, words, node, vals, out, partials,
                             tickets, n, d, M, C, B, n_nodes, W, bits, g, nf,
-                            np, n_cl, R, rows_per_chunk);
+                            np, n_cl, R, rows_per_chunk, list, starts, n_ws);
 }
 
 template <bool ROUTE>
@@ -920,15 +1131,44 @@ cudaError_t launch_leaf(const int32_t* packed, const int32_t* node,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA of se_level_hist uses.
+// Bytes of dynamic shared memory one CTA of se_level_hist uses (lists:
+// with row lists).
 long long se_level_smem_bytes(int g, int nf, int np, int C, int B, int R,
-                              int W, int bits) {
+                              int W, int bits, int lists) {
   const long long slot_cap = bits >= 32 || W > nf ? nf : W;
   return 4LL * (static_cast<long long>(g) * nf * np * C * B +
                 static_cast<long long>(kLevelStages) * R *
-                    (slot_cap + g + static_cast<long long>(g) * C)) +
+                    (slot_cap + g + static_cast<long long>(g) * C + (lists ? 1 : 0))) +
          static_cast<long long>(g) * nf *
              ((static_cast<long long>(np) * B + 3) & ~3LL);
+}
+
+// The row lists of one level: for every member m and node tile t of np
+// nodes (list l = m * n_pt + t), the rows r with node[r, m] in the tile, in
+// ascending order, at rows[starts[l * n_ws], starts[(l + 1) * n_ws]);
+// segments of seg rows, n_ws of them (ceil(n / seg)).  starts holds M *
+// n_pt * n_ws + 1 ints, rows n * M, ticket one (0 between launches).  Two
+// launches on `stream`.
+int se_level_rows(const int32_t* node, int32_t* starts, int32_t* rows,
+                  unsigned* ticket, int n, int M, int n_nodes, int np, int seg,
+                  int n_ws, void* stream) {
+  // each warp's counters, one per node tile
+  const long long smem = 4LL * kRowWarps * ((n_nodes + np - 1) / np);
+  const bool ok = n >= 1 && M >= 1 && n_nodes >= 1 && np >= 1 && seg >= 32 &&
+                  seg % 32 == 0 && n_ws == (n + seg - 1) / seg &&
+                  static_cast<long long>(n) * M < (1LL << 31) &&
+                  smem <= 48 * 1024 && node != nullptr && starts != nullptr &&
+                  rows != nullptr && ticket != nullptr;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n_ws + kRowWarps - 1) / kRowWarps, M);
+  level_hist_count<<<grid, 32 * kRowWarps, static_cast<size_t>(smem), s>>>(
+      node, starts, ticket, n, M, n_nodes, np, seg, n_ws);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  level_hist_rows<<<grid, 32 * kRowWarps, static_cast<size_t>(smem), s>>>(
+      node, starts, rows, n, M, n_nodes, np, seg, n_ws);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One level histogram H [M, n_nodes, C, d, B] from words [n, W] of `bits`
@@ -938,30 +1178,32 @@ long long se_level_smem_bytes(int g, int nf, int np, int C, int B, int R,
 // of cs CTAs, staged R rows at a time.  More than one cluster needs the
 // workspace: a ticket per (member group, feature tile, node tile), 0
 // between launches, and clusters * M * n_nodes * C * d * B floats of
-// partials.
+// partials.  With row lists (list and starts from se_level_rows at this np
+// and n_ws segments; g == 1) each tile walks its own list.
 int se_level_hist(int nterms, const int32_t* words, const int32_t* node,
                   const float* vals, float* out, int n, int d, int M, int C,
                   int B, int n_nodes, int W, int bits, int g, int nf, int np,
                   int cs, int clusters, int R, int rows_per_chunk,
-                  float* partials, unsigned* tickets, void* stream) {
-  const long long smem = se_level_smem_bytes(g, nf, np, C, B, R, W, bits);
+                  float* partials, unsigned* tickets, const int32_t* list,
+                  const int32_t* starts, int n_ws, void* stream) {
+  const bool lists = list != nullptr;
+  const long long smem = se_level_smem_bytes(g, nf, np, C, B, R, W, bits, lists);
   const bool ok = (bits == 4 || bits == 8 || bits == 32) && g >= 1 &&
                   nf >= 1 && np >= 1 && cs >= 1 && cs <= kMaxCluster &&
                   clusters >= 1 && R >= 32 && R % 32 == 0 &&
                   32 * g * nf <= kMaxLevelThreads && smem <= kMaxSmem &&
                   static_cast<long long>(rows_per_chunk) * cs * clusters >= n &&
-                  (clusters == 1 || (partials != nullptr && tickets != nullptr));
+                  (clusters == 1 || (partials != nullptr && tickets != nullptr)) &&
+                  (!lists || (g == 1 && starts != nullptr && n_ws >= 1));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (nterms == 2) {
-    e = launch_level<2>(words, node, vals, out, partials, tickets, n, d, M, C,
-                        B, n_nodes, W, bits, g, nf, np, cs, clusters, R,
-                        rows_per_chunk, smem, s);
-  } else if (nterms == 3) {
-    e = launch_level<3>(words, node, vals, out, partials, tickets, n, d, M, C,
-                        B, n_nodes, W, bits, g, nf, np, cs, clusters, R,
-                        rows_per_chunk, smem, s);
+  auto launch = nterms == 2 ? (lists ? launch_level<2, true> : launch_level<2, false>)
+                            : (lists ? launch_level<3, true> : launch_level<3, false>);
+  if (nterms == 2 || nterms == 3) {
+    e = launch(words, node, vals, out, partials, tickets, list, starts, n_ws, n,
+               d, M, C, B, n_nodes, W, bits, g, nf, np, cs, clusters, R,
+               rows_per_chunk, smem, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -44,8 +44,11 @@ on the card, or after its plain version ran on the CPU (on the card a
 level histogram's signature also holds its plan's ``clusters``, which the
 work ignores); ``LAUNCHES`` keeps counting card launches only,
 ``LEVEL_SPLITS`` those level-histogram launches among them that split a
-tile's rows over more than one cluster, and ``LEAF_GATHERS`` the leaf
-launches that route, each gathering one packed word a (row, member).
+tile's rows over more than one cluster, ``LEVEL_COMPACT`` those whose node
+tiles walked row lists (``LevelPlan.compact``; such a launch is three
+kernels on the stream: the lists' two, :func:`level_rows`, then the
+histogram's), and ``LEAF_GATHERS`` the leaf launches that route, each
+gathering one packed word a (row, member).
 With no hook a wrapper pays one global load.
 
 Precision: the kernel and its plain version split each row's statistic
@@ -101,6 +104,9 @@ LAUNCHES = {"hist_i32": 0, "route_packed": 0, "hist_packed": 0, "leaf_sums": 0}
 # the level histograms' launches among them whose plan split a tile's rows
 # over more than one cluster (``LevelPlan.clusters``)
 LEVEL_SPLITS = {"hist_i32": 0, "hist_packed": 0}
+# the level histograms' launches among them whose node tiles each walked a
+# list of their own rows (``LevelPlan.compact``)
+LEVEL_COMPACT = {"hist_i32": 0, "hist_packed": 0}
 # the leaf launches among them that route, gathering each (row, member)'s
 # one packed word
 LEAF_GATHERS = {"leaf_sums": 0}
@@ -108,11 +114,14 @@ _COUNT_LOCK = threading.Lock()
 _LIB_LOCK = threading.Lock()
 
 
-def _count(kernel: str, split: bool = False, gather: bool = False) -> None:
+def _count(kernel: str, split: bool = False, gather: bool = False,
+           compact: bool = False) -> None:
     with _COUNT_LOCK:
         LAUNCHES[kernel] += 1
         if split:
             LEVEL_SPLITS[kernel] += 1
+        if compact:
+            LEVEL_COMPACT[kernel] += 1
         if gather:
             LEAF_GATHERS[kernel] += 1
 
@@ -196,6 +205,16 @@ _MAX_CLUSTER = 8
 _SMS, _SM_SMEM, _SM_THREADS = 132, 228 * 1024, 1024
 _CLUSTER_PACKING = 0.9
 
+# the row lists' plan (csrc/hist.cu, level_hist_count and level_hist_rows):
+# warps per CTA (kRowWarps), each counting and then writing one segment of
+# rows of one member; the segments a launch aims at over all members, and
+# the least rows a segment takes (a multiple of the 32-row step); the most
+# node tiles whose per-warp counters fit the kernels' 48 KB of shared memory
+_ROW_WARPS = 8
+_ROW_SEGMENTS = 4096
+_ROW_MIN_SEG = 256
+_ROW_MAX_TILES = 48 * 1024 // (4 * _ROW_WARPS)
+
 # the route's plan (csrc/hist.cu, route_packed): threads per CTA, each
 # taking 4 elements a pass, the bytes of packed words a tile stages, and the
 # card's resident threads for a kernel this light on registers
@@ -214,7 +233,7 @@ _LEAF_CTAS_PER_SM = 2
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
-        for counts in (LAUNCHES, LEVEL_SPLITS, LEAF_GATHERS):
+        for counts in (LAUNCHES, LEVEL_SPLITS, LEVEL_COMPACT, LEAF_GATHERS):
             for k in counts:
                 counts[k] = 0
 
@@ -294,10 +313,12 @@ def _load_library():
     lib.se_route_packed.restype = I
     lib.se_route_smem_bytes.argtypes = [I] * 4
     lib.se_route_smem_bytes.restype = ctypes.c_longlong
-    lib.se_level_hist.argtypes = [I, P, P, P, P] + [I] * 15 + [P] * 3
+    lib.se_level_hist.argtypes = [I, P, P, P, P] + [I] * 15 + [P] * 4 + [I, P]
     lib.se_level_hist.restype = I
-    lib.se_level_smem_bytes.argtypes = [I] * 8
+    lib.se_level_smem_bytes.argtypes = [I] * 9
     lib.se_level_smem_bytes.restype = ctypes.c_longlong
+    lib.se_level_rows.argtypes = [P] * 4 + [I] * 6 + [P]
+    lib.se_level_rows.restype = I
     return lib
 
 
@@ -341,24 +362,33 @@ class LevelPlan(NamedTuple):
     grid: int  # CTAs: member groups x feature tiles x node tiles x clusters x cs
     threads: int  # per CTA
     smem: int  # dynamic shared-memory bytes per CTA
+    # node tiles each walk a list of their own rows (:func:`level_rows`)
+    # instead of every row of the table: several node tiles, one member a CTA
+    compact: bool
 
 
-def _level_rows_smem(g, nf, np_, C, B, W, bits, block_rows=None):
-    """Rows per stage, and the bytes of the histogram tile, the row stages
-    and one conflict-tag byte per (warp, node, bin): the layout of
-    ``csrc/hist.cu::level_hist``.  A stage holds one word per feature (i32
-    bins, or packed rows wider than the tile), or else every word of a
-    row; ``block_rows`` (default ``_LEVEL_ROWS``) is halved when a staged
-    row holds more than ``_LEVEL_WIDE`` words."""
+def _level_rows_smem(g, nf, np_, C, B, W, bits, block_rows=None, compact=False):
+    """Rows per stage, and the bytes of the histogram tile, the row stages,
+    one conflict-tag byte per (warp, node, bin) and, for a ``compact``
+    plan, the ring of listed rows (one int a staged row and stage): the
+    layout of ``csrc/hist.cu::level_hist``.  A stage holds one word per
+    feature (i32 bins, or packed rows wider than the tile), or else every
+    word of a row; ``block_rows`` (default ``_LEVEL_ROWS``) is halved when a
+    staged row holds more than ``_LEVEL_WIDE`` words."""
     block_rows = _LEVEL_ROWS if block_rows is None else block_rows
     words = (nf if bits >= 32 or W > nf else W) + g + g * C  # per staged row
     rows = block_rows if words <= _LEVEL_WIDE else block_rows // 2
     tags = g * nf * (-(-(np_ * B) // 4) * 4)
-    return rows, 4 * (g * nf * np_ * C * B + _LEVEL_STAGES * rows * words) + tags
+    ring = _LEVEL_STAGES * rows if compact else 0
+    return rows, 4 * (g * nf * np_ * C * B + _LEVEL_STAGES * rows * words + ring) + tags
 
 
-def _level_tiling(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes) -> LevelPlan:
-    """``level_plan`` at explicit knobs, fitting or not (:func:`_fits`)."""
+def _level_tiling(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes,
+                  compact=None) -> LevelPlan:
+    """``level_plan`` at explicit knobs, fitting or not (:func:`_fits`).
+    ``compact``: None decides from the shapes (several node tiles, one
+    member a CTA, the lists' bounds); True takes one member a CTA and
+    lists, False no lists."""
     W = d if bits >= 32 else -(-d // (32 // bits))  # words per row
     cell = 4 * C * B  # bytes of one (member, node, feature) histogram row
     np_ = n_nodes if n_nodes * cell <= _WARP_HIST_BYTES else max(1, _WARP_HIST_BYTES // cell)
@@ -367,7 +397,12 @@ def _level_tiling(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes) -> Level
     g = max(1, min(M, _MAX_WARPS // nf, hist_bytes // (nf * warp)))
     while g > 1 and _level_rows_smem(g, nf, np_, C, B, W, bits, block_rows)[1] > _MAX_SMEM:
         g -= 1
-    rows, smem = _level_rows_smem(g, nf, np_, C, B, W, bits, block_rows)
+    if compact is None:
+        compact = (np_ < n_nodes and g == 1 and n * M < 2**31
+                   and -(-n_nodes // np_) <= _ROW_MAX_TILES)
+    elif compact:
+        g = 1
+    rows, smem = _level_rows_smem(g, nf, np_, C, B, W, bits, block_rows, compact)
     threads = 32 * g * nf
     tiles = math.ceil(M / g) * math.ceil(d / nf) * math.ceil(n_nodes / np_)
     per_sm = max(1, min(_SM_SMEM // (smem + 1024), _SM_THREADS // threads))
@@ -382,12 +417,13 @@ def _level_tiling(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes) -> Level
         clusters -= 1
     chunks = cs * clusters
     return LevelPlan(g, nf, np_, cs, clusters, math.ceil(n / chunks), rows, tiles * chunks,
-                     threads, smem)
+                     threads, smem, compact)
 
 
 def _chunked_as(plan: LevelPlan, src: LevelPlan) -> LevelPlan:
     """``plan``'s tiling with ``src``'s row chunking (``cs``, ``clusters``,
-    ``rows_per_chunk``), which alone fixes a cell's summation order."""
+    ``rows_per_chunk``), which with the row lists (``compact``, the same in
+    both) alone fixes a cell's summation order."""
     tiles = plan.grid // (plan.cs * plan.clusters)
     return plan._replace(cs=src.cs, clusters=src.clusters, rows_per_chunk=src.rows_per_chunk,
                          grid=tiles * src.cs * src.clusters)
@@ -431,6 +467,15 @@ def level_plan(n, d, M, C, B, n_nodes, bits=32, knobs=None) -> LevelPlan:
     a cell's sum runs over the chunks in order whatever the clusters, and
     two launches give the same bits.
 
+    Where the level has several node tiles and a CTA holds one member
+    (``compact``), each (member, node tile) walks only its own rows: a list
+    of them in ascending order, made on the card before the launch
+    (:func:`level_rows`), its count split evenly over the tile's chunks on
+    the card.  The plan is the same but for the flag and the ring of listed
+    rows in shared memory; a cell still sums its rows in ascending order,
+    chunk by chunk.  (The flag also needs the lists' int32 positions, n * M
+    < 2**31, and at most ``_ROW_MAX_TILES`` node tiles.)
+
     The row chunking (``cs``, ``clusters``, ``rows_per_chunk``), which
     alone fixes a cell's summation order, is always that of the shipped
     ``_LEVEL_ROWS`` at the same ``hist_bytes``: ``block_rows`` moves only
@@ -444,13 +489,15 @@ def level_plan(n, d, M, C, B, n_nodes, bits=32, knobs=None) -> LevelPlan:
 
 
 @functools.lru_cache(maxsize=1024)
-def _level_plan(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes) -> LevelPlan:
-    base = _level_tiling(n, d, M, C, B, n_nodes, bits, _LEVEL_ROWS, hist_bytes)
+def _level_plan(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes,
+                compact=None) -> LevelPlan:
+    """``level_plan`` at resolved knobs; ``compact`` as ``_level_tiling``'s."""
+    base = _level_tiling(n, d, M, C, B, n_nodes, bits, _LEVEL_ROWS, hist_bytes, compact)
     if not _fits(base) and hist_bytes != _CTA_HIST_BYTES:
         logger.debug("level plan: hist_bytes=%d does not fit; using %d",
                      hist_bytes, _CTA_HIST_BYTES)
         hist_bytes = _CTA_HIST_BYTES
-        base = _level_tiling(n, d, M, C, B, n_nodes, bits, _LEVEL_ROWS, hist_bytes)
+        base = _level_tiling(n, d, M, C, B, n_nodes, bits, _LEVEL_ROWS, hist_bytes, compact)
     if not _fits(base):
         raise ValueError(
             f"histogram tile needs {base.smem} bytes of shared memory "
@@ -458,7 +505,7 @@ def _level_plan(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes) -> LevelPl
         )
     if block_rows == _LEVEL_ROWS:
         return base
-    plan = _level_tiling(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes)
+    plan = _level_tiling(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes, base.compact)
     if not _fits(plan):
         logger.debug("level plan: block_rows=%d does not fit; using %d",
                      block_rows, _LEVEL_ROWS)
@@ -481,8 +528,11 @@ def lane_level_plan(n, d, M, C, B, n_nodes, bits=32, lanes=1, knobs=None) -> Lev
     are added in rank order, then cluster order: so the row chunking
     (``cs``, ``clusters``, ``rows_per_chunk``) alone fixes its bits.  The
     wide plan keeps its own tiling and takes the K-member launch's
-    chunking; its grid grows by the lanes instead of its chunks shrinking.  ``knobs``: as ``level_plan``'s,
-    resolved once for both plans."""
+    chunking; its grid grows by the lanes instead of its chunks shrinking.
+    Where the K-member launch walks row lists (one list a member and node
+    tile, so the same rows for the same member), the wide one does too,
+    one member a CTA.  ``knobs``: as ``level_plan``'s, resolved once for
+    both plans."""
     if knobs is None:
         knobs = level_knobs(2 if bits >= 32 else 3, n)
     return _lane_level_plan(n, d, M, C, B, n_nodes, bits, lanes, int(knobs[0]),
@@ -496,6 +546,8 @@ def _lane_level_plan(n, d, M, C, B, n_nodes, bits, lanes, block_rows, hist_bytes
     if lanes == 1:
         return plan
     lane = level_plan(n, d, _check_lanes(M, lanes), C, B, n_nodes, bits, knobs)
+    if plan.compact != lane.compact:
+        plan = _level_plan(n, d, M, C, B, n_nodes, bits, block_rows, hist_bytes, lane.compact)
     return _chunked_as(plan, lane)
 
 
@@ -607,7 +659,8 @@ def _checked_level_plan(n, d, M, C, B, n_nodes, W, bits, lanes, knobs) -> LevelP
     """``lane_level_plan``, held once per shape and knobs against the
     kernel's own shared-memory layout."""
     plan = lane_level_plan(n, d, M, C, B, n_nodes, bits, lanes, knobs)
-    if _library().se_level_smem_bytes(plan.g, plan.nf, plan.np, C, B, plan.rows, W, bits) != plan.smem:
+    if _library().se_level_smem_bytes(plan.g, plan.nf, plan.np, C, B, plan.rows, W, bits,
+                                      int(plan.compact)) != plan.smem:
         raise RuntimeError("level_plan and csrc/hist.cu disagree on the shared-memory layout")
     return plan
 
@@ -630,35 +683,82 @@ def _level_workspace(dev: torch.device, stream: int, tiles: int, floats: int) ->
     return tickets, partials
 
 
+def _row_segments(n: int, M: int) -> tuple:
+    """``(seg, n_ws)``: the rows of one segment of the row lists' kernels
+    (a warp's, of one member) and the segments of a member, a function of
+    the shapes: about ``_ROW_SEGMENTS`` segments over all members, each a
+    multiple of 32 rows and at least ``_ROW_MIN_SEG``."""
+    per = -(-n * M // _ROW_SEGMENTS)
+    seg = max(_ROW_MIN_SEG, -(-per // 32) * 32)
+    return seg, -(-n // seg)
+
+
+# the row lists' workspace per (device, stream), apart from the others: the
+# lists (n * M rows), their starts (M * n_pt * n_ws + 1) and the count
+# kernel's ticket (0 between launches; its last CTA resets it).  Each grows
+# when a shape needs more; a stream's launches run in order.
+_ROW_WORKSPACES: dict = {}
+
+
+def _row_workspace(dev: torch.device, stream: int, rows: int, starts: int) -> tuple:
+    listed, first, ticket = _ROW_WORKSPACES.get((dev.index, stream), (None, None, None))
+    if listed is None or listed.numel() < rows:
+        listed = torch.empty(rows, dtype=torch.int32, device=dev)
+    if first is None or first.numel() < starts:
+        first = torch.empty(starts, dtype=torch.int32, device=dev)
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    _ROW_WORKSPACES[(dev.index, stream)] = (listed, first, ticket)
+    return listed, first, ticket
+
+
+def _launch_rows(node, n_nodes: int, np_: int, stream: int) -> tuple:
+    """The row lists of ``node`` at ``np_`` nodes a tile, made on the card
+    (two launches, no wait on the host) -> ``(rows, starts, n_ws)``, views
+    of the stream's workspace that the next launch on it overwrites."""
+    n, M = node.shape
+    seg, n_ws = _row_segments(n, M)
+    rows, starts, ticket = _row_workspace(node.device, stream, n * M,
+                                          M * -(-n_nodes // np_) * n_ws + 1)
+    rc = _library().se_level_rows(_ptr(node), _ptr(starts), _ptr(rows), _ptr(ticket), n, M,
+                                  n_nodes, np_, seg, n_ws, stream)
+    if rc != 0:
+        raise RuntimeError(f"row-list kernel launch failed: CUDA error {rc}")
+    return rows, starts, n_ws
+
+
 def _launch_level(nterms, words, node, vals, out, *, d, B, n_nodes, W, bits,
-                  lanes, knobs) -> int:
-    """One level-histogram launch into ``out`` -> its plan's clusters per
-    tile (1 for no rows)."""
+                  lanes, knobs) -> LevelPlan:
+    """One level-histogram launch into ``out`` (after the row lists' two,
+    where the plan is compact) -> its plan (None for no rows)."""
     n, M, C = vals.shape
     if n == 0:
         out.zero_()
-        return 1
+        return None
     if knobs is None:
         knobs = (_LEVEL_ROWS, _CTA_HIST_BYTES)
     plan = _checked_level_plan(n, d, M, C, B, n_nodes, W, bits, lanes, tuple(knobs))
     lib = _library()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        tickets = partials = None
+        tickets = partials = rows = starts = None
+        n_ws = 0
         if plan.clusters > 1:
             # held until the launch is enqueued, as the leaf pass's workspace
             tickets, partials = _level_workspace(
                 out.device, stream, plan.grid // (plan.cs * plan.clusters),
                 plan.clusters * out.numel())
+        if plan.compact:
+            rows, starts, n_ws = _launch_rows(node, n_nodes, plan.np, stream)
         rc = lib.se_level_hist(
             nterms, _ptr(words), _ptr(node), _ptr(vals), _ptr(out), n, d, M,
             C, B, n_nodes, W, bits, plan.g, plan.nf, plan.np, plan.cs,
             plan.clusters, plan.rows, plan.rows_per_chunk, _ptr(partials),
-            _ptr(tickets), stream,
+            _ptr(tickets), _ptr(rows), _ptr(starts), n_ws, stream,
         )
     if rc != 0:
         raise RuntimeError(f"hist kernel launch failed: CUDA error {rc}")
-    return plan.clusters
+    return plan
 
 
 @functools.lru_cache(maxsize=1024)
@@ -785,6 +885,24 @@ def route_plain(ids, node, best_f, best_t) -> torch.Tensor:
     return (2 * node + 1 - (b <= best_t[m, nl]).to(torch.int32)).to(torch.int32)
 
 
+def level_rows_plain(node, n_nodes, nodes_per_tile) -> tuple:
+    """The row lists of :func:`level_rows` by a stable sort: ``(rows
+    i32[n * M], offs i32[M * n_pt + 1])``, list ``m * n_pt + t`` at
+    ``rows[offs[l]:offs[l + 1]]``, -1 past the last list."""
+    n, M = node.shape
+    n_pt = -(-n_nodes // nodes_per_tile)
+    nl = node.long().T  # [M, n]: member-major, rows ascending
+    ok = (nl >= 0) & (nl < n_nodes)
+    key = (torch.arange(M, device=node.device)[:, None] * n_pt
+           + torch.div(nl, nodes_per_tile, rounding_mode="floor"))[ok]
+    r = torch.arange(n, device=node.device).expand(M, n)[ok]
+    rows = torch.full((n * M,), -1, dtype=torch.int32, device=node.device)
+    rows[: key.numel()] = r[torch.sort(key, stable=True).indices].to(torch.int32)
+    offs = torch.zeros(M * n_pt + 1, dtype=torch.int32, device=node.device)
+    offs[1:] = torch.cumsum(torch.bincount(key, minlength=M * n_pt), 0).to(torch.int32)
+    return rows, offs
+
+
 def leaf_plain(node, vals, n_nodes, ordered=False) -> torch.Tensor:
     """``L[M, n_nodes, C]`` f32 sums by ``index_add_`` (``ordered``: see
     ``_add_at``)."""
@@ -807,6 +925,28 @@ def _check_stats(node, vals):
         raise ValueError(
             f"node {tuple(node.shape)} and vals {tuple(vals.shape)} disagree"
         )
+
+
+def level_rows(node, *, n_nodes: int, nodes_per_tile: int) -> tuple:
+    """The row lists a compact level histogram walks (``LevelPlan.compact``):
+    for every member m and node tile t of ``nodes_per_tile`` nodes (list
+    ``l = m * n_pt + t``), the rows r with ``node[r, m]`` in the tile, in
+    ascending order -> ``(rows i32[n * M], offs i32[M * n_pt + 1])``, list
+    l at ``rows[offs[l]:offs[l + 1]]`` and -1 past the last list.  A node
+    outside ``[0, n_nodes)`` puts its row in no list.  On the card two
+    launches (``level_hist_count``, ``level_hist_rows``) and nothing the
+    host waits on; on the CPU :func:`level_rows_plain`."""
+    _check("node", node, torch.int32, 2)
+    dev = _device(node)
+    n, M = node.shape
+    if dev.type == "cpu" or n == 0:
+        return level_rows_plain(node, n_nodes, nodes_per_tile)
+    with _on(dev):
+        rows, starts, n_ws = _launch_rows(node, n_nodes, nodes_per_tile,
+                                          torch.cuda.current_stream(dev).cuda_stream)
+        offs = starts[:M * -(-n_nodes // nodes_per_tile) * n_ws + 1:n_ws].clone()
+        past = torch.arange(n * M, device=dev) >= offs[-1]
+        return rows[:n * M].masked_fill(past, -1), offs
 
 
 def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int,
@@ -833,10 +973,10 @@ def hist_level_pallas(Xb, node, vals, *, n_nodes: int, max_bins: int,
         out = hist_plain(Xb, node, vals, n_nodes, max_bins, 2)
     else:
         out = torch.empty((M, n_nodes, C, d, max_bins), dtype=torch.float32, device=dev)
-        split["clusters"] = _launch_level(2, Xb, node, vals, out, d=d, B=max_bins,
-                                          n_nodes=n_nodes, W=d, bits=32, lanes=lanes,
-                                          knobs=knobs)
-        _count("hist_i32", split["clusters"] > 1)
+        plan = _launch_level(2, Xb, node, vals, out, d=d, B=max_bins, n_nodes=n_nodes,
+                             W=d, bits=32, lanes=lanes, knobs=knobs)
+        split["clusters"] = plan.clusters if plan else 1
+        _count("hist_i32", split["clusters"] > 1, compact=bool(plan and plan.compact))
     if _WORK_HOOK[0] is not None:
         report_work("hist_i32", n=n, d=d, M=M, C=C, B=max_bins, n_nodes=n_nodes, **split)
     return out
@@ -929,10 +1069,11 @@ def hist_level_packed(packed, node, vals, *, n_nodes: int, max_bins: int,
     else:
         out = torch.empty((M, n_nodes, C, num_features, max_bins),
                           dtype=torch.float32, device=dev)
-        split["clusters"] = _launch_level(3, packed, node, vals, out, d=num_features,
-                                          B=max_bins, n_nodes=n_nodes, W=packed.shape[1],
-                                          bits=bits, lanes=lanes, knobs=knobs)
-        _count("hist_packed", split["clusters"] > 1)
+        plan = _launch_level(3, packed, node, vals, out, d=num_features, B=max_bins,
+                             n_nodes=n_nodes, W=packed.shape[1], bits=bits, lanes=lanes,
+                             knobs=knobs)
+        split["clusters"] = plan.clusters if plan else 1
+        _count("hist_packed", split["clusters"] > 1, compact=bool(plan and plan.compact))
     if _WORK_HOOK[0] is not None:
         report_work("hist_packed", n=n, d=num_features, W=packed.shape[1], M=M, C=C,
                 B=max_bins, n_nodes=n_nodes, **split)

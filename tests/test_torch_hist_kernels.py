@@ -12,7 +12,9 @@ array-equal.  Leaf sums are plain f32 (rtol 1e-6).
 
 The CUDA kernels themselves run only on the card; chip_smoke.py holds each
 against these plain versions there; tests/test_torch_leaf_route.py holds
-the routed leaf mode and the leaf and route plans."""
+the routed leaf mode and the leaf and route plans.  The row lists a compact
+level histogram walks (``level_rows``) are held against numpy, and the
+histogram over them against ``hist_plain``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -203,3 +205,96 @@ def test_hist_plan_rejects_tiles_over_shared_memory():
         hk.leaf_plan(100, 2, 2048, 1)  # one leaf's columns of one warp: 256 KB
     with pytest.raises(ValueError, match="shared memory"):
         hk.level_plan(100, 4, 2, 64, 4096, 1)
+
+
+def _lists_numpy(node, n_nodes, per_tile):
+    """The row lists by numpy: for each member, then node tile, the rows
+    whose node lies in the tile, ascending; and the lists' offsets."""
+    n, M = node.shape
+    n_pt = -(-n_nodes // per_tile)
+    lists = [np.flatnonzero((node[:, m] >= t * per_tile)
+                            & (node[:, m] < min(n_nodes, (t + 1) * per_tile)))
+             for m in range(M) for t in range(n_pt)]
+    return lists, np.concatenate([[0], np.cumsum([len(x) for x in lists])])
+
+
+def _node_case(case, rng):
+    """(node i32[n, M], n_nodes, nodes a tile) of one row-list case."""
+    n, n_nodes, per_tile = 1000, 128, 32
+    if case == "ascending":  # every tile's rows interleaved down the table
+        return rng.randint(0, n_nodes, size=(n, 1)).astype(np.int32), n_nodes, per_tile
+    if case == "routed_out":  # rows of a -1 node go to no list
+        node = rng.randint(0, n_nodes, size=(n, 1)).astype(np.int32)
+        node[rng.rand(n) < 0.3] = -1
+        return node, n_nodes, per_tile
+    if case == "empty_tile":  # tile 2 of 4 holds no row; a ragged last tile
+        node = rng.randint(0, 100, size=(n, 1)).astype(np.int32)
+        node[(node >= 64) & (node < 96)] = 0
+        return node, 100, per_tile
+    if case == "one_tile":  # every row in the last tile
+        return rng.randint(96, n_nodes, size=(n, 1)).astype(np.int32), n_nodes, per_tile
+    # several members, each with its own lists, some rows out
+    node = rng.randint(-1, n_nodes, size=(n, 5)).astype(np.int32)
+    return node, n_nodes, per_tile
+
+
+@pytest.mark.parametrize("case", ["ascending", "routed_out", "empty_tile", "one_tile",
+                                  "members"])
+def test_level_rows_plain_matches_numpy(case):
+    """The lists are stable (each in ascending row order), member-major then
+    tile, hold each row of an in-range node once and rows of -1 in none,
+    and their offsets count them; the wrapper on the CPU is the plain
+    version."""
+    rng = np.random.RandomState(len(case))
+    node, n_nodes, per_tile = _node_case(case, rng)
+    rows, offs = hk.level_rows(torch.as_tensor(node), n_nodes=n_nodes, nodes_per_tile=per_tile)
+    lists, want = _lists_numpy(node, n_nodes, per_tile)
+    assert rows.dtype == offs.dtype == torch.int32
+    assert rows.shape == (node.size,)
+    np.testing.assert_array_equal(offs.numpy(), want)
+    rows = rows.numpy()
+    for l, listed in enumerate(lists):
+        np.testing.assert_array_equal(rows[want[l]:want[l + 1]], listed)
+    assert (rows[want[-1]:] == -1).all()
+    if case == "empty_tile":
+        assert want[3] == want[2]
+    if case == "one_tile":
+        assert want[-1] - want[-2] == node.shape[0]
+
+
+def _hist_over_lists(ids, node, vals, rows, offs, n_nodes, per_tile, B, nterms):
+    """``H[M, n_nodes, C, d, B]`` as a compact level histogram walks it:
+    each (member, node tile) summed over its own list alone, by
+    ``hist_plain``."""
+    n, d = ids.shape
+    _, M, C = vals.shape
+    n_pt = -(-n_nodes // per_tile)
+    H = torch.zeros((M, n_nodes, C, d, B))
+    for m in range(M):
+        for t in range(n_pt):
+            r = rows[offs[m * n_pt + t]:offs[m * n_pt + t + 1]].long()
+            p0 = t * per_tile
+            npt = min(per_tile, n_nodes - p0)
+            H[m, p0:p0 + npt] = hk.hist_plain(ids[r], node[r, m:m + 1] - p0,
+                                              vals[r, m:m + 1].contiguous(), npt, B, nterms)[0]
+    return H
+
+
+@pytest.mark.parametrize("nterms", [2, 3])
+@pytest.mark.parametrize("case", ["routed_out", "empty_tile", "members"])
+def test_hist_over_row_lists_matches_hist_plain(case, nterms):
+    """Each (member, node tile) summed over its own list alone gives the
+    level histogram: on dyadic statistics every sum is exact, so the two
+    agree exactly; a -1 row adds nowhere in either."""
+    rng = np.random.RandomState(7 + nterms)
+    node, n_nodes, per_tile = _node_case(case, rng)
+    n, M = node.shape
+    d, B = 3, 16
+    ids = torch.as_tensor(rng.randint(0, B, size=(n, d)).astype(np.int32))
+    vals = torch.as_tensor(_vals(rng, n, M, 2, dyadic=True, zero_frac=0.1))
+    tnode = torch.as_tensor(node)
+    rows, offs = hk.level_rows(tnode, n_nodes=n_nodes, nodes_per_tile=per_tile)
+    got = _hist_over_lists(ids, tnode, vals, rows, offs.tolist(), n_nodes, per_tile, B, nterms)
+    keep = torch.as_tensor(node >= 0)[:, :, None]  # hist_plain takes in-range nodes only
+    ref = hk.hist_plain(ids, tnode.clamp(min=0), vals * keep, n_nodes, B, nterms)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())

@@ -8,10 +8,14 @@ function of the shapes alone, fits one CTA's shared memory, uses clusters of
 at most 8 CTAs that divide the grid, and its tiles cover every (member, node,
 feature, row) exactly once.  At HIGGS's tall rows (10.5M x 28, one member)
 a shallow level's tile takes several clusters, and the letter main path's
-plans keep one."""
+plans keep one.  Where a level tiles nodes and a CTA holds one member, the
+plan walks row lists (``compact``): at the deep levels of the benchmark's
+shapes, never on the letter main path or where a CTA holds several
+members, whose plans stay as they were field by field."""
 
 import numpy as np
 import pytest
+import torch
 
 from spark_ensemble_tpu_torch.ops import hist_kernels as hk
 from spark_ensemble_tpu_torch.ops.binning import pack_width
@@ -53,10 +57,12 @@ def test_level_plan_fits_the_card_and_covers_the_level(level, B, d, tier):
     W = d if bits == 32 else -(-d // (32 // bits))
     slots = plan.nf if bits == 32 or W > plan.nf else W
     tags = plan.g * plan.nf * (-(-(plan.np * B) // 4) * 4)
+    ring = hk._LEVEL_STAGES * plan.rows if plan.compact else 0  # listed rows
     assert plan.smem == tags + 4 * (
         plan.g * plan.nf * plan.np * C * B
-        + hk._LEVEL_STAGES * plan.rows * (slots + plan.g + plan.g * C)
+        + hk._LEVEL_STAGES * plan.rows * (slots + plan.g + plan.g * C) + ring
     )
+    assert plan.compact == (plan.np < n_nodes and plan.g == 1)
     assert plan.rows % 32 == 0
     assert 1 <= plan.cs <= 8 and plan.clusters >= 1
     assert plan.grid % (plan.cs * plan.clusters) == 0
@@ -186,3 +192,96 @@ def test_lane_plan_takes_the_split_of_its_lane(lanes):
     tiles = alone.grid // (alone.cs * alone.clusters)
     assert wide.grid == tiles * lane.cs * lane.clusters
     assert (wide.g, wide.nf, wide.np, wide.smem) == (alone.g, alone.nf, alone.np, alone.smem)
+
+
+# the benchmark's shapes (benchmark/configs): one member, C = 2, 63 bins in
+# 8-bit lanes, depth 8
+EPSILON = dict(n=400_000, d=2_000, M=1, C=2, B=63, bits=8)
+
+
+@pytest.mark.parametrize("level", range(8))
+@pytest.mark.parametrize("cell", ["higgs", "epsilon"])
+def test_compact_at_the_deep_levels_of_the_benchmark_shapes(cell, level):
+    """Levels 6-7 tile their 64 and 128 nodes (32 a warp) at one member a
+    CTA, so each node tile walks its own rows; levels 0-5 walk every row.
+    A compact plan differs only by the flag and the ring of listed rows."""
+    h = HIGGS if cell == "higgs" else EPSILON
+    args = (h["n"], h["d"], h["M"], h["C"], h["B"], 2**level, h["bits"])
+    plan = hk.level_plan(*args)
+    assert plan.compact == (level >= 6)
+    walk = hk._level_tiling(*args, hk._LEVEL_ROWS, hk._CTA_HIST_BYTES, compact=False)
+    assert plan._replace(smem=walk.smem, compact=False) == walk
+    assert plan.smem - walk.smem == (4 * hk._LEVEL_STAGES * plan.rows if plan.compact else 0)
+    for R in (64, 512):  # the staged-row knob keeps the flag, as it keeps the chunking
+        assert hk.level_plan(*args, (R, hk._CTA_HIST_BYTES)).compact == plan.compact
+
+
+# plans as they stood before row lists (LevelPlan's fields g, nf, np, cs,
+# clusters, rows_per_chunk, rows, grid, threads, smem): the letter main path
+# (15,000 x 16, M = 26, B = 64, levels 0-4) and shapes whose CTAs hold
+# several members (d <= 4), at (n, d, M, B, level)
+UNLISTED_PLANS = {
+    ("letter", 0): (1, 16, 1, 8, 1, 1875, 256, 208, 512, 30720),
+    ("letter", 1): (1, 16, 2, 8, 1, 1875, 256, 208, 512, 39936),
+    ("letter", 2): (1, 16, 4, 8, 1, 1875, 256, 208, 512, 58368),
+    ("letter", 3): (1, 16, 8, 8, 1, 1875, 256, 208, 512, 95232),
+    ("letter", 4): (1, 16, 16, 4, 1, 3750, 256, 104, 512, 168960),
+    ((15000, 4, 26, 64), 6): (2, 4, 32, 4, 1, 3750, 256, 104, 256, 168960),
+    ((15000, 4, 26, 64), 7): (2, 4, 32, 2, 1, 7500, 256, 104, 256, 168960),
+    ((15000, 3, 2, 256), 5): (2, 3, 8, 8, 3, 625, 256, 96, 192, 132096),
+    ((10_500_000, 4, 4, 63), 7): (2, 4, 32, 8, 1, 1312500, 256, 64, 256, 166656),
+}
+
+
+@pytest.mark.parametrize("shape,level", sorted(UNLISTED_PLANS, key=str))
+def test_letter_and_multi_member_plans_walk_every_row_as_before(shape, level):
+    """No row lists where a level has one node tile (the letter main path,
+    at most 16 nodes) or a CTA holds several members: those plans, and with
+    them every bit of their histograms, are unchanged field by field."""
+    n, d, M_, B = (N, 16, M, 64) if shape == "letter" else shape
+    plan = hk.level_plan(n, d, M_, C, B, 2**level, pack_width(B))
+    assert not plan.compact
+    assert tuple(plan)[:-1] == UNLISTED_PLANS[shape, level]
+
+
+def test_lane_plan_walks_lists_where_its_lane_does():
+    """One-member lanes of few features: alone, a lane's CTA holds its one
+    member and walks row lists at a tiled level; the wide launch would
+    hold two members a CTA, so it takes one a CTA and the lists too, with
+    the lane's chunking, and each lane sums as it would alone."""
+    a = dict(n=300_007, d=4, C=2, B=63, n_nodes=128, bits=8)
+    lane = hk.level_plan(a["n"], a["d"], 1, a["C"], a["B"], a["n_nodes"], a["bits"])
+    alone = hk.level_plan(a["n"], a["d"], 4, a["C"], a["B"], a["n_nodes"], a["bits"])
+    wide = hk.lane_level_plan(a["n"], a["d"], 4, a["C"], a["B"], a["n_nodes"], a["bits"], 4)
+    assert lane.compact and not alone.compact and alone.g > 1
+    assert wide.compact and wide.g == 1
+    assert (wide.cs, wide.clusters, wide.rows_per_chunk) == (
+        lane.cs, lane.clusters, lane.rows_per_chunk)
+    assert (wide.nf, wide.np, wide.rows, wide.smem) == (lane.nf, lane.np, lane.rows, lane.smem)
+    assert wide.grid == 4 * lane.grid
+
+
+@pytest.mark.parametrize("level", [6, 7])
+def test_compact_chunks_cover_each_listed_row_once(level):
+    """The kernel's walk of a compact plan: each (feature tile, node tile)
+    splits its list evenly over its cs x clusters chunks; over the chunks
+    every row whose node lies in the tile is taken once, and rows routed to
+    -1 by none."""
+    n, d, n_nodes = 50_021, 28, 2**level
+    plan = hk.level_plan(n, d, 1, 2, 63, n_nodes, 8)
+    assert plan.compact
+    rng = np.random.RandomState(level)
+    node = rng.randint(-1, n_nodes, size=(n, 1)).astype(np.int32)
+    rows, offs = hk.level_rows_plain(torch.as_tensor(node), n_nodes, plan.np)
+    rows, offs = rows.numpy(), offs.numpy()
+    chunks = plan.cs * plan.clusters
+    n_pt = -(-n_nodes // plan.np)
+    for t in range(n_pt):
+        count = offs[t + 1] - offs[t]
+        per = -(-count // chunks)
+        seen = np.zeros(n, np.int64)
+        for k in range(chunks):
+            lo, hi = min(count, k * per), min(count, k * per + per)
+            seen[rows[offs[t] + lo:offs[t] + hi]] += 1
+        mine = (node[:, 0] >= t * plan.np) & (node[:, 0] < (t + 1) * plan.np)
+        assert (seen == mine).all()

@@ -13,16 +13,20 @@ makes the cell's table on the card from the seed (``benchmark/harness/
 data.py``), warms up with the cell's warm fit and one whole fit, then
 profiles ``--fits`` whole fits with ``torch.profiler``.  The kernels whose
 name holds ``level_hist`` are taken in the order they started: a depth-8
-tree launches one a level, levels 0-7 in turn, so launch ``i`` is level
-``i % 8``.  A fit whose trace lost a launch (the count is not 8 a round)
-is left out and counted.
+tree launches one histogram a level, levels 0-7 in turn, so histogram ``i``
+is level ``i % 8``; where a level walks row lists, the lists' kernels
+(``level_hist_count``, ``level_hist_rows``) run just before its histogram
+and count to its level, their own share under ``lists_ms``.  A fit whose
+trace lost a histogram (the count is not 8 a round) is left out and
+counted.
 
 It prints one JSON line per checkout: per level the median, min and max
 device milliseconds over the traced trees and that level's plan
-(``level_plan``: grid, CTAs a cluster, clusters a tile where the checkout's
-plan has them), the levels' sum of medians, the fits' walls, and the
-launches that split a tile over clusters (``LEVEL_SPLITS``, where the
-checkout counts them); then the card's name and power limit.  Two
+(``level_plan``: grid, CTAs a cluster, clusters a tile and whether it
+walks row lists, where the checkout's plan has them), the levels' sum of
+medians, the fits' walls, and the launches that split a tile over
+clusters (``LEVEL_SPLITS``) and that walked row lists (``LEVEL_COMPACT``),
+where the checkout counts them; then the card's name and power limit.  Two
 checkouts compare fairly only within one run, on one card.
 """
 
@@ -60,7 +64,9 @@ est.fit(X, y, device=dev)
 torch.cuda.synchronize()
 hk.reset_launch_counts()
 per_level = [[] for _ in range(depth)]
+lists_level = [[] for _ in range(depth)]
 walls, lost = [], 0
+LISTS = ("level_hist_count", "level_hist_rows")
 for _ in range(fits):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -70,11 +76,21 @@ for _ in range(fits):
     evs = sorted((e for e in prof.events()
                   if e.device_type == DeviceType.CUDA and "level_hist" in e.name),
                  key=lambda e: e.time_range.start)
-    if len(evs) != depth * model.num_members:
+    hists, lists, pending = [], [], 0.0
+    for e in evs:
+        ms = e.time_range.elapsed_us() / 1e3
+        if any(k in e.name for k in LISTS):
+            pending += ms
+        else:
+            hists.append(ms + pending)
+            lists.append(pending)
+            pending = 0.0
+    if len(hists) != depth * model.num_members:
         lost += 1
         continue
-    for i, e in enumerate(evs):
-        per_level[i % depth].append(e.time_range.elapsed_us() / 1e3)
+    for i, (ms, lms) in enumerate(zip(hists, lists)):
+        per_level[i % depth].append(ms)
+        lists_level[i % depth].append(lms)
 n, d = X.shape
 bits = 4 if B <= 16 else 8
 levels = []
@@ -84,14 +100,17 @@ for lv, ms in enumerate(per_level):
         "level": lv, "trees": len(ms),
         "ms": statistics.median(ms) if ms else None,
         "min_ms": min(ms) if ms else None, "max_ms": max(ms) if ms else None,
+        "lists_ms": statistics.median(lists_level[lv]) if ms else None,
         "grid": plan.grid, "cs": plan.cs, "clusters": getattr(plan, "clusters", 1),
-        "rows_per_chunk": plan.rows_per_chunk})
+        "rows_per_chunk": plan.rows_per_chunk, "compact": getattr(plan, "compact", False)})
 splits = getattr(hk, "LEVEL_SPLITS", None)
+compact = getattr(hk, "LEVEL_COMPACT", None)
 print(json.dumps({
     "root": str(root), "workload": workload, "seed": seed, "fits": fits, "lost_fits": lost, "walls_s": walls,
     "levels": levels,
     "sum_ms": sum(r["ms"] for r in levels if r["ms"] is not None),
     "level_splits": None if splits is None else dict(splits),
+    "level_compact": None if compact is None else dict(compact),
     "launches": dict(hk.LAUNCHES)}), flush=True)
 '''
 
