@@ -23,7 +23,7 @@ The per-shard node ids ``node_all [S, R, M]`` and value channels
 carried predictions: ``O(n)`` tensors beside the ``n*d`` bin matrix.
 
 The round loop is the resident fit's own (``GBMRegressor._fit_rounds`` /
-``GBMClassifier._fit_rounds`` on ``_drive_rounds`` and the
+``GBMClassifier._fit_rounds`` on ``models/gbm._GBMLoop`` and the
 ``RoundExecutor``), with the shard sweep standing in for the base tree, so
 chunked dispatch, patience early stop, checkpoint cadence, numeric-guard
 recovery and chaos semantics are shared, and checkpoints are

@@ -1,13 +1,17 @@
-"""Round execution: the family-agnostic RoundExecutor, lookahead depth
-resolution and the opt-in device patience recurrence (PyTorch port of
-``execution.py``).
+"""Round execution: the family-agnostic RoundExecutor, the chunk
+lifecycle both ensemble families share, lookahead depth resolution and
+the opt-in device patience recurrence (PyTorch port of ``execution.py``).
 
-:class:`RoundExecutor` runs every speculative round loop.  Both round
-loops (``models/gbm.py``'s ``_drive_rounds`` and
-``models/boosting.py``'s ``_drive_boosting_rounds``) plug into it through
+:class:`RoundExecutor` runs every speculative round loop through
 :class:`RoundAdapter`: the executor owns window fill, in-order commit and
-invalidation of chunks in flight; each family keeps its chunk math, guard
-recovery and checkpoint payloads behind the adapter hooks.
+invalidation of chunks in flight.  ``_ChunkLoop`` is the adapter of both
+round loops (``models/gbm.py``'s ``_GBMLoop`` and
+``models/boosting.py``'s ``_BoostingLoop``): it owns a chunk's life from
+launch to commit (the chunk clamped to the next checkpoint boundary, its
+dispatch under the retry layer and the chaos sites, the one host read of
+its flags and values, the kill sites after its commit, and the
+checkpointer's join or abandon), and each family keeps its chunk math,
+its carry (attributes of its loop object) and its commit rules.
 
 A chunk is a run of rounds (the ``scan_chunk`` Param, clamped to the next
 checkpoint boundary).  Its launches go onto the CUDA stream as the host
@@ -34,11 +38,15 @@ from __future__ import annotations
 
 import math
 import os
+import time
 from collections import deque
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
+from spark_ensemble_tpu_torch.models.base import program_call, resolved_scan_chunk
+from spark_ensemble_tpu_torch.robustness.chaos import controller
+from spark_ensemble_tpu_torch.robustness.retry import retry_call
 from spark_ensemble_tpu_torch.telemetry.trace import NULL_SPAN, new_flow_id
 
 PIPELINE_ENV = "SE_TPU_PIPELINE"
@@ -238,3 +246,142 @@ class RoundExecutor:
                 psp.end(fate="abandoned")
         a.finish()
         return a
+
+
+class _ChunkLoop(RoundAdapter):
+    """One fit's round loop: the chunk lifecycle both families share.
+    ``i`` counts the committed rounds and ``i_disp`` the launched ones;
+    a subclass holds the carry as attributes and supplies:
+
+    - ``run_chunk(i0, c, *args) -> out``: rounds ``i0 .. i0+c`` from the
+      carry, advancing it only once the whole chunk ran (so a retried
+      chunk starts from the same state); ``out`` is the family's tuple of
+      round-stacked outputs;
+    - ``snapshot()`` / ``restore(snap)``: copy and set the carry;
+    - ``program_args(c)``: the signature of the chunk's program call;
+    - ``poison(site, out)``: the chaos ``nan_grad`` site on ``out``;
+    - ``host_values(out)``: the ``f32[c]`` values the host reads with the
+      guard's flags; ``guarded(out)``: what the guard checks;
+    - ``settle(c, snap, t0, out, bad, rows) -> invalidate``: the
+      family's commit rules over the host ``rows`` of the chunk of ``c``
+      rounds from ``i`` (``bad`` its first poisoned round, or None),
+      advancing ``i``;
+    - ``preemptible()``: whether the kill sites open after this commit
+      (after every one, unless the family says otherwise).
+
+    Each launched entry carries two carry snapshots: the chunk start (the
+    guard's rewind point) and the chunk end (the state a checkpoint must
+    see, so a speculative chunk is never saved before its predecessor
+    commits).  A module-level class, not one made per fit: a class object
+    sits in reference cycles of its own, and one made inside the fit kept
+    every tensor its methods' closures reach (the carry, the binned
+    features) alive until the cycle collector ran."""
+
+    def __init__(self, est, *, ckpt, guard, telem, label: str, tag: str,
+                 i: int, n_rows: Optional[int]):
+        self.est, self.ckpt, self.guard = est, ckpt, guard
+        self.telem = telem  # the executor traces chunk spans
+        self.label, self.tag = label, tag
+        self.ctl = controller()
+        self.retry_policy = est._retry_policy()
+        self.refresh_fit = est._is_refresh_fit
+        self.chunk = resolved_scan_chunk(est, n_rows)
+        self.depth = resolve_pipeline_depth(n_rows)
+        self.i = self.i_disp = i
+        self.programs = {}  # chunk start -> its program call, until committed
+
+    def run(self) -> "_ChunkLoop":
+        try:
+            return RoundExecutor(self).run()
+        except BaseException:
+            self.ckpt.abandon()
+            raise
+
+    def can_launch(self) -> bool:
+        return self.i_disp < self.est.num_base_learners
+
+    def next_chunk(self) -> int:
+        """Rounds the next launch asks for, before the clamps."""
+        return self.chunk
+
+    def launch(self):
+        c = min(self.next_chunk(), self.est.num_base_learners - self.i_disp)
+        if self.ckpt.enabled:
+            c = min(c, self.ckpt.rounds_until_save(self.i_disp))
+        snap_pre = self.snapshot()
+        t0 = time.perf_counter()
+        out = self.dispatch(self.i_disp, c)
+        entry = (self.i_disp, c, snap_pre, self.snapshot(), t0, out)
+        self.i_disp += c
+        return entry
+
+    def dispatch(self, i0: int, c: int, *args):
+        """Rounds ``i0 .. i0+c`` as one call of the program ``tag``
+        (``models/base.program_call``; a committed chunk's call joins its
+        ``round_end`` events) under the retry layer: a transient
+        ``RuntimeError`` re-runs the same chunk from the same carry."""
+        site = f"{self.label}:round:{i0}"
+
+        def attempt():
+            self.ctl.transient(site)
+            with program_call(self.tag, *self.program_args(c)) as call:
+                out = self.run_chunk(i0, c, *args)
+            self.programs[i0] = call
+            return out
+
+        out = retry_call(attempt, self.retry_policy,
+                         op=f"{self.label}.round_chunk", telem=self.telem)
+        return self.poison(site, out)
+
+    def read(self, out) -> Tuple[Optional[int], List[List[float]]]:
+        """One host transfer of a chunk -> (first poisoned round | None,
+        its ``host_values`` as lists of floats)."""
+        parts = self.host_values(out)
+        if self.guard.active:
+            parts.append(self.guard.flags(*self.guarded(out)).to(torch.float32))
+        if not parts:
+            return None, []
+        host = torch.cat(parts).tolist()
+        c = len(host) // len(parts)
+        rows = [host[j * c:(j + 1) * c] for j in range(len(parts))]
+        bad = None
+        if self.guard.active:
+            bad = next((j for j, f in enumerate(rows.pop()) if f), None)
+        return bad, rows
+
+    def commit(self, entry, speculated: bool) -> bool:
+        _, c, snap_pre, snap_post, t0, out = entry
+        if self.telem.enabled:
+            # host-blocked accounting (a pure fence): the wait the
+            # lookahead exists to overlap
+            self.telem.blocking_read(out)
+        bad, rows = self.read(out)
+        if speculated:
+            # commit under this chunk's own end state: a save must
+            # persist committed arrays, not the speculative frontier
+            frontier = self.snapshot()
+            self.restore(snap_post)
+        invalidate = self.settle(c, snap_pre, t0, out, bad, rows)
+        if speculated and not invalidate:
+            self.restore(frontier)
+        if self.preemptible():
+            # chaos: a preemption lands here, after the chunk's periodic
+            # save, so kill-and-resume runs cross a real checkpoint
+            # boundary
+            self.ctl.preempt(f"{self.label}:after_round:{self.i}")
+            if self.refresh_fit:
+                # refresh-only kill site: a warm-start refresh fit dies
+                # mid-fit, and the served model must stay untouched
+                self.ctl.refresh_crash(f"{self.label}:refresh_round:{self.i}")
+        return invalidate
+
+    def preemptible(self) -> bool:
+        return True
+
+    def reset_frontier(self) -> None:
+        self.i_disp = self.i
+
+    def finish(self) -> None:
+        # join the in-flight save (and surface its failure) before the
+        # model is assembled
+        self.ckpt.wait()

@@ -35,11 +35,13 @@ Round ``i``'s key ``fold_in(PRNGKey(seed), i)`` goes to the base learner,
 as in the JAX package; every round's key is hashed at fit start.  Any
 base learner fits (a learner without routing reuse fits, then predicts).
 
-The round loop is the JAX package's ``_drive_boosting_rounds`` on the
-port's ``RoundExecutor``: chunks of ``scan_chunk`` rounds (a one-round
-probe first for SAMME and Drucker, ``ramp``), each committed with one host
-read of its stats, weight masses and finite flags, and the stopping rules
-replayed on the host.  ``checkpoint_dir`` resumes a preempted fit,
+The round loop is the JAX package's ``_drive_boosting_rounds`` as
+``_BoostingLoop``, the family's ``_ChunkLoop`` (``execution.py``), which
+holds the boosting weights as its carry and runs each flavor's round and
+stopping rules (``run_round`` and ``replay`` in its ``fit``): chunks of
+``scan_chunk`` rounds (a one-round probe first for SAMME and Drucker,
+``ramp``), each committed with one host read of its stats, weight masses
+and finite flags, and the stopping rules replayed on the host.  ``checkpoint_dir`` resumes a preempted fit,
 ``fit_resume`` continues a fitted model from its boosting-weight carry
 (replayed over the stored members), and ``on_nonfinite`` drops a poisoned
 round.  With telemetry each committed chunk's kept rounds become
@@ -61,7 +63,6 @@ weights (``parallel/mesh.CheckpointBlocks``), each rank writing its own
 from __future__ import annotations
 
 import logging
-import time
 
 import torch
 
@@ -78,10 +79,8 @@ from spark_ensemble_tpu_torch.models.base import (
     make_shared_fit_ctx,
     mesh_device,
     predict_program,
-    program_call,
     resolve_device,
     resolve_weights,
-    resolved_scan_chunk,
     stack_members,
     tree_map,
 )
@@ -250,203 +249,6 @@ class _BoostingParams(CheckpointableParams, Estimator):
                     last_round + 1)
         return last_round + 1, blocks.own(st["bw"].to(bw.device)), chunks
 
-    def _drive_boosting_rounds(self, ckpt, bw, chunks, run_chunk, replay,
-                               start_i: int, ramp: bool, guard, telem,
-                               ax=None, *, blocks, n_rows=None) -> int:
-        """The chunked round loop of both Boosting flavors, behind the
-        port's :class:`RoundExecutor` (the JAX package's
-        ``_drive_boosting_rounds``).  ``run_chunk(i0, c, bw) -> (params
-        [c, ...], est_ws f32[c], sum_bws f32[c], bw, extras)`` runs rounds
-        ``i0 .. i0+c`` from the boosting weights ``bw``; ``replay(extras,
-        sum_bws, c, i) -> (kept, stop)`` applies the flavor's stopping
-        rules to a chunk's host values.  Committing a chunk reads its
-        finite flags, stats and weight masses in one host transfer; kept
-        rounds append to ``chunks``; a save round writes a checkpoint.
-
-        Robustness: each chunk runs under the retry layer, and a guard hit
-        rewinds ``bw`` to the chunk start and replays the clean prefix
-        (same absolute round keys, same rounds).  A poisoned member is
-        dropped on ``skip_round`` (SAMME.R ignores estimator weights, so a
-        zero-weight member would still vote), and ``halve_step`` degrades
-        to ``skip_round`` (a Boosting round has no scalable step).
-
-        ``ramp``: the abort-prone flavors (SAMME, Drucker R2) run a
-        one-round probe chunk first, committed alone, then full chunks: an
-        abort on round 0, the common case, then wastes nothing.  Returns
-        the final round count."""
-        from spark_ensemble_tpu_torch.robustness.chaos import controller
-        from spark_ensemble_tpu_torch.robustness.retry import retry_call
-
-        ctl = controller()
-        retry_policy = self._retry_policy()
-        label = type(self).__name__
-        guard_on = guard.active
-        chunk = resolved_scan_chunk(self, n_rows)
-        depth = _execution.resolve_pipeline_depth(n_rows)
-        probe = ramp and self.ramp == "auto" and start_i == 0
-
-        # a chunk is one call of the JAX package's chunk program; a
-        # committed chunk's call joins its round_end events
-        tag = "boosting_cls_chunk" if self.is_classifier else "boosting_reg_chunk"
-        programs = {}  # chunk start -> its program call, until committed
-
-        def dispatch(i0, c, bw_in):
-            site = f"{label}:round:{i0}"
-
-            def attempt():
-                ctl.transient(site)
-                with program_call(tag, bw_in, c, self) as call:
-                    out = run_chunk(i0, c, bw_in)
-                programs[i0] = call
-                return out
-
-            params_c, est_ws, sum_bws, bw_out, extras = retry_call(
-                attempt, policy=retry_policy, op=f"{label}.round_chunk",
-                telem=telem,
-            )
-            return (ctl.poison_member_stack(site, params_c), est_ws, sum_bws,
-                    bw_out, extras)
-
-        def read(params_c, est_ws, sum_bws, extras):
-            """One host read -> (first bad round | None, sum_bws, extras)."""
-            ex = list(extras) if isinstance(extras, tuple) else [extras]
-            c = est_ws.shape[0]
-            parts = [sum_bws.to(torch.float32)] + [e.to(torch.float32) for e in ex]
-            if guard_on:
-                parts.append(guard.flags(params_c, est_ws, sum_bws, *ex)
-                             .to(torch.float32))
-            host = torch.cat(parts).tolist()
-            rows = [host[j * c:(j + 1) * c] for j in range(len(parts))]
-            bad = None
-            if guard_on:
-                bad = next((j for j, f in enumerate(rows.pop()) if f), None)
-            ex_host = tuple(rows[1:]) if isinstance(extras, tuple) else rows[1]
-            return bad, rows[0], ex_host
-
-        def commit_chunk(i, c, bw_prev, t_chunk, params_c, est_ws, sum_bws,
-                         bw_out, extras):
-            """One launched chunk's bookkeeping (guard scan, abort replay,
-            telemetry, append, gated save, preemption point) -> (i, bw,
-            stop, rewound)."""
-            bw = bw_out
-            stop = halt = rewound = False
-            skip_after = 0  # a guard-dropped round: its index, no member
-            if telem.enabled:
-                # host-blocked accounting: the read this commit waits on
-                telem.blocking_read((params_c, est_ws, sum_bws, extras))
-            bad, sum_h, ex_h = read(params_c, est_ws, sum_bws, extras)
-            if bad is not None:
-                rewound = True
-                if guard.policy == "raise":
-                    guard.raise_error(i + bad)
-                action = "stop_early" if guard.policy == "stop_early" else "skip_round"
-                extra = ({"degraded_from": "halve_step"}
-                         if guard.policy == "halve_step" else {})
-                guard.record(i + bad, action, member_dropped=True, **extra)
-                # rewind to the chunk-start weights and replay the clean
-                # prefix (same keys -> same rounds)
-                bw, c = bw_prev, bad
-                if c > 0:
-                    params_c, est_ws, sum_bws, bw, extras = dispatch(i, c, bw)
-                    _, sum_h, ex_h = read(params_c, est_ws, sum_bws, extras)
-                if action == "stop_early":
-                    halt = True
-                else:
-                    skip_after = 1
-            if c > 0:
-                kept, stop = replay(ex_h, sum_h, c, i)
-                if telem.enabled:
-                    # the classifier's stats are its per-round errors,
-                    # Drucker's (max_errs, est_errs): the estimator error
-                    # is the loss
-                    losses = ex_h[1] if isinstance(ex_h, tuple) else ex_h
-                    telem.round_chunk(
-                        i, kept, t_chunk, fence=(params_c, est_ws),
-                        losses=losses[:kept],
-                        step_sizes=est_ws[:kept] if kept > 0 else None,
-                        divisor=c, program=programs.pop(i, None),
-                    )
-                if not stop:
-                    # the loop guard of the next round: weight mass after
-                    # this chunk's last kept round stays positive
-                    stop = sum_h[c - 1] <= 0
-                if kept > 0:
-                    chunks["members"].append(tree_map(lambda a: a[:kept], params_c))
-                    chunks["weights"].append(est_ws[:kept])
-                i += kept
-            stop = stop or halt
-            if not stop:
-                i += skip_after
-            if not stop and i > start_i and ckpt.should_save(i - 1):
-                ckpt.save(i - 1, {
-                    "bw": blocks.whole(bw),
-                    "members_layout": self.MEMBERS_LAYOUT,
-                    "members": _concat(chunks["members"]),
-                    "est_weights": torch.cat(chunks["weights"]),
-                })
-            if not stop:
-                ctl.preempt(f"{label}:after_round:{i}")
-                if self._is_refresh_fit:
-                    # refresh-only kill site: a warm-start refresh fit dies
-                    # mid-fit, and the served model must stay untouched
-                    ctl.refresh_crash(f"{label}:refresh_round:{i}")
-            return i, bw, stop, rewound
-
-        drv = self
-
-        class _Adapter(_execution.RoundAdapter):
-            """Chunk ``j+1`` is launched on chunk ``j``'s weight tensor
-            before any host read of chunk ``j``; an abort, a guard rewind or
-            a weight-mass stop drops everything in flight."""
-
-            def __init__(self):
-                self.depth = depth
-                self.telem = telem  # the executor traces chunk spans
-                self.i, self.bw = start_i, bw
-                self.stop = float(preduce(torch.sum(bw), ax)) <= 0
-                self.i_disp, self.bw_frontier = start_i, bw
-                self.cur = 1 if probe else chunk
-                self.probe_pending = probe
-
-            def should_continue(self):
-                return self.i < drv.num_base_learners and not self.stop
-
-            def can_launch(self):
-                return self.i_disp < drv.num_base_learners
-
-            def window(self):
-                return 1 if self.probe_pending else self.depth + 1
-
-            def launch(self):
-                c = min(self.cur, drv.num_base_learners - self.i_disp)
-                self.cur = chunk
-                if ckpt.enabled:
-                    c = min(c, ckpt.rounds_until_save(self.i_disp))
-                bw_prev = self.bw_frontier
-                t0 = time.perf_counter()
-                out = dispatch(self.i_disp, c, bw_prev)
-                entry = (self.i_disp, c, bw_prev, t0) + out
-                self.i_disp += c
-                self.bw_frontier = out[3]
-                return entry
-
-            def commit(self, entry, speculated):
-                self.probe_pending = False
-                self.i, self.bw, self.stop, rewound = commit_chunk(*entry)
-                return rewound or self.stop
-
-            def reset_frontier(self):
-                self.i_disp, self.bw_frontier = self.i, self.bw
-
-            def finish(self):
-                ckpt.wait()
-
-        try:
-            return _execution.RoundExecutor(_Adapter()).run().i
-        except BaseException:
-            ckpt.abandon()
-            raise
-
     def _model_params(self, chunks, dev):
         return {
             "members": _concat(chunks["members"]),
@@ -454,25 +256,153 @@ class _BoostingParams(CheckpointableParams, Estimator):
                         else torch.zeros((0,), dtype=torch.float32, device=dev)),
         }
 
-    @staticmethod
-    def _rounds(run_round, keys, c_extras, ax=None):
-        """A chunk runner over ``run_round(bw, key) -> (params, est_weight,
-        new_bw, stats)``: rounds ``i0 .. i0+c`` one after another, their
-        outputs stacked, ``c_extras(stats list) -> extras``; each round's
-        weight mass reduced over ``ax`` under a mesh."""
+class _BoostingLoop(_execution._ChunkLoop):
+    """The chunked round loop of both Boosting flavors (the JAX package's
+    ``_drive_boosting_rounds``).  The carry is the boosting weights ``bw``;
+    ``round_fn(bw, key) -> (params, est_weight, new_bw, stats)`` is the
+    flavor's round, ``stats`` a tuple of its per-round scalars (SAMME's
+    and SAMME.R's error, Drucker's ``(max_error, est_error)``), and
+    ``replay(stats, sum_bws, c, i) -> (kept, stop)`` applies the flavor's
+    stopping rules to a chunk's host values.  Committing a chunk reads its
+    weight masses, stats and finite flags in one host transfer; kept
+    rounds append to ``chunks``; a save round writes a checkpoint.
 
-        def run_chunk(i0, c, bw):
-            params_l, est_l, sums_l, stats_l = [], [], [], []
-            for r in range(i0, i0 + c):
-                params, est_weight, bw, stats = run_round(bw, keys[r])
-                params_l.append(params)
-                est_l.append(est_weight)
-                sums_l.append(preduce(torch.sum(bw), ax))
-                stats_l.append(stats)
-            return (stack_members(params_l), torch.stack(est_l),
-                    torch.stack(sums_l), bw, c_extras(stats_l))
+    A guard hit rewinds ``bw`` to the chunk start and replays the clean
+    prefix (same absolute round keys, same rounds).  A poisoned member is
+    dropped on ``skip_round`` (SAMME.R ignores estimator weights, so a
+    zero-weight member would still vote), and ``halve_step`` degrades to
+    ``skip_round`` (a Boosting round has no scalable step).
 
-        return run_chunk
+    ``ramp``: the abort-prone flavors (SAMME, Drucker R2) run a one-round
+    probe chunk first, committed alone, then full chunks: an abort on
+    round 0, the common case, then wastes nothing.  An abort, a guard
+    rewind or a weight-mass stop drops everything in flight."""
+
+    def __init__(self, est, round_fn, replay, *, ckpt, guard, telem, blocks,
+                 chunks, i, bw, keys, ax, ramp, n_rows):
+        super().__init__(
+            est, ckpt=ckpt, guard=guard, telem=telem, label=type(est).__name__,
+            # a chunk is one call of the JAX package's chunk program
+            tag="boosting_cls_chunk" if est.is_classifier else "boosting_reg_chunk",
+            i=i, n_rows=n_rows,
+        )
+        self.round_fn, self.replay = round_fn, replay
+        self.blocks, self.chunks, self.keys, self.ax = blocks, chunks, keys, ax
+        self.start, self.bw = i, bw
+        self.stop = float(preduce(torch.sum(bw), ax)) <= 0
+        self.probe_pending = ramp and est.ramp == "auto" and i == 0
+
+    def should_continue(self):
+        return self.i < self.est.num_base_learners and not self.stop
+
+    def window(self):
+        return 1 if self.probe_pending else self.depth + 1
+
+    def next_chunk(self):
+        return 1 if self.probe_pending else self.chunk
+
+    def snapshot(self):
+        return self.bw
+
+    def restore(self, snap):
+        self.bw = snap
+
+    def program_args(self, c):
+        return self.bw, c, self.est
+
+    def run_chunk(self, i0, c):
+        """Rounds ``i0 .. i0+c`` from ``bw`` -> (params [c, ...], est_ws
+        f32[c], sum_bws f32[c], stats); each round's weight mass reduced
+        over ``ax`` under a mesh."""
+        bw = self.bw
+        params_l, est_l, sums_l, stats_l = [], [], [], []
+        for r in range(i0, i0 + c):
+            params, est_weight, bw, stats = self.round_fn(bw, self.keys[r])
+            params_l.append(params)
+            est_l.append(est_weight)
+            sums_l.append(preduce(torch.sum(bw), self.ax))
+            stats_l.append(stats)
+        self.bw = bw
+        return (stack_members(params_l), torch.stack(est_l), torch.stack(sums_l),
+                tuple(torch.stack(s) for s in zip(*stats_l)))
+
+    def poison(self, site, out):
+        params_c, est_ws, sum_bws, stats = out
+        return self.ctl.poison_member_stack(site, params_c), est_ws, sum_bws, stats
+
+    def host_values(self, out):
+        _, _, sum_bws, stats = out
+        return [sum_bws.to(torch.float32)] + [s.to(torch.float32) for s in stats]
+
+    def guarded(self, out):
+        params_c, est_ws, sum_bws, stats = out
+        return (params_c, est_ws, sum_bws) + stats
+
+    def preemptible(self):
+        return not self.stop
+
+    def commit(self, entry, speculated):
+        self.probe_pending = False
+        return super().commit(entry, speculated)
+
+    def settle(self, c, snap, t0, out, bad, rows):
+        """One chunk's guard scan, stop replay, telemetry, append and gated
+        save -> whether to drop the chunks in flight."""
+        guard, telem, i = self.guard, self.telem, self.i
+        stop = halt = rewound = False
+        skip_after = 0  # a guard-dropped round: its index, no member
+        if bad is not None:
+            rewound = True
+            if guard.policy == "raise":
+                guard.raise_error(i + bad)
+            action = "stop_early" if guard.policy == "stop_early" else "skip_round"
+            extra = ({"degraded_from": "halve_step"}
+                     if guard.policy == "halve_step" else {})
+            guard.record(i + bad, action, member_dropped=True, **extra)
+            # rewind to the chunk-start weights and replay the clean
+            # prefix (same keys -> same rounds)
+            self.restore(snap)
+            c = bad
+            if c > 0:
+                out = self.dispatch(i, c)
+                _, rows = self.read(out)
+            if action == "stop_early":
+                halt = True
+            else:
+                skip_after = 1
+        if c > 0:
+            params_c, est_ws = out[:2]
+            sum_h, stats_h = rows[0], rows[1:]
+            kept, stop = self.replay(stats_h, sum_h, c, i)
+            if telem.enabled:
+                # the classifier's stat is its per-round error, Drucker's
+                # last one its estimator error: the loss
+                telem.round_chunk(
+                    i, kept, t0, fence=(params_c, est_ws),
+                    losses=stats_h[-1][:kept],
+                    step_sizes=est_ws[:kept] if kept > 0 else None,
+                    divisor=c, program=self.programs.pop(i, None),
+                )
+            if not stop:
+                # the loop guard of the next round: weight mass after
+                # this chunk's last kept round stays positive
+                stop = sum_h[c - 1] <= 0
+            if kept > 0:
+                self.chunks["members"].append(_slice_members(params_c, kept))
+                self.chunks["weights"].append(est_ws[:kept])
+            i += kept
+        stop = stop or halt
+        if not stop:
+            i += skip_after
+        if not stop and i > self.start and self.ckpt.should_save(i - 1):
+            self.ckpt.save(i - 1, {
+                "bw": self.blocks.whole(self.bw),
+                "members_layout": self.est.MEMBERS_LAYOUT,
+                "members": _concat(self.chunks["members"]),
+                "est_weights": torch.cat(self.chunks["weights"]),
+            })
+        self.i, self.stop = i, stop
+        return rewound or stop
 
 
 class BoostingClassifier(_BoostingParams):
@@ -512,12 +442,13 @@ class BoostingClassifier(_BoostingParams):
                 params, pred = base.fit_and_direction(ctx, y, w_norm, None, X,
                                                       key=round_key, axis_name=ax)
                 err, est_weight, new_bw = _samme_update(w_norm, pred, y, k, ax)
-            return params, est_weight, new_bw, err
+            return params, est_weight, new_bw, (err,)
 
-        def replay(errs, sum_bws, c, i):
+        def replay(stats, sum_bws, c, i):
             """The per-round stopping rules over a chunk's host values ->
             (rounds kept, stop); rounds past a stop never ran in the
             sequential loop and are dropped."""
+            (errs,) = stats
             kept = 0
             for j in range(c):
                 if j > 0 and sum_bws[j - 1] <= 0:
@@ -535,12 +466,12 @@ class BoostingClassifier(_BoostingParams):
 
         ckpt, blocks = self._checkpoint(dev, mesh, n, d, k, telem=telem)
         start_i, bw, chunks = self._resume(ckpt, w, telem, blocks)
-        run_chunk = self._rounds(run_round, self._round_keys(dev), torch.stack, ax)
+        keys = self._round_keys(dev)
         guard = self._numeric_guard(telem)
         telem.phase_mark("setup")
-        self._drive_boosting_rounds(ckpt, bw, chunks, run_chunk, replay,
-                                    start_i, ramp=not real, guard=guard,
-                                    telem=telem, ax=ax, blocks=blocks, n_rows=n)
+        _BoostingLoop(self, run_round, replay, ckpt=ckpt, guard=guard,
+                      telem=telem, blocks=blocks, chunks=chunks, i=start_i,
+                      bw=bw, keys=keys, ax=ax, ramp=not real, n_rows=n).run()
         ckpt.delete()
         params = self._model_params(chunks, dev)
         model = _with_guard_events(guard, BoostingClassificationModel(
@@ -656,10 +587,10 @@ class BoostingRegressor(_BoostingParams):
         return self.base_learner or DecisionTreeRegressor()
 
     @staticmethod
-    def _replay(extras, sum_bws, c, i):
+    def _replay(stats, sum_bws, c, i):
         """Drucker's stopping rules over a chunk's host values -> (rounds
         kept, stop)."""
-        max_errs, est_errs = extras
+        max_errs, est_errs = stats
         kept = 0
         for j in range(c):
             if j > 0 and sum_bws[j - 1] <= 0:
@@ -697,19 +628,14 @@ class BoostingRegressor(_BoostingParams):
                 w_norm, pred, y, loss_name, valid, ax)
             return params, est_weight, new_bw, (max_error, est_err)
 
-        def extras(stats):
-            return (torch.stack([s[0] for s in stats]),
-                    torch.stack([s[1] for s in stats]))
-
         ckpt, blocks = self._checkpoint(dev, mesh, n, d, telem=telem)
         start_i, bw, chunks = self._resume(ckpt, w, telem, blocks)
-        run_chunk = self._rounds(run_round, self._round_keys(dev), extras, ax)
+        keys = self._round_keys(dev)
         guard = self._numeric_guard(telem)
         telem.phase_mark("setup")
-        self._drive_boosting_rounds(ckpt, bw, chunks, run_chunk,
-                                    self._replay, start_i, ramp=True,
-                                    guard=guard, telem=telem, ax=ax,
-                                    blocks=blocks, n_rows=n)
+        _BoostingLoop(self, run_round, self._replay, ckpt=ckpt, guard=guard,
+                      telem=telem, blocks=blocks, chunks=chunks, i=start_i,
+                      bw=bw, keys=keys, ax=ax, ramp=True, n_rows=n).run()
         ckpt.delete()
         params = self._model_params(chunks, dev)
         model = _with_guard_events(guard, BoostingRegressionModel(

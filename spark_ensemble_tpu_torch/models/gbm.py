@@ -18,12 +18,15 @@ Huber's delta adapts as in the JAX package: the alpha-quantile of the
 labels for the initial validation loss, then the alpha-quantile of
 ``|y - pred|`` re-taken on the device before every round.
 
-The round loop is the JAX package's ``_drive_rounds`` on the port's
-``RoundExecutor`` (``execution.py``): chunks of ``scan_chunk`` rounds
-(clamped to checkpoint boundaries) run one round after another, and the
-host commits a chunk at once, reading its finite flags and validation
-losses in one transfer, stepping the patience recurrence
-(``_patience_step``) and saving a checkpoint on save rounds.  At pipeline
+The round loop is the JAX package's ``_drive_rounds`` as ``_GBMLoop``, the
+GBM family's ``_ChunkLoop`` (``execution.py``), which holds the carry
+(``pred``, ``pred_val``, and huber's ``delta`` or the classifier's
+``alpha_ws``) and runs each flavor's round (``round_fn`` in its
+``_fit_rounds``): chunks of ``scan_chunk`` rounds (clamped to checkpoint
+boundaries) run one round after another, and the host commits a chunk at
+once, reading its finite flags and validation losses in one transfer,
+stepping the patience recurrence (``_patience_step``) and saving a
+checkpoint on save rounds.  At pipeline
 depth 1 (the default, ``SE_TPU_PIPELINE``) the next chunk's launches are
 enqueued before that read.  ``checkpoint_dir`` resumes a fit after a
 preemption, ``fit_resume`` continues a fitted model, and ``on_nonfinite``
@@ -110,10 +113,8 @@ from spark_ensemble_tpu_torch.models.base import (
     mesh_device,
     mesh_fit_kwargs,
     predict_program,
-    program_call,
     resolve_device,
     resolve_weights,
-    resolved_scan_chunk,
     stack_members,
     tree_leaves,
     tree_map,
@@ -458,208 +459,44 @@ class _GBMParams(CheckpointableParams):
             return best, v + 1
         return err, 0
 
-    def _drive_rounds(self, ckpt, chunks, run_chunk, save_state, label, i, v,
-                      best, val_history, guard, snapshot, restore, telem,
-                      round_cost=None, span_fields=None, program_args=(),
-                      n_rows=None):
-        """The shared round loop of both GBM flavors, behind the
-        port's :class:`RoundExecutor` (the JAX package's ``_drive_rounds``
-        and its ``_Adapter``).
-
-        ``run_chunk(sl, step_scale) -> (params [c, ...], weights [c, ...],
-        errs f32[c] | None, aux [c] | None)`` runs rounds ``sl`` from the
-        carry and advances it (through its closure); ``snapshot()`` /
-        ``restore(snap)`` copy and rewind the carry.  ``chunks`` holds the
-        committed round-stacked ``members``, ``weights`` and ``aux`` lists.
-        A chunk is ``scan_chunk`` rounds (``resolved_scan_chunk`` over
-        ``n_rows``), clamped to the next checkpoint boundary.  Committing a chunk reads its finite flags and validation
-        losses in one host transfer, steps the patience recurrence, and
-        saves a checkpoint on a save round.
-
-        Robustness: each chunk runs under the retry layer (a transient
-        ``RuntimeError`` re-runs the same chunk from the same carry), and
-        when the guard flags a round the carry rewinds to the chunk start,
-        the clean prefix replays (same absolute rounds, same keys, same
-        results), and the poisoned round is raised, skipped, re-run at a
-        halved step or truncated per ``on_nonfinite``.  Returns ``(i, v,
-        best)``; the caller keeps ``i - v`` rounds.
-
-        Telemetry: each committed chunk's wait is charged to
-        ``host_blocked_us``, and its rounds become ``round_start`` /
-        ``round_end`` events (``telem.round_chunk``) with the chunk's
-        validation losses, step sizes and ``round_cost``; the executor
-        traces the chunks as spans.
-
-        Each chunk is one call of the program ``gbm_cls_round`` /
-        ``gbm_reg_round`` over ``program_args`` and its round count
-        (``models/base.program_call``); a committed chunk's call joins its
-        ``round_end`` events (``round_chunk(program=...)``)."""
-        from spark_ensemble_tpu_torch.robustness.chaos import controller
-        from spark_ensemble_tpu_torch.robustness.retry import retry_call
-
-        tag = "gbm_cls_round" if self.is_classifier else "gbm_reg_round"
-        programs = {}  # chunk start -> its program call, until committed
-        chunk = resolved_scan_chunk(self, n_rows)
-        retry_policy = self._retry_policy()
-        ctl = controller()
-        refresh_fit = self._is_refresh_fit
-        guard_on = guard.active
-        depth = _execution.resolve_pipeline_depth(n_rows)
-        dp_on = _execution.device_patience_enabled()
-
-        def dispatch(sl, step_scale=1.0):
-            site = f"{label}:round:{sl.start}"
-
-            def attempt():
-                ctl.transient(site)
-                with program_call(tag, *program_args, sl.stop - sl.start) as call:
-                    out = run_chunk(sl, step_scale)
-                programs[sl.start] = call
-                return out
-
-            params_c, weights_c, errs, aux = retry_call(
-                attempt, retry_policy, op=f"{label}.round_chunk", telem=telem
-            )
-            return params_c, ctl.poison_array(site, weights_c), errs, aux
-
-        def read(params_c, weights_c, errs):
-            """One host read of a chunk -> (first bad round | None, errs as
-            host floats | None)."""
-            parts = []
-            if guard_on:
-                parts.append(guard.flags(params_c, weights_c, errs).to(torch.float32))
-            if errs is not None and not dp_on:
-                parts.append(errs.to(torch.float32))
-            host = torch.cat(parts).tolist() if parts else []
-            bad = None
-            if guard_on:
-                c = weights_c.shape[0]
-                flags, host = host[:c], host[c:]
-                bad = next((j for j, f in enumerate(flags) if f), None)
-            return bad, (host if errs is not None and not dp_on else None)
-
-        def process(i, c, params_c, weights_c, errs, errs_host, aux, v, best,
-                    t_chunk):
-            """One clean chunk's bookkeeping -> (i, v, best, stopped)."""
-            if telem.enabled:
-                telem.round_chunk(
-                    i, c, t_chunk, fence=(params_c, weights_c, errs),
-                    losses=errs_host if errs_host is not None else errs,
-                    step_sizes=weights_c, round_cost=round_cost,
-                    program=programs.pop(i, None),
-                )
-            chunks["members"].append(params_c)
-            chunks["weights"].append(weights_c)
-            chunks["aux"].append(aux)
-            stopped = False
-            if errs is not None:
-                if dp_on:
-                    best, v, stopped, kept = _execution.device_patience_step(
-                        errs, best, v, self.validation_tol, self.num_rounds,
-                        telem=telem,
-                    )
-                    val_history.extend(errs[:kept].tolist())
-                    if stopped:
-                        i += kept
-                else:
-                    for j, err in enumerate(errs_host):
-                        val_history.append(err)
-                        best, v = self._patience_step(best, err, v,
-                                                      self.validation_tol)
-                        logger.info("%s round %d: val_loss=%.6f patience=%d",
-                                    label, i + j, err, v)
-                        if v >= self.num_rounds:
-                            i += j + 1
-                            stopped = True
-                            break
-            if not stopped:
-                i += c
-                save_state(i - 1, v, best)
-            return i, v, best, stopped
-
-        def part(tree, lo, hi):
-            return tree_map(lambda x: x[lo:hi], tree)
-
-        def sanitize(tree):
-            return tree_map(
-                lambda x: torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
-                if x.is_floating_point() else x,
-                tree,
-            )
-
-        def recover(i0, bad, snap, params_c, weights_c, errs, errs_host, aux,
-                    v, best, t_chunk):
-            """``on_nonfinite`` for a chunk whose first poisoned round is
-            chunk-relative index ``bad`` -> (i, v, best, halt)."""
-            rnd = i0 + bad
-            if guard.policy == "raise":
-                guard.raise_error(rnd)
-            if guard.policy == "stop_early":
-                # keep the clean prefix; the poisoned carry is never used
-                # again (the model is assembled from members)
-                guard.record(rnd, "stop_early")
-                i = i0
-                if bad > 0:
-                    i, v, best, _ = process(
-                        i0, bad, part(params_c, 0, bad), weights_c[:bad],
-                        None if errs is None else errs[:bad],
-                        None if errs_host is None else errs_host[:bad],
-                        part(aux, 0, bad), v, best, t_chunk,
-                    )
-                return i, v, best, True
-            # skip_round / halve_step: rewind the carry and replay the clean
-            # prefix (same absolute rounds -> same keys -> same outputs;
-            # injected faults fire at most once per site)
-            restore(snap)
-            i = i0
-            if bad > 0:
-                t_pre = time.perf_counter()
-                p_pre, w_pre, e_pre, a_pre = dispatch(slice(i0, i0 + bad))
-                _, eh_pre = read(p_pre, w_pre, e_pre)
-                i, v, best, stopped = process(i0, bad, p_pre, w_pre, e_pre,
-                                              eh_pre, a_pre, v, best, t_pre)
-                if stopped:
-                    return i, v, best, False
-            if guard.policy == "halve_step":
-                for h in range(1, guard.max_halvings + 1):
-                    scale = 0.5 ** h
-                    snap2 = snapshot()
-                    t1 = time.perf_counter()
-                    p1, w1, e1, a1 = dispatch(slice(i, i + 1), step_scale=scale)
-                    bad1, eh1 = read(p1, w1, e1)
-                    if bad1 is None:
-                        guard.record(i, "halve_step", step_scale=scale)
-                        i, v, best, _ = process(i, 1, p1, w1, e1, eh1, a1, v,
-                                                best, t1)
-                        return i, v, best, False
-                    restore(snap2)
-                # not recoverable by damping: fall through to a skip
-            # skip: re-run the round at step_scale=0; the carry advances by
-            # exactly zero while keys, masks and the checkpoint cadence stay
-            # on absolute round indices
-            guard.record(i, "skip_round")
-            t1 = time.perf_counter()
-            p1, w1, e1, a1 = dispatch(slice(i, i + 1), step_scale=0.0)
-            # the member fit itself may be the non-finite source: keep a
-            # sanitized zero-weight copy so predict never sees 0 * NaN
-            p1, w1 = sanitize(p1), sanitize(w1)
-            e1 = None if e1 is None else torch.nan_to_num(e1)
-            _, eh1 = read(p1, w1, e1)
-            i, v, best, _ = process(i, 1, p1, w1, e1, eh1, a1, v, best, t1)
-            return i, v, best, False
-
-        adapter = _ChunkAdapter(
-            drv=self, ckpt=ckpt, ctl=ctl, label=label, refresh_fit=refresh_fit, chunk=chunk,
-            depth=depth, telem=telem, span_fields=span_fields, i=i, v=v, best=best,
-            snapshot=snapshot, restore=restore, dispatch=dispatch, read=read,
-            process=process, recover=recover,
+    def _round_loop(self, round_fn, *, dev, mesh, n, d, nv, ckpt_parts, trees,
+                    telem, carry, best, program_args, round_cost, span_fields):
+        """The fit's checkpointer, its resume and its round loop over
+        ``round_fn`` (:class:`_GBMLoop`) -> ``(loop, resumed state | None)``;
+        the caller restores its flavor's own entries of the state.
+        ``ckpt_parts`` lead the flavor's checkpoint fingerprint."""
+        blocks = CheckpointBlocks(mesh, n, nv, trees)
+        ckpt = self._checkpointer(dev, n, d, *ckpt_parts, nv, blocks.n_pad,
+                                  blocks.nv_pad, telem=telem, axis=blocks.axis)
+        resumed = self._load_resume(ckpt, telem, blocks.axis)
+        loop = _GBMLoop(
+            self, round_fn, ckpt=ckpt, guard=self._numeric_guard(telem),
+            telem=telem, blocks=blocks, trees=trees, carry=carry, best=best,
+            program_args=program_args, round_cost=round_cost,
+            span_fields=span_fields, n_rows=n,
         )
-        try:
-            ad = _execution.RoundExecutor(adapter).run()
-        except BaseException:
-            ckpt.abandon()
-            raise
-        return ad.i, ad.v, ad.best
+        if resumed is None:
+            return loop, None
+        last_round, st = resumed
+        loop.resume(last_round + 1, st, dev)
+        logger.info("%s resuming from round %d", loop.label, loop.i)
+        return loop, st
+
+    def _fitted(self, loop, d, dev, with_validation, drift_ref, **model_kw):
+        """The model of a finished round loop: the first ``i - v`` of its
+        rounds, with the guard's events and ``drift_ref``."""
+        loop.ckpt.delete()
+        keep = loop.i - loop.v
+        chunks = loop.chunks
+        model = _with_guard_events(loop.guard, self._model(
+            _concat(chunks["members"]),
+            torch.cat(chunks["weights"]) if chunks["weights"] else None,
+            keep, d, dev, loop.val_history if with_validation else None,
+            **model_kw))
+        if drift_ref is not None:
+            model.drift_ref_ = drift_ref
+        loop.telem.finish(model=model, rounds=loop.i, kept_members=keep)
+        return model
 
     @property
     def validation_history_(self) -> np.ndarray:
@@ -676,94 +513,240 @@ class _GBMParams(CheckpointableParams):
         return np.asarray(vh)
 
 
-class _ChunkAdapter(_execution.RoundAdapter):
-    """``_GBMParams._drive_rounds``'s adapter to the :class:`RoundExecutor`
-    (the JAX package's ``_Adapter``), over the round loop's closures.  Each
-    launched entry carries two carry snapshots: the chunk start (the
-    guard's rewind point) and the chunk end (the state a checkpoint must
-    see, so a speculative chunk is never saved before its predecessor
-    commits).  A module-level class, not one made per fit: a class object
-    sits in reference cycles of its own, and one made inside the fit kept
-    every tensor its methods' closures reach (the carry, the binned
-    features) alive until the cycle collector ran."""
+class _GBMLoop(_execution._ChunkLoop):
+    """The round loop of both GBM flavors and of ``fit_streaming`` (the
+    JAX package's ``_drive_rounds``).  The carry is ``pred``, ``pred_val``
+    and the flavor's ``third`` entry (huber's ``delta``, or the
+    classifier's step-search warm start ``alpha_ws``); ``round_fn(r,
+    pred, pred_val, third, step_scale) -> (params, weight, pred, pred_val,
+    third, val_loss | None, aux | None)`` is the flavor's round ``r``.
+    ``chunks`` holds the committed round-stacked ``members``, ``weights``
+    and ``aux`` lists.
 
-    def __init__(self, *, drv, ckpt, ctl, label, refresh_fit, chunk, depth, telem,
-                 span_fields, i, v, best, snapshot, restore, dispatch, read, process,
-                 recover):
-        self.drv, self.ckpt, self.ctl, self.label = drv, ckpt, ctl, label
-        self.refresh_fit, self.chunk = refresh_fit, chunk
-        self.depth = depth
-        self.telem = telem  # the executor traces chunk spans
-        self.span_fields = span_fields
-        self.snapshot, self.restore, self.dispatch = snapshot, restore, dispatch
-        self.read, self.process, self.recover = read, process, recover
-        self.i, self.v, self.best = i, v, best
-        self.halt = False
-        self.i_disp = i  # launch frontier (absolute round index)
+    Committing a chunk reads its finite flags and validation losses in one
+    host transfer, steps the patience recurrence (on the device under
+    ``SE_TPU_DEVICE_PATIENCE``) and saves a checkpoint on a save round;
+    the caller keeps ``i - v`` rounds.  When the guard flags a round the
+    carry rewinds to the chunk start, the clean prefix replays (same
+    absolute rounds, same keys, same results), and the poisoned round is
+    raised, skipped, re-run at a halved step or truncated per
+    ``on_nonfinite``.
+
+    Telemetry: each committed chunk's wait is charged to
+    ``host_blocked_us``, and its rounds become ``round_start`` /
+    ``round_end`` events (``telem.round_chunk``) with the chunk's
+    validation losses, step sizes and ``round_cost``."""
+
+    def __init__(self, est, round_fn, *, ckpt, guard, telem, blocks, trees,
+                 carry, best, program_args, round_cost, span_fields, n_rows):
+        clf = est.is_classifier
+        super().__init__(
+            est, ckpt=ckpt, guard=guard, telem=telem,
+            label="GBMClassifier" if clf else "GBMRegressor",
+            tag="gbm_cls_round" if clf else "gbm_reg_round", i=0,
+            n_rows=n_rows,
+        )
+        self.round_fn, self.blocks, self.trees = round_fn, blocks, trees
+        self.pred, self.pred_val, self.third = carry
+        self.v, self.best, self.halt = 0, best, False
+        self.val_history: List[float] = []
+        self.chunks = {"members": [], "weights": [], "aux": []}
+        self.inputs = program_args  # the program's tensors
+        self.round_cost, self.span_fields = round_cost, span_fields
+        self.dp_on = _execution.device_patience_enabled()
+
+    def resume(self, i, st, dev):
+        """Continue at round ``i`` from a checkpoint's state (or a
+        ``fit_resume`` warm start): the entries both flavors keep."""
+        self.i = self.i_disp = i
+        self.v, self.best = int(st["v"]), float(st["best"])
+        self.val_history[:] = [float(x) for x in st["val_hist"].tolist()]
+        self.pred = self.blocks.own(st["pred"].to(dev))
+        if st.get("pred_val") is not None:
+            self.pred_val = self.blocks.own(st["pred_val"].to(dev), val=True)
+        self.chunks["members"], self.chunks["weights"] = self.est._resume_chunks(st)
 
     def should_continue(self):
-        return (not self.halt and self.i < self.drv.num_base_learners
-                and self.v < self.drv.num_rounds)
+        return (not self.halt and self.i < self.est.num_base_learners
+                and self.v < self.est.num_rounds)
 
-    def can_launch(self):
-        return self.i_disp < self.drv.num_base_learners
+    def snapshot(self):
+        return self.pred, self.pred_val, self.third
 
-    def launch(self):
-        c = min(self.chunk, self.drv.num_base_learners - self.i_disp)
-        if self.ckpt.enabled:
-            c = min(c, self.ckpt.rounds_until_save(self.i_disp))
-        snap_pre = self.snapshot()
-        t0 = time.perf_counter()
-        out = self.dispatch(slice(self.i_disp, self.i_disp + c))
-        entry = (self.i_disp, c, snap_pre, self.snapshot(), t0) + out
-        self.i_disp += c
-        return entry
+    def restore(self, snap):
+        self.pred, self.pred_val, self.third = snap
 
-    def commit(self, entry, speculated):
-        i0, c, snap_pre, snap_post, t0, params_c, weights_c, errs, aux = entry
-        if self.telem.enabled:
-            # host-blocked accounting (a pure fence): the wait the
-            # lookahead exists to overlap
-            self.telem.blocking_read((params_c, weights_c, errs))
-        bad, errs_host = self.read(params_c, weights_c, errs)
-        if speculated:
-            # commit under this chunk's own end state: a save must
-            # persist committed arrays, not the speculative frontier
-            frontier = self.snapshot()
-            self.restore(snap_post)
+    def program_args(self, c):
+        return self.inputs + (self.est, c)
+
+    def run_chunk(self, i0, c, step_scale=1.0):
+        """Rounds ``i0 .. i0+c`` -> (params [c, ...], weights [c, ...],
+        val losses f32[c] | None, aux [c] | None)."""
+        p, pv, third = self.pred, self.pred_val, self.third
+        params_l, weights_l, errs_l, aux_l = [], [], [], []
+        for r in range(i0, i0 + c):
+            with span("fit.round"):
+                if self.trees is not None:
+                    self.trees.begin_round(r)
+                params, weight, p, pv, third, err, aux = self.round_fn(
+                    r, p, pv, third, step_scale)
+                params_l.append(params)
+                weights_l.append(weight)
+                if err is not None:
+                    errs_l.append(err)
+                if aux is not None:
+                    aux_l.append(aux)
+                if self.trees is not None:
+                    self.trees.end_round(r)
+        # the carry moves only once the whole chunk ran, so a retried
+        # chunk starts from the same state
+        self.pred, self.pred_val, self.third = p, pv, third
+        return (stack_members(params_l), torch.stack(weights_l),
+                torch.stack(errs_l) if errs_l else None,
+                torch.stack(aux_l) if aux_l else None)
+
+    def poison(self, site, out):
+        params_c, weights_c, errs, aux = out
+        return params_c, self.ctl.poison_array(site, weights_c), errs, aux
+
+    def host_values(self, out):
+        errs = out[2]
+        return [] if errs is None or self.dp_on else [errs.to(torch.float32)]
+
+    def guarded(self, out):
+        return out[:3]
+
+    def save_state(self, round_idx):
+        # gate before building the state: the concat below must not run
+        # every round
+        if not self.ckpt.should_save(round_idx):
+            return
+        chunks = self.chunks
+        self.ckpt.save(round_idx, {
+            "v": self.v,
+            "best": self.best,
+            "val_hist": torch.tensor(self.val_history, dtype=torch.float32),
+            "pred": self.blocks.whole(self.pred),
+            "pred_val": self.blocks.whole(self.pred_val),
+            "members_layout": self.est.MEMBERS_LAYOUT,
+            "members": _concat(chunks["members"]),
+            "weights": torch.cat(chunks["weights"]),
+            **self.est._carry_state(self.third, chunks),
+        })
+
+    def settle(self, c, snap, t0, out, bad, rows):
         if bad is None:
-            self.i, self.v, self.best, stopped = self.process(
-                i0, c, params_c, weights_c, errs, errs_host, aux,
-                self.v, self.best, t0,
-            )
-            # a mid-chunk validation stop: chunks in flight were
-            # launched for rounds that no longer exist
-            invalidate = stopped
-            if speculated and not stopped:
-                self.restore(frontier)
-        else:
-            self.i, self.v, self.best, self.halt = self.recover(
-                i0, bad, snap_pre, params_c, weights_c, errs,
-                errs_host, aux, self.v, self.best, t0,
-            )
-            invalidate = True
-        # chaos: a preemption lands here, after the chunk's
-        # periodic save, so kill-and-resume runs cross a real
-        # checkpoint boundary
-        self.ctl.preempt(f"{self.label}:after_round:{self.i}")
-        if self.refresh_fit:
-            # refresh-only kill site: a warm-start refresh fit dies
-            # mid-fit, and the served model must stay untouched
-            self.ctl.refresh_crash(f"{self.label}:refresh_round:{self.i}")
-        return invalidate
+            # a mid-chunk validation stop: chunks in flight were launched
+            # for rounds that no longer exist
+            return self.process(c, out, rows, t0)
+        self.halt = self.recover(bad, snap, out, rows, t0)
+        return True
 
-    def reset_frontier(self):
-        self.i_disp = self.i
+    def process(self, c, out, rows, t_chunk):
+        """One clean chunk's bookkeeping from committed round ``i`` ->
+        whether the patience recurrence stopped in it."""
+        params_c, weights_c, errs, aux = out
+        errs_host = rows[0] if rows else None
+        est, telem, i = self.est, self.telem, self.i
+        if telem.enabled:
+            telem.round_chunk(
+                i, c, t_chunk, fence=(params_c, weights_c, errs),
+                losses=errs_host if errs_host is not None else errs,
+                step_sizes=weights_c, round_cost=self.round_cost,
+                program=self.programs.pop(i, None),
+            )
+        self.chunks["members"].append(params_c)
+        self.chunks["weights"].append(weights_c)
+        self.chunks["aux"].append(aux)
+        stopped = False
+        if errs is not None:
+            if self.dp_on:
+                self.best, self.v, stopped, kept = _execution.device_patience_step(
+                    errs, self.best, self.v, est.validation_tol, est.num_rounds,
+                    telem=telem,
+                )
+                self.val_history.extend(errs[:kept].tolist())
+                if stopped:
+                    i += kept
+            else:
+                for j, err in enumerate(errs_host):
+                    self.val_history.append(err)
+                    self.best, self.v = est._patience_step(
+                        self.best, err, self.v, est.validation_tol)
+                    logger.info("%s round %d: val_loss=%.6f patience=%d",
+                                self.label, i + j, err, self.v)
+                    if self.v >= est.num_rounds:
+                        i += j + 1
+                        stopped = True
+                        break
+        if not stopped:
+            i += c
+            self.save_state(i - 1)
+        self.i = i
+        return stopped
 
-    def finish(self):
-        # join the in-flight save (and surface its failure) before
-        # the model is assembled
-        self.ckpt.wait()
+    def recover(self, bad, snap, out, rows, t_chunk):
+        """``on_nonfinite`` for a chunk whose first poisoned round is
+        chunk-relative index ``bad`` -> whether the fit halts."""
+        guard, i0 = self.guard, self.i
+        rnd = i0 + bad
+        if guard.policy == "raise":
+            guard.raise_error(rnd)
+        if guard.policy == "stop_early":
+            # keep the clean prefix; the poisoned carry is never used
+            # again (the model is assembled from members)
+            guard.record(rnd, "stop_early")
+            if bad > 0:
+                params_c, weights_c, errs, aux = out
+                self.process(bad, (
+                    _take_rounds(params_c, bad), weights_c[:bad],
+                    None if errs is None else errs[:bad], _take_rounds(aux, bad),
+                ), [r[:bad] for r in rows], t_chunk)
+            return True
+        # skip_round / halve_step: rewind the carry and replay the clean
+        # prefix (same absolute rounds -> same keys -> same outputs;
+        # injected faults fire at most once per site)
+        self.restore(snap)
+        if bad > 0:
+            t_pre = time.perf_counter()
+            out_pre = self.dispatch(i0, bad)
+            if self.process(bad, out_pre, self.read(out_pre)[1], t_pre):
+                return False
+        i = self.i
+        if guard.policy == "halve_step":
+            for h in range(1, guard.max_halvings + 1):
+                scale = 0.5 ** h
+                snap2 = self.snapshot()
+                t1 = time.perf_counter()
+                out1 = self.dispatch(i, 1, scale)
+                bad1, rows1 = self.read(out1)
+                if bad1 is None:
+                    guard.record(i, "halve_step", step_scale=scale)
+                    self.process(1, out1, rows1, t1)
+                    return False
+                self.restore(snap2)
+            # not recoverable by damping: fall through to a skip
+        # skip: re-run the round at step_scale=0; the carry advances by
+        # exactly zero while keys, masks and the checkpoint cadence stay
+        # on absolute round indices
+        guard.record(i, "skip_round")
+        t1 = time.perf_counter()
+        p1, w1, e1, a1 = self.dispatch(i, 1, 0.0)
+        # the member fit itself may be the non-finite source: keep a
+        # sanitized zero-weight copy so predict never sees 0 * NaN
+        out1 = (_sanitized(p1), _sanitized(w1),
+                None if e1 is None else torch.nan_to_num(e1), a1)
+        self.process(1, out1, self.read(out1)[1], t1)
+        return False
+
+
+def _sanitized(tree):
+    """``tree`` with every non-finite float zeroed."""
+    return tree_map(
+        lambda x: torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+        if x.is_floating_point() else x,
+        tree,
+    )
 
 
 def _row_sharded_sample(sample, mesh, n):
@@ -1336,113 +1319,54 @@ class GBMRegressor(_GBMParams, Estimator):
         # huber's per-round quantile: every real row at weight 1 (zero-weight
         # padding under a mesh, as the JAX package's validity mask)
         ones = torch.ones_like(y) if valid is None else valid
-        chunks = {"members": [], "weights": [], "aux": []}
-        val_history: List[float] = []
-        i, v = 0, 0
+
+        def round_fn(r, p, pv, dl, step_scale):
+            bag_w, mask = sample(r)
+            if huber:
+                dl = weighted_quantile(torch.abs(y - p), alpha_q, weights=ones,
+                                       axis_name=ax)
+            params, weight, p = round_core(
+                ctx, X, bag_w, (bag_keys[r], samp_keys[r]), mask, p, dl, y, w,
+                lr, step_scale,
+            )
+            err = None
+            if with_validation:
+                pv = _advance(pv, weight, base.predict_fn(params, X_val), step_scale)
+                le = _make_reg_loss(loss_name, alpha_q, dl).loss(y_val_enc,
+                                                                 pv[:, None])
+                err = (torch.mean(le) if ax is None else
+                       _sharded_mean(le.reshape(-1), valid_val, ax))
+            return params, weight, p, pv, dl, err, dl if huber else None
 
         nv = 0 if y_val is None else y_val.shape[0]  # X_val is this rank's block
-        blocks = CheckpointBlocks(mesh, n, nv, trees)
-        ckpt = self._checkpointer(dev, n, d, nv, blocks.n_pad, blocks.nv_pad,
-                                  telem=telem, axis=blocks.axis)
-        resumed = self._load_resume(ckpt, telem, blocks.axis)
-        if resumed is not None:
-            last_round, st = resumed
-            i, v, best = last_round + 1, int(st["v"]), float(st["best"])
-            val_history[:] = [float(x) for x in st["val_hist"].tolist()]
-            pred = blocks.own(st["pred"].to(dev))
-            if st.get("pred_val") is not None:
-                pred_val = blocks.own(st["pred_val"].to(dev), val=True)
-            members, weights = self._resume_chunks(st)
-            chunks["members"], chunks["weights"] = members, weights
+        loop, st = self._round_loop(
+            round_fn, dev=dev, mesh=mesh, n=n, d=d, nv=nv, ckpt_parts=(),
+            trees=trees, telem=telem, carry=(pred, pred_val, delta), best=best,
+            program_args=(X, y),
+            round_cost=(_round_cost(base, n, d, 1, dev, plan)
+                        if telem.enabled else None),
+            span_fields=_sampling_span_fields(plan),
+        )
+        if st is not None:
             if huber:
-                chunks["aux"] = [st["huber_delta"]]
-            delta = st["delta"].to(dev)
-            logger.info("GBMRegressor resuming from round %d", i)
-
-        def save_state(round_idx, v, best):
-            # gate before building the state: the concat below must not
-            # run every round
-            if not ckpt.should_save(round_idx):
-                return
-            ckpt.save(round_idx, {
-                "v": v,
-                "best": best,
-                "val_hist": torch.tensor(val_history, dtype=torch.float32),
-                "pred": blocks.whole(pred),
-                "pred_val": blocks.whole(pred_val),
-                "members_layout": self.MEMBERS_LAYOUT,
-                "members": _concat(chunks["members"]),
-                "weights": torch.cat(chunks["weights"]),
-                "delta": delta,
-                # the port's model keeps every round's huber delta
-                "huber_delta": _concat(chunks["aux"]) if huber else None,
-            })
-
-        def run_chunk(sl, step_scale=1.0):
-            nonlocal pred, pred_val, delta
-            p, pv, dl = pred, pred_val, delta
-            params_l, weights_l, errs_l, deltas_l = [], [], [], []
-            for r in range(sl.start, sl.stop):
-                with span("fit.round"):
-                    if trees is not None:
-                        trees.begin_round(r)
-                    bag_w, mask = sample(r)
-                    if huber:
-                        dl = weighted_quantile(torch.abs(y - p), alpha_q,
-                                               weights=ones, axis_name=ax)
-                        deltas_l.append(dl)
-                    params, weight, p = round_core(
-                        ctx, X, bag_w, (bag_keys[r], samp_keys[r]), mask, p, dl,
-                        y, w, lr, step_scale,
-                    )
-                    if with_validation:
-                        pv = _advance(pv, weight, base.predict_fn(params, X_val),
-                                      step_scale)
-                        le = _make_reg_loss(loss_name, alpha_q, dl).loss(
-                            y_val_enc, pv[:, None])
-                        errs_l.append(torch.mean(le) if ax is None else
-                                      _sharded_mean(le.reshape(-1), valid_val, ax))
-                    params_l.append(params)
-                    weights_l.append(weight)
-                    if trees is not None:
-                        trees.end_round(r)
-            # the carry moves only once the whole chunk ran, so a retried
-            # chunk starts from the same state
-            pred, pred_val, delta = p, pv, dl
-            return (stack_members(params_l), torch.stack(weights_l),
-                    torch.stack(errs_l) if with_validation else None,
-                    torch.stack(deltas_l) if huber else None)
-
-        def snapshot():
-            return pred, pred_val, delta
-
-        def restore(snap):
-            nonlocal pred, pred_val, delta
-            pred, pred_val, delta = snap
-
-        guard = self._numeric_guard(telem)
+                loop.chunks["aux"] = [st["huber_delta"]]
+            loop.third = st["delta"].to(dev)
         telem.phase_mark("setup")
         with span("fit.rounds"):
-            i, v, best = self._drive_rounds(
-                ckpt, chunks, run_chunk, save_state, "GBMRegressor", i, v, best,
-                val_history, guard, snapshot, restore, telem,
-                round_cost=(_round_cost(base, n, d, 1, dev, plan)
-                            if telem.enabled else None),
-                span_fields=_sampling_span_fields(plan),
-                program_args=(X, y, self), n_rows=n,
-            )
-        ckpt.delete()
-        keep = i - v
-        model = _with_guard_events(guard, self._model(_concat(chunks["members"]),
-                           torch.cat(chunks["weights"]) if chunks["weights"] else None,
-                           keep, d, dev, val_history if with_validation else None,
-                           init_model=init_model,
-                           # each round's huber delta (every round run, kept or not)
-                           huber_delta=_concat(chunks["aux"]) if huber else None))
-        if drift_ref is not None:
-            model.drift_ref_ = drift_ref
-        telem.finish(model=model, rounds=i, kept_members=keep)
-        return model
+            loop.run()
+        return self._fitted(loop, d, dev, with_validation, drift_ref,
+                            init_model=init_model,
+                            # each round's huber delta (every round run, kept or not)
+                            huber_delta=_concat(loop.chunks["aux"]) if huber else None)
+
+    def _carry_state(self, delta, chunks):
+        """The regressor's checkpoint entries beyond the shared ones."""
+        huber = self.loss.lower() == "huber"
+        return {
+            "delta": delta,
+            # the port's model keeps every round's huber delta
+            "huber_delta": _concat(chunks["aux"]) if huber else None,
+        }
 
     def _model(self, members, weights, keep, d, dev, val_history, *, init_model,
                huber_delta):
@@ -1728,104 +1652,51 @@ class GBMClassifier(_GBMParams, Estimator):
                 X_val, y_enc_val, pred_val, valid_val = (
                     shard_rows(mesh, t, nv)
                     for t in (X_val, y_enc_val, pred_val, torch.ones_like(y_val)))
-        chunks = {"members": [], "weights": [], "aux": []}
-        val_history: List[float] = []
-        i, v = 0, 0
+
+        def round_fn(r, p, pv, aw, step_scale):
+            bag_w, mask = sample(r)
+            params, weight, p, aw = round_core(
+                ctx, X, y_enc, w, bag_w, (bag_keys[r], samp_keys[r]), mask, p, aw,
+                lr, step_scale,
+            )
+            err = None
+            if with_validation:
+                dirs_val = base.predict_many_fn(params, X_val).T
+                pv = _advance(pv, weight[None, :], dirs_val, step_scale)
+                le = loss.loss(y_enc_val, pv)
+                err = (torch.mean(le) if ax is None else
+                       _sharded_mean(le.reshape(-1), valid_val, ax))
+            return params, weight, p, pv, aw, err, None
 
         nv = 0 if y_val is None else y_val.shape[0]  # X_val is this rank's block
-        blocks = CheckpointBlocks(mesh, n, nv, trees)
-        ckpt = self._checkpointer(dev, n, d, num_classes, nv, blocks.n_pad,
-                                  blocks.nv_pad, telem=telem, axis=blocks.axis)
-        resumed = self._load_resume(ckpt, telem, blocks.axis)
-        if resumed is not None:
-            last_round, st = resumed
-            i, v, best = last_round + 1, int(st["v"]), float(st["best"])
-            val_history[:] = [float(x) for x in st["val_hist"].tolist()]
-            alpha_ws = st["alpha_ws"].to(dev)
-            pred = blocks.own(st["pred"].to(dev))
-            if st.get("pred_val") is not None:
-                pred_val = blocks.own(st["pred_val"].to(dev), val=True)
-            chunks["members"], chunks["weights"] = self._resume_chunks(st)
-            logger.info("GBMClassifier resuming from round %d", i)
-
-        def save_state(round_idx, v, best):
-            if not ckpt.should_save(round_idx):
-                return
-            ckpt.save(round_idx, {
-                "v": v,
-                "best": best,
-                "val_hist": torch.tensor(val_history, dtype=torch.float32),
-                "pred": blocks.whole(pred),
-                "pred_val": blocks.whole(pred_val),
-                "alpha_ws": alpha_ws,
-                "members_layout": self.MEMBERS_LAYOUT,
-                "members": _concat(chunks["members"]),
-                "weights": torch.cat(chunks["weights"]),
-            })
-
-        def run_chunk(sl, step_scale=1.0):
-            nonlocal pred, pred_val, alpha_ws
-            p, pv, aw = pred, pred_val, alpha_ws
-            params_l, weights_l, errs_l = [], [], []
-            for r in range(sl.start, sl.stop):
-                with span("fit.round"):
-                    if trees is not None:
-                        trees.begin_round(r)
-                    bag_w, mask = sample(r)
-                    params, weight, p, aw = round_core(
-                        ctx, X, y_enc, w, bag_w, (bag_keys[r], samp_keys[r]),
-                        mask, p, aw, lr, step_scale,
-                    )
-                    if with_validation:
-                        dirs_val = base.predict_many_fn(params, X_val).T
-                        pv = _advance(pv, weight[None, :], dirs_val, step_scale)
-                        le = loss.loss(y_enc_val, pv)
-                        errs_l.append(torch.mean(le) if ax is None else
-                                      _sharded_mean(le.reshape(-1), valid_val, ax))
-                    params_l.append(params)
-                    weights_l.append(weight)
-                    if trees is not None:
-                        trees.end_round(r)
-            pred, pred_val, alpha_ws = p, pv, aw
-            return (stack_members(params_l), torch.stack(weights_l),
-                    torch.stack(errs_l) if with_validation else None, None)
-
-        def snapshot():
-            return pred, pred_val, alpha_ws
-
-        def restore(snap):
-            nonlocal pred, pred_val, alpha_ws
-            pred, pred_val, alpha_ws = snap
-
-        guard = self._numeric_guard(telem)
+        loop, st = self._round_loop(
+            round_fn, dev=dev, mesh=mesh, n=n, d=d, nv=nv,
+            ckpt_parts=(num_classes,), trees=trees, telem=telem,
+            carry=(pred, pred_val, alpha_ws), best=best, program_args=(X, y_enc),
+            round_cost=(_round_cost(base, n, d, dim, dev, plan)
+                        if telem.enabled else None),
+            span_fields=_sampling_span_fields(plan),
+        )
+        if st is not None:
+            loop.third = st["alpha_ws"].to(dev)
         telem.phase_mark("setup")
         if (telem.enabled and telem.phases_enabled() and plan is None
-                and trees is None and i == 0):
+                and trees is None and loop.i == 0):
             bag0, mask0 = sample(0)
             _probe_classifier_phases(
                 telem, round_core, base, ctx, X, y_enc, w, bag0,
-                (bag_keys[0], samp_keys[0]), mask0, pred, alpha_ws,
+                (bag_keys[0], samp_keys[0]), mask0, loop.pred, loop.third,
             )
             telem.phase_mark("probe")
         with span("fit.rounds"):
-            i, v, best = self._drive_rounds(
-                ckpt, chunks, run_chunk, save_state, "GBMClassifier", i, v, best,
-                val_history, guard, snapshot, restore, telem,
-                round_cost=(_round_cost(base, n, d, dim, dev, plan)
-                            if telem.enabled else None),
-                span_fields=_sampling_span_fields(plan),
-                program_args=(X, y_enc, self), n_rows=n,
-            )
-        ckpt.delete()
-        keep = i - v
-        model = _with_guard_events(guard, self._model(_concat(chunks["members"]),
-                           torch.cat(chunks["weights"]) if chunks["weights"] else None,
-                           keep, d, dev, val_history if with_validation else None,
-                           init_raw=init_raw, num_classes=num_classes, dim=dim))
-        if drift_ref is not None:
-            model.drift_ref_ = drift_ref
-        telem.finish(model=model, rounds=i, kept_members=keep)
-        return model
+            loop.run()
+        return self._fitted(loop, d, dev, with_validation, drift_ref,
+                            init_raw=init_raw, num_classes=num_classes, dim=dim)
+
+    @staticmethod
+    def _carry_state(alpha_ws, chunks):
+        """The classifier's checkpoint entries beyond the shared ones."""
+        return {"alpha_ws": alpha_ws}
 
     def _model(self, members, weights, keep, d, dev, val_history, *, init_raw,
                num_classes, dim):

@@ -50,23 +50,19 @@ class NonFiniteError(FloatingPointError):
 
 def _float_leaves(trees) -> List[torch.Tensor]:
     """The floating tensors of nested dicts, lists, tuples and NamedTuples
-    (``None`` and non-tensors skipped)."""
+    (``None`` and non-tensors skipped), depth first.  An explicit stack:
+    a closure that calls itself sits in a reference cycle, which held the
+    returned leaves until the cycle collector ran."""
     out: List[torch.Tensor] = []
-
-    def walk(node):
-        if node is None:
-            return
+    stack = list(trees)[::-1]
+    while stack:
+        node = stack.pop()
         if isinstance(node, dict):
-            for v in node.values():
-                walk(v)
+            stack.extend(list(node.values())[::-1])
         elif isinstance(node, (list, tuple)):
-            for v in node:
-                walk(v)
+            stack.extend(node[::-1])
         elif isinstance(node, torch.Tensor) and node.is_floating_point():
             out.append(node)
-
-    for tree in trees:
-        walk(tree)
     return out
 
 

@@ -174,17 +174,19 @@ def test_retry_zero_retries_and_non_retryable():
     assert issubclass(ChaosTransientError, RuntimeError)
 
 
-def test_retry_is_counted_with_its_error_text():
+@pytest.mark.parametrize("family", ["GBMRegressor", "BoostingClassifier",
+                                    "BoostingRegressor"])
+def test_retry_is_counted_with_its_error_text(family):
     """A chaos transient in a fit is retried and counted, with the error
     text in the record (the port's stand-in for the telemetry event)."""
-    X, y = _data()
+    X, y = _cls_data() if family == "BoostingClassifier" else _data()
     retry.reset_retry_log()
     _chaos(seed=7, faults=("transient",))
-    st.GBMRegressor(num_base_learners=2, scan_chunk=2).fit(X, y, device="cpu")
+    getattr(st, family)(num_base_learners=2, scan_chunk=2).fit(X, y, device="cpu")
     log = retry.retry_log()
     assert retry.retry_count() == len(log) >= 1
     op, kind, text = log[0]
-    assert op == "GBMRegressor.round_chunk"
+    assert op == f"{family}.round_chunk"
     assert kind == "ChaosTransientError" and "chaos: transient" in text
 
 
@@ -343,14 +345,15 @@ def test_gbm_recovers_from_nan_round(policy):
         assert m.num_members < 5
 
 
-def test_gbm_default_policy_raises_with_round_attribution():
+@pytest.mark.parametrize("family", ["GBMClassifier", "BoostingClassifier"])
+def test_gbm_default_policy_raises_with_round_attribution(family):
     X, y = _data()
     _chaos(faults=("nan_grad",), budgets={"nan_grad": 1})
     with pytest.raises(NonFiniteError) as ei:
-        st.GBMClassifier(num_base_learners=4, scan_chunk=2).fit(
+        getattr(st, family)(num_base_learners=4, scan_chunk=2).fit(
             X, (y > 0).astype(np.float32), device="cpu")
     assert ei.value.round_index is not None
-    assert ei.value.family == "GBMClassifier"
+    assert ei.value.family == family
 
 
 def test_boosting_true_drops_poisoned_member():
@@ -403,6 +406,9 @@ KILLABLE = {
         num_base_learners=6, scan_chunk=2, checkpoint_dir=ckdir, checkpoint_interval=1),
     "boosting": lambda ckdir: st.BoostingRegressor(
         num_base_learners=6, scan_chunk=2, checkpoint_dir=ckdir, checkpoint_interval=1),
+    "boosting_cls": lambda ckdir: st.BoostingClassifier(
+        num_base_learners=6, scan_chunk=2, checkpoint_dir=ckdir, checkpoint_interval=1,
+        base_learner=st.DecisionTreeClassifier(max_depth=1)),
 }
 
 
@@ -424,9 +430,7 @@ def _kill_and_resume(tmp_path, make_est, y):
 
 @pytest.mark.parametrize("family", sorted(KILLABLE))
 def test_kill_and_resume_matches_uninterrupted(tmp_path, family):
-    X, y = _data()
-    if family == "gbm_cls":
-        y = (y > np.median(y)).astype(np.float32)
+    X, y = _cls_data() if family in ("gbm_cls", "boosting_cls") else _data()
     _kill_and_resume(tmp_path, KILLABLE[family], y)
 
 

@@ -166,9 +166,11 @@ def test_boosting_classifier_bit_identical(monkeypatch, algorithm):
     assert torch.equal(sync.predict_raw(X), piped.predict_raw(X))
 
 
-def test_boosting_abort_path_bit_identical(monkeypatch):
+@pytest.mark.parametrize("ramp", ["auto", "off"])
+def test_boosting_abort_path_bit_identical(monkeypatch, ramp):
     """Pure-noise labels make SAMME abort (err >= 1 - 1/K) while the
-    lookahead chunks are in flight; they are dropped, not appended."""
+    lookahead chunks are in flight; they are dropped, not appended.  With
+    the probe ramp off the abort lands inside a full chunk."""
     rng = np.random.RandomState(7)
     X = rng.randn(600, 6).astype(np.float32)
     y = rng.randint(0, 5, size=600).astype(np.float32)
@@ -176,7 +178,7 @@ def test_boosting_abort_path_bit_identical(monkeypatch):
     def run(d):
         monkeypatch.setenv(execution.PIPELINE_ENV, str(d))
         return st.BoostingClassifier(
-            num_base_learners=8, scan_chunk=4, algorithm="discrete",
+            num_base_learners=8, scan_chunk=4, algorithm="discrete", ramp=ramp,
             base_learner=_tree("DecisionTreeClassifier")).fit(X, y, device="cpu")
 
     sync, piped = run(0), run(1)
@@ -222,17 +224,33 @@ def test_device_patience_step_matches_the_host_recurrence():
     assert best == pytest.approx(0.9)
 
 
-@pytest.mark.parametrize("family", ["classifier", "regressor"])
-def test_a_gbm_fit_leaves_no_row_sized_tensor_in_reference_cycles(family):
-    """The round loop's adapter is a module-level class: one made inside
-    each fit is a reference cycle of its own that held its methods'
-    closures (the carry, the binned table) until the cycle collector ran,
-    so every fit's row-sized tensors outlived it on the device."""
+#: family -> (estimator, base learner, extra params) of the cycle test
+_CYCLE_CASES = {
+    "gbm_classifier": ("GBMClassifier", "DecisionTreeRegressor", {}),
+    "gbm_regressor": ("GBMRegressor", "DecisionTreeRegressor", {}),
+    "gbm_classifier_skip_round": ("GBMClassifier", "DecisionTreeRegressor",
+                                  {"on_nonfinite": "skip_round"}),
+    "boosting_discrete": ("BoostingClassifier", "DecisionTreeClassifier",
+                          {"algorithm": "discrete"}),
+    "boosting_real": ("BoostingClassifier", "DecisionTreeClassifier",
+                      {"algorithm": "real"}),
+    "boosting_regressor": ("BoostingRegressor", "DecisionTreeRegressor", {}),
+}
+
+
+@pytest.mark.parametrize("family", list(_CYCLE_CASES))
+def test_a_fit_leaves_no_row_sized_tensor_in_reference_cycles(family):
+    """The round loops are module-level classes holding the carry as
+    attributes: a class made inside each fit is a reference cycle of its
+    own that held its methods' closures (the carry, the binned table, the
+    boosting weights) until the cycle collector ran, so every fit's
+    row-sized tensors outlived it on the device.  The guarded cases run
+    the numeric guard under a recovering policy."""
     import gc
 
-    X, y = _clf_data() if family == "classifier" else _reg_data()
-    cls = st.GBMClassifier if family == "classifier" else st.GBMRegressor
-    est = cls(num_base_learners=3, base_learner=_tree())
+    cls, base, extra = _CYCLE_CASES[family]
+    X, y = _reg_data() if cls.endswith("Regressor") else _clf_data()
+    est = getattr(st, cls)(num_base_learners=3, base_learner=_tree(base), **extra)
     est.fit(X, y, device="cpu")  # a first fit, so nothing of the import is new
     gc.collect()
     gc.set_debug(gc.DEBUG_SAVEALL)
